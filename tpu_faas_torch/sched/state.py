@@ -1,0 +1,540 @@
+"""The batch scheduler tick: liveness + purge + placement + redistribution.
+
+Counterpart of ``tpu_faas/sched/state.py``. One call computes what the
+reference's push loop does in Python per tick — heartbeat-timeout
+detection, placement — plus the redispatch of every in-flight task whose
+worker just died.
+
+Host side, :class:`SchedulerArrays` owns the mirrored numpy state (worker
+registry, heartbeat stamps, in-flight table) and feeds the tick; its
+bookkeeping is a copy of the JAX class's. Only the device methods are
+PyTorch: the tick, the cached fleet uploads and the delta-maintained
+in-flight mirror. This slice ports rank placement; auction, Sinkhorn, the
+mesh and multihost layouts, tenancy, speculation and the graph lanes raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_faas_torch.device import resolve_device, upload
+from tpu_faas_torch.sched.greedy import rank_match_placement_impl
+
+_I32 = torch.int32
+
+#: what each unported feature waits for, by ROADMAP item
+_UNPORTED = {
+    "auction": "ROADMAP A.8 (auction placement and kernel B2)",
+    "sinkhorn": "ROADMAP A.9 (Sinkhorn placement)",
+    "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
+    "tenancy": "ROADMAP A.7 (in-tick planes: tenancy)",
+    "speculation": "ROADMAP A.7 (in-tick planes: speculation)",
+    "mesh": "ROADMAP A.11 (multi-device)",
+    "multihost": "ROADMAP A.11 (multi-device)",
+}
+
+
+def unported(feature: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to tpu_faas_torch yet: {_UNPORTED[feature]}"
+    )
+
+
+def check_placement(placement: str) -> None:
+    if placement in ("auction", "sinkhorn"):
+        raise unported(placement)
+    if placement != "rank":
+        raise ValueError(f"unknown placement kernel {placement!r}")
+
+
+class TickOutput(NamedTuple):
+    assignment: torch.Tensor  # i32[T] worker index per pending task, -1 queued
+    live: torch.Tensor  # bool[W]
+    purged: torch.Tensor  # bool[W] was live last tick, dead now
+    redispatch: torch.Tensor  # bool[I] in-flight task needs re-queue
+
+
+def scheduler_tick_impl(
+    task_size: torch.Tensor,  # f32[T]
+    task_valid: torch.Tensor,  # bool[T]
+    worker_speed: torch.Tensor,  # f32[W]
+    worker_free: torch.Tensor,  # i32[W]
+    worker_active: torch.Tensor,  # bool[W] registered
+    heartbeat_age: torch.Tensor,  # f32[W] seconds since last heartbeat
+    prev_live: torch.Tensor,  # bool[W]
+    inflight_worker: torch.Tensor,  # i32[I] worker per in-flight slot, -1 empty
+    time_to_expire: torch.Tensor | float,  # f32 scalar
+    max_slots: int = 8,
+    task_priority: torch.Tensor | None = None,  # i32[T], higher first
+    placement: str = "rank",
+    worker_health: torch.Tensor | None = None,  # f32[W] tail multiplier
+    worker_place_cap: torch.Tensor | None = None,  # i32[W] placement ceiling
+) -> TickOutput:
+    check_placement(placement)
+    # tail-health multiplier on effective speed, and the quarantine plane's
+    # per-row placement ceiling: two elementwise lanes ahead of placement
+    if worker_health is not None:
+        worker_speed = worker_speed * worker_health
+    if worker_place_cap is not None:
+        worker_free = torch.minimum(worker_free, worker_place_cap)
+    # -- failure detection: ages, not absolute stamps (f32 error stays on
+    # a small number) ------------------------------------------------------
+    fresh = heartbeat_age <= time_to_expire
+    live = worker_active & fresh
+    purged = prev_live & ~live
+
+    # -- in-flight redistribution ------------------------------------------
+    # the gather clamps like XLA's: a row past W reads the last worker
+    W = worker_speed.shape[0]
+    iw = inflight_worker
+    occupied = iw >= 0
+    worker_of = iw.clamp(0, W - 1).long()
+    redispatch = occupied & ~live[worker_of]
+
+    assignment = rank_match_placement_impl(
+        task_size, task_valid, worker_speed, worker_free, live,
+        max_slots=max_slots, task_priority=task_priority,
+    )
+    return TickOutput(assignment, live, purged, redispatch)
+
+
+def packed_tick(
+    packed: torch.Tensor,  # f32[T + 2W]: sizes ++ heartbeat ages ++ free
+    n_valid: int,  # first n rows of the batch are real tasks
+    worker_speed: torch.Tensor,
+    worker_active: torch.Tensor,
+    prev_live: torch.Tensor,
+    inflight_worker: torch.Tensor,
+    time_to_expire: float,
+    task_priority: torch.Tensor | None,
+    worker_place_cap: torch.Tensor | None = None,
+    *,
+    T: int,
+    W: int,
+    max_slots: int,
+    placement: str = "rank",
+) -> TickOutput:
+    """scheduler_tick behind a transfer-minimal calling convention:
+    everything that changes every tick (sizes, heartbeat ages, free counts)
+    rides ONE packed upload, and the valid mask is built on the device from
+    a host integer. The rest is device-resident between ticks."""
+    task_size = packed[:T]
+    hb_age = packed[T : T + W]
+    worker_free = packed[T + W :].to(_I32)
+    task_valid = torch.arange(T, device=packed.device) < n_valid
+    return scheduler_tick_impl(
+        task_size, task_valid, worker_speed, worker_free, worker_active,
+        hb_age, prev_live, inflight_worker, time_to_expire,
+        max_slots=max_slots, task_priority=task_priority,
+        placement=placement, worker_place_cap=worker_place_cap,
+    )
+
+
+@dataclass
+class SchedulerArrays:
+    """Host mirror of scheduler state, padded to static shapes.
+
+    Worker rows are allocated on register and recycled after purge+timeout;
+    the in-flight table maps slot -> (task_id, worker_row). ``device`` is
+    where the tick runs: ``"cuda"`` by default, ``"cpu"`` on request.
+    """
+
+    max_workers: int = 256
+    max_pending: int = 1024
+    max_inflight: int = 4096
+    max_slots: int = 8
+    time_to_expire: float = 10.0
+    clock: "callable" = time.monotonic
+    #: placement kernel for the tick: rank (auction and sinkhorn raise)
+    placement: str = "rank"
+    multihost: "object | None" = None
+    mesh_devices: int | None = None
+    device: "str | torch.device" = "cuda"
+
+    worker_speed: np.ndarray = field(init=False)
+    worker_free: np.ndarray = field(init=False)
+    worker_active: np.ndarray = field(init=False)
+    last_heartbeat: np.ndarray = field(init=False)
+    prev_live: np.ndarray = field(init=False)
+    worker_procs: np.ndarray = field(init=False)  # registered num_processes
+
+    def __post_init__(self) -> None:
+        check_placement(self.placement)
+        if self.mesh_devices:
+            raise unported("mesh")
+        if self.multihost is not None:
+            raise unported("multihost")
+        self.device = resolve_device(self.device)
+        self.mesh = None
+        W = self.max_workers
+        self.worker_speed = np.zeros(W, dtype=np.float32)
+        #: tail-health multiplier on effective placement speed (1.0 =
+        #: healthy); only the speculation plane produces losses
+        self.worker_health = np.ones(W, dtype=np.float32)
+        self._last_health_recover: float | None = None
+        #: id-keyed health memory (stable identity -> (health, stamp))
+        self.health_memory: dict[bytes, tuple[float, float]] = {}
+        self.worker_free = np.zeros(W, dtype=np.int32)
+        self.worker_active = np.zeros(W, dtype=bool)
+        # float64: absolute monotonic timestamps live host-side only; the
+        # device receives f32 *ages*
+        self.last_heartbeat = np.full(W, -np.inf, dtype=np.float64)
+        self.prev_live = np.zeros(W, dtype=bool)
+        self.worker_procs = np.zeros(W, dtype=np.int32)
+        # worker identity (e.g. zmq routing id) <-> row index
+        self.worker_ids: dict[bytes, int] = {}
+        self.row_ids: dict[int, bytes] = {}
+        # in-flight table
+        self.inflight_task: list[str | None] = [None] * self.max_inflight
+        self.inflight_worker: np.ndarray = np.full(
+            self.max_inflight, -1, dtype=np.int32
+        )
+        self.inflight_started: np.ndarray = np.zeros(
+            self.max_inflight, dtype=np.float64
+        )
+        self.inflight_pred: np.ndarray = np.zeros(
+            self.max_inflight, dtype=np.float32
+        )
+        #: straggler threshold (speculation plane): None = plane off, the
+        #: only setting this port supports
+        self.spec_mult: float | None = None
+        self.spec_min_s: float = 0.05
+        self._inflight_slot: dict[str, int] = {}  # task_id -> slot
+        self._free_inflight: list[int] = list(
+            range(self.max_inflight - 1, -1, -1)
+        )
+        # device mirror of inflight_worker, updated by small scatters
+        self._d_inflight: torch.Tensor | None = None
+        self._inflight_delta: dict[int, int] = {}
+        # device cache of rarely-changing fleet arrays, keyed by name; each
+        # tick compares the live host array against the cached snapshot and
+        # re-uploads only on change
+        self._dev_cache: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
+        #: tenancy plane (None = off, the only setting this port supports)
+        self.tenancy = None
+
+    # -- membership (reference register/reconnect/purge semantics) ---------
+    def register(
+        self, worker_id: bytes, num_processes: int, speed: float = 1.0
+    ) -> int:
+        """New or returning worker announces itself with its capacity."""
+        if worker_id in self.worker_ids:
+            row = self.worker_ids[worker_id]
+        else:
+            inactive = np.flatnonzero(~self.worker_active)
+            if len(inactive) == 0:
+                raise RuntimeError("worker table full; raise max_workers")
+            row = int(inactive[0])
+            self.worker_ids[worker_id] = row
+            self.row_ids[row] = worker_id
+        self.worker_active[row] = True
+        self.worker_speed[row] = speed
+        # clean tail-health slate: the row may be recycled from a purged
+        # worker, and a fresh registrant must not inherit its penalty
+        self.worker_health[row] = 1.0
+        self.worker_procs[row] = num_processes
+        self.worker_free[row] = num_processes
+        self.last_heartbeat[row] = self.clock()
+        return row
+
+    def reconnect(self, worker_id: bytes, free_processes: int) -> int:
+        """Purged-but-alive worker rejoins with its current free capacity.
+        Total capacity is the best known value: the previous registration's
+        num_processes if the row still exists, else the reported free
+        count."""
+        prev_row = self.worker_ids.get(worker_id)
+        prev_procs = (
+            int(self.worker_procs[prev_row]) if prev_row is not None else 0
+        )
+        row = self.register(worker_id, max(free_processes, 0))
+        self.worker_procs[row] = max(prev_procs, free_processes)
+        self.worker_free[row] = free_processes
+        return row
+
+    def heartbeat(self, worker_id: bytes) -> None:
+        row = self.worker_ids.get(worker_id)
+        if row is not None:
+            self.last_heartbeat[row] = self.clock()
+
+    def deactivate(self, row: int) -> None:
+        """Purge bookkeeping after the tick reported the worker dead. Drops
+        the identity mapping too, so a zombie reappearing under the old
+        identity re-registers fresh instead of aliasing a recycled row."""
+        self.worker_active[row] = False
+        self.worker_free[row] = 0
+        wid = self.row_ids.pop(row, None)
+        if wid is not None:
+            self.worker_ids.pop(wid, None)
+
+    # -- tail-aware worker health ------------------------------------------
+    HEALTH_DECAY = 0.8
+    HEALTH_FLOOR = 0.25
+    HEALTH_RECOVERY_TAU = 30.0
+    MISFIRE_DECAY = 0.85
+    RECLAIM_DECAY = 0.7
+    HEALTH_MEMORY_MAX = 4096
+
+    def note_hedge_loss(self, row: int) -> None:
+        """The original placement on ``row`` lost its hedge race: decay the
+        row's health multiplier."""
+        if 0 <= row < len(self.worker_health) and self.worker_active[row]:
+            self.worker_health[row] = max(
+                self.HEALTH_FLOOR,
+                float(self.worker_health[row]) * self.HEALTH_DECAY,
+            )
+
+    def _recover_health(self, now: float) -> None:
+        """Exponential recovery toward 1.0; rows within noise of 1.0 snap
+        to exactly 1.0 so the all-healthy steady state is bit-stable."""
+        last = self._last_health_recover
+        self._last_health_recover = now
+        if last is None or not (self.worker_health < 0.9999).any():
+            return
+        dt = now - last
+        if dt <= 0.0:
+            return
+        alpha = 1.0 - math.exp(-dt / self.HEALTH_RECOVERY_TAU)
+        h = self.worker_health
+        h += (np.float32(1.0) - h) * np.float32(alpha)
+        np.copyto(h, np.float32(1.0), where=h > 0.999)
+
+    def _decay_health(self, row: int, factor: float) -> None:
+        if 0 <= row < len(self.worker_health) and self.worker_active[row]:
+            self.worker_health[row] = max(
+                self.HEALTH_FLOOR, float(self.worker_health[row]) * factor
+            )
+
+    def note_misfire(self, row: int, n_new: int = 1) -> None:
+        """``n_new`` fresh pool-child misfires were attributed to ``row``."""
+        if n_new > 0:
+            self._decay_health(row, self.MISFIRE_DECAY ** min(n_new, 8))
+
+    def note_reclaim(self, row: int) -> None:
+        """A task was reclaimed from ``row`` (its worker died holding it)."""
+        self._decay_health(row, self.RECLAIM_DECAY)
+
+    # -- id-keyed health memory (survives purge + re-register) -------------
+    def remember_health(self, ident: bytes, row: int) -> None:
+        """Stash ``row``'s health under a stable identity at purge time."""
+        if not ident or not (0 <= row < len(self.worker_health)):
+            return
+        h = float(self.worker_health[row])
+        if h >= 0.9999:
+            self.health_memory.pop(ident, None)
+            return
+        if (
+            len(self.health_memory) >= self.HEALTH_MEMORY_MAX
+            and ident not in self.health_memory
+        ):
+            self.health_memory.pop(next(iter(self.health_memory)))
+        self.health_memory[ident] = (h, self.clock())
+
+    def recall_health(self, ident: bytes, row: int) -> None:
+        """Re-apply a remembered penalty to a freshly registered row,
+        crediting exponential recovery for the time spent away."""
+        if not ident:
+            return
+        entry = self.health_memory.pop(ident, None)
+        if entry is None or not (0 <= row < len(self.worker_health)):
+            return
+        h, stamp = entry
+        dt = max(0.0, self.clock() - stamp)
+        alpha = 1.0 - math.exp(-dt / self.HEALTH_RECOVERY_TAU)
+        h = h + (1.0 - h) * alpha
+        if h < 0.9999:
+            self.worker_health[row] = np.float32(h)
+
+    # -- in-flight table ---------------------------------------------------
+    @property
+    def n_inflight(self) -> int:
+        return len(self._inflight_slot)
+
+    def _note_inflight(self, slot: int, row: int) -> None:
+        """Record a slot write for the device mirror's next delta scatter."""
+        if self._d_inflight is not None:
+            self._inflight_delta[slot] = row
+
+    def inflight_add(self, task_id: str, row: int, pred: float = 0.0) -> int:
+        if not self._free_inflight:
+            raise RuntimeError("inflight table full; raise max_inflight")
+        slot = self._free_inflight.pop()
+        self.inflight_task[slot] = task_id
+        self.inflight_worker[slot] = row
+        self.inflight_started[slot] = self.clock()
+        self.inflight_pred[slot] = max(0.0, float(pred))
+        self._note_inflight(slot, row)
+        self._inflight_slot[task_id] = slot
+        return slot
+
+    def inflight_owner(self, task_id: str) -> int | None:
+        """Worker row currently holding this task, or None if not in flight."""
+        slot = self._inflight_slot.get(task_id)
+        return None if slot is None else int(self.inflight_worker[slot])
+
+    def release_slot(self, row: int) -> None:
+        """Return one process slot to a worker row, clamped to the row's
+        registered capacity — the single capacity-restore rule for every
+        host-side give-back. Out-of-range rows are ignored."""
+        if 0 <= row < len(self.worker_free):
+            self.worker_free[row] = min(
+                self.worker_free[row] + 1, int(self.worker_procs[row])
+            )
+
+    def inflight_done(self, task_id: str) -> int | None:
+        """Result arrived: free the slot, return the worker row."""
+        slot = self._inflight_slot.pop(task_id, None)
+        if slot is None:
+            return None
+        row = int(self.inflight_worker[slot])
+        self.inflight_task[slot] = None
+        self.inflight_worker[slot] = -1
+        self.inflight_started[slot] = 0.0
+        self.inflight_pred[slot] = 0.0
+        self._note_inflight(slot, -1)
+        self._free_inflight.append(slot)
+        return row
+
+    @staticmethod
+    def assigned_counts(assignment: np.ndarray, n_workers: int) -> np.ndarray:
+        """Per-worker tasks handed out this tick, from the readback."""
+        a = np.asarray(assignment)
+        return np.bincount(a[a >= 0], minlength=n_workers).astype(np.int32)
+
+    def inflight_clear_slot(self, slot: int) -> str | None:
+        tid = self.inflight_task[slot]
+        self.inflight_task[slot] = None
+        self.inflight_worker[slot] = -1
+        self.inflight_started[slot] = 0.0
+        self.inflight_pred[slot] = 0.0
+        self._note_inflight(slot, -1)
+        if tid is not None:
+            self._inflight_slot.pop(tid, None)
+            self._free_inflight.append(slot)
+        return tid
+
+    def tenant_deficits(self) -> np.ndarray | None:
+        """Per-tenant deficit carry: always None (tenancy is unported)."""
+        return None
+
+    # -- device side -------------------------------------------------------
+    def _device_inflight(self) -> torch.Tensor:
+        """The inflight table as a device tensor, maintained incrementally:
+        a full upload when absent or when more than half the table changed,
+        else one scatter of the dirty slots. Uploads are snapshots (see
+        :func:`tpu_faas_torch.device.upload`): a host mutation landing
+        before the enqueued tick runs must not leak into it."""
+        if (
+            self._d_inflight is None
+            or len(self._inflight_delta) > self.max_inflight // 2
+        ):
+            self._inflight_delta.clear()
+            self._d_inflight = upload(self.inflight_worker, self.device)
+        elif self._inflight_delta:
+            n = len(self._inflight_delta)
+            delta = np.empty((2, n), dtype=np.int64)
+            delta[0] = np.fromiter(self._inflight_delta.keys(), np.int64, n)
+            delta[1] = np.fromiter(self._inflight_delta.values(), np.int64, n)
+            self._inflight_delta.clear()
+            d = upload(delta, self.device)
+            # out of place: an earlier tick still queued may read the old
+            self._d_inflight = self._d_inflight.index_put(
+                (d[0],), d[1].to(_I32)
+            )
+        return self._d_inflight
+
+    def _cached_dev(self, name: str, host: np.ndarray) -> torch.Tensor:
+        """Device copy of a host fleet array, re-uploaded only when the host
+        content actually changed (cheap compare per tick)."""
+        entry = self._dev_cache.get(name)
+        if entry is not None and np.array_equal(entry[0], host):
+            return entry[1]
+        snap = host.copy()
+        dev = upload(snap, self.device)
+        self._dev_cache[name] = (snap, dev)
+        return dev
+
+    def _prev_live_dev(self) -> torch.Tensor:
+        pl = self.prev_live
+        if isinstance(pl, np.ndarray):
+            return upload(pl, self.device)
+        return pl
+
+    # -- the tick ----------------------------------------------------------
+    def tick(
+        self,
+        task_sizes: np.ndarray,
+        now: float | None = None,
+        task_priorities: np.ndarray | None = None,
+        dep_edges=None,
+        task_pref=None,
+        pref_edges=None,
+        task_tenants=None,
+        task_avoid=None,
+        worker_place_cap: np.ndarray | None = None,
+    ) -> TickOutput:
+        """Run the batch device step for the current pending batch.
+
+        ``task_sizes`` is the un-padded vector of pending task cost
+        estimates; padding/masking to ``max_pending`` happens here.
+        ``task_priorities`` (optional, parallel to ``task_sizes``) orders
+        admission under overload — higher first, FCFS within a priority.
+        ``worker_place_cap`` (optional, i32[max_workers]) is the quarantine
+        plane's placement ceiling. The graph, tenancy and speculation
+        arguments raise ``NotImplementedError``.
+        """
+        if dep_edges is not None or task_pref is not None or (
+            pref_edges is not None
+        ):
+            raise unported("graph")
+        if task_tenants is not None:
+            raise unported("tenancy")
+        if self.spec_mult is not None or task_avoid is not None:
+            raise unported("speculation")
+        n = len(task_sizes)
+        if n > self.max_pending:
+            raise ValueError(f"{n} pending > max_pending={self.max_pending}")
+        T, W = self.max_pending, self.max_workers
+        now_f = now if now is not None else self.clock()
+        # one packed upload carries everything that changes every tick
+        packed = np.zeros(T + 2 * W, dtype=np.float32)
+        packed[:n] = task_sizes
+        packed[T : T + W] = (now_f - self.last_heartbeat).astype(np.float32)
+        packed[T + W :] = self.worker_free
+        prio = None
+        if task_priorities is not None:
+            p = np.zeros(self.max_pending, dtype=np.int32)
+            p[:n] = task_priorities
+            prio = upload(p, self.device)
+        cap = None
+        if worker_place_cap is not None:
+            cap = self._cached_dev(
+                "place_cap", np.asarray(worker_place_cap, dtype=np.int32)
+            )
+        out = packed_tick(
+            upload(packed, self.device),
+            n,
+            self._cached_dev("speed", self.worker_speed),
+            self._cached_dev("active", self.worker_active),
+            self._prev_live_dev(),
+            self._device_inflight(),
+            # the f32 value JAX compares against: read as float, cast back
+            # to float32 by the comparison
+            float(np.float32(self.time_to_expire)),
+            prio,
+            cap,
+            T=T,
+            W=W,
+            max_slots=self.max_slots,
+            placement=self.placement,
+        )
+        # prev_live stays DEVICE-resident: it only feeds the next tick, and
+        # reading it back here would put a sync inside every tick
+        self.prev_live = out.live
+        return out
