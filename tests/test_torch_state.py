@@ -13,6 +13,7 @@ import torch
 
 from tpu_faas.sched.state import SchedulerArrays as JArrays
 from tpu_faas.sched.state import scheduler_tick_impl as j_tick
+from tpu_faas_torch.sched.resident import ResidentScheduler
 from tpu_faas_torch.sched.state import SchedulerArrays as TArrays
 from tpu_faas_torch.sched.state import scheduler_tick_impl as t_tick
 
@@ -116,9 +117,15 @@ def test_scheduler_arrays_tick_matches_jax():
     ("bogus", ValueError),
 ])
 def test_unported_placements_raise(placement, exc):
+    """What is still unported of each placement raises: all of Sinkhorn,
+    and of the auction only the resident tick on CUDA (B1's auction
+    branch); the batch auction runs (tests/test_torch_auction.py)."""
+    make, device = TArrays, "cpu"
+    if placement == "auction":
+        make, device = ResidentScheduler, "cuda"
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else "unknown"):
-        TArrays(placement=placement, device="cpu")
+        make(placement=placement, device=device)
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_devices=2),

@@ -4,6 +4,9 @@ The counterpart of the JAX package ``tpu_faas``, laid out the same way so a
 reader can find each module's twin:
 
 - :mod:`tpu_faas_torch.sched.greedy`     rank-match placement + host greedy
+- :mod:`tpu_faas_torch.sched.auction`    auction placement (forward auction)
+- :mod:`tpu_faas_torch.sched.bid`        the auction's top-2 bid: ONE
+  hand-written CUDA kernel (``csrc/bid_top2.cu``) with its plain version
 - :mod:`tpu_faas_torch.sched.state`      the batch tick and ``SchedulerArrays``
 - :mod:`tpu_faas_torch.sched.resident`   the device-resident delta tick and
   ``ResidentScheduler``

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 plain-C shared library under ``csrc/build/`` (listed in ``.gitignore``),
 named by a hash of its source and flags, so an unchanged source is built
 once per checkout and a changed one never loads a stale library. The
-libraries are loaded with ``ctypes``.
+libraries are loaded with ``ctypes``; :func:`check_arg` is the check each
+wrapper makes on a tensor before it hands the kernel a raw pointer.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -70,3 +73,14 @@ def build(name: str) -> tuple[Path, str]:
         )
     os.replace(tmp, lib)
     return lib, proc.stdout
+
+
+def check_arg(t: torch.Tensor, name: str, dtype, n: int, dev) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype[n]`` on ``dev``."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the kernel runs on {dev}")
+    if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype}[{n}], got "
+            f"{t.dtype}{list(t.shape)} contiguous={t.is_contiguous()}"
+        )

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from tpu_faas_torch.build import build
+from tpu_faas_torch.build import build, check_arg
 from tpu_faas_torch.sched.resident import (
     _HEADER,
     _KG,
@@ -32,6 +32,7 @@ from tpu_faas_torch.sched.resident import (
     _resident_tick_impl,
     _ResidentState,
 )
+from tpu_faas_torch.sched.state import unported
 
 SOURCE = "tpu_faas_torch/csrc/fused_tick.cu"
 REPLACES = "tpu_faas/sched/pallas_fused.py:147 (_fused_resident_tick_impl)"
@@ -79,7 +80,7 @@ class FusedTickKernel:
         dev = packet.device
         P = (_HEADER + KA * (2 if use_priority else 1)
              + 2 * (KH + KF + KI + KS + KB))
-        _check(packet, "packet", torch.float32, P, dev)
+        check_arg(packet, "packet", torch.float32, P, dev)
         for name, dtype, n in (
             ("sizes", torch.float32, T), ("valid", torch.bool, T),
             ("prio", torch.int32, T), ("last_hb", torch.float32, W),
@@ -87,7 +88,7 @@ class FusedTickKernel:
             ("prev_live", torch.bool, W), ("speed", torch.float32, W),
             ("active", torch.bool, W),
         ):
-            _check(getattr(st, name), name, dtype, n, dev)
+            check_arg(getattr(st, name), name, dtype, n, dev)
         self.load()
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
                               device=dev)
@@ -125,16 +126,6 @@ class FusedTickKernel:
         return res, st
 
 
-def _check(t: torch.Tensor, name: str, dtype, n: int, dev) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, the packet on {dev}")
-    if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype}[{n}], got "
-            f"{t.dtype}{list(t.shape)} contiguous={t.is_contiguous()}"
-        )
-
-
 #: the process's one instance: its ``launches`` is the kernel's count
 KERNEL = FusedTickKernel()
 
@@ -144,14 +135,18 @@ def fused_resident_tick(
     st: _ResidentState,
     *,
     flush: bool = False,
+    placement: str = "rank",
     **statics,
 ):
     """One resident tick (``flush=False``: returns ``(ResidentTickOutput,
     state)``) or one delta application alone (``flush=True``: returns
     ``(state, arrival_slots)``). On CUDA tensors the kernel updates ``st``
     in place and returns it; on CPU tensors the plain version returns a
-    new state and leaves ``st`` untouched."""
+    new state and leaves ``st`` untouched. The kernel places by rank; the
+    auction runs on the CPU only (ROADMAP B1)."""
     if packet.device.type == "cuda":
+        if placement != "rank":
+            raise unported("the resident auction on CUDA")
         return KERNEL(packet, st, flush=flush, **statics)
     if packet.device.type != "cpu":
         raise ValueError(f"no fused tick for device {packet.device}")
@@ -159,4 +154,4 @@ def fused_resident_tick(
         statics = {k: v for k, v in statics.items()
                    if k not in ("KP", "KR", "max_slots")}
         return _flush_kernel_impl(packet, st, **statics)
-    return _resident_tick_impl(packet, st, **statics)
+    return _resident_tick_impl(packet, st, placement=placement, **statics)

@@ -20,8 +20,11 @@ and a second tick issued before the first is resolved cannot double-book.
 ``_resident_tick_impl`` below is the plain PyTorch version of the fused
 kernel (``sched/fused_tick.py`` + ``csrc/fused_tick.cu``): on a CUDA device
 the tick always runs the kernel, which updates the state tensors in place
-(their ``data_ptr()`` never changes); on the CPU it runs this version.
-Rank placement only; tenancy and speculation raise ``NotImplementedError``.
+(their ``data_ptr()`` never changes); on the CPU it runs this version. The
+kernel places by rank. The auction (its slot prices and staleness flag
+carried in the state) runs on the CPU only: on CUDA it waits for B1's
+auction branch (ROADMAP B1) and raises ``NotImplementedError``, as do
+tenancy and speculation.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from tpu_faas_torch.device import to_host, upload
+from tpu_faas_torch.sched.scatter import drop_index, scatter_add, scatter_set
 from tpu_faas_torch.sched.state import (
     SchedulerArrays,
     scheduler_tick_impl,
@@ -58,8 +62,8 @@ class ResidentTickOutput(NamedTuple):
 class _ResidentState(NamedTuple):
     """Everything carried on device between ticks — the 16 leaves of the
     JAX state, in its order. Rank placement reads and writes the first
-    ten; the auction price, tenancy deficit and speculation leaves ride
-    along untouched."""
+    ten; the auction also carries ``price`` and ``refresh``; the tenancy
+    deficit and speculation leaves ride along untouched."""
 
     sizes: torch.Tensor  # f32[T]
     valid: torch.Tensor  # bool[T]
@@ -127,28 +131,6 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), 0, i).to(_I32)
 
 
-def _drop_index(idx: torch.Tensor, mask: torch.Tensor, N: int) -> torch.Tensor:
-    """JAX ``.at[idx]`` with ``mode="drop"``: a negative index wraps once;
-    whatever is masked off or still outside [0, N) goes to the sentinel
-    row N, which the scatter helpers below slice away."""
-    idx = torch.where(idx < 0, idx + N, idx)
-    return torch.where(mask & (idx >= 0) & (idx < N), idx, N).long()
-
-
-def _scatter_set(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    buf = torch.cat([arr, arr.new_zeros(1)])
-    buf[idx] = vals
-    return buf[:-1]
-
-
-def _scatter_add(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
-    buf = torch.cat([arr, arr.new_zeros(1)])
-    buf.index_put_((idx,), torch.as_tensor(vals, dtype=arr.dtype,
-                                           device=arr.device)
-                   .expand(idx.shape), accumulate=True)
-    return buf[:-1]
-
-
 def _first_k_indices(mask: torch.Tensor, K: int) -> torch.Tensor:
     """Indices of the first K set bits of ``mask``, in index order, -1
     padded — one cumsum + one scatter, O(N)."""
@@ -188,24 +170,24 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
         return torch.arange(K, device=dev) < n
 
     # -- per-worker / in-flight scatters (sentinel index = dropped write) --
-    last_hb = _scatter_set(
-        st.last_hb, _drop_index(hb_idx, live_lanes(KH, n_hb), W), hb_val
+    last_hb = scatter_set(
+        st.last_hb, drop_index(hb_idx, live_lanes(KH, n_hb), W), hb_val
     )
     # free counts travel as ADDITIVE deltas: the device decrements free for
     # every placement it reports, possibly ticks before the host mirrors
     # it, and an absolute set would resurrect capacity the device consumed
-    free = _scatter_add(
-        st.free, _drop_index(free_idx, live_lanes(KF, n_free), W), free_val
+    free = scatter_add(
+        st.free, drop_index(free_idx, live_lanes(KF, n_free), W), free_val
     )
-    inflight = _scatter_set(
-        st.inflight, _drop_index(infl_idx, live_lanes(KI, n_infl), I),
+    inflight = scatter_set(
+        st.inflight, drop_index(infl_idx, live_lanes(KI, n_infl), I),
         infl_val,
     )
-    speed = _scatter_set(
-        st.speed, _drop_index(sp_idx, live_lanes(KS, n_speed), W), sp_val
+    speed = scatter_set(
+        st.speed, drop_index(sp_idx, live_lanes(KS, n_speed), W), sp_val
     )
-    active = _scatter_set(
-        st.active, _drop_index(ac_idx, live_lanes(KB, n_active), W),
+    active = scatter_set(
+        st.active, drop_index(ac_idx, live_lanes(KB, n_active), W),
         ac_val > 0.5,
     )
 
@@ -217,11 +199,11 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
     accept = torch.minimum(n_arr, n_invalid)  # never overwrite live pending
     ok = torch.arange(KA, dtype=_I32, device=dev) < accept
     slots = torch.where(ok, free_slots, T).long()
-    sizes = _scatter_set(st.sizes, slots, arr_sizes)
-    valid = _scatter_set(st.valid, slots, True)
+    sizes = scatter_set(st.sizes, slots, arr_sizes)
+    valid = scatter_set(st.valid, slots, True)
     prio = st.prio
     if use_priority:
-        prio = _scatter_set(prio, slots, arr_prio)
+        prio = scatter_set(prio, slots, arr_prio)
     arrival_slots = torch.where(ok, free_slots, -1).to(_I32)
     new = st._replace(sizes=sizes, valid=valid, prio=prio, last_hb=last_hb,
                       free=free, inflight=inflight, speed=speed,
@@ -245,6 +227,7 @@ def _resident_tick_impl(
     st: _ResidentState,
     *,
     T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, max_slots, use_priority,
+    placement="rank",
 ):
     """The full resident step as plain PyTorch ops — the plain version of
     the fused CUDA kernel. Functional: returns ``(ResidentTickOutput,
@@ -253,6 +236,7 @@ def _resident_tick_impl(
         packed, st, T=T, W=W, I=I, KA=KA, KH=KH, KF=KF, KI=KI, KS=KS,
         KB=KB, use_priority=use_priority,
     )
+    auction = placement == "auction"
     out = scheduler_tick_impl(
         st.sizes,
         st.valid,
@@ -265,6 +249,9 @@ def _resident_tick_impl(
         packed[8],  # time_to_expire rides the packet header
         max_slots=max_slots,
         task_priority=st.prio if use_priority else None,
+        placement=placement,
+        auction_price=st.price if auction else None,
+        auction_refresh=st.refresh if auction else None,
     )
 
     # -- compact placements to KP (slot, row) pairs ------------------------
@@ -275,14 +262,14 @@ def _resident_tick_impl(
     ).to(_I32)
     # clear ONLY reported placements; an over-KP surplus stays valid and is
     # re-placed (and reported) next tick
-    reported = _scatter_set(
+    reported = scatter_set(
         torch.zeros(T, dtype=torch.bool, device=packed.device),
         torch.where(pok, placed_slots, T).long(), True,
     )
     valid_next = st.valid & ~reported
     # consume the reported placements' capacity ON DEVICE, so a second tick
     # issued before the host resolves this one cannot re-book it
-    free_next = _scatter_add(
+    free_next = scatter_add(
         st.free, torch.where(pok, placed_rows, W).long(), -1
     )
     redispatch_slots = _first_k_indices(out.redispatch, KR)
@@ -291,6 +278,9 @@ def _resident_tick_impl(
 
     new_state = st._replace(valid=valid_next, free=free_next,
                             prev_live=out.live)
+    if auction:
+        new_state = new_state._replace(price=out.auction_price,
+                                       refresh=out.auction_refresh)
     res = ResidentTickOutput(
         placed_slots, placed_rows, arrival_slots, redispatch_slots,
         out.purged, out.live, valid_next.sum(dtype=_I32), straggler_slots,
@@ -405,6 +395,14 @@ class ResidentScheduler(SchedulerArrays):
         self._free_sent: np.ndarray | None = None
         self._speed_sent: np.ndarray | None = None
         self._active_sent: np.ndarray | None = None
+
+    def __post_init__(self) -> None:
+        # ahead of the device check: this limit holds with or without a card
+        if self.placement == "auction" and (
+            torch.device(self.device).type == "cuda"
+        ):
+            raise unported("the resident auction on CUDA")
+        super().__post_init__()
 
     # -- pending interface -------------------------------------------------
     def pending_add(
@@ -600,6 +598,7 @@ class ResidentScheduler(SchedulerArrays):
             KR=self.KR,
             max_slots=self.max_slots,
             flush=flush,
+            placement=self.placement,
         )
 
     def _run_flush(self, packet: np.ndarray):

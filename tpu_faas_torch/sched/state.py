@@ -9,9 +9,11 @@ Host side, :class:`SchedulerArrays` owns the mirrored numpy state (worker
 registry, heartbeat stamps, in-flight table) and feeds the tick; its
 bookkeeping is a copy of the JAX class's. Only the device methods are
 PyTorch: the tick, the cached fleet uploads and the delta-maintained
-in-flight mirror. This slice ports rank placement; auction, Sinkhorn, the
-mesh and multihost layouts, tenancy, speculation and the graph lanes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+in-flight mirror, and the auction's warm prices carried between ticks.
+Rank and auction placement are ported (the auction's bids run kernel B2 on
+the card); Sinkhorn, the mesh and multihost layouts, tenancy, speculation
+and the graph lanes raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -25,13 +27,15 @@ import numpy as np
 import torch
 
 from tpu_faas_torch.device import resolve_device, upload
+from tpu_faas_torch.sched.auction import auction_placement_impl
 from tpu_faas_torch.sched.greedy import rank_match_placement_impl
 
 _I32 = torch.int32
 
 #: what each unported feature waits for, by ROADMAP item
 _UNPORTED = {
-    "auction": "ROADMAP A.8 (auction placement and kernel B2)",
+    "the resident auction on CUDA": "B1's auction branch (ROADMAP B1); on "
+    "the CPU the resident auction runs its plain version",
     "sinkhorn": "ROADMAP A.9 (Sinkhorn placement)",
     "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
     "tenancy": "ROADMAP A.7 (in-tick planes: tenancy)",
@@ -48,9 +52,9 @@ def unported(feature: str) -> NotImplementedError:
 
 
 def check_placement(placement: str) -> None:
-    if placement in ("auction", "sinkhorn"):
+    if placement == "sinkhorn":
         raise unported(placement)
-    if placement != "rank":
+    if placement not in ("rank", "auction"):
         raise ValueError(f"unknown placement kernel {placement!r}")
 
 
@@ -59,6 +63,16 @@ class TickOutput(NamedTuple):
     live: torch.Tensor  # bool[W]
     purged: torch.Tensor  # bool[W] was live last tick, dead now
     redispatch: torch.Tensor  # bool[I] in-flight task needs re-queue
+    #: f32[W*max_slots] final slot prices (auction only, else None): the
+    #: next tick's warm start, device-resident between ticks
+    auction_price: torch.Tensor | None = None
+    #: bool scalar (auction only): the prices went stale; the next tick
+    #: re-solves cold
+    auction_refresh: torch.Tensor | None = None
+    #: bidding rounds this tick ran (auction only), counted on the host
+    auction_rounds: int | None = None
+    #: i32 scalar (auction only): tasks the rank spill placed
+    auction_spilled: torch.Tensor | None = None
 
 
 def scheduler_tick_impl(
@@ -76,6 +90,8 @@ def scheduler_tick_impl(
     placement: str = "rank",
     worker_health: torch.Tensor | None = None,  # f32[W] tail multiplier
     worker_place_cap: torch.Tensor | None = None,  # i32[W] placement ceiling
+    auction_price: torch.Tensor | None = None,  # f32[W*max_slots] warm start
+    auction_refresh: torch.Tensor | None = None,  # bool scalar: resident carry
 ) -> TickOutput:
     check_placement(placement)
     # tail-health multiplier on effective speed, and the quarantine plane's
@@ -98,6 +114,16 @@ def scheduler_tick_impl(
     worker_of = iw.clamp(0, W - 1).long()
     redispatch = occupied & ~live[worker_of]
 
+    # auction ignores task_priority: its admission order is FCFS
+    if placement == "auction":
+        res = auction_placement_impl(
+            task_size, task_valid, worker_speed, worker_free, live,
+            max_slots=max_slots, init_price=auction_price,
+            carry_refresh=auction_refresh,
+        )
+        return TickOutput(res.assignment, live, purged, redispatch,
+                          res.prices, res.refresh, res.n_rounds,
+                          res.n_spilled)
     assignment = rank_match_placement_impl(
         task_size, task_valid, worker_speed, worker_free, live,
         max_slots=max_slots, task_priority=task_priority,
@@ -114,6 +140,7 @@ def packed_tick(
     inflight_worker: torch.Tensor,
     time_to_expire: float,
     task_priority: torch.Tensor | None,
+    auction_price: torch.Tensor | None = None,
     worker_place_cap: torch.Tensor | None = None,
     *,
     T: int,
@@ -134,6 +161,7 @@ def packed_tick(
         hb_age, prev_live, inflight_worker, time_to_expire,
         max_slots=max_slots, task_priority=task_priority,
         placement=placement, worker_place_cap=worker_place_cap,
+        auction_price=auction_price,
     )
 
 
@@ -152,7 +180,7 @@ class SchedulerArrays:
     max_slots: int = 8
     time_to_expire: float = 10.0
     clock: "callable" = time.monotonic
-    #: placement kernel for the tick: rank (auction and sinkhorn raise)
+    #: placement kernel for the tick: rank or auction (sinkhorn raises)
     placement: str = "rank"
     multihost: "object | None" = None
     mesh_devices: int | None = None
@@ -219,6 +247,11 @@ class SchedulerArrays:
         self._dev_cache: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
         #: tenancy plane (None = off, the only setting this port supports)
         self.tenancy = None
+        # auction placement: last tick's slot prices, the next tick's warm
+        # start (device-resident), and last tick's staleness flag, read one
+        # tick late
+        self._d_auction_price: torch.Tensor | None = None
+        self._d_auction_refresh: torch.Tensor | None = None
 
     # -- membership (reference register/reconnect/purge semantics) ---------
     def register(
@@ -502,6 +535,13 @@ class SchedulerArrays:
             raise ValueError(f"{n} pending > max_pending={self.max_pending}")
         T, W = self.max_pending, self.max_workers
         now_f = now if now is not None else self.clock()
+        if self._d_auction_refresh is not None and bool(
+            self._d_auction_refresh
+        ):
+            # last tick's prices went stale: re-solve cold this tick (the
+            # read is of a value computed a whole tick ago)
+            self._d_auction_price = None
+        self._d_auction_refresh = None
         # one packed upload carries everything that changes every tick
         packed = np.zeros(T + 2 * W, dtype=np.float32)
         packed[:n] = task_sizes
@@ -528,12 +568,16 @@ class SchedulerArrays:
             # to float32 by the comparison
             float(np.float32(self.time_to_expire)),
             prio,
+            self._d_auction_price,
             cap,
             T=T,
             W=W,
             max_slots=self.max_slots,
             placement=self.placement,
         )
+        if self.placement == "auction":
+            self._d_auction_price = out.auction_price
+            self._d_auction_refresh = out.auction_refresh
         # prev_live stays DEVICE-resident: it only feeds the next tick, and
         # reading it back here would put a sync inside every tick
         self.prev_live = out.live
