@@ -6,13 +6,13 @@ Phases, all run every time (each fails the run; nothing is caught and passed
 over):
 
 0. ``build``  — print the card's name and power limit, the torch and CUDA
-   versions; build both kernels from ``tpu_faas_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, started together: the fused tick (B1) and
-   the top-2 bid (B2).
-1. ``kernel`` — the fused tick kernel against its plain PyTorch version on
-   the card, at 51,200 pending x 4,096 workers x 65,536 in-flight slots,
-   priority admission on and off, several seeds: every output and every
-   state leaf must be exactly equal.
+   versions; build both libraries from ``tpu_faas_torch/csrc`` with nvcc for
+   sm_90a, one nvcc per source, started together: the fused tick (B1, rank
+   and auction branches) and the top-2 bid (B2).
+1. ``kernel`` — the fused tick's rank branch against its plain PyTorch
+   version on the card, at 51,200 pending x 4,096 workers x 65,536
+   in-flight slots, priority admission on and off, several seeds: every
+   output and every state leaf must be exactly equal.
 2. ``resident`` — the resident scheduler end to end at that shape: 4,096
    workers, 51,200 bulk-loaded tasks, then per tick 512 results, 128
    heartbeats and 512 arrivals with the clock advanced 5 ms, resolved in tick
@@ -36,18 +36,33 @@ over):
    tick's assignment is legal and complete, takes one B2 launch per
    bidding round, and equals a twin tick whose bids are the plain version,
    on assignment, rounds, prices, refresh and spilled count.
-6. ``time``   — CUDA-event medians of B1 (on the resident run's own states
-   and packets, and on a synthetic state) and of B2 (at both bid shapes),
-   and of their plain versions, each beside its bound; host-clock medians
-   of the integrated ``tick_resident``, of the batch tick and of the
-   auction tick cold and warm, all printed beside the card's name and power
-   limit. Each timed launch is queued behind a spin kernel, so its events
-   measure device time and not the host's launch gap.
+6. ``resident_auction`` — B1's auction branch: first against its plain
+   version on synthetic headline states (refresh on and off, priority lanes
+   on and off, two seeds; seed 0 also against the plain version with plain
+   bids), every output and state leaf exactly equal, prices, refresh, round
+   and spilled counts included; then ``ResidentScheduler(placement=
+   "auction")`` through phase 2's loop for 40 ticks (FCFS), with phase 2's
+   checks, one cooperative launch per steady tick, and at least one cold
+   (refresh) and one warm tick. The kernel also reports the bidder rows
+   summed over its rounds, equal to the plain version's count.
+7. ``time``   — CUDA-event medians of B1's rank branch (on the resident run's
+   own states and packets, and on a synthetic state) and of B2 (at both bid
+   shapes), and CUDA-event means of B1's auction branch over the resident
+   auction run's own states (its warm and cold ticks differ forty-fold in
+   bidders; each kind's medians are printed too), and of their plain
+   versions, each beside its bound (the auction's counts the cells its
+   bidders swept); the auction's plain version bids with the plain top-2,
+   and each of its ticks is held exactly against the kernel's; host-clock
+   medians of the integrated ``tick_resident`` (rank and auction), of the
+   batch tick and of the auction tick cold and warm, all printed beside the
+   card's name and power limit. Each timed launch is queued behind a spin
+   kernel, so its events measure device time and not the host's launch gap.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
-it lists each kernel's launches on its main path (the resident run for B1,
-the auction ticks for B2), errors and times. Without a CUDA device the
-script exits non-zero and prints no result.
+it lists each kernel's launches on its main path (the resident run for B1's
+rank branch, the auction ticks for B2, the resident auction run for B1's
+auction branch), errors and times. Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -68,6 +83,8 @@ SHAPE = dict(T=51_200, W=4_096, I=65_536, KA=512, KH=512, KF=1024, KI=1024,
 MAX_SLOTS = 8
 N_TICKS = 200  # checked resident ticks
 N_TIMED = 60  # timed ticks and launches per timing
+N_AUCTION_TICKS = 30  # checked resident auction ticks
+N_AUCTION_TIMED = 10  # timed resident auction ticks
 #: spin queued ahead of each timed launch (about 10 ms at 1.98 GHz), so the
 #: host has enqueued the launch before the card reaches its start event
 SPIN_CYCLES = 20_000_000
@@ -239,7 +256,7 @@ def phase_kernel(dev) -> dict:
 
 
 # -- phase 2: the resident path end to end ------------------------------------
-def make_checked_scheduler(dev, clock, use_priority: bool):
+def make_checked_scheduler(dev, clock, use_priority: bool, placement: str):
     """A ResidentScheduler that records, for each kernel launch, the packet
     and a copy of the state before it, so the run can replay every launch
     through the plain version and compare. Recording makes only device
@@ -274,6 +291,7 @@ def make_checked_scheduler(dev, clock, use_priority: bool):
         max_workers=SHAPE["W"], max_pending=SHAPE["T"],
         max_inflight=SHAPE["I"], max_slots=MAX_SLOTS, time_to_expire=10.0,
         clock=clock, device=dev, use_priority=use_priority,
+        placement=placement,
         **{k: SHAPE[k] for k in ("KA", "KH", "KF", "KI", "KS", "KB", "KP",
                                  "KR")},
     )
@@ -298,23 +316,31 @@ def replay_plain(rs, pre0) -> tuple[int, float]:
                 bad += 1
                 log("  MISMATCH flush arrival_slots")
         else:
-            res, st = _resident_tick_impl(packet, st, **kw)
+            res, st = _resident_tick_impl(packet, st, placement=rs.placement,
+                                          **kw)
             b, e = compare(out[0], res, "out")
             bad, err = bad + b, max(err, e)
     b, e = compare(rs._r_state, st, "state")
     return bad + b, max(err, e)
 
 
-def phase_resident(dev, n_ticks: int, timed_ticks: int) -> dict:
+def phase_resident(dev, n_ticks: int, timed_ticks: int,
+                   placement: str = "rank") -> dict:
     from tpu_faas_torch.sched.fused_tick import KERNEL
 
+    def n_launches():  # rank ticks and flushes, and auction ticks
+        return KERNEL.launches + KERNEL.auction_launches
+
+    auction = placement == "auction"
     W, T = SHAPE["W"], SHAPE["T"]
     # per tick: 512 results and 512 arrivals (one full arrival lane), 128
     # heartbeats; 64 rows go silent — bench.py's churn at the headline shape
     n_churn, n_hb, n_silent = SHAPE["KA"], SHAPE["KH"] // 4, W // 64
     rng = np.random.default_rng(7)
     clock_box = [1000.0]
-    rs = make_checked_scheduler(dev, lambda: clock_box[0], use_priority=True)
+    # the auction admits FCFS and ignores priorities: its loop runs FCFS
+    rs = make_checked_scheduler(dev, lambda: clock_box[0],
+                                use_priority=not auction, placement=placement)
     procs = rng.integers(1, MAX_SLOTS + 1, W)
     speeds = rng.uniform(0.5, 4.0, W)
     for i in range(W):
@@ -338,11 +364,12 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int) -> dict:
     n_new = 0
     stats = dict(placed=0, redispatched=0, purged=0, flushes=0,
                  steady_ticks=0, overflow_ticks=[], mismatches=0,
-                 max_abs_err=0.0)
+                 max_abs_err=0.0, cold_ticks=0, warm_ticks=0, rounds=[],
+                 spilled=[], bid_rows=[])
     expected_redispatch: set[int] | None = None
     expected_purge: set[int] | None = None
     tick_of_purge = None
-    launches_at_start = KERNEL.launches
+    launches_at_start = n_launches()
 
     def resolve_one():
         nonlocal expected_redispatch, expected_purge
@@ -425,7 +452,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int) -> dict:
                     np.isin(rs.inflight_worker, list(silenced)))
             }
             tick_of_purge = k
-        before = KERNEL.launches
+        before = n_launches()
         torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
         try:
@@ -435,7 +462,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int) -> dict:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        n_launch = KERNEL.launches - before
+        n_launch = n_launches() - before
         assert n_launch == rs.device_dispatches_last_tick
         assert [t.data_ptr() for t in rs._r_state] == ptrs, "state moved"
         if n_launch == 1:
@@ -456,18 +483,25 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int) -> dict:
             stats["mismatches"] += b
             stats["max_abs_err"] = max(stats["max_abs_err"], e)
             assert b == 0, f"tick {k}: kernel != plain version"
+            pkt, _, pre, out = rs.launch_log[-1]
+            if auction:
+                cold = bool(pre.refresh)
+                stats["cold_ticks" if cold else "warm_ticks"] += 1
+                stats["rounds"].append(int(out[0].auction_rounds))
+                stats["spilled"].append(int(out[0].auction_spilled))
+                stats["bid_rows"].append(int(out[0].auction_bid_rows))
             if n_launch == 1 and k >= n_ticks - timed_ticks:
                 # the last steady ticks' packets and input states, for
                 # timing the kernel alone on the main path's own data
-                pkt, _, pre, _ = rs.launch_log[0]
-                samples.append((torch.from_numpy(pkt).to(dev), pre))
+                samples.append((torch.from_numpy(pkt).to(dev), pre,
+                                stats["bid_rows"][-1] if auction else None))
         while len(rs._unresolved) > 1:  # stay two ticks deep
             resolve_one()
     while rs._unresolved:
         resolve_one()
     assert tick_of_purge is not None and expected_purge is None, (
         "the silenced rows were never purged")
-    launches = KERNEL.launches - launches_at_start
+    launches = n_launches() - launches_at_start
     # nothing lost: every task is completed, in flight, or pending
     pending = set(rs.slot_task.values()) | {a.task_id for a in rs._arrivals}
     pending |= {a.task_id for a in rs._rejected}
@@ -477,7 +511,15 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int) -> dict:
         f"lost {len(every - accounted)}, unknown {len(accounted - every)}")
     assert not (completed & set(inflight)) and not (completed & pending)
     assert not (set(inflight) & pending), "a task both in flight and pending"
-    log(f"phase resident: {n_ticks + timed_ticks} ticks, {launches} kernel "
+    if auction:
+        assert stats["cold_ticks"] and stats["warm_ticks"], (
+            "the auction loop needs a cold (refresh) and a warm tick")
+        log(f"  auction ticks: {stats['cold_ticks']} cold, "
+            f"{stats['warm_ticks']} warm; rounds {stats['rounds']}; "
+            f"spilled {stats['spilled']}; bidder rows over the rounds "
+            f"{stats['bid_rows']}")
+    log(f"phase resident ({placement}): {n_ticks + timed_ticks} ticks, "
+        f"{launches} kernel "
         f"launches ({stats['steady_ticks']} ticks with exactly one; packet "
         f"overflow flushes on ticks {stats['overflow_ticks']}), "
         f"placed {stats['placed']}, purged {stats['purged']}, redispatched "
@@ -682,8 +724,8 @@ def phase_auction(dev) -> dict:
             bad = [f for f in ("assignment", "auction_price",
                                "auction_refresh", "auction_spilled")
                    if not torch.equal(getattr(out, f), getattr(ref, f))]
-            if out.auction_rounds != ref.auction_rounds:
-                bad.append("auction_rounds")
+            bad += [f for f in ("auction_rounds", "auction_bid_rows")
+                    if getattr(out, f) != getattr(ref, f)]
             log(f"  {name} tick {k} ({'warm' if k else 'cold'}): placed "
                 f"{placed}, rounds {out.auction_rounds}, spilled "
                 f"{int(out.auction_spilled)}, refresh "
@@ -701,7 +743,177 @@ def phase_auction(dev) -> dict:
     return stats
 
 
-# -- phase 6: times -----------------------------------------------------------
+# -- phase 6: the resident auction (B1's auction branch) ---------------------
+def auction_bound_ms(bid_rows: int, packet: torch.Tensor) -> tuple[float,
+                                                                   str]:
+    """The least time for one resident auction tick: the larger of B2's
+    operations per cell over the (bidder, slot) cells this tick's rounds
+    needed (``bid_rows``, the bidders summed over the rounds, times S) at
+    the f32 rate, and its bytes at the HBM rate: the rank tick's, plus the
+    carried prices read and written, the refresh flag and the aux counts."""
+    S = SHAPE["W"] * MAX_SLOTS
+    ops_ms = bid_rows * S * BID_OPS_PER_CELL / F32_OPS_PER_S * 1e3
+    bytes_ms = (bound_ms(False, packet)
+                + (8 * S + 2 + 12) / HBM_BYTES_PER_S * 1e3)
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def auction_case(seed: int, use_priority: bool, refresh: bool):
+    """``random_case``'s state and packet, with carried prices k/16 and the
+    refresh flag set as asked."""
+    rng = np.random.default_rng(seed)
+    leaves, pkt = random_case(rng, use_priority, now=100.0)
+    S = SHAPE["W"] * MAX_SLOTS
+    leaves["price"] = (rng.integers(0, 64, S) / 16).astype(np.float32)
+    leaves["refresh"] = np.asarray(refresh)
+    return leaves, pkt
+
+
+def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
+                         plain_twin: bool):
+    """The auction kernel against its plain version from the same state,
+    and (``plain_twin``) against the plain version with plain bids:
+    (mismatched fields, max abs error, rounds, spilled)."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import (
+        _resident_tick_impl, state_from_numpy,
+    )
+
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority)
+    st_k = state_from_numpy(leaves, dev)
+    packet = torch.from_numpy(pkt).to(dev)
+    ptrs = [t.data_ptr() for t in st_k]
+    res_k, new_k = KERNEL.auction(packet, st_k, **kw)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in new_k] == ptrs, "state moved"
+    bad, err = 0, 0.0
+    twins = [("B2 bids", None)] + ([("plain bids", plain_bids)]
+                                   if plain_twin else [])
+    for twin, bids in twins:
+        if bids is None:
+            res_p, new_p = _resident_tick_impl(
+                packet, state_from_numpy(leaves, dev), placement="auction",
+                **kw)
+        else:
+            with bids():
+                res_p, new_p = _resident_tick_impl(
+                    packet, state_from_numpy(leaves, dev),
+                    placement="auction", **kw)
+        b1, e1 = compare(res_k, res_p, f"{label} vs {twin}: out")
+        b2, e2 = compare(new_k, new_p, f"{label} vs {twin}: state")
+        bad, err = bad + b1 + b2, max(err, e1, e2)
+    return (bad, err, int(res_k.auction_rounds), int(res_k.auction_spilled),
+            int(res_k.auction_bid_rows))
+
+
+def phase_auction_kernel(dev) -> dict:
+    """B1's auction branch against its plain version on the card, at the
+    headline shape: refresh on and off, priority lanes on and off, two
+    seeds; every output and state leaf exactly equal, round and spilled
+    counts included. Seed 0 is also held against the plain version with
+    plain bids."""
+    mismatches, max_err, cases = 0, 0.0, 0
+    for refresh in (True, False):
+        for use_priority in (False, True):
+            for seed in (0, 1):
+                leaves, pkt = auction_case(seed, use_priority, refresh)
+                label = f"refresh={refresh} prio={use_priority} seed={seed}"
+                # the plain-bid twin costs up to 64 plain sweeps of 1.7e9
+                # cells: seed 0 only
+                b, e, rounds, spilled, bid_rows = compare_auction_tick(
+                    dev, leaves, pkt, use_priority, label,
+                    plain_twin=seed == 0)
+                log(f"  {label}: rounds {rounds}, spilled {spilled}, bidder "
+                    f"rows {bid_rows}, mismatched fields {b}")
+                mismatches += b
+                max_err = max(max_err, e)
+                cases += 1
+    if mismatches:
+        raise SystemExit(f"the auction kernel disagrees with its plain "
+                         f"version: {mismatches} mismatched fields")
+    log(f"phase auction kernel: {cases} ticks exactly equal")
+    return {"mismatches": 0, "max_abs_err": max_err}
+
+
+def time_resident_auction(dev, samples: list) -> dict:
+    """The auction kernel per tick on the resident auction loop's own
+    states, beside its bound and its plain version on the card, each state
+    timed once by each. The plain version bids with the plain top-2, and
+    each of its ticks is also held exactly against the kernel's from the
+    same state: the comparison on the loop's states that shares no code
+    with the kernel. The plain tick with B2's bids is context. Warm and
+    cold ticks differ forty-fold in their bidders, so the entry's numbers
+    are means over the same states, and each kind's medians are logged."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import _resident_tick_impl
+
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False)
+    n = len(samples)
+    order = iter(range(10**9))
+
+    def next_sample():
+        packet, pre, _ = samples[next(order) % n]
+        return packet, clone_state(pre)
+
+    def plain(a):
+        return _resident_tick_impl(a[0], a[1], placement="auction", **kw)
+
+    # n consecutive timed calls after 3 warm-ups: every state once; the
+    # kernel's timed call j ran state (j + 3) % n
+    k_ms = event_ms(lambda a: KERNEL.auction(a[0], a[1], **kw), n,
+                    setup=next_sample)
+    k_of = {(j + 3) % n: t for j, t in enumerate(k_ms)}
+    b2_ms = event_ms(plain, n, setup=next_sample)
+    bad, err, p_ms = 0, 0.0, []
+    for i, (packet, pre, _) in enumerate(samples):
+        res_k, st_k = KERNEL.auction(packet, clone_state(pre), **kw)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with plain_bids():
+            a.record()
+            res_p, st_p = plain((packet, clone_state(pre)))
+            b.record()
+        torch.cuda.synchronize()
+        p_ms.append(a.elapsed_time(b))
+        b1, e1 = compare(res_k, res_p, f"loop state {i} vs plain bids: out")
+        b2, e2 = compare(st_k, st_p, f"loop state {i} vs plain bids: state")
+        bad, err = bad + b1 + b2, max(err, e1, e2)
+    if bad:
+        raise SystemExit(f"the auction kernel disagrees with its plain "
+                         f"version with plain bids on the loop's states: "
+                         f"{bad} mismatched fields")
+    bounds = [auction_bound_ms(r, p.cpu()) for p, _, r in samples]
+    out = {"ms": statistics.mean(k_ms), "plain_ms": statistics.mean(p_ms),
+           "bound_ms": statistics.mean(b for b, _ in bounds),
+           "bound_by": statistics.mode(by for _, by in bounds),
+           "mismatches": bad, "max_abs_err": err}
+    for kind in ("warm", "cold"):
+        idx = [i for i, (_, pre, _) in enumerate(samples)
+               if bool(pre.refresh) == (kind == "cold")]
+        if not idx:
+            continue
+        log(f"  {kind} states ({len(idx)}): bidder rows "
+            f"{[samples[i][2] for i in idx]}; medians: kernel "
+            f"{statistics.median(k_of[i] for i in idx):.4f} ms, bound "
+            f"{statistics.median(bounds[i][0] for i in idx):.4f} ms, plain "
+            f"version with plain bids "
+            f"{statistics.median(p_ms[i] for i in idx):.1f} ms")
+    every_row = (64 * SHAPE["T"] * SHAPE["W"] * MAX_SLOTS * BID_OPS_PER_CELL
+                 / F32_OPS_PER_S * 1e3)
+    log(f"  auction kernel on the resident auction run's {n} states, means: "
+        f"{out['ms']:.4f} ms (min {min(k_ms):.4f}, max {max(k_ms):.4f}); "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: bidder rows x "
+        f"{SHAPE['W'] * MAX_SLOTS} slots x {BID_OPS_PER_CELL} ops at "
+        f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s), kernel/bound "
+        f"{out['ms'] / out['bound_ms']:.1f}; plain version with plain bids "
+        f"{out['plain_ms']:.1f} ms, exactly equal on every state; plain "
+        f"tick with B2's bids {statistics.mean(b2_ms):.4f} ms; were every "
+        f"row to bid in 64 rounds, {every_row:.4f} ms")
+    return out
+
+
+# -- phase 7: times -----------------------------------------------------------
 def event_ms(fn, n: int, setup=None) -> list[float]:
     """Per-call device time of ``fn`` with CUDA events, ``n`` calls after a
     warm-up; ``setup`` runs before each call, outside the timed pair. A spin
@@ -755,12 +967,13 @@ def phase_time(dev, n: int, samples: list) -> dict:
     order = iter(range(10**9))
 
     def next_sample():
-        packet, pre = samples[next(order) % len(samples)]
+        packet, pre, _ = samples[next(order) % len(samples)]
         return packet, clone_state(pre)
 
     loop_ms = event_ms(lambda a: KERNEL(a[0], a[1], flush=False, **kw),
                        len(samples), setup=next_sample)
-    loop_bound = statistics.median(bound_ms(True, p.cpu()) for p, _ in samples)
+    loop_bound = statistics.median(bound_ms(True, p.cpu())
+                                   for p, _, _ in samples)
     out = {"loop": (statistics.median(loop_ms), loop_bound)}
     log(f"  kernel on the resident run's own states (prio=True): "
         f"{out['loop'][0]:.4f} ms (min {min(loop_ms):.4f}), bound "
@@ -864,6 +1077,7 @@ def main() -> int:
     from tpu_faas_torch.sched import bid, fused_tick
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}")
@@ -900,10 +1114,25 @@ def main() -> int:
     assert bid_launches > 0, "the auction path never launched bid_top2"
     log(f"  B2 launches on the auction path: {bid_launches} in "
         f"{ra['ticks']} ticks, rounds per tick {ra['rounds']}")
+    rka = phase_auction_kernel(dev)
+    fused_tick.KERNEL.launches = 0  # count the resident auction loop alone
+    fused_tick.KERNEL.auction_launches = 0
+    rra = phase_resident(dev, N_AUCTION_TICKS, N_AUCTION_TIMED,
+                         placement="auction")
+    auction_launches = fused_tick.KERNEL.auction_launches
+    assert auction_launches > 0, "the resident auction never launched"
+    log(f"  integrated tick_resident, auction (diff, pack, upload, kernel; "
+        f"synchronized): {statistics.median(rra['tick_ms']):.4f} ms, host "
+        f"enqueue alone {statistics.median(rra['tick_enqueue_ms']):.4f} ms, "
+        f"packet upload + kernel on the card "
+        f"{statistics.median(rra['launch_ms']):.4f} ms, medians of "
+        f"{len(rra['tick_ms'])} ticks; auction launches {auction_launches} "
+        f"[{card}]")
     log(f"phase time [{card}]:")
     t = phase_time(dev, N_TIMED, rr["samples"])
     tb = time_bid(dev, N_TIMED // 3)
     time_auction(ra, 3)
+    ta = time_resident_auction(dev, rra["samples"])
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,
@@ -920,8 +1149,21 @@ def main() -> int:
                 "max_abs_err": rb["max_abs_err"], "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": None}
+    # no single PyTorch call computes a resident auction tick
+    entry_b1a = {"name": "fused_resident_tick_auction", "route": "cuda",
+                 "source": fused_tick.SOURCE,
+                 "replaces": fused_tick.AUCTION_REPLACES,
+                 "launches": auction_launches,
+                 "mismatches": (rka["mismatches"] + rra["mismatches"]
+                                + ta["mismatches"]),
+                 "max_abs_err": max(rka["max_abs_err"], rra["max_abs_err"],
+                                    ta["max_abs_err"]),
+                 "ms": ta["ms"], "plain_ms": ta["plain_ms"],
+                 "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
+                 "library_ms": None}
     log(f"card: {card}")
-    print(json.dumps({"kernels": [entry, entry_b2]}), flush=True)
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [entry, entry_b2, entry_b1a]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

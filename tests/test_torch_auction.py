@@ -192,6 +192,28 @@ def test_warm_start_exact_from_same_prices(seed, warm_rounds):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bid_rows_sum_each_rounds_bidders(seed):
+    """``n_bid_rows`` adds up each round's bidders: every admitted task in
+    the first round, then those still without a slot, a count that never
+    grows (a won slot installs one bidder and evicts at most one owner)."""
+    K = 4
+    p = _problem(seed, n_tasks=50, dyadic=True)
+    args = [torch.from_numpy(np.array(p[f])) for f in _FIELDS]
+    n_match = int(tau._expand_and_square(*args[1:], K)[5])
+    assert n_match > 0
+    full = tau.auction_placement_impl(*args, max_slots=K, eps=_EPS_EXACT)
+    totals = [0] + [
+        tau.auction_placement_impl(*args, max_slots=K, eps=_EPS_EXACT,
+                                   warm_rounds=r).n_bid_rows
+        for r in range(1, min(full.n_rounds, 8) + 1)
+    ]
+    per_round = np.diff(totals)
+    assert per_round[0] == n_match
+    assert (per_round >= 1).all() and (np.diff(per_round) <= 0).all()
+    assert full.n_rounds <= full.n_bid_rows <= full.n_rounds * n_match
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
 def test_resident_carry_exact_without_refresh(seed):
     K = 4
     p = _problem(seed, n_tasks=40, dyadic=True)
@@ -580,10 +602,3 @@ def test_resident_auction_matches_batch_auction_across_ticks():
     assert dict(res2.placed) == {f"u{i}": int(w) for i, w in enumerate(ref2)
                                  if w >= 0}
     assert not bool(r._r_state.refresh)
-
-
-def test_resident_auction_on_cuda_raises():
-    """The kernel B1 places by rank only: a CUDA resident auction waits for
-    B1's auction branch, and raises before it looks for a card."""
-    with pytest.raises(NotImplementedError, match="B1's auction branch"):
-        tres.ResidentScheduler(**_SMALL, placement="auction", device="cuda")

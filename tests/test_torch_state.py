@@ -118,14 +118,15 @@ def test_scheduler_arrays_tick_matches_jax():
 ])
 def test_unported_placements_raise(placement, exc):
     """What is still unported of each placement raises: all of Sinkhorn,
-    and of the auction only the resident tick on CUDA (B1's auction
-    branch); the batch auction runs (tests/test_torch_auction.py)."""
-    make, device = TArrays, "cpu"
+    and of the auction only the resident tick's tenancy and speculation
+    lanes; the batch and resident auctions run
+    (tests/test_torch_auction.py, tests/test_torch_fused_auction.py)."""
+    make, kw = TArrays, {}
     if placement == "auction":
-        make, device = ResidentScheduler, "cuda"
+        make, kw = ResidentScheduler, dict(tenancy=object())
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else "unknown"):
-        make(placement=placement, device=device)
+        make(placement=placement, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_devices=2),

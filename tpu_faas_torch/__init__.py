@@ -11,7 +11,8 @@ reader can find each module's twin:
 - :mod:`tpu_faas_torch.sched.resident`   the device-resident delta tick and
   ``ResidentScheduler``
 - :mod:`tpu_faas_torch.sched.fused_tick` the resident tick as ONE hand-written
-  CUDA kernel (``csrc/fused_tick.cu``), with its plain-PyTorch version
+  CUDA launch (``csrc/fused_tick.cu``; rank placement on one block, the
+  auction cooperative over the card), with its plain-PyTorch version
 - :mod:`tpu_faas_torch.sim.fleet`        the simulated churn fleet
 
 Entry points take ``device=`` and default to ``"cuda"``; without a GPU they

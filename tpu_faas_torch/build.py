@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 plain-C shared library under ``csrc/build/`` (listed in ``.gitignore``),
-named by a hash of its source and flags, so an unchanged source is built
-once per checkout and a changed one never loads a stale library. The
+named by a hash of its source, of every ``csrc`` header it includes
+(``#include "name.cuh"``, followed through headers that include others)
+and of the flags, so an unchanged source is built once per checkout and a
+changed source or header never loads a stale library. The
 libraries are loaded with ``ctypes``; :func:`check_arg` is the check each
 wrapper makes on a tensor before it hands the kernel a raw pointer.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,10 +47,27 @@ def nvcc_path() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> None:
+    """``path`` and, depth first, every header it includes from ``csrc``."""
+    text = path.read_bytes()
+    seen[path] = text
+    for inc in _INCLUDE.findall(text):
+        dep = path.parent / inc.decode()
+        if dep not in seen and dep.is_file():
+            _sources(dep, seen)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    seen: dict[Path, bytes] = {}
+    _sources(CSRC / f"{name}.cu", seen)
+    h = hashlib.sha256()
+    for path, text in seen.items():
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, str]:

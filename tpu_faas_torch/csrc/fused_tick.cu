@@ -1,26 +1,56 @@
-// The resident scheduling tick as ONE hand-written CUDA kernel (Hopper, sm_90a).
+// The resident scheduling tick as hand-written CUDA kernels (Hopper, sm_90a).
 //
 // Replaces the TPU kernel tpu_faas/sched/pallas_fused.py::_fused_resident_tick_impl
-// (the pl.pallas_call that runs the whole resident tick) for rank placement
-// with tenancy and speculation off. Its plain PyTorch version is
+// (the pl.pallas_call that runs the whole resident tick) for rank and auction
+// placement with tenancy and speculation off. Its plain PyTorch version is
 // tpu_faas_torch/sched/resident.py::_resident_tick_impl; the two agree exactly
-// on every output and every state leaf (integers by contract, and the float
-// leaves are only scattered, never computed).
+// on every output and every state leaf.
 //
-// One launch per tick, ONE thread block of 1024 threads, phases in order with
-// __syncthreads() between them:
+// Phases, shared by both placements:
 //   1. apply the delta packet: masked scatters with sentinel-drop, ADDITIVE
 //      free counts (atomicAdd), arrivals into the first KA invalid pending
 //      slots found by a block-wide scan, capped at min(n_arr, n_invalid);
 //   2. liveness (hb_age = now - last_hb <= tte, on the post-scatter state),
 //      purge, and the compacted redispatch of in-flight slots of dead rows;
-//   3. rank placement (tpu_faas/sched/greedy.py): expand slots, stable sort by
-//      -speed, admission (FCFS scan, or stable sort of the priority key),
-//      stable sort of -task_key, rank-for-rank pairing;
+//   3. placement (below);
 //   4. compaction: the first KP placements (clearing their valid bit and
 //      taking their free slot on the device), and n_pending.
 // The state tensors are updated in place: the counterpart of the Pallas
 // kernel's input_output_aliases is that their addresses never change.
+//
+// Rank placement (fused_tick_kernel): one launch of ONE 1024-thread block,
+// phases in order with __syncthreads() between them. Phase 3 is
+// tpu_faas/sched/greedy.py: expand slots, stable sort by -speed, admission
+// (FCFS scan, or stable sort of the priority key), stable sort of -task_key,
+// rank-for-rank pairing. The flush mode (phase 1 alone) also runs here.
+//
+// Auction placement (fused_auction_kernel): one COOPERATIVE launch of as many
+// 1024-thread blocks as the card holds at once, phases separated by grid
+// barriers. Phase 3 is tpu_faas/sched/auction.py::auction_placement_impl on
+// the resident carry:
+//   - block 0 alone runs phases 1, 2 and the auction's opening: the slot
+//     order by speed (rank's key), n_match = min(valid tasks, free live
+//     slots), FCFS admission of the first n_match valid tasks, the n_match
+//     fastest slots, and the opening prices -- the rank-dual seed when the
+//     carried refresh flag is set, else the carried prices re-based;
+//   - then at most warm_rounds bidding rounds across the whole grid while an
+//     admitted task has no slot. Each round: every bidder's top-2 bid with
+//     the code of kernel B2 (bid_top2.cuh), one warp per 4 bidders; each
+//     bid an atomicMin on its slot's 64-bit key (order-preserving bits of
+//     -bid_price, then the task index, so the highest bid wins and a tie goes
+//     to the lower task, as the plain version's lexsort decides); a grid
+//     barrier; every won slot evicts its previous owner and installs the
+//     winner, its slot and its price (the evicted owners never bid, so the
+//     two index sets are disjoint); a barrier; the next round's bidders
+//     collected; a barrier. Every block reads the loop condition from the
+//     device after the barrier: no host round trip;
+//   - block 0 closes the tick: the rank spill of the leftover tail, refresh,
+//     and phase 4.
+// The seed's reversed cumsum is ONE float64 running sum from the end,
+// rounded per element: the order the plain version's host cumsum uses.
+// Every product and sum of the seed and the round is spelled with
+// __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn in the plain version's order, so
+// nvcc contracts nothing into an FMA.
 //
 // Sorts are block-wide stable LSD radix sorts over 32-bit order-preserving
 // keys, 4 passes of 8 bits (a pass whose digit is the same for every key is
@@ -29,26 +59,34 @@
 // NaN to one positive quiet NaN before the key is built, so -0.0 ties with
 // 0.0 and NaN sorts last, as both frameworks sort them.
 //
-// What bounds it on this card: the work is a few MB of state, packet and sort
-// traffic; against 3.35 TB/s of HBM that is a few microseconds. This
-// single-SM design runs at one SM's share of the memory system and is
-// latency-bound on its ~400 block-wide barriers per tick, far from that
-// bound; a multi-block persistent design is the later step.
+// What bounds them on this card. Rank: a few MB of state, packet and sort
+// traffic, a few microseconds of HBM time; the single-SM design runs at one
+// SM's share of the memory system and is latency-bound on its ~400
+// block-wide barriers per tick. Auction: the bids, 18 operations per
+// (bidder, slot) cell at the float32 rate; the grid holds every SM for the
+// rounds, but the block-0 phases and the serial seed leave the rest idle.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Interface: plain C (ctypes), launches on the given stream, allocates nothing,
-// returns cudaGetLastError().
+// returns cudaGetLastError() (or a negative code: see the auction entry).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bid_top2.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NT = 1024;          // threads in the one block
+constexpr int NT = 1024;          // threads in a block
 constexpr int NWARP = NT / 32;
 constexpr int RADIX = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int HEADER = 9;
+constexpr int kRows = 4;          // bidders per warp in a bidding round
+constexpr unsigned long long kNoBid = ~0ull;
 
 struct Dims {
   int T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, K, use_priority, flush;
@@ -75,6 +113,8 @@ struct Out {
   int32_t* straggler;     // [KG]
   uint8_t* purged;        // [W]
   uint8_t* live;          // [W]
+  int32_t* aux;           // [3] auction: rounds run, tasks spilled, and
+                          //     bidder rows summed over the rounds
 };
 
 struct Scratch {
@@ -84,6 +124,22 @@ struct Scratch {
   int32_t* tv[2];   // task sort values [T]
   int32_t* assign;  // [T] worker per task, -1 queued
   int32_t* admitted;// [T] 0/1
+};
+
+// The auction's carried leaves, its per-tick scratch and its constants.
+struct Auction {
+  float* price;          // [S] state leaf: slot prices
+  uint8_t* refresh;      // [1] state leaf: open from the seed this tick
+  unsigned long long* slot_bid;  // [S] this round's best (key, task) bid
+  float* inv;            // [S] 1 / max(slot speed, 1e-6)
+  float* valid_f;        // [S] 1.0 on the n_match fastest valid slots
+  int32_t* owner;        // [S] task owning the slot, -1 none
+  int32_t* assigned;     // [T] slot of the task, -1 none
+  float* bid;            // [T] this round's bid price of each bidder
+  int32_t* list[2];      // [T] bidders of even and odd rounds
+  int32_t* cnt;          // [2] their counts
+  float eps, jitter;
+  int warm_rounds;
 };
 
 struct Smem {
@@ -112,6 +168,11 @@ __device__ __forceinline__ uint32_t float_key(float x) {
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// torch's clamp_min(x, m) on a float: NaN stays NaN, a tie keeps x
+__device__ __forceinline__ float clamp_min(float x, float m) {
+  return x < m ? m : x;
+}
 
 __device__ __forceinline__ uint32_t int_key(int32_t x) {
   return static_cast<uint32_t>(x) ^ 0x80000000u;
@@ -143,6 +204,20 @@ __device__ int block_exclusive_scan(int v, int* total, Smem& sm) {
   *total = sm.scan[NWARP - 1];
   __syncthreads();  // sm.scan is reused by the next call
   return excl;
+}
+
+// Minimum over the block of one float per thread (no NaN among them).
+// Every thread of the block must call it; every thread gets the result.
+__device__ float block_min(float v, Smem& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  if (lane == 0) sm.scan[warp] = __float_as_int(v);
+  __syncthreads();
+  float m = __int_as_float(sm.scan[0]);
+  for (int w = 1; w < NWARP; ++w) m = fminf(m, __int_as_float(sm.scan[w]));
+  __syncthreads();  // sm.scan is reused by the next call
+  return m;
 }
 
 // Each thread's contiguous chunk of [0, n): chunks in thread order keep every
@@ -256,22 +331,21 @@ __device__ int block_radix_sort(uint32_t* const k[2], int32_t* const v[2],
   return src;
 }
 
-__global__ void __launch_bounds__(NT, 1)
-fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
-                  Scratch sc) {
-  __shared__ Smem sm;
+// ---- phase 1: apply the delta packet (resident.py::_apply_deltas) --------
+// One block. Returns the packet's clock and time_to_expire.
+__device__ void apply_deltas(const float* packet, const Dims& D,
+                             const State& st, const Out& out, Smem& sm,
+                             float* now, float* tte) {
   const int tid = threadIdx.x;
-  const int T = D.T, W = D.W, I = D.I, K = D.K;
-
-  // ---- phase 1: apply the delta packet (resident.py::_apply_deltas) ------
-  const float now = packet[0];
+  const int T = D.T, W = D.W, I = D.I;
+  *now = packet[0];
   const int n_arr = f2i(packet[1]);
   const int n_hb = f2i(packet[2]);
   const int n_free = f2i(packet[3]);
   const int n_infl = f2i(packet[4]);
   const int n_speed = f2i(packet[5]);
   const int n_active = f2i(packet[6]);
-  const float tte = packet[8];
+  *tte = packet[8];
   int off = HEADER;
   const float* arr_sizes = packet + off; off += D.KA;
   const float* arr_prio = packet + off; if (D.use_priority) off += D.KA;
@@ -322,10 +396,13 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
       out.arrival_slots[j] = -1;
     }
   }
-  if (D.flush) return;
-  __syncthreads();
+}
 
-  // ---- phase 2: liveness, purge, redispatch (state.py) --------------------
+// ---- phase 2: liveness, purge, redispatch (state.py) ----------------------
+__device__ void liveness(const Dims& D, const State& st, const Out& out,
+                         float now, float tte, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int W = D.W;
   for (int w = tid; w < W; w += NT) {
     const float age = now - st.last_hb[w];
     const uint8_t l = (st.active[w] && age <= tte) ? 1 : 0;
@@ -335,18 +412,24 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
   }
   __syncthreads();
   first_k(
-      I, D.KR, out.redispatch,
+      D.I, D.KR, out.redispatch,
       [&](int i) {
         const int iw = st.inflight[i];
         return iw >= 0 && !out.live[min(iw, W - 1)];
       },
       [](int, int) {}, sm);
   for (int j = tid; j < D.KG; j += NT) out.straggler[j] = -1;
+}
 
-  // ---- phase 3: rank placement (greedy.py::rank_match_placement_impl) -----
-  const int S = W * K;
+// Slot expansion (greedy.py's layout: slot s is process s % K of worker
+// s / K, valid when live and below the free count), stably sorted by
+// -speed with invalid slots last. Returns the sc.sv buffer holding the
+// order; *n_slots gets the number of valid slots.
+__device__ int sort_slots(const Dims& D, const State& st, const Out& out,
+                          const Scratch& sc, Smem& sm, int* n_slots) {
+  const int K = D.K, S = D.W * K;
   int my_slots = 0;
-  for (int s = tid; s < S; s += NT) {
+  for (int s = threadIdx.x; s < S; s += NT) {
     const int w = s / K;
     const int f = out.live[w] ? st.free_cnt[w] : 0;
     const bool ok = (s - w * K) < f;
@@ -354,9 +437,18 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
     sc.sk[0][s] = float_key(-(ok ? st.speed[w] : neg_inf()));
     sc.sv[0][s] = s;
   }
+  block_exclusive_scan(my_slots, n_slots, sm);
+  return block_radix_sort(sc.sk, sc.sv, S, sm);
+}
+
+// ---- phase 3, rank (greedy.py::rank_match_placement_impl) ----------------
+// Fills sc.assign (worker per task, -1 queued).
+__device__ void rank_place(const Dims& D, const State& st, const Out& out,
+                           const Scratch& sc, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T, K = D.K, S = D.W * K;
   int n_slots_total;
-  block_exclusive_scan(my_slots, &n_slots_total, sm);
-  const int slot_buf = block_radix_sort(sc.sk, sc.sv, S, sm);
+  const int slot_buf = sort_slots(D, st, out, sc, sm, &n_slots_total);
   const int32_t* slot_order = sc.sv[slot_buf];
 
   // admission
@@ -405,9 +497,13 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
   for (int i = tid; i < n_pairs; i += NT)
     sc.assign[task_order[i]] = slot_order[i] / K;
   __syncthreads();
+}
 
-  // ---- phase 4: compaction (resident.py::_resident_tick_impl) ------------
-  const int32_t* assign = sc.assign;
+// ---- phase 4: compaction (resident.py::_resident_tick_impl) --------------
+__device__ void compact(const Dims& D, const State& st, const Out& out,
+                        const int32_t* assign, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T;
   const int n_placed = first_k(
       T, D.KP, out.placed_slots, [&](int t) { return assign[t] >= 0; },
       [&](int t, int p) {
@@ -426,6 +522,333 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
   if (tid == 0) out.n_pending[0] = n_pending;
 }
 
+__global__ void __launch_bounds__(NT, 1)
+fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
+                  Scratch sc) {
+  __shared__ Smem sm;
+  float now, tte;
+  apply_deltas(packet, D, st, out, sm, &now, &tte);
+  if (D.flush) return;
+  __syncthreads();
+  liveness(D, st, out, now, tte, sm);
+  rank_place(D, st, out, sc, sm);
+  compact(D, st, out, sc.assign, sm);
+}
+
+// ---- the auction: opening (block 0) --------------------------------------
+// auction.py::_rank_dual_seed into au.price: the k-th largest admitted size
+// against the k-th fastest slot, each price step the midpoint of its
+// stability interval, summed from the slowest matched slot up.
+__device__ void rank_dual_seed(const Dims& D, const State& st, const Out& out,
+                               const Scratch& sc, const Auction& au,
+                               const int32_t* slot_order, int n_match,
+                               Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T, K = D.K, S = D.W * K;
+  // the admitted sizes in descending order: the stable sort of -tkey
+  for (int t = tid; t < T; t += NT) {
+    const float tkey = sc.admitted[t] ? st.sizes[t] : neg_inf();
+    sc.tk[0][t] = float_key(-tkey);
+    sc.tv[0][t] = t;
+  }
+  __syncthreads();
+  const int b = block_radix_sort(sc.tk, sc.tv, T, sm);
+  const int32_t* by_size = sc.tv[b];
+  auto size_sorted = [&](int i) {
+    const int t = by_size[i];
+    return clamp_min(sc.admitted[t] ? st.sizes[t] : neg_inf(), 0.0f);
+  };
+  auto inv_sorted = [&](int i) {
+    const int s = slot_order[i], w = s / K;
+    const int f = out.live[w] ? st.free_cnt[w] : 0;
+    const float key = (s - w * K) < f ? st.speed[w] : neg_inf();
+    return __fdiv_rn(1.0f, clamp_min(key, 1e-6f));
+  };
+  // contributions, then their reversed running sum in place; positions
+  // j >= n_match - 1 contribute +0.0 and keep a +0.0 sum
+  float* p_sorted = reinterpret_cast<float*>(sc.sk[0]);
+  for (int j = tid; j < S; j += NT) {
+    float c = 0.0f;
+    if (j + 1 < n_match) {  // j + 1 < min(T, S): both neighbours exist
+      const float mid =
+          __fmul_rn(__fadd_rn(size_sorted(j), size_sorted(j + 1)), 0.5f);
+      const float diff = __fsub_rn(inv_sorted(j + 1), inv_sorted(j));
+      c = __fmul_rn(mid, clamp_min(diff, 0.0f));
+    }
+    p_sorted[j] = c;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // ONE float64 running sum from the end, rounded per element: the order
+    // of the plain version's host cumsum
+    double acc = 0.0;
+#pragma unroll 8
+    for (int j = n_match - 2; j >= 0; --j) {
+      acc += static_cast<double>(p_sorted[j]);
+      p_sorted[j] = static_cast<float>(acc);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < S; i += NT) au.price[slot_order[i]] = p_sorted[i];
+}
+
+// auction.py::_rebase in place: shift by the smallest positive price,
+// clamped at 0.
+__device__ void rebase(int S, const Auction& au, Smem& sm) {
+  float m = CUDART_INF_F;
+  for (int s = threadIdx.x; s < S; s += NT) {
+    const float p = au.price[s];
+    if (p > 0.0f) m = fminf(m, p);
+  }
+  m = block_min(m, sm);
+  const float shift = isfinite(m) ? m : 0.0f;
+  for (int s = threadIdx.x; s < S; s += NT)
+    au.price[s] = clamp_min(__fsub_rn(au.price[s], shift), 0.0f);
+}
+
+// auction.py::_expand_and_square and the opening prices. Also the first
+// round's bidders (every admitted task, in index order). Returns n_match.
+__device__ int auction_open(const Dims& D, const State& st, const Out& out,
+                            const Scratch& sc, const Auction& au, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T, K = D.K, S = D.W * K;
+  const bool refresh = au.refresh[0] != 0;  // read before it is rewritten
+  int n_slots;
+  const int slot_buf = sort_slots(D, st, out, sc, sm, &n_slots);
+  const int32_t* slot_order = sc.sv[slot_buf];
+  // FCFS admission of the first n_match valid tasks
+  int lo, hi;
+  chunk_of(T, &lo, &hi);
+  int c = 0;
+  for (int t = lo; t < hi; ++t) c += st.valid[t] ? 1 : 0;
+  int n_valid;
+  int rank = block_exclusive_scan(c, &n_valid, sm);
+  const int n_match = min(n_slots, n_valid);
+  for (int t = lo; t < hi; ++t) {
+    const bool v = st.valid[t] != 0;
+    const bool adm = v && rank < n_match;
+    sc.admitted[t] = adm ? 1 : 0;
+    au.assigned[t] = -1;
+    if (adm) au.list[0][rank] = t;
+    rank += v ? 1 : 0;
+  }
+  // the n_match fastest valid slots are the auction's
+  for (int i = tid; i < S; i += NT) {
+    const int s = slot_order[i], w = s / K;
+    const int f = out.live[w] ? st.free_cnt[w] : 0;
+    au.valid_f[s] = ((s - w * K) < f && i < n_match) ? 1.0f : 0.0f;
+    au.inv[s] = __fdiv_rn(1.0f, clamp_min(st.speed[w], 1e-6f));
+    au.owner[s] = -1;
+    au.slot_bid[s] = kNoBid;
+  }
+  if (tid == 0) {
+    au.cnt[0] = n_match;
+    au.cnt[1] = 0;
+  }
+  __syncthreads();
+  if (refresh) {
+    rank_dual_seed(D, st, out, sc, au, slot_order, n_match, sm);
+  } else {
+    rebase(S, au, sm);
+  }
+  return n_match;
+}
+
+// ---- the auction: one bidding round's bids (whole grid) -------------------
+__device__ void bid_round(const Dims& D, const State& st, const Auction& au,
+                          const int32_t* bidders, int n_bid) {
+  const int lane = threadIdx.x & 31;
+  const int S = D.W * D.K;
+  const int n_groups = (n_bid + kRows - 1) / kRows;
+  const int n_gwarp = gridDim.x * NWARP;
+  for (int g = blockIdx.x * NWARP + (threadIdx.x >> 5); g < n_groups;
+       g += n_gwarp) {
+    float neg_size[kRows];
+    uint32_t row_base[kRows];
+    int row[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      // rows past the list repeat its last bidder and store nothing
+      row[r] = bidders[min(g * kRows + r, n_bid - 1)];
+      neg_size[r] = -st.sizes[row[r]];
+      row_base[r] = static_cast<uint32_t>(row[r]) * static_cast<uint32_t>(S);
+    }
+    float v1[kRows], v2[kRows];
+    int best[kRows];
+    tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, au.inv, au.valid_f,
+                                   au.price, au.jitter, S, v1, best, v2);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      // a row with no valid slot (v1 = -inf) does not bid
+      if (lane != r || g * kRows + r >= n_bid || !isfinite(v1[r])) continue;
+      // a single valid slot (v2 = -inf): the bid caps at a large increment
+      const float incr = __fadd_rn(
+          isfinite(v2[r]) ? __fsub_rn(v1[r], v2[r]) : 1.0f, au.eps);
+      const float bp = __fadd_rn(au.price[best[r]], incr);
+      au.bid[row[r]] = bp;
+      const unsigned long long key =
+          (static_cast<unsigned long long>(float_key(-bp)) << 32) |
+          static_cast<uint32_t>(row[r]);
+      atomicMin(au.slot_bid + best[r], key);
+    }
+  }
+}
+
+// ---- the auction: close (block 0), auction.py::_rank_spill_close ---------
+__device__ void auction_close(const Dims& D, const State& st,
+                              const Scratch& sc, const Auction& au,
+                              const Out& out, int n_match, int rounds,
+                              int bid_rows, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T, K = D.K, S = D.W * K;
+  auto leftover_task = [&](int t) {
+    return sc.admitted[t] != 0 && au.assigned[t] < 0;
+  };
+  auto leftover_slot = [&](int s) {
+    return au.valid_f[s] > 0.0f && au.owner[s] < 0;
+  };
+  int c_t = 0, c_s = 0;
+  for (int t = tid; t < T; t += NT) c_t += leftover_task(t) ? 1 : 0;
+  for (int s = tid; s < S; s += NT) c_s += leftover_slot(s) ? 1 : 0;
+  int n_lt, n_ls;
+  block_exclusive_scan(c_t, &n_lt, sm);
+  block_exclusive_scan(c_s, &n_ls, sm);
+  const int n_spill = min(n_lt, n_ls);
+  if (n_spill > 0) {
+    // largest leftover task to fastest leftover slot
+    for (int t = tid; t < T; t += NT) {
+      sc.tk[0][t] = float_key(-(leftover_task(t) ? st.sizes[t] : neg_inf()));
+      sc.tv[0][t] = t;
+    }
+    for (int s = tid; s < S; s += NT) {
+      sc.sk[0][s] =
+          float_key(-(leftover_slot(s) ? st.speed[s / K] : neg_inf()));
+      sc.sv[0][s] = s;
+    }
+    __syncthreads();
+    const int tb = block_radix_sort(sc.tk, sc.tv, T, sm);
+    const int sb = block_radix_sort(sc.sk, sc.sv, S, sm);
+    for (int i = tid; i < n_spill; i += NT)
+      au.assigned[sc.tv[tb][i]] = sc.sv[sb][i];
+    __syncthreads();
+  }
+  int c_str = 0;
+  for (int t = tid; t < T; t += NT) {
+    const int a = au.assigned[t];
+    c_str += (sc.admitted[t] && a < 0) ? 1 : 0;
+    sc.assign[t] = a >= 0 ? a / K : -1;
+  }
+  int n_stranded;
+  block_exclusive_scan(c_str, &n_stranded, sm);
+  if (tid == 0) {
+    const bool stale = n_lt > 0 && n_spill * 20 > max(n_match, 1) &&
+                       n_spill > 8;
+    au.refresh[0] = (n_stranded > 0 || stale) ? 1 : 0;
+    out.aux[0] = rounds;
+    out.aux[1] = n_spill;
+    out.aux[2] = bid_rows;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int load_volatile(const int32_t* p) {
+  return *reinterpret_cast<const volatile int32_t*>(p);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
+                     Out out, Scratch sc, Auction au) {
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int T = D.T, S = D.W * D.K;
+  const int gthread = blockIdx.x * NT + tid;
+  const int n_gthread = gridDim.x * NT;
+  int n_match = 0;
+  if (blockIdx.x == 0) {
+    float now, tte;
+    apply_deltas(packet, D, st, out, sm, &now, &tte);
+    __syncthreads();
+    liveness(D, st, out, now, tte, sm);
+    n_match = auction_open(D, st, out, sc, au, sm);
+  }
+  grid.sync();
+  int rounds = 0, bid_rows = 0;
+  for (;;) {
+    // every thread reads the same count after the barrier: the loop ends
+    // on the device, in every block at once
+    const int p = rounds & 1;
+    const int n_bid = load_volatile(au.cnt + p);
+    if (rounds >= au.warm_rounds || n_bid == 0) break;
+    bid_rows += n_bid;
+    if (gthread == 0) au.cnt[p ^ 1] = 0;  // last read before this round
+    bid_round(D, st, au, au.list[p], n_bid);
+    grid.sync();
+    // each won slot: evict the previous owner, install the winner
+    for (int s = gthread; s < S; s += n_gthread) {
+      const unsigned long long k = au.slot_bid[s];
+      if (k == kNoBid) continue;
+      au.slot_bid[s] = kNoBid;
+      const int t = static_cast<int>(static_cast<uint32_t>(k));
+      const int prev = au.owner[s];
+      if (prev >= 0) au.assigned[prev] = -1;
+      au.owner[s] = t;
+      au.price[s] = au.bid[t];
+      au.assigned[t] = s;
+    }
+    grid.sync();
+    // the next round's bidders: admitted tasks still without a slot (their
+    // order does not matter: each bid depends on its row alone)
+    int32_t* next = au.list[p ^ 1];
+    const unsigned lt_mask = (1u << lane) - 1u;
+    for (int base = blockIdx.x * NT; base < T; base += n_gthread) {
+      const int t = base + tid;
+      const bool want = t < T && sc.admitted[t] && au.assigned[t] < 0;
+      const unsigned m = __ballot_sync(FULL, want);
+      int pos = 0;
+      if (lane == 0 && m) pos = atomicAdd(au.cnt + (p ^ 1), __popc(m));
+      pos = __shfl_sync(FULL, pos, 0);
+      if (want) next[pos + __popc(m & lt_mask)] = t;
+    }
+    grid.sync();
+    ++rounds;
+  }
+  if (blockIdx.x != 0) return;
+  auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+  compact(D, st, out, sc.assign, sm);
+}
+
+// scratch = sk0 sk1 sv0 sv1 [S each] ++ tk0 tk1 tv0 tv1 assign admitted [T each]
+Scratch sort_scratch(int32_t* p, long S, long T) {
+  Scratch sc;
+  sc.sk[0] = reinterpret_cast<uint32_t*>(p); p += S;
+  sc.sk[1] = reinterpret_cast<uint32_t*>(p); p += S;
+  sc.sv[0] = p; p += S;
+  sc.sv[1] = p; p += S;
+  sc.tk[0] = reinterpret_cast<uint32_t*>(p); p += T;
+  sc.tk[1] = reinterpret_cast<uint32_t*>(p); p += T;
+  sc.tv[0] = p; p += T;
+  sc.tv[1] = p; p += T;
+  sc.assign = p; p += T;
+  sc.admitted = p;
+  return sc;
+}
+
+// out_i32 = placed_slots ++ placed_rows ++ arrival_slots ++ redispatch ++
+//           n_pending ++ straggler [++ aux]; out_b8 = purged ++ live
+Out outputs(int32_t* out_i32, uint8_t* out_b8, int W, int KA, int KP, int KR,
+            int KG) {
+  return Out{out_i32,
+             out_i32 + KP,
+             out_i32 + 2 * KP,
+             out_i32 + 2 * KP + KA,
+             out_i32 + 2 * KP + KA + KR,
+             out_i32 + 2 * KP + KA + KR + 1,
+             out_b8,
+             out_b8 + W,
+             out_i32 + 2 * KP + KA + KR + 1 + KG};
+}
+
 }  // namespace
 
 extern "C" int tpu_faas_fused_resident_tick(
@@ -439,31 +862,68 @@ extern "C" int tpu_faas_fused_resident_tick(
          flush};
   State st{sizes, valid, prio, last_hb, free_cnt, inflight, prev_live, speed,
            active};
-  // out_i32 = placed_slots ++ placed_rows ++ arrival_slots ++ redispatch ++
-  //           n_pending ++ straggler; out_b8 = purged ++ live
-  Out o{out_i32,
-        out_i32 + KP,
-        out_i32 + 2 * KP,
-        out_i32 + 2 * KP + KA,
-        out_i32 + 2 * KP + KA + KR,
-        out_i32 + 2 * KP + KA + KR + 1,
-        out_b8,
-        out_b8 + W};
-  // scratch = sk0 sk1 sv0 sv1 [S each] ++ tk0 tk1 tv0 tv1 assign admitted [T each]
-  const long S = static_cast<long>(W) * max_slots;
-  int32_t* p = scratch;
-  Scratch sc;
-  sc.sk[0] = reinterpret_cast<uint32_t*>(p); p += S;
-  sc.sk[1] = reinterpret_cast<uint32_t*>(p); p += S;
-  sc.sv[0] = p; p += S;
-  sc.sv[1] = p; p += S;
-  sc.tk[0] = reinterpret_cast<uint32_t*>(p); p += T;
-  sc.tk[1] = reinterpret_cast<uint32_t*>(p); p += T;
-  sc.tv[0] = p; p += T;
-  sc.tv[1] = p; p += T;
-  sc.assign = p; p += T;
-  sc.admitted = p;
+  const Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
+  const Scratch sc =
+      sort_scratch(scratch, static_cast<long>(W) * max_slots, T);
   fused_tick_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       packet, d, st, o, sc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The auction branch: one cooperative launch. Returns 0, a CUDA error code,
+// -1 when the device has no cooperative launch, or -2 when no block of the
+// kernel fits on an SM. out_i32 ends with the aux triple (rounds, spilled,
+// bidder rows summed over the rounds).
+// scratch = slot_bid [2S] ++ the rank layout [4S + 6T] ++ inv valid_f owner
+// [S each] ++ assigned bid list0 list1 [T each] ++ cnt [2].
+extern "C" int tpu_faas_fused_resident_auction(
+    const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
+    float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
+    float* speed, uint8_t* active, float* price, uint8_t* refresh,
+    int32_t* out_i32, uint8_t* out_b8, int32_t* scratch, int T, int W, int I,
+    int KA, int KH, int KF, int KI, int KS, int KB, int KP, int KR, int KG,
+    int max_slots, int use_priority, int warm_rounds, float eps, float jitter,
+    void* stream) {
+  Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
+         0};
+  State st{sizes, valid, prio, last_hb, free_cnt, inflight, prev_live, speed,
+           active};
+  Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
+  const long S = static_cast<long>(W) * max_slots;
+  int32_t* p = scratch;
+  Auction au;
+  au.price = price;
+  au.refresh = refresh;
+  au.slot_bid = reinterpret_cast<unsigned long long*>(p); p += 2 * S;
+  Scratch sc = sort_scratch(p, S, T); p += 4 * S + 6 * T;
+  au.inv = reinterpret_cast<float*>(p); p += S;
+  au.valid_f = reinterpret_cast<float*>(p); p += S;
+  au.owner = p; p += S;
+  au.assigned = p; p += T;
+  au.bid = reinterpret_cast<float*>(p); p += T;
+  au.list[0] = p; p += T;
+  au.list[1] = p; p += T;
+  au.cnt = p;
+  au.eps = eps;
+  au.jitter = jitter;
+  au.warm_rounds = warm_rounds;
+
+  int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fused_auction_kernel, NT, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return -1;
+  if (per_sm < 1) return -2;
+  void* args[] = {&packet, &d, &st, &o, &sc, &au};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(fused_auction_kernel), dim3(per_sm * n_sm),
+      dim3(NT), args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,10 @@ B2 on the card, its plain version on the CPU. The rest of the round is
 plain torch ops. JAX's ``while_loop`` becomes a host loop that evaluates
 JAX's own condition before each round (an admitted task still unassigned,
 and rounds under the budget), so the round counts match; that condition is
-one small read back per round.
+one small read back per round. This module is the batch tick's solver and
+the plain version of the resident tick's auction; on the card the resident
+tick runs the whole solve, rounds included, inside one launch of
+``csrc/fused_tick.cu``.
 
 The module-level helpers stay module-level: the mesh path reuses them.
 """
@@ -29,6 +32,16 @@ from tpu_faas_torch.sched.scatter import scatter_set
 
 _I32 = torch.int32
 _INF = float("inf")
+#: the solver's ε and warm-round budget where the caller gives none (the
+#: resident tick never does); the auction kernel takes the same values
+EPS = 1e-3
+WARM_ROUNDS = 64
+
+
+def bid_scalars(eps: float) -> tuple[float, float]:
+    """(jitter scale, ε) as the f32 values the bids use: the hash jitter is
+    bounded by ε/4."""
+    return float(np.float32(eps * 0.25)), float(np.float32(eps))
 
 
 class AuctionResult(NamedTuple):
@@ -42,6 +55,9 @@ class AuctionResult(NamedTuple):
     refresh: torch.Tensor | None = None
     #: i32 scalar: tasks the rank spill placed after bidding stopped
     n_spilled: torch.Tensor | None = None
+    #: rows that bid, summed over the rounds (counted on the host): the
+    #: (bidder, slot) cells a solve needs are this times S
+    n_bid_rows: int | None = None
 
 
 def _expand_and_square(
@@ -104,7 +120,10 @@ def _rank_dual_seed(
     contrib = torch.where(j + 1 < n_match, size_mid * diff.clamp_min(0.0), 0.0)
     # the reversed cumsum runs on the host: a float cumsum on CUDA sums in
     # an order that changes from run to run, and the seed must not (one
-    # S-long copy each way, once per cold tick)
+    # S-long copy each way, once per cold tick). torch's CPU cumsum of
+    # float32 is ONE serial float64 running sum, each prefix rounded to
+    # float32: here, from the last position to the first. The auction
+    # kernel sums in exactly this order.
     p_sorted = torch.cumsum(contrib.flip(0).cpu(), 0).flip(0).to(dev)
     prices = torch.zeros(S, dtype=torch.float32, device=dev)
     prices[slot_order_by_speed] = p_sorted
@@ -169,11 +188,11 @@ def auction_placement_impl(
     worker_free: torch.Tensor,  # i32[W]
     worker_live: torch.Tensor,  # bool[W]
     max_slots: int = 8,
-    eps: float = 1e-3,
+    eps: float = EPS,
     max_rounds: int = 2000,
     n_phases: int = 10,
     init_price: torch.Tensor | None = None,  # f32[W * max_slots]
-    warm_rounds: int = 64,
+    warm_rounds: int = WARM_ROUNDS,
     seed_from_rank: bool = True,
     carry_refresh: torch.Tensor | None = None,  # bool scalar (resident carry)
 ) -> AuctionResult:
@@ -207,8 +226,7 @@ def auction_placement_impl(
     # hash jitter (bounded by eps/4) breaks the ties of uniform costs
     inv_speed = 1.0 / slot_speed.clamp_min(1e-6)
     valid_f = slot_valid.to(torch.float32)
-    jitter_scale = float(np.float32(eps * 0.25))
-    eps_final = float(np.float32(eps))
+    jitter_scale, eps_final = bid_scalars(eps)
     task_ids = torch.arange(T, dtype=_I32, device=dev)
 
     def body(price, owner, assigned_slot, eps_i):
@@ -246,15 +264,21 @@ def auction_placement_impl(
         assigned_slot = scatter_set(assigned_slot, install_idx, win_slot)
         return price, owner, assigned_slot
 
+    bid_rows = 0
+
     def bid_until(price, owner, assigned_slot, limit, eps_i):
         """JAX's while_loop on the host: the same condition before each
-        round, so the same round count."""
+        round, so the same round count. Adds each round's bidders (admitted
+        tasks still without a slot) to ``bid_rows``."""
+        nonlocal bid_rows
         rounds = 0
-        while rounds < limit and bool(
-            (admitted & (assigned_slot < 0)).any()
-        ):
+        while rounds < limit:
+            n_bid = int((admitted & (assigned_slot < 0)).sum())
+            if n_bid == 0:
+                break
             price, owner, assigned_slot = body(price, owner, assigned_slot,
                                                eps_i)
+            bid_rows += n_bid
             rounds += 1
         return price, owner, assigned_slot, rounds
 
@@ -320,7 +344,8 @@ def auction_placement_impl(
         assigned_slot, owner, admitted, task_size, slot_valid, slot_speed,
         slot_worker, n_match,
     )
-    return AuctionResult(assignment, rounds, price, stranded, refresh, n_spill)
+    return AuctionResult(assignment, rounds, price, stranded, refresh, n_spill,
+                         bid_rows)
 
 
 #: the public name: PyTorch runs eagerly, so the solver is its own entry

@@ -1,12 +1,15 @@
-"""The resident tick as ONE hand-written CUDA kernel, and its wrapper.
+"""The resident tick as ONE hand-written CUDA launch, and its wrapper.
 
 Counterpart of ``tpu_faas/sched/pallas_fused.py``: the TPU kernel
 ``_fused_resident_tick_impl`` runs the whole resident tick as one
 ``pl.pallas_call``; here ``csrc/fused_tick.cu`` does the same for Hopper —
-apply the delta packet, liveness, purge, redispatch, rank placement and
-output compaction in one launch, with the state tensors updated in place
-(the counterpart of the Pallas kernel's ``input_output_aliases``: their
-``data_ptr()`` never changes across ticks).
+apply the delta packet, liveness, purge, redispatch, placement and output
+compaction in one launch, with the state tensors updated in place (the
+counterpart of the Pallas kernel's ``input_output_aliases``: their
+``data_ptr()`` never changes across ticks). Rank placement (and the flush
+mode) runs on one thread block; the auction is one cooperative launch over
+the whole card, its bidding rounds looping on the device, and also updates
+the carried ``price`` and ``refresh`` leaves in place.
 
 :func:`fused_resident_tick` is the entry. On CPU tensors it runs the plain
 PyTorch version, ``resident._resident_tick_impl`` (the CPU has no kernel);
@@ -14,7 +17,9 @@ on CUDA tensors it launches the kernel or raises — there is no fallback.
 The kernel launches on the current stream, does not synchronise and
 allocates nothing: the wrapper allocates scratch once per shape and the
 outputs fresh every tick, so a tick issued before the previous one is read
-back never overwrites that one's outputs.
+back never overwrites that one's outputs. An auction tick's round count,
+spilled count and bidder rows (summed over its rounds) come back as device
+tensors, which the wrapper never reads.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import ctypes
 import torch
 
 from tpu_faas_torch.build import build, check_arg
+from tpu_faas_torch.sched.auction import EPS, WARM_ROUNDS, bid_scalars
 from tpu_faas_torch.sched.resident import (
     _HEADER,
     _KG,
@@ -32,26 +38,42 @@ from tpu_faas_torch.sched.resident import (
     _resident_tick_impl,
     _ResidentState,
 )
-from tpu_faas_torch.sched.state import unported
+from tpu_faas_torch.sched.state import check_placement
 
 SOURCE = "tpu_faas_torch/csrc/fused_tick.cu"
 REPLACES = "tpu_faas/sched/pallas_fused.py:147 (_fused_resident_tick_impl)"
+#: the auction branch of the same TPU kernel: the resident carry of
+#: auction_placement_impl, traced inside it by _resident_tick_impl
+AUCTION_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
+                    "(_fused_resident_tick_impl, placement=\"auction\")")
 
 _P = ctypes.c_void_p
 _N_PTR = 13  # packet, 9 state leaves, out_i32, out_b8, scratch
 _N_INT = 15  # T W I KA KH KF KI KS KB KP KR KG max_slots prio flush
+_N_PTR_AUCTION = 15  # packet, 9 state leaves, price, refresh, outs, scratch
+_N_INT_AUCTION = 15  # T W I KA KH KF KI KS KB KP KR KG max_slots prio
+#                      warm_rounds
+#: the auction entry's own error codes
+_AUCTION_ERRORS = {
+    -1: "the device has no cooperative launch",
+    -2: "no block of the auction kernel fits on an SM",
+}
 
 
 class FusedTickKernel:
-    """The built kernel, its per-shape scratch and its launch count."""
+    """The built library, its per-shape scratch and its launch counts: one
+    for the rank tick and the flush, one for the auction branch."""
 
     name = "fused_tick"
 
     def __init__(self) -> None:
-        #: kernel launches so far; callers may reset it to 0
+        #: rank-tick and flush launches so far; callers may reset it to 0
         self.launches = 0
+        #: auction-branch launches so far; callers may reset it to 0
+        self.auction_launches = 0
         self.ptxas_report = ""
         self._fn = None
+        self._fn_auction = None
         self._scratch: dict[tuple, torch.Tensor] = {}
 
     def load(self) -> None:
@@ -60,40 +82,78 @@ class FusedTickKernel:
             return
         path, report = build(self.name)
         self.ptxas_report = report
-        fn = ctypes.CDLL(str(path)).tpu_faas_fused_resident_tick
+        lib = ctypes.CDLL(str(path))
+        fn = lib.tpu_faas_fused_resident_tick
         fn.argtypes = [_P] * _N_PTR + [ctypes.c_int] * _N_INT + [_P]  # stream
         fn.restype = ctypes.c_int
-        self._fn = fn
+        auction = lib.tpu_faas_fused_resident_auction
+        auction.argtypes = ([_P] * _N_PTR_AUCTION
+                            + [ctypes.c_int] * _N_INT_AUCTION
+                            + [ctypes.c_float] * 2 + [_P])  # eps jitter stream
+        auction.restype = ctypes.c_int
+        self._fn, self._fn_auction = fn, auction
 
-    def _scratch_for(self, dev: torch.device, T: int, S: int) -> torch.Tensor:
-        # one buffer per (device, shape); launches on one stream run in
-        # order, so reusing it across ticks is safe
-        key = (dev, T, S)
+    def _scratch_for(self, dev: torch.device, T: int, S: int,
+                     auction: bool) -> torch.Tensor:
+        # one buffer per (device, shape, branch); launches on one stream
+        # run in order, so reusing it across ticks is safe
+        key = (dev, T, S, auction)
         buf = self._scratch.get(key)
         if buf is None:
-            buf = torch.empty(4 * S + 6 * T, dtype=torch.int32, device=dev)
+            n = 9 * S + 10 * T + 2 if auction else 4 * S + 6 * T
+            buf = torch.empty(n, dtype=torch.int32, device=dev)
             self._scratch[key] = buf
         return buf
 
-    def __call__(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
-                 KR, max_slots, use_priority, flush):
+    def _check(self, packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
+               use_priority, auction_S=None):
         dev = packet.device
         P = (_HEADER + KA * (2 if use_priority else 1)
              + 2 * (KH + KF + KI + KS + KB))
         check_arg(packet, "packet", torch.float32, P, dev)
-        for name, dtype, n in (
+        leaves = [
             ("sizes", torch.float32, T), ("valid", torch.bool, T),
             ("prio", torch.int32, T), ("last_hb", torch.float32, W),
             ("free", torch.int32, W), ("inflight", torch.int32, I),
             ("prev_live", torch.bool, W), ("speed", torch.float32, W),
             ("active", torch.bool, W),
-        ):
+        ]
+        if auction_S is not None:
+            leaves.append(("price", torch.float32, auction_S))
+        for name, dtype, n in leaves:
             check_arg(getattr(st, name), name, dtype, n, dev)
+        if auction_S is not None:
+            # the staleness flag is a bool scalar (one element)
+            check_arg(st.refresh.reshape(-1), "refresh", torch.bool, 1, dev)
+        return dev
+
+    @staticmethod
+    def _outputs(out_i32, out_b8, W, KA, KP, KR, aux=False):
+        o = 2 * KP + KA + KR
+        return ResidentTickOutput(
+            placed_slots=out_i32[:KP],
+            placed_rows=out_i32[KP : 2 * KP],
+            arrival_slots=out_i32[2 * KP : 2 * KP + KA],
+            redispatch_slots=out_i32[2 * KP + KA : o],
+            purged=out_b8[:W],
+            live=out_b8[W:],
+            n_pending=out_i32[o],
+            straggler_slots=out_i32[o + 1 : o + 1 + _KG],
+            auction_rounds=out_i32[o + 1 + _KG] if aux else None,
+            auction_spilled=out_i32[o + 2 + _KG] if aux else None,
+            auction_bid_rows=out_i32[o + 3 + _KG] if aux else None,
+        )
+
+    def __call__(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
+                 KR, max_slots, use_priority, flush):
+        """A rank tick, or (``flush=True``) the delta packet alone."""
+        dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
+                          use_priority)
         self.load()
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
                               device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
-        scratch = self._scratch_for(dev, T, W * max_slots)
+        scratch = self._scratch_for(dev, T, W * max_slots, False)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(
@@ -109,24 +169,46 @@ class FusedTickKernel:
         if err != 0:
             raise RuntimeError(f"fused_tick launch failed: CUDA error {err}")
         self.launches += 1
-        o = 2 * KP
-        arrival_slots = out_i32[o : o + KA]
+        res = self._outputs(out_i32, out_b8, W, KA, KP, KR)
         if flush:
-            return st, arrival_slots
-        res = ResidentTickOutput(
-            placed_slots=out_i32[:KP],
-            placed_rows=out_i32[KP : 2 * KP],
-            arrival_slots=arrival_slots,
-            redispatch_slots=out_i32[o + KA : o + KA + KR],
-            purged=out_b8[:W],
-            live=out_b8[W:],
-            n_pending=out_i32[o + KA + KR],
-            straggler_slots=out_i32[o + KA + KR + 1 :],
-        )
+            return st, res.arrival_slots
         return res, st
 
+    def auction(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
+                KR, max_slots, use_priority):
+        """An auction tick: one cooperative launch. Updates every leaf it
+        writes in place, ``price`` and ``refresh`` included."""
+        S = W * max_slots
+        dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
+                          use_priority, auction_S=S)
+        self.load()
+        out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG + 3,
+                              dtype=torch.int32, device=dev)
+        out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
+        scratch = self._scratch_for(dev, T, S, True)
+        jitter, eps = bid_scalars(EPS)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = self._fn_auction(
+                packet.data_ptr(), st.sizes.data_ptr(), st.valid.data_ptr(),
+                st.prio.data_ptr(), st.last_hb.data_ptr(),
+                st.free.data_ptr(), st.inflight.data_ptr(),
+                st.prev_live.data_ptr(), st.speed.data_ptr(),
+                st.active.data_ptr(), st.price.data_ptr(),
+                st.refresh.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
+                scratch.data_ptr(),
+                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
+                int(bool(use_priority)), WARM_ROUNDS, eps, jitter, stream,
+            )
+        if err != 0:
+            why = _AUCTION_ERRORS.get(err, f"CUDA error {err}")
+            raise RuntimeError(f"fused_tick auction launch failed: {why}")
+        self.auction_launches += 1
+        return self._outputs(out_i32, out_b8, W, KA, KP, KR, aux=True), st
 
-#: the process's one instance: its ``launches`` is the kernel's count
+
+#: the process's one instance: its ``launches`` and ``auction_launches``
+#: are the library's counts
 KERNEL = FusedTickKernel()
 
 
@@ -142,11 +224,12 @@ def fused_resident_tick(
     state)``) or one delta application alone (``flush=True``: returns
     ``(state, arrival_slots)``). On CUDA tensors the kernel updates ``st``
     in place and returns it; on CPU tensors the plain version returns a
-    new state and leaves ``st`` untouched. The kernel places by rank; the
-    auction runs on the CPU only (ROADMAP B1)."""
+    new state and leaves ``st`` untouched. ``placement`` is ``"rank"`` or
+    ``"auction"``; a flush is the same for both."""
+    check_placement(placement)
     if packet.device.type == "cuda":
-        if placement != "rank":
-            raise unported("the resident auction on CUDA")
+        if placement == "auction" and not flush:
+            return KERNEL.auction(packet, st, **statics)
         return KERNEL(packet, st, flush=flush, **statics)
     if packet.device.type != "cpu":
         raise ValueError(f"no fused tick for device {packet.device}")

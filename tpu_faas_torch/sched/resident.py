@@ -20,11 +20,11 @@ and a second tick issued before the first is resolved cannot double-book.
 ``_resident_tick_impl`` below is the plain PyTorch version of the fused
 kernel (``sched/fused_tick.py`` + ``csrc/fused_tick.cu``): on a CUDA device
 the tick always runs the kernel, which updates the state tensors in place
-(their ``data_ptr()`` never changes); on the CPU it runs this version. The
-kernel places by rank. The auction (its slot prices and staleness flag
-carried in the state) runs on the CPU only: on CUDA it waits for B1's
-auction branch (ROADMAP B1) and raises ``NotImplementedError``, as do
-tenancy and speculation.
+(their ``data_ptr()`` never changes); on the CPU it runs this version. Both
+place by rank or by auction; the auction carries its slot prices and
+staleness flag in the state, and on the card its bidding rounds loop
+inside the one launch, with no host round trip. Tenancy and speculation
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ class ResidentTickOutput(NamedTuple):
     n_pending: torch.Tensor  # i32 pending tasks still valid after this tick
     #: i32[KG] straggler slots (speculation plane; length 1, all -1, off)
     straggler_slots: torch.Tensor | None = None
+    #: i32 scalar (auction only): bidding rounds this tick ran
+    auction_rounds: torch.Tensor | None = None
+    #: i32 scalar (auction only): tasks the rank spill placed
+    auction_spilled: torch.Tensor | None = None
+    #: i32 scalar (auction only): rows that bid, summed over the rounds
+    auction_bid_rows: torch.Tensor | None = None
 
 
 class _ResidentState(NamedTuple):
@@ -278,12 +284,19 @@ def _resident_tick_impl(
 
     new_state = st._replace(valid=valid_next, free=free_next,
                             prev_live=out.live)
+    rounds = spilled = bid_rows = None
     if auction:
         new_state = new_state._replace(price=out.auction_price,
                                        refresh=out.auction_refresh)
+        rounds = torch.tensor(out.auction_rounds, dtype=_I32,
+                              device=packed.device)
+        spilled = out.auction_spilled.to(_I32)
+        bid_rows = torch.tensor(out.auction_bid_rows, dtype=_I32,
+                                device=packed.device)
     res = ResidentTickOutput(
         placed_slots, placed_rows, arrival_slots, redispatch_slots,
         out.purged, out.live, valid_next.sum(dtype=_I32), straggler_slots,
+        rounds, spilled, bid_rows,
     )
     return res, new_state
 
@@ -396,14 +409,6 @@ class ResidentScheduler(SchedulerArrays):
         self._speed_sent: np.ndarray | None = None
         self._active_sent: np.ndarray | None = None
 
-    def __post_init__(self) -> None:
-        # ahead of the device check: this limit holds with or without a card
-        if self.placement == "auction" and (
-            torch.device(self.device).type == "cuda"
-        ):
-            raise unported("the resident auction on CUDA")
-        super().__post_init__()
-
     # -- pending interface -------------------------------------------------
     def pending_add(
         self, task_id: str, size: float, priority: int = 0, tenant: int = 0,
@@ -496,7 +501,8 @@ class ResidentScheduler(SchedulerArrays):
             upload(np.zeros(1, dtype=np.float32), dev),  # infl_start
             upload(np.zeros(1, dtype=np.float32), dev),  # infl_pred
             upload(np.full(1, -1, dtype=np.int32), dev),  # avoid
-            upload(np.asarray(True), dev),  # refresh
+            # a bool scalar, as the tick returns it (upload makes 1-d)
+            upload(np.asarray(True), dev).reshape(()),  # refresh
         )
         self._hb_sent = hb.copy()
         self._free_sent = self.worker_free.copy()

@@ -34,8 +34,6 @@ _I32 = torch.int32
 
 #: what each unported feature waits for, by ROADMAP item
 _UNPORTED = {
-    "the resident auction on CUDA": "B1's auction branch (ROADMAP B1); on "
-    "the CPU the resident auction runs its plain version",
     "sinkhorn": "ROADMAP A.9 (Sinkhorn placement)",
     "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
     "tenancy": "ROADMAP A.7 (in-tick planes: tenancy)",
@@ -73,6 +71,9 @@ class TickOutput(NamedTuple):
     auction_rounds: int | None = None
     #: i32 scalar (auction only): tasks the rank spill placed
     auction_spilled: torch.Tensor | None = None
+    #: rows that bid, summed over the rounds (auction only), counted on
+    #: the host
+    auction_bid_rows: int | None = None
 
 
 def scheduler_tick_impl(
@@ -123,7 +124,7 @@ def scheduler_tick_impl(
         )
         return TickOutput(res.assignment, live, purged, redispatch,
                           res.prices, res.refresh, res.n_rounds,
-                          res.n_spilled)
+                          res.n_spilled, res.n_bid_rows)
     assignment = rank_match_placement_impl(
         task_size, task_valid, worker_speed, worker_free, live,
         max_slots=max_slots, task_priority=task_priority,
