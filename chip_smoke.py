@@ -7,8 +7,8 @@ over):
 
 0. ``build``  — print the card's name and power limit, the torch and CUDA
    versions; build both libraries from ``tpu_faas_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, started together: the fused tick (B1, rank
-   and auction branches) and the top-2 bid (B2).
+   sm_90a, one nvcc per source, started together: the fused tick (B1, rank,
+   auction and Sinkhorn branches) and the top-2 bid (B2).
 1. ``kernel`` — the fused tick's rank branch against its plain PyTorch
    version on the card, at 51,200 pending x 4,096 workers x 65,536
    in-flight slots, priority admission on and off, several seeds: every
@@ -45,23 +45,43 @@ over):
    checks, one cooperative launch per steady tick, and at least one cold
    (refresh) and one warm tick. The kernel also reports the bidder rows
    summed over its rounds, equal to the plain version's count.
-7. ``time``   — CUDA-event medians of B1's rank branch (on the resident run's
+7. ``resident_sinkhorn`` — B1's Sinkhorn branch: the kernel's ``expf`` and
+   ``logf`` bit for bit against ``torch.exp``/``torch.log``; the branch
+   against its plain version on synthetic headline states (bucketed route,
+   priority lanes on and off, two seeds) and on one dense-route state at
+   4,096 x 4,096, under the contract: (a) exact on every output and state
+   leaf that placement does not decide, the count placed and the effective
+   temperature; (b) final potentials within SINKHORN_TOL of tau; (c) the
+   plain rounding from the kernel's own potentials equal to the kernel's
+   tick on every output and leaf; (d) no row over-booked, no task placed
+   twice, placed = min(KP, valid, capacity). Ticks placed otherwise than
+   the plain version's own potentials are counted, not failed. Then
+   ``ResidentScheduler(placement="sinkhorn")`` through phase 2's loop for 50
+   ticks (FCFS) with phase 2's checks, every launch held to the contract
+   from its pre-state; and ``SchedulerArrays(placement="sinkhorn")`` at
+   BASELINE config 4, beside config 4's own solve, against the LP makespan
+   bound.
+8. ``time``   — CUDA-event medians of B1's rank branch (on the resident run's
    own states and packets, and on a synthetic state) and of B2 (at both bid
    shapes), and CUDA-event means of B1's auction branch over the resident
    auction run's own states (its warm and cold ticks differ forty-fold in
    bidders; each kind's medians are printed too), and of their plain
    versions, each beside its bound (the auction's counts the cells its
    bidders swept); the auction's plain version bids with the plain top-2,
-   and each of its ticks is held exactly against the kernel's; host-clock
-   medians of the integrated ``tick_resident`` (rank and auction), of the
-   batch tick and of the auction tick cold and warm, all printed beside the
-   card's name and power limit. Each timed launch is queued behind a spin
-   kernel, so its events measure device time and not the host's launch gap.
+   and each of its ticks is held exactly against the kernel's; CUDA-event
+   means of B1's Sinkhorn branch and its plain version over the resident
+   Sinkhorn run's states, with a launch's split by block 0's clock and a
+   grid barrier timed alone; host-clock medians of the integrated
+   ``tick_resident`` (rank, auction and Sinkhorn), of the batch tick and of
+   the auction tick cold and warm, all printed beside the card's name and
+   power limit. Each timed launch is queued behind a spin kernel, so its
+   events measure device time and not the host's launch gap.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
 rank branch, the auction ticks for B2, the resident auction run for B1's
-auction branch), errors and times. Without a CUDA device the script exits
+auction branch, the resident Sinkhorn run for its Sinkhorn branch), errors
+and times. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
@@ -104,12 +124,13 @@ def card_line() -> str:
 
 
 # -- phase 1: kernel against its plain version --------------------------------
-def random_case(rng: np.random.Generator, use_priority: bool, now: float):
+def random_case(rng: np.random.Generator, use_priority: bool, now: float,
+                shape: dict = SHAPE):
     """A resident state and one full delta packet with ties, zero (and
     negative-zero) sizes, dead and silent workers, never-heard rows,
     negative and over-cap free counts, an over-KP backlog and negative free
-    deltas."""
-    T, W, I = SHAPE["T"], SHAPE["W"], SHAPE["I"]
+    deltas, at ``shape`` (the headline by default)."""
+    T, W, I = shape["T"], shape["W"], shape["I"]
     f32 = np.float32
 
     def tied_sizes(n):
@@ -143,7 +164,7 @@ def random_case(rng: np.random.Generator, use_priority: bool, now: float):
         avoid=np.full(1, -1, np.int32),
         refresh=np.asarray(True),
     )
-    S = SHAPE
+    S = shape
     lanes = 2 if use_priority else 1
     P = 9 + S["KA"] * lanes + 2 * (S["KH"] + S["KF"] + S["KI"] + S["KS"]
                                    + S["KB"])
@@ -328,19 +349,22 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
                    placement: str = "rank") -> dict:
     from tpu_faas_torch.sched.fused_tick import KERNEL
 
-    def n_launches():  # rank ticks and flushes, and auction ticks
-        return KERNEL.launches + KERNEL.auction_launches
+    def n_launches():  # rank ticks and flushes, auction and Sinkhorn ticks
+        return (KERNEL.launches + KERNEL.auction_launches
+                + KERNEL.sinkhorn_launches)
 
     auction = placement == "auction"
+    sinkhorn = placement == "sinkhorn"
     W, T = SHAPE["W"], SHAPE["T"]
     # per tick: 512 results and 512 arrivals (one full arrival lane), 128
     # heartbeats; 64 rows go silent — bench.py's churn at the headline shape
     n_churn, n_hb, n_silent = SHAPE["KA"], SHAPE["KH"] // 4, W // 64
     rng = np.random.default_rng(7)
     clock_box = [1000.0]
-    # the auction admits FCFS and ignores priorities: its loop runs FCFS
+    # the auction and Sinkhorn ignore priorities: their loops run FCFS
     rs = make_checked_scheduler(dev, lambda: clock_box[0],
-                                use_priority=not auction, placement=placement)
+                                use_priority=placement == "rank",
+                                placement=placement)
     procs = rng.integers(1, MAX_SLOTS + 1, W)
     speeds = rng.uniform(0.5, 4.0, W)
     for i in range(W):
@@ -365,7 +389,8 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
     stats = dict(placed=0, redispatched=0, purged=0, flushes=0,
                  steady_ticks=0, overflow_ticks=[], mismatches=0,
                  max_abs_err=0.0, cold_ticks=0, warm_ticks=0, rounds=[],
-                 spilled=[], bid_rows=[])
+                 spilled=[], bid_rows=[], max_df=0.0, differs=0,
+                 scale=0.0)
     expected_redispatch: set[int] | None = None
     expected_purge: set[int] | None = None
     tick_of_purge = None
@@ -479,10 +504,18 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             tick_enqueue_ms.append((t1 - t0) * 1e3)
             tick_ms.append((t2 - t0) * 1e3)
         else:
-            b, e = replay_plain(rs, rs.launch_log[0][2])
+            if sinkhorn:
+                c = replay_sinkhorn(rs)
+                b = c["bad"]
+                stats["max_abs_err"] = max(stats["max_abs_err"], c["dg"])
+                stats["max_df"] = max(stats["max_df"], c["df"])
+                stats["differs"] += c["differs"]
+                stats["scale"] = max(stats["scale"], c["scale"])
+            else:
+                b, e = replay_plain(rs, rs.launch_log[0][2])
+                stats["max_abs_err"] = max(stats["max_abs_err"], e)
             stats["mismatches"] += b
-            stats["max_abs_err"] = max(stats["max_abs_err"], e)
-            assert b == 0, f"tick {k}: kernel != plain version"
+            assert b == 0, f"tick {k}: kernel != plain version ({placement})"
             pkt, _, pre, out = rs.launch_log[-1]
             if auction:
                 cold = bool(pre.refresh)
@@ -518,6 +551,12 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             f"{stats['warm_ticks']} warm; rounds {stats['rounds']}; "
             f"spilled {stats['spilled']}; bidder rows over the rounds "
             f"{stats['bid_rows']}")
+    if sinkhorn:
+        log(f"  Sinkhorn ticks held to the contract: max |df|/tau "
+            f"{stats['max_df']:.3e}, max |dg|/tau {stats['max_abs_err']:.3e} "
+            f"(bound {SINKHORN_TOL:g}), largest finite |f|/tau or |g|/tau "
+            f"{stats['scale']:.3f}; {stats['differs']} checked ticks "
+            f"placed otherwise than the plain version's own potentials")
     log(f"phase resident ({placement}): {n_ticks + timed_ticks} ticks, "
         f"{launches} kernel "
         f"launches ({stats['steady_ticks']} ticks with exactly one; packet "
@@ -913,7 +952,372 @@ def time_resident_auction(dev, samples: list) -> dict:
     return out
 
 
-# -- phase 7: times -----------------------------------------------------------
+# -- phase 7: the resident Sinkhorn tick (B1's Sinkhorn branch) -------------
+#: contract (b): the largest |df|/tau and |dg|/tau allowed between the kernel's
+#: final potentials and the plain version's from the same state (PERF.md)
+SINKHORN_TOL = 1e-4
+N_SINKHORN_TICKS = 40  # checked resident Sinkhorn ticks
+N_SINKHORN_TIMED = 10  # timed resident Sinkhorn ticks
+#: exps per SM per clock on the special function units (Hopper)
+SFU_PER_SM_CLOCK = 16
+#: the dense route's check: T*W = 2^24, so 60 iterations on [T+1, W+1]
+DENSE_SHAPE = dict(SHAPE, T=4_096)
+
+
+def potential_err(a: torch.Tensor, b: torch.Tensor, tau: float) -> float:
+    """max |a - b| / tau over the finite entries; inf unless the non-finite
+    entries are the same values in the same places."""
+    fa, fb = torch.isfinite(a), torch.isfinite(b)
+    if not torch.equal(fa, fb) or not torch.equal(a[~fa], b[~fb]):
+        return float("inf")
+    if not bool(fa.any()):
+        return 0.0
+    return float((a[fa].double() - b[fa].double()).abs().max()) / tau
+
+
+def sinkhorn_legal(pre, res, new, K: int, KP: int) -> list[str]:
+    """Contract (d) on one launch's outputs: no row over its capacity, no
+    dead row, no task placed twice or placed without being pending, and
+    the count placed = min(KP, valid tasks, total capacity)."""
+    W = new.free.shape[0]
+    ok = res.placed_slots >= 0
+    slots = res.placed_slots[ok].long()
+    rows = res.placed_rows[ok].long()
+    per_row = torch.bincount(rows, minlength=W).to(torch.int32)
+    free_before = new.free + per_row  # the tick took one slot per placement
+    cap = torch.where(res.live, free_before.clamp(max=K), 0).clamp_min(0)
+    n = int(ok.sum())
+    pending = pre.valid.clone()
+    arr = res.arrival_slots[res.arrival_slots >= 0].long()
+    pending[arr] = True
+    bad = []
+    if bool((per_row > cap).any()):
+        bad.append("a row over its capacity")
+    if not bool(res.live[rows].all()):
+        bad.append("a dead row placed")
+    if slots.unique().numel() != n:
+        bad.append("a task placed twice")
+    if not bool(pending[slots].all()) or bool(new.valid[slots].any()):
+        bad.append("a placed task that was not pending")
+    if n != min(KP, n + int(res.n_pending), int(cap.sum())):
+        bad.append("placed != min(KP, valid, capacity)")
+    return bad
+
+
+def sinkhorn_check(pre, packet, res_k, new_k, kw: dict, label: str) -> dict:
+    """One Sinkhorn launch from its pre-state against the contract:
+    (a) exact on every output and state leaf that placement does not
+    decide, the count placed and the effective temperature; (b) potentials
+    within SINKHORN_TOL of the plain version's; (c) the plain version's
+    rounding from the kernel's own potentials reproduces every output and
+    state leaf exactly; (d) legal. Also whether the placements differ from
+    the plain version's own (reported, not failed)."""
+    from tpu_faas_torch.sched.resident import _resident_tick_impl
+
+    res_p, new_p = _resident_tick_impl(packet, clone_state(pre),
+                                       placement="sinkhorn", **kw)
+    res_r, new_r = _resident_tick_impl(
+        packet, clone_state(pre), placement="sinkhorn",
+        sinkhorn_potentials=(res_k.sinkhorn_f, res_k.sinkhorn_g), **kw)
+    bad = []
+    for f in ("arrival_slots", "redispatch_slots", "purged", "live",
+              "n_pending", "straggler_slots", "sinkhorn_tau"):
+        if not torch.equal(getattr(res_k, f), getattr(res_p, f)):
+            bad.append(f"(a) {f}")
+    if int((res_k.placed_slots >= 0).sum()) != int(
+            (res_p.placed_slots >= 0).sum()):
+        bad.append("(a) placed count")
+    for f in new_k._fields:
+        if f not in ("valid", "free") and not torch.equal(
+                getattr(new_k, f), getattr(new_p, f)):
+            bad.append(f"(a) state.{f}")
+    tau = float(res_k.sinkhorn_tau)
+    df = potential_err(res_k.sinkhorn_f, res_p.sinkhorn_f, tau)
+    dg = potential_err(res_k.sinkhorn_g, res_p.sinkhorn_g, tau)
+    if not (df <= SINKHORN_TOL and dg <= SINKHORN_TOL):
+        bad.append(f"(b) potentials: |df|/tau {df:.3e}, |dg|/tau {dg:.3e}")
+    b1, _ = compare(res_k, res_r, f"{label} replay: out")
+    b2, _ = compare(new_k, new_r, f"{label} replay: state")
+    if b1 + b2:
+        bad.append(f"(c) {b1 + b2} fields of the replay")
+    bad += [f"(d) {x}" for x in sinkhorn_legal(pre, res_k, new_k,
+                                                kw["max_slots"], kw["KP"])]
+    for x in bad:
+        log(f"  MISMATCH {label}: {x}")
+    differs = not (torch.equal(res_k.placed_slots, res_p.placed_slots)
+                   and torch.equal(res_k.placed_rows, res_p.placed_rows))
+    pot = torch.cat([res_k.sinkhorn_f, res_k.sinkhorn_g])
+    scale = float(pot[torch.isfinite(pot)].abs().max()) / tau
+    return {"bad": len(bad), "df": df, "dg": dg, "differs": int(differs),
+            "placed": int((res_k.placed_slots >= 0).sum()), "scale": scale}
+
+
+def replay_sinkhorn(rs) -> dict:
+    """The last resident tick's launches, each from its own pre-state: an
+    overflow flush exactly against the plain flush, the Sinkhorn tick
+    against the contract (``sinkhorn_check``)."""
+    from tpu_faas_torch.sched.resident import _flush_kernel_impl
+
+    kw = dict(rs._statics(), KP=rs.KP, KR=rs.KR, max_slots=rs.max_slots)
+    out = {"bad": 0, "df": 0.0, "dg": 0.0, "differs": 0, "scale": 0.0}
+    n = len(rs.launch_log)
+    for i, (pkt, flush, pre, res) in enumerate(rs.launch_log):
+        packet = torch.from_numpy(pkt).to(rs.device)
+        post = rs.launch_log[i + 1][2] if i + 1 < n else rs._r_state
+        if flush:
+            st, arr = _flush_kernel_impl(packet, clone_state(pre),
+                                         **rs._statics())
+            b, _ = compare(post, st, "flush-state")
+            out["bad"] += b + (0 if torch.equal(arr, res[1]) else 1)
+            continue
+        c = sinkhorn_check(pre, packet, res[0], post, kw, "loop tick")
+        out["bad"] += c["bad"]
+        out["differs"] += c["differs"]
+        out["df"] = max(out["df"], c["df"])
+        out["dg"] = max(out["dg"], c["dg"])
+        out["scale"] = max(out["scale"], c["scale"])
+    return out
+
+
+def check_math(dev) -> int:
+    """expf and logf as the Sinkhorn branch compiles them, bit for bit
+    against torch.exp and torch.log on the card, over 2^22 values: lognormal
+    sizes and the ranges the iterations take (-cost/tau in [-40, 0], shifts
+    around 0). Returns the values that differ."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+
+    rng = np.random.default_rng(11)
+    n = 1 << 20
+    x = np.concatenate([
+        rng.lognormal(0.0, 3.0, n), rng.uniform(-40.0, 0.0, n),
+        rng.uniform(-1.0, 1.0, n), rng.uniform(1e-30, 60_000.0, n),
+    ]).astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)
+    e, lg = KERNEL.math_probe(xt)
+    want_e, want_l = torch.exp(xt), torch.log(xt)
+    same_e = (e == want_e) | (torch.isnan(e) & torch.isnan(want_e))
+    same_l = (lg == want_l) | (torch.isnan(lg) & torch.isnan(want_l))
+    bad = int((~same_e).sum()) + int((~same_l).sum())
+    log(f"  expf/logf of the kernel against torch.exp/torch.log on the card: "
+        f"{x.size} values each, {bad} differ")
+    return bad
+
+
+def phase_sinkhorn_kernel(dev) -> dict:
+    """B1's Sinkhorn branch against its plain version under the contract:
+    synthetic headline states (bucketed route, priority lanes on and off,
+    two seeds) and one dense-route state at 4,096 x 4,096; and the
+    kernel's expf/logf against torch's."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import state_from_numpy
+
+    bad = check_math(dev)
+    out = {"df": 0.0, "dg": 0.0, "differs": 0, "cases": 0}
+    cases = [(SHAPE, prio, seed) for prio in (False, True) for seed in (0, 1)]
+    cases.append((DENSE_SHAPE, False, 5))
+    for shape, use_priority, seed in cases:
+        leaves, pkt = random_case(np.random.default_rng(seed), use_priority,
+                                  now=100.0, shape=shape)
+        kw = dict(shape, max_slots=MAX_SLOTS, use_priority=use_priority)
+        pre = state_from_numpy(leaves, dev)
+        packet = torch.from_numpy(pkt).to(dev)
+        st = clone_state(pre)
+        ptrs = [t.data_ptr() for t in st]
+        res_k, new_k = KERNEL.sinkhorn(packet, st, **kw)
+        torch.cuda.synchronize()
+        assert [t.data_ptr() for t in new_k] == ptrs, "state moved"
+        route = "dense" if shape is DENSE_SHAPE else "bucketed"
+        label = f"{route} {shape['T']}x{shape['W']} prio={use_priority} " \
+                f"seed={seed}"
+        phases = KERNEL.sinkhorn_phase_ms(dev, shape["T"], shape["W"],
+                                          MAX_SLOTS)
+        c = sinkhorn_check(pre, packet, res_k, new_k, kw, label)
+        log(f"  {label}: placed {c['placed']}, |df|/tau {c['df']:.3e}, "
+            f"|dg|/tau {c['dg']:.3e}, tau {float(res_k.sinkhorn_tau):.6g}, "
+            f"largest |f|/tau or |g|/tau {c['scale']:.3f}, "
+            f"contract violations {c['bad']}, placements "
+            f"{'differ from' if c['differs'] else 'equal'} the plain "
+            f"version's; phases {phase_text(phases)}")
+        bad += c["bad"]
+        out["differs"] += c["differs"]
+        out["df"] = max(out["df"], c["df"])
+        out["dg"] = max(out["dg"], c["dg"])
+        out["cases"] += 1
+    if bad:
+        raise SystemExit(f"the Sinkhorn kernel breaks its contract: {bad} "
+                         f"violations")
+    log(f"phase sinkhorn kernel: {out['cases']} ticks within the contract, "
+        f"{out['differs']} placed otherwise than the plain version's own "
+        f"potentials")
+    out["mismatches"] = bad
+    return out
+
+
+def phase_sinkhorn_batch(dev) -> dict:
+    """SchedulerArrays(placement="sinkhorn") on the card at BASELINE config
+    4 (tpu_faas/bench/configs.py:296): seed 4, 50,000 lognormal tasks on
+    4,000 workers with 1-8 free slots, padded to 51,200 x 4,096 — the
+    batch tick's route (bucketed, 20 iterations, bucket rounding) — and
+    config 4's own solve on the same inputs (bucketed, 60 iterations, exact
+    rounding); each placement's makespan over the LP bound of its placed
+    subset (BASELINE's target: 1.05), beside the host greedy's."""
+    from tpu_faas_torch.sched.greedy import host_greedy_reference, makespan
+    from tpu_faas_torch.sched.oracle import makespan_lower_bound
+    from tpu_faas_torch.sched.sinkhorn import sinkhorn_placement_bucketed_impl
+    from tpu_faas_torch.sched.state import SchedulerArrays
+
+    rng = np.random.default_rng(4)
+    n_tasks, n_workers, K = 50_000, 4_000, MAX_SLOTS
+    T, W = SHAPE["T"], SHAPE["W"]
+    sizes = rng.lognormal(0.0, 1.0, n_tasks).astype(np.float32)
+    speeds = rng.uniform(0.5, 4.0, n_workers).astype(np.float32)
+    free = rng.integers(1, K + 1, n_workers).astype(np.int32)
+    live = np.ones(n_workers, dtype=bool)
+    sa = SchedulerArrays(max_workers=W, max_pending=T, max_inflight=4096,
+                         max_slots=K, clock=lambda: 1000.0,
+                         placement="sinkhorn", device=dev)
+    for i in range(n_workers):
+        sa.register(b"w%d" % i, int(free[i]), speed=float(speeds[i]))
+
+    def ratio(a):
+        placed = a >= 0
+        lb = makespan_lower_bound(sizes[placed], speeds, free, live, K)
+        return makespan(a, sizes, speeds, K) / lb
+
+    t0 = time.perf_counter()
+    tick = sa.tick(sizes).assignment.cpu().numpy()[:n_tasks]
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    padded = [torch.zeros(T, device=dev), torch.zeros(T, dtype=torch.bool,
+                                                      device=dev),
+              torch.zeros(W, device=dev),
+              torch.zeros(W, dtype=torch.int32, device=dev),
+              torch.zeros(W, dtype=torch.bool, device=dev)]
+    for t, host in zip(padded, (sizes, np.ones(n_tasks, bool), speeds, free,
+                                live)):
+        t[: len(host)] = torch.from_numpy(host).to(dev)
+    solve = sinkhorn_placement_bucketed_impl(
+        *padded, tau=0.05, n_iters=60, max_slots=K,
+    ).assignment.cpu().numpy()[:n_tasks]
+    greedy = host_greedy_reference(sizes, speeds, np.minimum(free, K), live)
+    cap = int(np.minimum(free, K).sum())
+    for name, a in (("batch tick", tick), ("config 4 solve", solve)):
+        check_assignment(a, np.ones(n_tasks, bool), np.minimum(free, K), live)
+        assert int((a >= 0).sum()) == min(n_tasks, cap), name
+    out = {"tick": ratio(tick), "solve": ratio(solve),
+           "greedy": ratio(greedy), "wall_ms": wall_ms,
+           "lb": makespan_lower_bound(sizes[tick >= 0], speeds, free, live,
+                                      K)}
+    log(f"phase sinkhorn batch (config 4: 50,000 tasks, 4,000 workers, "
+        f"{cap} slots): makespan / LP bound {out['tick']:.4f} for the batch "
+        f"tick (bucketed, 20 iterations, bucket rounding; first tick "
+        f"{wall_ms:.1f} ms with the read back), {out['solve']:.4f} for "
+        f"config 4's solve (60 iterations, exact rounding), host greedy "
+        f"{out['greedy']:.4f}; the bound on the batch tick's subset "
+        f"{out['lb']:.4f} s")
+    return out
+
+
+SINKHORN_PHASES = ("packet+liveness", "reductions", "setup", "iterations",
+                   "candidates", "repair+spill", "compaction")
+
+
+def phase_text(ms: list[float]) -> str:
+    return ", ".join(f"{n} {t:.4f} ms" for n, t in zip(SINKHORN_PHASES, ms))
+
+
+def sinkhorn_bound_ms(packet: torch.Tensor, clock_hz: float) -> tuple[
+        float, str]:
+    """The least time for one headline Sinkhorn tick: the larger of the
+    iterations' exps (each iteration takes one exp per cell of the
+    [R, C] = [1,025, 4,097] problem for f and one for g) at the SFU rate,
+    and the rank tick's bytes plus the potentials written."""
+    from tpu_faas_torch.sched.state import BUCKETED_ITERS, N_BUCKETS
+
+    R, C = N_BUCKETS + 1, SHAPE["W"] + 1
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    exps = 2 * BUCKETED_ITERS * R * C
+    exp_ms = exps / (SFU_PER_SM_CLOCK * n_sm * clock_hz) * 1e3
+    bytes_ms = bound_ms(False, packet) + 4 * (R + C + 1) / HBM_BYTES_PER_S * 1e3
+    return (exp_ms, "operations") if exp_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def time_resident_sinkhorn(dev, samples: list) -> dict:
+    """The Sinkhorn kernel per tick on the resident Sinkhorn loop's own
+    states (CUDA-event means), beside its bound and its plain version on
+    the card, with the plain bucketed 20-iteration solve alone as
+    context."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import _resident_tick_impl
+    from tpu_faas_torch.sched.sinkhorn import sinkhorn_placement_bucketed_impl
+
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False)
+    n = len(samples)
+    order = iter(range(10**9))
+
+    def next_sample():
+        packet, pre, _ = samples[next(order) % n]
+        return packet, clone_state(pre)
+
+    k_ms = event_ms(lambda a: KERNEL.sinkhorn(a[0], a[1], **kw), n,
+                    setup=next_sample)
+    p_ms = event_ms(lambda a: _resident_tick_impl(
+        a[0], a[1], placement="sinkhorn", **kw), n, setup=next_sample)
+
+    def solve(a):
+        st = a[1]
+        sinkhorn_placement_bucketed_impl(
+            st.sizes, st.valid, st.speed, st.free, st.active,
+            max_slots=MAX_SLOTS, n_iters=20, rounding="bucket")
+
+    s_ms = event_ms(solve, n, setup=next_sample)
+    # the split: block 0's clock at each phase of one launch per state, and
+    # a grid barrier alone on the same grid
+    phases = []
+    for packet, pre, _ in samples:
+        KERNEL.sinkhorn(packet, clone_state(pre), **kw)
+        phases.append(KERNEL.sinkhorn_phase_ms(dev, SHAPE["T"], SHAPE["W"],
+                                               MAX_SLOTS))
+    split = [statistics.mean(p[i] for p in phases)
+             for i in range(len(SINKHORN_PHASES))]
+    n_bar = 400
+    bar0 = statistics.median(event_ms(lambda _: KERNEL.barrier_probe(0), 10))
+    bar1 = statistics.median(event_ms(lambda _: KERNEL.barrier_probe(n_bar),
+                                      10))
+    per_barrier = (bar1 - bar0) / n_bar
+    clock = sm_clock_hz()
+    bounds = [sinkhorn_bound_ms(p.cpu(), clock) for p, _, _ in samples]
+    out = {"ms": statistics.mean(k_ms), "plain_ms": statistics.mean(p_ms),
+           "solve_ms": statistics.mean(s_ms), "split": split,
+           "barrier_ms": per_barrier,
+           "bound_ms": statistics.mean(b for b, _ in bounds),
+           "bound_by": statistics.mode(by for _, by in bounds)}
+    log(f"  Sinkhorn kernel on the resident Sinkhorn run's {n} states, "
+        f"means: {out['ms']:.4f} ms (min {min(k_ms):.4f}, max "
+        f"{max(k_ms):.4f}); bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: 2 x 20 x 1,025 x 4,097 exps at "
+        f"{SFU_PER_SM_CLOCK} per SM per clock, {clock / 1e9:.3f} GHz), "
+        f"kernel/bound {out['ms'] / out['bound_ms']:.1f}; plain version "
+        f"{out['plain_ms']:.4f} ms; the plain bucketed 20-iteration solve "
+        f"alone {out['solve_ms']:.4f} ms")
+    log(f"  its split (block 0's clock, means over the {n} states): "
+        f"{phase_text(split)}; a grid barrier alone {per_barrier * 1e3:.3f} "
+        f"us, so the iterations' 40 barriers {40 * per_barrier:.4f} ms and "
+        f"their compute {split[3] - 40 * per_barrier:.4f} ms")
+    return out
+
+
+# -- phase 8: times -----------------------------------------------------------
 def event_ms(fn, n: int, setup=None) -> list[float]:
     """Per-call device time of ``fn`` with CUDA events, ``n`` calls after a
     warm-up; ``setup`` runs before each call, outside the timed pair. A spin
@@ -1128,11 +1532,27 @@ def main() -> int:
         f"{statistics.median(rra['launch_ms']):.4f} ms, medians of "
         f"{len(rra['tick_ms'])} ticks; auction launches {auction_launches} "
         f"[{card}]")
+    rks = phase_sinkhorn_kernel(dev)
+    fused_tick.KERNEL.launches = 0  # count the resident Sinkhorn loop alone
+    fused_tick.KERNEL.sinkhorn_launches = 0
+    rrs = phase_resident(dev, N_SINKHORN_TICKS, N_SINKHORN_TIMED,
+                         placement="sinkhorn")
+    sinkhorn_launches = fused_tick.KERNEL.sinkhorn_launches
+    assert sinkhorn_launches > 0, "the resident Sinkhorn never launched"
+    log(f"  integrated tick_resident, Sinkhorn (diff, pack, upload, kernel; "
+        f"synchronized): {statistics.median(rrs['tick_ms']):.4f} ms, host "
+        f"enqueue alone {statistics.median(rrs['tick_enqueue_ms']):.4f} ms, "
+        f"packet upload + kernel on the card "
+        f"{statistics.median(rrs['launch_ms']):.4f} ms, medians of "
+        f"{len(rrs['tick_ms'])} ticks; Sinkhorn launches "
+        f"{sinkhorn_launches} [{card}]")
+    phase_sinkhorn_batch(dev)
     log(f"phase time [{card}]:")
     t = phase_time(dev, N_TIMED, rr["samples"])
     tb = time_bid(dev, N_TIMED // 3)
     time_auction(ra, 3)
     ta = time_resident_auction(dev, rra["samples"])
+    ts = time_resident_sinkhorn(dev, rrs["samples"])
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,
@@ -1161,9 +1581,20 @@ def main() -> int:
                  "ms": ta["ms"], "plain_ms": ta["plain_ms"],
                  "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
                  "library_ms": None}
+    # no single PyTorch call computes a resident Sinkhorn tick
+    entry_b1s = {"name": "fused_resident_tick_sinkhorn", "route": "cuda",
+                 "source": fused_tick.SOURCE,
+                 "replaces": fused_tick.SINKHORN_REPLACES,
+                 "launches": sinkhorn_launches,
+                 "mismatches": rks["mismatches"] + rrs["mismatches"],
+                 "max_abs_err": max(rks["dg"], rrs["max_abs_err"]),
+                 "ms": ts["ms"], "plain_ms": ts["plain_ms"],
+                 "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
+                 "library_ms": None}
     log(f"card: {card}")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry, entry_b2, entry_b1a]}), flush=True)
+    print(json.dumps({"kernels": [entry, entry_b2, entry_b1a, entry_b1s]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

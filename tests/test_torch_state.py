@@ -117,12 +117,13 @@ def test_scheduler_arrays_tick_matches_jax():
     ("bogus", ValueError),
 ])
 def test_unported_placements_raise(placement, exc):
-    """What is still unported of each placement raises: all of Sinkhorn,
-    and of the auction only the resident tick's tenancy and speculation
-    lanes; the batch and resident auctions run
-    (tests/test_torch_auction.py, tests/test_torch_fused_auction.py)."""
+    """What is still unported of each placement raises: of the auction and
+    of Sinkhorn only the resident tick's tenancy and speculation lanes; the
+    batch and resident ticks of both run (tests/test_torch_auction.py,
+    tests/test_torch_fused_auction.py, tests/test_torch_sinkhorn.py,
+    tests/test_torch_fused_sinkhorn.py)."""
     make, kw = TArrays, {}
-    if placement == "auction":
+    if placement in ("auction", "sinkhorn"):
         make, kw = ResidentScheduler, dict(tenancy=object())
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else "unknown"):

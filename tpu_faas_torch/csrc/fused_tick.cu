@@ -422,16 +422,17 @@ __device__ void liveness(const Dims& D, const State& st, const Out& out,
 }
 
 // Slot expansion (greedy.py's layout: slot s is process s % K of worker
-// s / K, valid when live and below the free count), stably sorted by
-// -speed with invalid slots last. Returns the sc.sv buffer holding the
-// order; *n_slots gets the number of valid slots.
+// s / K, valid when live and below the free count free_cnt[w]), stably
+// sorted by -speed with invalid slots last. Returns the sc.sv buffer holding
+// the order; *n_slots gets the number of valid slots.
 __device__ int sort_slots(const Dims& D, const State& st, const Out& out,
-                          const Scratch& sc, Smem& sm, int* n_slots) {
+                          const int32_t* free_cnt, const Scratch& sc,
+                          Smem& sm, int* n_slots) {
   const int K = D.K, S = D.W * K;
   int my_slots = 0;
   for (int s = threadIdx.x; s < S; s += NT) {
     const int w = s / K;
-    const int f = out.live[w] ? st.free_cnt[w] : 0;
+    const int f = out.live[w] ? free_cnt[w] : 0;
     const bool ok = (s - w * K) < f;
     my_slots += ok ? 1 : 0;
     sc.sk[0][s] = float_key(-(ok ? st.speed[w] : neg_inf()));
@@ -442,19 +443,26 @@ __device__ int sort_slots(const Dims& D, const State& st, const Out& out,
 }
 
 // ---- phase 3, rank (greedy.py::rank_match_placement_impl) ----------------
-// Fills sc.assign (worker per task, -1 queued).
+// Places the tasks with task_ok[t] set onto the live workers' free_cnt
+// slots, admitting by priority (use_priority) or FCFS. Fills sc.assign
+// (worker per task, -1 queued). The rank tick passes the pending valid bits
+// and the free counts; Sinkhorn's spill its spilled tasks and remaining
+// capacity.
+template <class TaskOk>
 __device__ void rank_place(const Dims& D, const State& st, const Out& out,
-                           const Scratch& sc, Smem& sm) {
+                           TaskOk task_ok, const int32_t* free_cnt,
+                           bool use_priority, const Scratch& sc, Smem& sm) {
   const int tid = threadIdx.x;
   const int T = D.T, K = D.K, S = D.W * K;
   int n_slots_total;
-  const int slot_buf = sort_slots(D, st, out, sc, sm, &n_slots_total);
+  const int slot_buf =
+      sort_slots(D, st, out, free_cnt, sc, sm, &n_slots_total);
   const int32_t* slot_order = sc.sv[slot_buf];
 
   // admission
-  if (D.use_priority) {
+  if (use_priority) {
     for (int t = tid; t < T; t += NT) {
-      const int32_t key = st.valid[t]
+      const int32_t key = task_ok(t)
           ? static_cast<int32_t>(0u - static_cast<uint32_t>(st.prio[t]))
           : INT32_MAX;
       sc.tk[0][t] = int_key(key);
@@ -464,17 +472,17 @@ __device__ void rank_place(const Dims& D, const State& st, const Out& out,
     const int b = block_radix_sort(sc.tk, sc.tv, T, sm);
     for (int r = tid; r < T; r += NT) {
       const int t = sc.tv[b][r];
-      sc.admitted[t] = (r < n_slots_total && st.valid[t]) ? 1 : 0;
+      sc.admitted[t] = (r < n_slots_total && task_ok(t)) ? 1 : 0;
     }
   } else {
     int lo, hi;
     chunk_of(T, &lo, &hi);
     int c = 0;
-    for (int t = lo; t < hi; ++t) c += st.valid[t] ? 1 : 0;
+    for (int t = lo; t < hi; ++t) c += task_ok(t) ? 1 : 0;
     int total;
     int rank = block_exclusive_scan(c, &total, sm);
     for (int t = lo; t < hi; ++t) {
-      const bool v = st.valid[t] != 0;
+      const bool v = task_ok(t);
       sc.admitted[t] = (v && rank < n_slots_total) ? 1 : 0;
       rank += v ? 1 : 0;
     }
@@ -531,7 +539,9 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
   if (D.flush) return;
   __syncthreads();
   liveness(D, st, out, now, tte, sm);
-  rank_place(D, st, out, sc, sm);
+  rank_place(
+      D, st, out, [&](int t) { return st.valid[t] != 0; }, st.free_cnt,
+      D.use_priority != 0, sc, sm);
   compact(D, st, out, sc.assign, sm);
 }
 
@@ -614,7 +624,7 @@ __device__ int auction_open(const Dims& D, const State& st, const Out& out,
   const int T = D.T, K = D.K, S = D.W * K;
   const bool refresh = au.refresh[0] != 0;  // read before it is rewritten
   int n_slots;
-  const int slot_buf = sort_slots(D, st, out, sc, sm, &n_slots);
+  const int slot_buf = sort_slots(D, st, out, st.free_cnt, sc, sm, &n_slots);
   const int32_t* slot_order = sc.sv[slot_buf];
   // FCFS admission of the first n_match valid tasks
   int lo, hi;
@@ -818,6 +828,533 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   compact(D, st, out, sc.assign, sm);
 }
 
+// ---- Sinkhorn placement (sinkhorn.py, the tick's branch at state.py) -----
+// The route is the wrapper's static choice, state.py's: bucketed (sizes
+// quantized onto nb log-spaced classes, the [nb+1, W+1] problem, bucket
+// rounding) when T*W > 2^24, else dense (the [T+1, W+1] problem, per-task
+// rounding). The [R, C] matrices are never built: every cell of -cost/tau is
+// recomputed from the row and column vectors with the plain version's own
+// expression, op by op.
+constexpr int kRed = 7;  // grid reductions, see sinkhorn_reduce
+constexpr int kStamps = 8;  // phase stamps, see fused_sinkhorn_kernel
+
+struct Sinkhorn {
+  int bucketed;         // 1: bucketed solver and rounding; 0: dense
+  int nb;               // buckets (bucketed)
+  int n_iters;
+  int R, C;             // rows (nb + 1 or T + 1) and columns (W + 1)
+  float tau_rel;        // temperature relative to the cost scale
+  float* f;             // [R] output: final row potentials
+  float* g;             // [C] output: final column potentials
+  float* tau_out;       // [1] output: the effective temperature
+  unsigned long long* stamps;  // [kStamps] block 0's clock at each phase
+  float* rowv;          // [R-1] bucket representative size, or task size
+  int32_t* row_ok;      // [R-1] bucket populated, or task valid
+  float* loga;          // [R] log row supplies
+  float* ft;            // [R] f / tau
+  float* logb;          // [C] log column demands
+  float* colv;          // [W] 1 / speed_safe (bucketed), speed_safe (dense)
+  float* capf;          // [W] capacity as float
+  float* gt;            // [C] g / tau
+  float* logs;          // [T] log of the safe size (bucketed)
+  int32_t* bucket;      // [T]
+  int32_t* best_w;      // [T] argmax worker per task
+  float* best_p;        // [T] its plan mass (dense) or log-mass (bucketed)
+  int32_t* to_slack;    // [T]
+  int32_t* a0;          // [T] the capacity repair's assignment
+  int32_t* spilled;     // [T]
+  int32_t* counts;      // [nb] bucket populations
+  int32_t* best_w_b;    // [nb] each bucket's candidate
+  int32_t* to_slack_b;  // [nb]
+  int32_t* used;        // [W]
+  int32_t* remaining;   // [W]
+  int32_t* seg_first;   // [W] first sorted position of each worker
+  uint32_t* red;        // [kRed]
+};
+
+// The scalars every thread derives from the grid reductions.
+struct SkScalars {
+  float n_tasks, total_cap, lo, span, slack, tau, neg_slack_over_tau;
+};
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+
+// the inverse of float_key
+__device__ __forceinline__ float key_float(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// sinkhorn.py::_log_marginal
+__device__ __forceinline__ float log_marginal(float a) {
+  return a > 0.0f ? logf(clamp_min(a, 1e-30f)) : neg_inf();
+}
+
+__device__ __forceinline__ int capacity(const Dims& D, const State& st,
+                                        const Out& out, int w) {
+  return out.live[w] ? min(st.free_cnt[w], D.K) : 0;
+}
+
+// Reduction words: 0 valid tasks, 1 total capacity (integer sums, exact in
+// any order); 2 min and 3 max of the valid tasks' log sizes, 4 a NaN among
+// them, 5 max of the masked safe sizes, 6 max of the open columns' inverse
+// speeds (bucketed) or of the masked cost cells (dense): float_key maxima
+// and minima, exact in any order.
+__device__ uint32_t red_identity(int i) {
+  switch (i) {
+    case 2: return float_key(pos_inf());
+    case 3: case 5: case 6: return float_key(neg_inf());
+    default: return 0u;
+  }
+}
+
+__device__ void sinkhorn_reduce(const Dims& D, const State& st,
+                                const Out& out, const Sinkhorn& sk) {
+  const int T = D.T, W = D.W;
+  const int gthread = blockIdx.x * NT + threadIdx.x;
+  const int n_gthread = gridDim.x * NT;
+  int n_valid = 0, cap_sum = 0;
+  unsigned nan = 0;
+  uint32_t lo = red_identity(2), hi = red_identity(3);
+  uint32_t smax = red_identity(5), cmax = red_identity(6);
+  for (int t = gthread; t < T; t += n_gthread) {
+    const bool v = st.valid[t] != 0;
+    n_valid += v ? 1 : 0;
+    if (sk.bucketed) {
+      const float ss = clamp_min(st.sizes[t], 1e-30f);
+      const float l = logf(ss);
+      sk.logs[t] = l;
+      if (v && l != l) nan = 1u;
+      if (v && l == l) {
+        lo = min(lo, float_key(l));
+        hi = max(hi, float_key(l));
+      }
+      smax = max(smax, float_key(v ? ss : 0.0f));
+    }
+  }
+  for (int w = gthread; w < W; w += n_gthread) {
+    const int cap = capacity(D, st, out, w);
+    cap_sum += cap;
+    sk.capf[w] = static_cast<float>(cap);
+    const float ss = clamp_min(st.speed[w], 1e-6f);
+    if (sk.bucketed) {
+      const float inv = __fdiv_rn(1.0f, ss);
+      sk.colv[w] = inv;
+      cmax = max(cmax, float_key(cap > 0 ? inv : 0.0f));
+    } else {
+      sk.colv[w] = ss;
+    }
+  }
+  if (!sk.bucketed) {
+    // the dense cost's max over every (task, worker) cell, as the plain
+    // version takes it (T*W <= 2^24 on this route)
+    const int n = T * W;
+    for (int i = gthread; i < n; i += n_gthread) {
+      const int t = i / W, w = i - t * W;
+      const bool fin = st.valid[t] && capacity(D, st, out, w) > 0;
+      const float c = fin ? __fdiv_rn(st.sizes[t],
+                                      clamp_min(st.speed[w], 1e-6f))
+                          : 0.0f;
+      cmax = max(cmax, float_key(c));
+    }
+  }
+  n_valid = __reduce_add_sync(FULL, n_valid);
+  cap_sum = __reduce_add_sync(FULL, cap_sum);
+  nan = __reduce_or_sync(FULL, nan);
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  smax = __reduce_max_sync(FULL, smax);
+  cmax = __reduce_max_sync(FULL, cmax);
+  if ((threadIdx.x & 31) == 0) {
+    int* ired = reinterpret_cast<int*>(sk.red);
+    if (n_valid) atomicAdd(ired + 0, n_valid);
+    if (cap_sum) atomicAdd(ired + 1, cap_sum);
+    atomicMin(sk.red + 2, lo);
+    atomicMax(sk.red + 3, hi);
+    if (nan) atomicOr(sk.red + 4, nan);
+    atomicMax(sk.red + 5, smax);
+    atomicMax(sk.red + 6, cmax);
+  }
+}
+
+__device__ SkScalars sk_scalars(const Sinkhorn& sk) {
+  SkScalars s;
+  uint32_t red[kRed];
+  for (int i = 0; i < kRed; ++i)
+    red[i] = static_cast<uint32_t>(
+        load_volatile(reinterpret_cast<const int32_t*>(sk.red + i)));
+  s.n_tasks = static_cast<float>(static_cast<int32_t>(red[0]));
+  s.total_cap = static_cast<float>(static_cast<int32_t>(red[1]));
+  float cmax;
+  if (sk.bucketed) {
+    float lo = key_float(red[2]), hi = key_float(red[3]);
+    if (red[4]) lo = hi = __int_as_float(0x7fc00000);  // a NaN min/max
+    // an all-invalid tick keeps lo/hi infinite: any finite placeholder
+    lo = isfinite(lo) ? lo : 0.0f;
+    hi = isfinite(hi) ? hi : 1.0f;
+    s.lo = lo;
+    s.span = clamp_min(__fsub_rn(hi, lo), 1e-9f);
+    cmax = __fmul_rn(key_float(red[5]), key_float(red[6]));
+  } else {
+    s.lo = 0.0f;
+    s.span = 1.0f;
+    cmax = key_float(red[6]);
+  }
+  s.slack = __fadd_rn(cmax, 1.0f);
+  s.tau = __fmul_rn(sk.tau_rel, clamp_min(cmax, 1e-30f));
+  s.neg_slack_over_tau = __fdiv_rn(-s.slack, s.tau);
+  return s;
+}
+
+// Cell (r, c) of -cost/tau, forbidden cells -inf, as the plain version
+// builds the matrix: bucketed, -(rep*inv)/tau on open cells, the slack
+// column -slack/tau, the slack row 0; dense, -cost/tau of the cost matrix
+// (size/speed_safe, slack cost, 0, or inf where forbidden).
+__device__ __forceinline__ float sk_negc(const Sinkhorn& sk,
+                                         const SkScalars& s, int r, int c) {
+  const int W = sk.C - 1, nr = sk.R - 1;
+  const bool col_open = c < W && sk.capf[c] > 0.0f;
+  if (sk.bucketed) {
+    if (r == nr) return col_open ? 0.0f : neg_inf();
+    if (!sk.row_ok[r]) return neg_inf();
+    if (c == W) return s.neg_slack_over_tau;
+    return col_open ? __fdiv_rn(-__fmul_rn(sk.rowv[r], sk.colv[c]), s.tau)
+                    : neg_inf();
+  }
+  float cost;
+  if (r == nr) {
+    cost = col_open ? 0.0f : pos_inf();
+  } else if (c == W) {
+    cost = sk.row_ok[r] ? s.slack : pos_inf();
+  } else {
+    cost = (sk.row_ok[r] && col_open) ? __fdiv_rn(sk.rowv[r], sk.colv[c])
+                                      : pos_inf();
+  }
+  return __fdiv_rn(-cost, s.tau);
+}
+
+// The rows' and columns' setup after the reductions: each task's bucket
+// and the populations (bucketed) or the task rows (dense), the column
+// demands, and g = 0.
+__device__ void sinkhorn_setup(const Dims& D, const State& st,
+                               const Sinkhorn& sk, const SkScalars& s) {
+  const int T = D.T, W = D.W;
+  const int gthread = blockIdx.x * NT + threadIdx.x;
+  const int n_gthread = gridDim.x * NT;
+  for (int t = gthread; t < T; t += n_gthread) {
+    if (sk.bucketed) {
+      const float x = __fmul_rn(__fdiv_rn(__fsub_rn(sk.logs[t], s.lo), s.span),
+                                static_cast<float>(sk.nb));
+      const int b = min(max(f2i(x), 0), sk.nb - 1);
+      sk.bucket[t] = b;
+      if (st.valid[t]) atomicAdd(sk.counts + b, 1);
+    } else {
+      const bool v = st.valid[t] != 0;
+      sk.rowv[t] = st.sizes[t];
+      sk.row_ok[t] = v ? 1 : 0;
+      sk.loga[t] = log_marginal(v ? 1.0f : 0.0f);
+    }
+  }
+  for (int c = gthread; c < sk.C; c += n_gthread) {
+    sk.logb[c] = log_marginal(
+        c < W ? sk.capf[c]
+              : clamp_min(__fsub_rn(s.n_tasks, s.total_cap), 0.0f));
+    sk.gt[c] = __fdiv_rn(0.0f, s.tau);
+  }
+  if (gthread == 0)
+    sk.loga[sk.R - 1] =
+        log_marginal(clamp_min(__fsub_rn(s.total_cap, s.n_tasks), 0.0f));
+}
+
+// The bucket rows (bucketed only, after the populations are complete):
+// rep = exp(lo + (k + 0.5) / nb * span); nb is a power of two, so the plain
+// version's division equals the reciprocal product torch takes for it.
+__device__ void sinkhorn_buckets(const Sinkhorn& sk, const SkScalars& s) {
+  const int gthread = blockIdx.x * NT + threadIdx.x;
+  const int n_gthread = gridDim.x * NT;
+  for (int k = gthread; k < sk.nb; k += n_gthread) {
+    const float q = __fdiv_rn(__fadd_rn(static_cast<float>(k), 0.5f),
+                              static_cast<float>(sk.nb));
+    sk.rowv[k] = expf(__fadd_rn(s.lo, __fmul_rn(q, s.span)));
+    const int n = sk.counts[k];
+    sk.row_ok[k] = n > 0 ? 1 : 0;
+    sk.loga[k] = log_marginal(static_cast<float>(n));
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// JAX 0.9's logsumexp over x(0..n-1) by one warp, every lane gets it: the
+// max, a non-finite max replaced by 0, then log(sum(exp(x - m))) + m. Only
+// the order of the sum differs from the plain version's. (A NaN the max
+// skips still reaches the sum, so the result is NaN as the plain one is.)
+template <class X>
+__device__ float warp_logsumexp(int n, X x) {
+  const int lane = threadIdx.x & 31;
+  float m = neg_inf();
+  for (int i = lane; i < n; i += 32) m = fmaxf(m, x(i));
+  m = warp_max(m);
+  const float m0 = isfinite(m) ? m : 0.0f;
+  float sum = 0.0f;
+  for (int i = lane; i < n; i += 32) sum += expf(__fsub_rn(x(i), m0));
+  sum = warp_sum(sum);
+  return __fadd_rn(logf(sum), m0);
+}
+
+// One Sinkhorn iteration's f-update (rows hit their supply), one warp per
+// row: f = tau * (loga - lse_c(negc + g/tau)), -inf on absent rows.
+__device__ void sinkhorn_f_update(const Sinkhorn& sk, const SkScalars& s) {
+  const int gwarp = (blockIdx.x * NT + threadIdx.x) >> 5;
+  const int n_gwarp = gridDim.x * NWARP;
+  for (int r = gwarp; r < sk.R; r += n_gwarp) {
+    const float lse = warp_logsumexp(sk.C, [&](int c) {
+      return __fadd_rn(sk_negc(sk, s, r, c), sk.gt[c]);
+    });
+    if ((threadIdx.x & 31) == 0) {
+      const float la = sk.loga[r];
+      const float f =
+          isfinite(la) ? __fmul_rn(s.tau, __fsub_rn(la, lse)) : neg_inf();
+      sk.f[r] = f;
+      sk.ft[r] = __fdiv_rn(f, s.tau);
+    }
+  }
+}
+
+// ... and its g-update (columns hit their demand), one warp per column.
+__device__ void sinkhorn_g_update(const Sinkhorn& sk, const SkScalars& s) {
+  const int gwarp = (blockIdx.x * NT + threadIdx.x) >> 5;
+  const int n_gwarp = gridDim.x * NWARP;
+  for (int c = gwarp; c < sk.C; c += n_gwarp) {
+    const float lse = warp_logsumexp(sk.R, [&](int r) {
+      return __fadd_rn(sk_negc(sk, s, r, c), sk.ft[r]);
+    });
+    if ((threadIdx.x & 31) == 0) {
+      const float lb = sk.logb[c];
+      const float g =
+          isfinite(lb) ? __fmul_rn(s.tau, __fsub_rn(lb, lse)) : neg_inf();
+      sk.g[c] = g;
+      sk.gt[c] = __fdiv_rn(g, s.tau);
+    }
+  }
+}
+
+// torch.argmax / jnp.argmax order: a NaN is the maximum, and a tie goes to
+// the lower index.
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  const bool an = a != a, bn = b != b;
+  if (an || bn) return an && (!bn || ia < ib);
+  return a > b || (a == b && ia < ib);
+}
+
+// The first maximum of x(0..W-1) by one warp: every lane gets (value, index).
+template <class X>
+__device__ void warp_argmax(int n, X x, float* best, int* at) {
+  float v = neg_inf();
+  int i_best = INT32_MAX;  // loses to every real element
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    const float xi = x(i);
+    if (beats(xi, i, v, i_best)) {
+      v = xi;
+      i_best = i;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(FULL, v, o);
+    const int i2 = __shfl_xor_sync(FULL, i_best, o);
+    if (beats(v2, i2, v, i_best)) {
+      v = v2;
+      i_best = i2;
+    }
+  }
+  *best = v;
+  *at = i_best;
+}
+
+// The rounding's argmax candidates (whole grid). Bucketed: one warp per
+// bucket over z = negc + g/tau, and its slack test. Dense: one warp per task
+// over the plan exp(negc + (f + g)/tau) itself (an underflow to 0 ties, as
+// in the plain version), and its slack test.
+__device__ void sinkhorn_candidates(const Dims& D, const Sinkhorn& sk,
+                                    const SkScalars& s) {
+  const int W = D.W;
+  const int gwarp = (blockIdx.x * NT + threadIdx.x) >> 5;
+  const int n_gwarp = gridDim.x * NWARP;
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  if (sk.bucketed) {
+    for (int k = gwarp; k < sk.nb; k += n_gwarp) {
+      float best;
+      int at;
+      warp_argmax(W, [&](int w) {
+        return __fadd_rn(sk_negc(sk, s, k, w), sk.gt[w]);
+      }, &best, &at);
+      if (lane0) {
+        sk.best_w_b[k] = at;
+        sk.to_slack_b[k] =
+            __fadd_rn(sk_negc(sk, s, k, W), sk.gt[W]) >= best ? 1 : 0;
+      }
+    }
+    return;
+  }
+  auto plan = [&](int t, int w) {
+    const float fg = __fdiv_rn(__fadd_rn(sk.f[t], sk.g[w]), s.tau);
+    return expf(__fadd_rn(sk_negc(sk, s, t, w), fg));
+  };
+  for (int t = gwarp; t < D.T; t += n_gwarp) {
+    float best;
+    int at;
+    warp_argmax(W, [&](int w) { return plan(t, w); }, &best, &at);
+    if (lane0) {
+      sk.best_w[t] = at;
+      sk.best_p[t] = best;
+      sk.to_slack[t] = plan(t, W) >= best ? 1 : 0;
+    }
+  }
+}
+
+// ---- Sinkhorn close (block 0): sinkhorn.py::_repair_candidates ------------
+// The bucket candidates gathered per task (bucketed), then the lexsort by
+// (worker, -best_p) as two stable radix sorts, the secondary key first; the
+// segment rank keeps each worker's first cap tasks; the rank spill places
+// the rest over the remaining capacity. Fills sc.assign.
+__device__ void sinkhorn_close(const Dims& D, const State& st,
+                               const Out& out, const Scratch& sc,
+                               const Sinkhorn& sk, const SkScalars& s,
+                               Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T, W = D.W;
+  int32_t* key_worker = sc.assign;  // until the spill rewrites it
+  for (int t = tid; t < T; t += NT) {
+    const bool v = st.valid[t] != 0;
+    if (sk.bucketed) {
+      const int b = sk.bucket[t];
+      const int w = sk.best_w_b[b];
+      sk.best_w[t] = w;
+      const float ss = clamp_min(st.sizes[t], 1e-30f);
+      sk.best_p[t] = __fdiv_rn(
+          __fsub_rn(sk.g[w], __fmul_rn(ss, sk.colv[min(max(w, 0), W - 1)])),
+          s.tau);
+      sk.to_slack[t] = (sk.to_slack_b[b] || !v) ? 1 : 0;
+    }
+    const bool cand = v && !sk.to_slack[t];
+    key_worker[t] = cand ? sk.best_w[t] : W;
+    sc.tk[0][t] = float_key(-sk.best_p[t]);
+    sc.tv[0][t] = t;
+  }
+  for (int w = tid; w < W; w += NT) sk.used[w] = 0;
+  __syncthreads();
+  const int b1 = block_radix_sort(sc.tk, sc.tv, T, sm);
+  uint32_t* const k2[2] = {sc.tk[b1 ^ 1], sc.tk[b1]};
+  int32_t* const v2[2] = {sc.tv[b1 ^ 1], sc.tv[b1]};
+  for (int i = tid; i < T; i += NT) {
+    const int t = sc.tv[b1][i];
+    k2[0][i] = static_cast<uint32_t>(key_worker[t]);
+    v2[0][i] = t;
+  }
+  __syncthreads();
+  const int b2 = block_radix_sort(k2, v2, T, sm);
+  const uint32_t* sorted_w = k2[b2];
+  const int32_t* order = v2[b2];
+  for (int i = tid; i < T; i += NT) {
+    const int w = static_cast<int>(sorted_w[i]);
+    if (w < W && (i == 0 || static_cast<int>(sorted_w[i - 1]) != w))
+      sk.seg_first[w] = i;
+  }
+  __syncthreads();
+  for (int i = tid; i < T; i += NT) {
+    const int w = static_cast<int>(sorted_w[i]);
+    const bool keep =
+        w < W && i - sk.seg_first[w] < capacity(D, st, out, w);
+    sk.a0[order[i]] = keep ? w : -1;
+    if (keep) atomicAdd(sk.used + w, 1);
+  }
+  __syncthreads();
+  for (int w = tid; w < W; w += NT)
+    sk.remaining[w] = max(capacity(D, st, out, w) - sk.used[w], 0);
+  for (int t = tid; t < T; t += NT)
+    sk.spilled[t] = (st.valid[t] && sk.a0[t] < 0) ? 1 : 0;
+  __syncthreads();
+  rank_place(
+      D, st, out, [&](int t) { return sk.spilled[t] != 0; }, sk.remaining,
+      false, sc, sm);
+  for (int t = tid; t < T; t += NT)
+    if (sk.a0[t] >= 0) sc.assign[t] = sk.a0[t];
+  __syncthreads();
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Block 0's thread 0 stamps the clock at the start and at the end of each
+// phase into sk.stamps (scratch, read back by the wrapper on request):
+// 0 start, 1 packet and liveness, 2 reductions, 3 setup, 4 iterations,
+// 5 rounding candidates, 6 capacity repair and spill, 7 compaction.
+__global__ void __launch_bounds__(NT, 1)
+fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
+                      Out out, Scratch sc, Sinkhorn sk) {
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
+  const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
+  if (stamp) sk.stamps[0] = global_ns();
+  if (blockIdx.x == 0) {
+    float now, tte;
+    apply_deltas(packet, D, st, out, sm, &now, &tte);
+    __syncthreads();
+    liveness(D, st, out, now, tte, sm);
+    if (threadIdx.x < kRed) sk.red[threadIdx.x] = red_identity(threadIdx.x);
+    if (sk.bucketed)
+      for (int k = threadIdx.x; k < sk.nb; k += NT) sk.counts[k] = 0;
+    if (stamp) sk.stamps[1] = global_ns();
+  }
+  grid.sync();
+  sinkhorn_reduce(D, st, out, sk);
+  grid.sync();
+  if (stamp) sk.stamps[2] = global_ns();
+  const SkScalars s = sk_scalars(sk);
+  if (stamp) sk.tau_out[0] = s.tau;
+  sinkhorn_setup(D, st, sk, s);
+  grid.sync();
+  if (sk.bucketed) {
+    sinkhorn_buckets(sk, s);
+    grid.sync();
+  }
+  if (stamp) sk.stamps[3] = global_ns();
+  for (int it = 0; it < sk.n_iters; ++it) {
+    sinkhorn_f_update(sk, s);
+    grid.sync();
+    sinkhorn_g_update(sk, s);
+    grid.sync();
+  }
+  if (stamp) sk.stamps[4] = global_ns();
+  sinkhorn_candidates(D, sk, s);
+  grid.sync();
+  if (blockIdx.x != 0) return;
+  if (stamp) sk.stamps[5] = global_ns();
+  sinkhorn_close(D, st, out, sc, sk, s, sm);
+  if (stamp) sk.stamps[6] = global_ns();
+  compact(D, st, out, sc.assign, sm);
+  if (stamp) sk.stamps[7] = global_ns();
+}
+
+// n grid barriers and nothing else, on one 1024-thread block per SM (the
+// Sinkhorn kernel's grid): the cost of a barrier alone.
+__global__ void __launch_bounds__(NT, 1) barrier_probe_kernel(int n) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < n; ++i) grid.sync();
+}
+
 // scratch = sk0 sk1 sv0 sv1 [S each] ++ tk0 tk1 tv0 tv1 assign admitted [T each]
 Scratch sort_scratch(int32_t* p, long S, long T) {
   Scratch sc;
@@ -847,6 +1384,27 @@ Out outputs(int32_t* out_i32, uint8_t* out_b8, int W, int KA, int KP, int KR,
              out_b8,
              out_b8 + W,
              out_i32 + 2 * KP + KA + KR + 1 + KG};
+}
+
+// One cooperative launch of as many NT-thread blocks as the card holds at
+// once. Returns 0, a CUDA error code, -1 when the device has no cooperative
+// launch, or -2 when no block of the kernel fits on an SM.
+int cooperative_launch(const void* kernel, void** args, void* stream) {
+  int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return -1;
+  if (per_sm < 1) return -2;
+  e = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * n_sm), dim3(NT), args,
+                                  0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -908,22 +1466,141 @@ extern "C" int tpu_faas_fused_resident_auction(
   au.jitter = jitter;
   au.warm_rounds = warm_rounds;
 
-  int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
+  void* args[] = {&packet, &d, &st, &o, &sc, &au};
+  return cooperative_launch(reinterpret_cast<const void*>(fused_auction_kernel),
+                            args, stream);
+}
+
+// Scratch of the Sinkhorn branch, in int32 words: the rank layout
+// [4S + 6T] ++ rowv row_ok loga ft [R each] ++ logb gt [C each] ++ colv capf
+// used remaining seg_first [W each] ++ logs bucket best_w best_p to_slack a0
+// spilled [T each] ++ counts best_w_b to_slack_b [nb each] ++ red [kRed]
+// ++ stamps [2 kStamps].
+// With p null it only counts; returns the words.
+long long sinkhorn_layout(int32_t* p, long long T, long long W,
+                          long long S, Scratch* sc, Sinkhorn* sk) {
+  const long long R = sk->R, C = sk->C, nb = sk->nb;
+  long long off = 0;
+  auto take = [&](long long n) {
+    int32_t* q = p ? p + off : nullptr;
+    off += n;
+    return q;
+  };
+  auto takef = [&](long long n) { return reinterpret_cast<float*>(take(n)); };
+  int32_t* rank = take(4 * S + 6 * T);
+  if (p) *sc = sort_scratch(rank, S, T);
+  sk->rowv = takef(R);
+  sk->row_ok = take(R);
+  sk->loga = takef(R);
+  sk->ft = takef(R);
+  sk->logb = takef(C);
+  sk->gt = takef(C);
+  sk->colv = takef(W);
+  sk->capf = takef(W);
+  sk->used = take(W);
+  sk->remaining = take(W);
+  sk->seg_first = take(W);
+  sk->logs = takef(T);
+  sk->bucket = take(T);
+  sk->best_w = take(T);
+  sk->best_p = takef(T);
+  sk->to_slack = take(T);
+  sk->a0 = take(T);
+  sk->spilled = take(T);
+  sk->counts = take(nb);
+  sk->best_w_b = take(nb);
+  sk->to_slack_b = take(nb);
+  sk->red = reinterpret_cast<uint32_t*>(take(kRed));
+  take(off & 1);  // 8-byte alignment for the stamps
+  sk->stamps = reinterpret_cast<unsigned long long*>(take(2 * kStamps));
+  return off;
+}
+
+Sinkhorn sinkhorn_shape(int T, int W, int bucketed, int n_buckets) {
+  Sinkhorn sk{};
+  sk.bucketed = bucketed;
+  sk.nb = bucketed ? n_buckets : 0;
+  sk.R = (bucketed ? n_buckets : T) + 1;
+  sk.C = W + 1;
+  return sk;
+}
+
+extern "C" long long tpu_faas_fused_sinkhorn_scratch_words(
+    int T, int W, int max_slots, int bucketed, int n_buckets) {
+  Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
+  return sinkhorn_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
+                         nullptr, &sk);
+}
+
+// The Sinkhorn branch: one cooperative launch. Returns as the auction entry
+// does. f [R] and g [W+1] receive the final potentials, R = n_buckets + 1
+// (bucketed) or T + 1 (dense); scratch holds
+// tpu_faas_fused_sinkhorn_scratch_words() words; tau [1] receives the
+// effective temperature.
+extern "C" int tpu_faas_fused_resident_sinkhorn(
+    const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
+    float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
+    float* speed, uint8_t* active, int32_t* out_i32, uint8_t* out_b8,
+    float* f, float* g, float* tau_out, int32_t* scratch, int T, int W, int I, int KA, int KH,
+    int KF, int KI, int KS, int KB, int KP, int KR, int KG, int max_slots,
+    int use_priority, int bucketed, int n_buckets, int n_iters, float tau,
+    void* stream) {
+  Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
+         0};
+  State st{sizes, valid, prio, last_hb, free_cnt, inflight, prev_live, speed,
+           active};
+  Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
+  Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
+  sk.n_iters = n_iters;
+  sk.tau_rel = tau;
+  sk.f = f;
+  sk.g = g;
+  sk.tau_out = tau_out;
+  Scratch sc;
+  sinkhorn_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc,
+                  &sk);
+  void* args[] = {&packet, &d, &st, &o, &sc, &sk};
+  return cooperative_launch(
+      reinterpret_cast<const void*>(fused_sinkhorn_kernel), args, stream);
+}
+
+// expf and logf of n floats, compiled as the Sinkhorn branch compiles them:
+// for checking them bit for bit against torch.exp and torch.log on the card.
+__global__ void math_probe_kernel(const float* x, float* e, float* l, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    e[i] = expf(x[i]);
+    l[i] = logf(x[i]);
+  }
+}
+
+extern "C" int tpu_faas_math_probe(const float* x, float* e, float* l, int n,
+                                   void* stream) {
+  math_probe_kernel<<<256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, e, l, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scratch offset, in int32 words, of the Sinkhorn branch's phase stamps
+// (kStamps uint64 nanosecond clocks of the last launch on that scratch).
+extern "C" long long tpu_faas_fused_sinkhorn_stamps_offset(
+    int T, int W, int max_slots, int bucketed, int n_buckets) {
+  Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
+  return sinkhorn_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
+                         nullptr, &sk) - 2 * kStamps;
+}
+
+extern "C" int tpu_faas_barrier_probe(int n, void* stream) {
+  int dev = 0, n_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_auction_kernel, NT, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return -1;
-  if (per_sm < 1) return -2;
-  void* args[] = {&packet, &d, &st, &o, &sc, &au};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(fused_auction_kernel), dim3(per_sm * n_sm),
-      dim3(NT), args, 0, static_cast<cudaStream_t>(stream));
+  void* args[] = {&n};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(
+                                      barrier_probe_kernel),
+                                  dim3(n_sm), dim3(NT), args, 0,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

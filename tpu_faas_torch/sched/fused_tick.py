@@ -19,7 +19,10 @@ allocates nothing: the wrapper allocates scratch once per shape and the
 outputs fresh every tick, so a tick issued before the previous one is read
 back never overwrites that one's outputs. An auction tick's round count,
 spilled count and bidder rows (summed over its rounds) come back as device
-tensors, which the wrapper never reads.
+tensors, which the wrapper never reads. Sinkhorn placement is a third
+cooperative launch: its iterations alternate row and column logsumexps
+across the grid, and its final potentials also come back as device tensors
+the wrapper never reads.
 """
 
 from __future__ import annotations
@@ -38,7 +41,14 @@ from tpu_faas_torch.sched.resident import (
     _resident_tick_impl,
     _ResidentState,
 )
-from tpu_faas_torch.sched.state import check_placement
+from tpu_faas_torch.sched.sinkhorn import TAU
+from tpu_faas_torch.sched.state import (
+    BUCKETED_ITERS,
+    DENSE_ITERS,
+    N_BUCKETS,
+    check_placement,
+    sinkhorn_bucketed,
+)
 
 SOURCE = "tpu_faas_torch/csrc/fused_tick.cu"
 REPLACES = "tpu_faas/sched/pallas_fused.py:147 (_fused_resident_tick_impl)"
@@ -46,6 +56,10 @@ REPLACES = "tpu_faas/sched/pallas_fused.py:147 (_fused_resident_tick_impl)"
 #: auction_placement_impl, traced inside it by _resident_tick_impl
 AUCTION_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
                     "(_fused_resident_tick_impl, placement=\"auction\")")
+#: the Sinkhorn branch: scheduler_tick_impl's Sinkhorn solvers, traced
+#: inside the same TPU kernel
+SINKHORN_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
+                     "(_fused_resident_tick_impl, placement=\"sinkhorn\")")
 
 _P = ctypes.c_void_p
 _N_PTR = 13  # packet, 9 state leaves, out_i32, out_b8, scratch
@@ -53,16 +67,20 @@ _N_INT = 15  # T W I KA KH KF KI KS KB KP KR KG max_slots prio flush
 _N_PTR_AUCTION = 15  # packet, 9 state leaves, price, refresh, outs, scratch
 _N_INT_AUCTION = 15  # T W I KA KH KF KI KS KB KP KR KG max_slots prio
 #                      warm_rounds
-#: the auction entry's own error codes
-_AUCTION_ERRORS = {
+_N_PTR_SINKHORN = 16  # packet, 9 state leaves, outs, f, g, tau, scratch
+_N_INT_SINKHORN = 17  # T W I KA KH KF KI KS KB KP KR KG max_slots prio
+#                       bucketed n_buckets n_iters
+#: the cooperative entries' own error codes
+_COOP_ERRORS = {
     -1: "the device has no cooperative launch",
-    -2: "no block of the auction kernel fits on an SM",
+    -2: "no block of the kernel fits on an SM",
 }
 
 
 class FusedTickKernel:
     """The built library, its per-shape scratch and its launch counts: one
-    for the rank tick and the flush, one for the auction branch."""
+    for the rank tick and the flush, one for the auction branch, one for
+    the Sinkhorn branch."""
 
     name = "fused_tick"
 
@@ -71,9 +89,14 @@ class FusedTickKernel:
         self.launches = 0
         #: auction-branch launches so far; callers may reset it to 0
         self.auction_launches = 0
+        #: Sinkhorn-branch launches so far; callers may reset it to 0
+        self.sinkhorn_launches = 0
         self.ptxas_report = ""
         self._fn = None
         self._fn_auction = None
+        self._fn_sinkhorn = None
+        self._sinkhorn_words = None
+        self._fn_math = self._stamps_at = self._fn_barrier = None
         self._scratch: dict[tuple, torch.Tensor] = {}
 
     def load(self) -> None:
@@ -91,18 +114,36 @@ class FusedTickKernel:
                             + [ctypes.c_int] * _N_INT_AUCTION
                             + [ctypes.c_float] * 2 + [_P])  # eps jitter stream
         auction.restype = ctypes.c_int
+        sinkhorn = lib.tpu_faas_fused_resident_sinkhorn
+        sinkhorn.argtypes = ([_P] * _N_PTR_SINKHORN
+                             + [ctypes.c_int] * _N_INT_SINKHORN
+                             + [ctypes.c_float, _P])  # tau stream
+        sinkhorn.restype = ctypes.c_int
+        words = lib.tpu_faas_fused_sinkhorn_scratch_words
+        words.argtypes = [ctypes.c_int] * 5
+        words.restype = ctypes.c_longlong
+        self._fn_sinkhorn, self._sinkhorn_words = sinkhorn, words
+        probe = lib.tpu_faas_math_probe
+        probe.argtypes = [_P] * 3 + [ctypes.c_int, _P]
+        probe.restype = ctypes.c_int
+        stamps = lib.tpu_faas_fused_sinkhorn_stamps_offset
+        stamps.argtypes = [ctypes.c_int] * 5
+        stamps.restype = ctypes.c_longlong
+        barrier = lib.tpu_faas_barrier_probe
+        barrier.argtypes = [ctypes.c_int, _P]
+        barrier.restype = ctypes.c_int
+        self._fn_math, self._stamps_at, self._fn_barrier = (probe, stamps,
+                                                            barrier)
         self._fn, self._fn_auction = fn, auction
 
-    def _scratch_for(self, dev: torch.device, T: int, S: int,
-                     auction: bool) -> torch.Tensor:
+    def _scratch_for(self, dev: torch.device, key: tuple,
+                     words: int) -> torch.Tensor:
         # one buffer per (device, shape, branch); launches on one stream
         # run in order, so reusing it across ticks is safe
-        key = (dev, T, S, auction)
-        buf = self._scratch.get(key)
+        buf = self._scratch.get((dev, *key))
         if buf is None:
-            n = 9 * S + 10 * T + 2 if auction else 4 * S + 6 * T
-            buf = torch.empty(n, dtype=torch.int32, device=dev)
-            self._scratch[key] = buf
+            buf = torch.empty(words, dtype=torch.int32, device=dev)
+            self._scratch[(dev, *key)] = buf
         return buf
 
     def _check(self, packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
@@ -153,7 +194,8 @@ class FusedTickKernel:
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
                               device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
-        scratch = self._scratch_for(dev, T, W * max_slots, False)
+        S = W * max_slots
+        scratch = self._scratch_for(dev, ("rank", T, S), 4 * S + 6 * T)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(
@@ -185,7 +227,8 @@ class FusedTickKernel:
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG + 3,
                               dtype=torch.int32, device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
-        scratch = self._scratch_for(dev, T, S, True)
+        scratch = self._scratch_for(dev, ("auction", T, S),
+                                    9 * S + 10 * T + 2)
         jitter, eps = bid_scalars(EPS)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -201,14 +244,95 @@ class FusedTickKernel:
                 int(bool(use_priority)), WARM_ROUNDS, eps, jitter, stream,
             )
         if err != 0:
-            why = _AUCTION_ERRORS.get(err, f"CUDA error {err}")
+            why = _COOP_ERRORS.get(err, f"CUDA error {err}")
             raise RuntimeError(f"fused_tick auction launch failed: {why}")
         self.auction_launches += 1
         return self._outputs(out_i32, out_b8, W, KA, KP, KR, aux=True), st
 
+    def sinkhorn(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
+                 KR, max_slots, use_priority):
+        """A Sinkhorn tick: one cooperative launch, on the route the batch
+        tick takes for this shape (bucketed when T*W > 2**24, else dense).
+        Updates the leaves it writes in place; the outputs carry the final
+        potentials f and g and the effective temperature."""
+        dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
+                          use_priority)
+        self.load()
+        bucketed = sinkhorn_bucketed(T, W)
+        n_iters = BUCKETED_ITERS if bucketed else DENSE_ITERS
+        R = (N_BUCKETS if bucketed else T) + 1
+        out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
+                              device=dev)
+        out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
+        f = torch.empty(R, dtype=torch.float32, device=dev)
+        g = torch.empty(W + 1, dtype=torch.float32, device=dev)
+        tau = torch.empty(1, dtype=torch.float32, device=dev)
+        scratch = self._scratch_for(
+            dev, ("sinkhorn", T, W, max_slots),
+            self._sinkhorn_words(T, W, max_slots, int(bucketed), N_BUCKETS),
+        )
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = self._fn_sinkhorn(
+                packet.data_ptr(), st.sizes.data_ptr(), st.valid.data_ptr(),
+                st.prio.data_ptr(), st.last_hb.data_ptr(),
+                st.free.data_ptr(), st.inflight.data_ptr(),
+                st.prev_live.data_ptr(), st.speed.data_ptr(),
+                st.active.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
+                f.data_ptr(), g.data_ptr(), tau.data_ptr(),
+                scratch.data_ptr(),
+                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
+                int(bool(use_priority)), int(bucketed), N_BUCKETS, n_iters,
+                TAU, stream,
+            )
+        if err != 0:
+            why = _COOP_ERRORS.get(err, f"CUDA error {err}")
+            raise RuntimeError(f"fused_tick sinkhorn launch failed: {why}")
+        self.sinkhorn_launches += 1
+        res = self._outputs(out_i32, out_b8, W, KA, KP, KR)
+        return res._replace(sinkhorn_f=f, sinkhorn_g=g,
+                            sinkhorn_tau=tau[0]), st
 
-#: the process's one instance: its ``launches`` and ``auction_launches``
-#: are the library's counts
+    def sinkhorn_phase_ms(self, dev: torch.device, T: int, W: int,
+                          max_slots: int) -> list[float]:
+        """The last Sinkhorn launch's phases at this shape, in ms, from
+        block 0's clock: packet and liveness, reductions, setup, the
+        iterations, the rounding candidates, the capacity repair and spill,
+        the compaction. Reads the card (a sync)."""
+        bucketed = int(sinkhorn_bucketed(T, W))
+        at = self._stamps_at(T, W, max_slots, bucketed, N_BUCKETS)
+        (buf,) = [b for k, b in self._scratch.items()
+                  if k[0].type == dev.type and dev.index in (None, k[0].index)
+                  and k[1:] == ("sinkhorn", T, W, max_slots)]
+        ns = buf[at : at + 16].cpu().view(torch.int64).tolist()
+        return [(b - a) / 1e6 for a, b in zip(ns, ns[1:])]
+
+    def barrier_probe(self, n: int) -> None:
+        """n grid barriers alone, cooperatively on one block per SM (not
+        counted as a launch)."""
+        self.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn_barrier(n, stream)
+        if err != 0:
+            raise RuntimeError(f"barrier probe failed: CUDA error {err}")
+
+    def math_probe(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``expf`` and ``logf`` of a CUDA float32 vector, compiled as the
+        Sinkhorn branch compiles them (not counted as a launch)."""
+        check_arg(x, "x", torch.float32, x.shape[0], x.device)
+        self.load()
+        e, lg = torch.empty_like(x), torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = self._fn_math(x.data_ptr(), e.data_ptr(), lg.data_ptr(),
+                                x.shape[0], stream)
+        if err != 0:
+            raise RuntimeError(f"math probe launch failed: CUDA error {err}")
+        return e, lg
+
+
+#: the process's one instance: its ``launches``, ``auction_launches`` and
+#: ``sinkhorn_launches`` are the library's counts
 KERNEL = FusedTickKernel()
 
 
@@ -224,12 +348,14 @@ def fused_resident_tick(
     state)``) or one delta application alone (``flush=True``: returns
     ``(state, arrival_slots)``). On CUDA tensors the kernel updates ``st``
     in place and returns it; on CPU tensors the plain version returns a
-    new state and leaves ``st`` untouched. ``placement`` is ``"rank"`` or
-    ``"auction"``; a flush is the same for both."""
+    new state and leaves ``st`` untouched. ``placement`` is ``"rank"``,
+    ``"auction"`` or ``"sinkhorn"``; a flush is the same for all three."""
     check_placement(placement)
     if packet.device.type == "cuda":
         if placement == "auction" and not flush:
             return KERNEL.auction(packet, st, **statics)
+        if placement == "sinkhorn" and not flush:
+            return KERNEL.sinkhorn(packet, st, **statics)
         return KERNEL(packet, st, flush=flush, **statics)
     if packet.device.type != "cpu":
         raise ValueError(f"no fused tick for device {packet.device}")

@@ -21,10 +21,11 @@ and a second tick issued before the first is resolved cannot double-book.
 kernel (``sched/fused_tick.py`` + ``csrc/fused_tick.cu``): on a CUDA device
 the tick always runs the kernel, which updates the state tensors in place
 (their ``data_ptr()`` never changes); on the CPU it runs this version. Both
-place by rank or by auction; the auction carries its slot prices and
-staleness flag in the state, and on the card its bidding rounds loop
-inside the one launch, with no host round trip. Tenancy and speculation
-raise ``NotImplementedError``.
+place by rank, by auction or by Sinkhorn. The auction carries its slot
+prices and staleness flag in the state, and on the card its bidding rounds
+loop inside the one launch, with no host round trip; Sinkhorn carries no
+state of its own, and on the card its iterations run inside the one launch
+too. Tenancy and speculation raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,12 @@ import numpy as np
 import torch
 
 from tpu_faas_torch.device import to_host, upload
-from tpu_faas_torch.sched.scatter import drop_index, scatter_add, scatter_set
+from tpu_faas_torch.sched.scatter import (
+    drop_index,
+    f32_to_i32,
+    scatter_add,
+    scatter_set,
+)
 from tpu_faas_torch.sched.state import (
     SchedulerArrays,
     scheduler_tick_impl,
@@ -63,6 +69,12 @@ class ResidentTickOutput(NamedTuple):
     auction_spilled: torch.Tensor | None = None
     #: i32 scalar (auction only): rows that bid, summed over the rounds
     auction_bid_rows: torch.Tensor | None = None
+    #: f32 final Sinkhorn potentials (Sinkhorn only): f over the iterated
+    #: rows, g over the workers + slack
+    sinkhorn_f: torch.Tensor | None = None
+    sinkhorn_g: torch.Tensor | None = None
+    #: f32 scalar (Sinkhorn only): the effective temperature
+    sinkhorn_tau: torch.Tensor | None = None
 
 
 class _ResidentState(NamedTuple):
@@ -124,17 +136,8 @@ def state_to_numpy(st: _ResidentState) -> dict[str, np.ndarray]:
 # 1 = flush) and time_to_expire
 _OP_TICK, _OP_FLUSH = 0.0, 1.0
 _HEADER = 9
-_I32_MAX = 2**31 - 1
 #: length of the straggler output: its inert pad while speculation is off
 _KG = 1
-
-
-def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> i32 as XLA (and CUDA's ``__float2int_rz``) convert:
-    truncate toward zero, saturate at the int32 range, NaN -> 0."""
-    i = x.clamp(-(2.0**31), 2147483520.0).to(_I32)
-    i = torch.where(x >= 2.0**31, _I32_MAX, i)
-    return torch.where(torch.isnan(x), 0, i).to(_I32)
 
 
 def _first_k_indices(mask: torch.Tensor, K: int) -> torch.Tensor:
@@ -234,10 +237,12 @@ def _resident_tick_impl(
     *,
     T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, max_slots, use_priority,
     placement="rank",
+    sinkhorn_potentials=None,
 ):
     """The full resident step as plain PyTorch ops — the plain version of
     the fused CUDA kernel. Functional: returns ``(ResidentTickOutput,
-    new_state)`` and leaves ``st`` untouched."""
+    new_state)`` and leaves ``st`` untouched. ``sinkhorn_potentials``
+    replays a Sinkhorn tick's rounding from given final (f, g)."""
     st, arrival_slots, now = _apply_deltas(
         packed, st, T=T, W=W, I=I, KA=KA, KH=KH, KF=KF, KI=KI, KS=KS,
         KB=KB, use_priority=use_priority,
@@ -258,6 +263,7 @@ def _resident_tick_impl(
         placement=placement,
         auction_price=st.price if auction else None,
         auction_refresh=st.refresh if auction else None,
+        sinkhorn_potentials=sinkhorn_potentials,
     )
 
     # -- compact placements to KP (slot, row) pairs ------------------------
@@ -296,7 +302,8 @@ def _resident_tick_impl(
     res = ResidentTickOutput(
         placed_slots, placed_rows, arrival_slots, redispatch_slots,
         out.purged, out.live, valid_next.sum(dtype=_I32), straggler_slots,
-        rounds, spilled, bid_rows,
+        rounds, spilled, bid_rows, out.sinkhorn_f, out.sinkhorn_g,
+        out.sinkhorn_tau,
     )
     return res, new_state
 

@@ -10,10 +10,11 @@ registry, heartbeat stamps, in-flight table) and feeds the tick; its
 bookkeeping is a copy of the JAX class's. Only the device methods are
 PyTorch: the tick, the cached fleet uploads and the delta-maintained
 in-flight mirror, and the auction's warm prices carried between ticks.
-Rank and auction placement are ported (the auction's bids run kernel B2 on
-the card); Sinkhorn, the mesh and multihost layouts, tenancy, speculation
-and the graph lanes raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+All three placements are ported: rank, auction (its bids run kernel B2 on
+the card) and Sinkhorn (plain torch ops on both devices: the JAX batch tick
+reaches no Pallas kernel for it). The mesh and multihost layouts, tenancy,
+speculation and the graph lanes raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -29,12 +30,15 @@ import torch
 from tpu_faas_torch.device import resolve_device, upload
 from tpu_faas_torch.sched.auction import auction_placement_impl
 from tpu_faas_torch.sched.greedy import rank_match_placement_impl
+from tpu_faas_torch.sched.sinkhorn import (
+    sinkhorn_placement_bucketed_impl,
+    sinkhorn_placement_impl,
+)
 
 _I32 = torch.int32
 
 #: what each unported feature waits for, by ROADMAP item
 _UNPORTED = {
-    "sinkhorn": "ROADMAP A.9 (Sinkhorn placement)",
     "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
     "tenancy": "ROADMAP A.7 (in-tick planes: tenancy)",
     "speculation": "ROADMAP A.7 (in-tick planes: speculation)",
@@ -50,10 +54,20 @@ def unported(feature: str) -> NotImplementedError:
 
 
 def check_placement(placement: str) -> None:
-    if placement == "sinkhorn":
-        raise unported(placement)
-    if placement not in ("rank", "auction"):
+    if placement not in ("rank", "auction", "sinkhorn"):
         raise ValueError(f"unknown placement kernel {placement!r}")
+
+
+#: the tick's Sinkhorn solvers: bucketed (its iterations over N_BUCKETS size
+#: classes, bucket rounding) or dense, each with its iteration count
+N_BUCKETS = 1024
+BUCKETED_ITERS, DENSE_ITERS = 20, 60
+
+
+def sinkhorn_bucketed(T: int, W: int) -> bool:
+    """The tick's static Sinkhorn route: the bucketed solver when
+    ``T * W > 2**24``, else the dense one."""
+    return T * W > 2**24
 
 
 class TickOutput(NamedTuple):
@@ -74,6 +88,12 @@ class TickOutput(NamedTuple):
     #: rows that bid, summed over the rounds (auction only), counted on
     #: the host
     auction_bid_rows: int | None = None
+    #: f32 final Sinkhorn potentials (Sinkhorn only): f over the iterated
+    #: rows (tasks + slack, or buckets + slack), g over the workers + slack
+    sinkhorn_f: torch.Tensor | None = None
+    sinkhorn_g: torch.Tensor | None = None
+    #: f32 scalar (Sinkhorn only): the effective temperature
+    sinkhorn_tau: torch.Tensor | None = None
 
 
 def scheduler_tick_impl(
@@ -93,7 +113,11 @@ def scheduler_tick_impl(
     worker_place_cap: torch.Tensor | None = None,  # i32[W] placement ceiling
     auction_price: torch.Tensor | None = None,  # f32[W*max_slots] warm start
     auction_refresh: torch.Tensor | None = None,  # bool scalar: resident carry
+    sinkhorn_potentials: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> TickOutput:
+    """One batch tick. ``sinkhorn_potentials`` (Sinkhorn only) replaces the
+    solver's iterations with given final (f, g): the replay of a rounding
+    from the CUDA kernel's own potentials."""
     check_placement(placement)
     # tail-health multiplier on effective speed, and the quarantine plane's
     # per-row placement ceiling: two elementwise lanes ahead of placement
@@ -125,6 +149,25 @@ def scheduler_tick_impl(
         return TickOutput(res.assignment, live, purged, redispatch,
                           res.prices, res.refresh, res.n_rounds,
                           res.n_spilled, res.n_bid_rows)
+    # Sinkhorn ignores task_priority too: every valid task competes
+    if placement == "sinkhorn":
+        T, W = task_size.shape[0], worker_speed.shape[0]
+        if sinkhorn_bucketed(T, W):
+            res = sinkhorn_placement_bucketed_impl(
+                task_size, task_valid, worker_speed, worker_free, live,
+                max_slots=max_slots, n_iters=BUCKETED_ITERS,
+                n_buckets=N_BUCKETS, rounding="bucket",
+                potentials=sinkhorn_potentials,
+            )
+        else:
+            res = sinkhorn_placement_impl(
+                task_size, task_valid, worker_speed, worker_free, live,
+                max_slots=max_slots, n_iters=DENSE_ITERS,
+                potentials=sinkhorn_potentials,
+            )
+        return TickOutput(res.assignment, live, purged, redispatch,
+                          sinkhorn_f=res.f, sinkhorn_g=res.g,
+                          sinkhorn_tau=res.tau)
     assignment = rank_match_placement_impl(
         task_size, task_valid, worker_speed, worker_free, live,
         max_slots=max_slots, task_priority=task_priority,
@@ -181,7 +224,7 @@ class SchedulerArrays:
     max_slots: int = 8
     time_to_expire: float = 10.0
     clock: "callable" = time.monotonic
-    #: placement kernel for the tick: rank or auction (sinkhorn raises)
+    #: placement kernel for the tick: rank, auction or sinkhorn
     placement: str = "rank"
     multihost: "object | None" = None
     mesh_devices: int | None = None
