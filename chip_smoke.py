@@ -61,7 +61,24 @@ over):
    from its pre-state; and ``SchedulerArrays(placement="sinkhorn")`` at
    BASELINE config 4, beside config 4's own solve, against the LP makespan
    bound.
-8. ``time``   — CUDA-event medians of B1's rank branch (on the resident run's
+8. ``resident_tenancy`` — B1's tenancy lane (``NT`` = 32 tenant rows, the
+   dispatcher's default) in its three branches: against the plain version on
+   synthetic headline states (tenant rows past both ends of [0, NT) in the
+   state and the arrival lane, deficits around the starvation threshold and
+   at the cap, caps of 0, at ``ahead``, below and above it; priority lanes
+   off and on), rank and auction ticks and the flush exactly equal on every
+   output and state leaf (``t_deficit`` and the eligibility included; one
+   auction state also against plain bids), Sinkhorn under its contract with
+   the eligibility added to (a); each branch timed with the lane off and
+   on, on the same state. Then a resident loop per branch (phase 2's loop
+   and checks, shortened: 60 rank, 16 auction and 20 Sinkhorn ticks) with
+   config 16's shares and caps (light=8, heavy=1, heavy capped at the
+   fleet's slots minus one) and four more capped tenants, arrivals tagged
+   across all 32 rows, the table's inflight counts kept as the dispatcher
+   keeps them; every launch holds each tenant within its allowance. Last,
+   the rank branch with the lane on the rank loop's own states, beside its
+   plain version and its bound.
+9. ``time``   — CUDA-event medians of B1's rank branch (on the resident run's
    own states and packets, and on a synthetic state) and of B2 (at both bid
    shapes), and CUDA-event means of B1's auction branch over the resident
    auction run's own states (its warm and cold ticks differ forty-fold in
@@ -80,8 +97,8 @@ over):
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
 rank branch, the auction ticks for B2, the resident auction run for B1's
-auction branch, the resident Sinkhorn run for its Sinkhorn branch), errors
-and times. Without a CUDA device the script exits
+auction branch, the resident Sinkhorn run for its Sinkhorn branch, and the
+resident tenancy rank run for its tenancy lane), errors and times. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
@@ -108,6 +125,15 @@ N_AUCTION_TIMED = 10  # timed resident auction ticks
 #: spin queued ahead of each timed launch (about 10 ms at 1.98 GHz), so the
 #: host has enqueued the launch before the card reaches its start event
 SPIN_CYCLES = 20_000_000
+#: the tenancy lane: the dispatcher's default max_tenants
+#: (tpu_faas/dispatch/tpu_push.py:104), and the statics that turn it on
+NT_HEADLINE = 32
+TENANCY_KW = dict(use_tenancy=True, NT=NT_HEADLINE)
+#: the resident loops' arrival mix over the 32 rows: default, light, heavy,
+#: then the 29 other tenants evenly
+TENANT_MIX = np.array([0.05, 0.15, 0.6] + [0.2 / 29] * 29)
+#: (checked, timed) resident ticks with the tenancy lane, per branch
+TENANCY_TICKS = {"rank": (40, 20), "auction": (12, 4), "sinkhorn": (15, 5)}
 
 
 def log(*a) -> None:
@@ -277,11 +303,13 @@ def phase_kernel(dev) -> dict:
 
 
 # -- phase 2: the resident path end to end ------------------------------------
-def make_checked_scheduler(dev, clock, use_priority: bool, placement: str):
+def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
+                           tenancy=None):
     """A ResidentScheduler that records, for each kernel launch, the packet
     and a copy of the state before it, so the run can replay every launch
     through the plain version and compare. Recording makes only device
-    copies inside the tick (no host sync)."""
+    copies inside the tick (no host sync). ``tenancy`` is its TenantTable
+    (None: the lane off)."""
     from tpu_faas_torch.sched.resident import ResidentScheduler
 
     class Checked(ResidentScheduler):
@@ -312,7 +340,7 @@ def make_checked_scheduler(dev, clock, use_priority: bool, placement: str):
         max_workers=SHAPE["W"], max_pending=SHAPE["T"],
         max_inflight=SHAPE["I"], max_slots=MAX_SLOTS, time_to_expire=10.0,
         clock=clock, device=dev, use_priority=use_priority,
-        placement=placement,
+        placement=placement, tenancy=tenancy,
         **{k: SHAPE[k] for k in ("KA", "KH", "KF", "KI", "KS", "KB", "KP",
                                  "KR")},
     )
@@ -346,7 +374,12 @@ def replay_plain(rs, pre0) -> tuple[int, float]:
 
 
 def phase_resident(dev, n_ticks: int, timed_ticks: int,
-                   placement: str = "rank") -> dict:
+                   placement: str = "rank", tenancy: bool = False) -> dict:
+    """The resident loop (see the module docstring); ``tenancy`` runs it with
+    the tenancy lane on: ``tenant_table``'s shares and caps, arrivals
+    tagged across its tenants, the table's inflight counts kept with
+    note_dispatched/note_done as the dispatcher keeps them, and every
+    launch's placements held to each tenant's allowance."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
 
     def n_launches():  # rank ticks and flushes, auction and Sinkhorn ticks
@@ -361,12 +394,23 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
     n_churn, n_hb, n_silent = SHAPE["KA"], SHAPE["KH"] // 4, W // 64
     rng = np.random.default_rng(7)
     clock_box = [1000.0]
+    procs = rng.integers(1, MAX_SLOTS + 1, W)
+    speeds = rng.uniform(0.5, 4.0, W)
+    ten = tenant_table(int(procs.sum())) if tenancy else None
+    # tenant tags draw from their own generator: the loop's other draws
+    # stay those of the run without tenancy
+    trng = np.random.default_rng(17)
+    tenant_of: dict[str, int] = {}
+
+    def tag(tid: str) -> int:
+        tenant_of[tid] = int(trng.choice(NT_HEADLINE, p=TENANT_MIX)) \
+            if tenancy else 0
+        return tenant_of[tid]
+
     # the auction and Sinkhorn ignore priorities: their loops run FCFS
     rs = make_checked_scheduler(dev, lambda: clock_box[0],
                                 use_priority=placement == "rank",
-                                placement=placement)
-    procs = rng.integers(1, MAX_SLOTS + 1, W)
-    speeds = rng.uniform(0.5, 4.0, W)
+                                placement=placement, tenancy=ten)
     for i in range(W):
         rs.register(b"w%d" % i, int(procs[i]), speed=float(speeds[i]))
     sizes: dict[str, float] = {}
@@ -376,7 +420,9 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
     bulk_prio = rng.integers(0, 4, T).astype(np.int32)
     for tid, s, p in zip(ids, bulk_sizes, bulk_prio):
         sizes[tid], prios[tid] = float(s), int(p)
-    rs.pending_bulk_load(ids, bulk_sizes, bulk_prio)
+    bulk_tenants = np.array([tag(tid) for tid in ids], np.int32)
+    rs.pending_bulk_load(ids, bulk_sizes, bulk_prio,
+                         bulk_tenants if tenancy else None)
     ptrs = [t.data_ptr() for t in rs._r_state]
 
     inflight: dict[str, int] = {}  # task -> row, as dispatched
@@ -390,7 +436,8 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
                  steady_ticks=0, overflow_ticks=[], mismatches=0,
                  max_abs_err=0.0, cold_ticks=0, warm_ticks=0, rounds=[],
                  spilled=[], bid_rows=[], max_df=0.0, differs=0,
-                 scale=0.0)
+                 scale=0.0, over_allowance=0,
+                 placed_by_tenant=np.zeros(NT_HEADLINE, np.int64))
     expected_redispatch: set[int] | None = None
     expected_purge: set[int] | None = None
     tick_of_purge = None
@@ -407,6 +454,9 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             infl_list.append(tid)
             running[row] += 1
             stats["placed"] += 1
+            if ten is not None:
+                ten.note_dispatched(tenant_of[tid])
+                stats["placed_by_tenant"][tenant_of[tid]] += 1
         over = np.flatnonzero(running > procs)
         assert not len(over), f"rows over-booked: {over[:8]}"
         if len(r.purged_rows):
@@ -423,7 +473,9 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
                 continue  # already reclaimed by an earlier resolve
             row = inflight.pop(tid)
             running[row] -= 1
-            rs.pending_add(tid, sizes[tid], prios[tid])
+            if ten is not None:
+                ten.note_done(tenant_of[tid])
+            rs.pending_add(tid, sizes[tid], prios[tid], tenant_of[tid])
             stats["redispatched"] += 1
         for row in r.purged_rows:
             rs.deactivate(int(row))
@@ -458,6 +510,8 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             del inflight[tid]
             running[row] -= 1
             completed.add(tid)
+            if ten is not None:
+                ten.note_done(tenant_of[tid])
             rs.release_slot(rs.inflight_done(tid))
             done += 1
         for i in range(n_hb):
@@ -469,7 +523,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             n_new += 1
             sizes[tid] = float(rng.uniform(0.1, 10.0))
             prios[tid] = int(rng.integers(0, 4))
-            rs.pending_add(tid, sizes[tid], prios[tid])
+            rs.pending_add(tid, sizes[tid], prios[tid], tag(tid))
         if k == silence_tick:
             expected_purge = set(silenced)
             expected_redispatch = {
@@ -517,6 +571,10 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             stats["mismatches"] += b
             assert b == 0, f"tick {k}: kernel != plain version ({placement})"
             pkt, _, pre, out = rs.launch_log[-1]
+            if tenancy:
+                over = tenancy_violations(out[0], rs._r_state.tenant, pkt)
+                stats["over_allowance"] += over
+                assert not over, f"tick {k}: {over} tenancy violations"
             if auction:
                 cold = bool(pre.refresh)
                 stats["cold_ticks" if cold else "warm_ticks"] += 1
@@ -551,13 +609,20 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             f"{stats['warm_ticks']} warm; rounds {stats['rounds']}; "
             f"spilled {stats['spilled']}; bidder rows over the rounds "
             f"{stats['bid_rows']}")
+    if tenancy:
+        by = stats["placed_by_tenant"]
+        log(f"  tenancy: placements light {by[1]}, heavy {by[2]}, the other "
+            f"{NT_HEADLINE - 2} rows {by.sum() - by[1] - by[2]}; no launch "
+            f"placed a tenant past its allowance; deficits at the end "
+            f"{np.round(rs.tenant_deficits(), 2).tolist()}")
     if sinkhorn:
         log(f"  Sinkhorn ticks held to the contract: max |df|/tau "
             f"{stats['max_df']:.3e}, max |dg|/tau {stats['max_abs_err']:.3e} "
             f"(bound {SINKHORN_TOL:g}), largest finite |f|/tau or |g|/tau "
             f"{stats['scale']:.3f}; {stats['differs']} checked ticks "
             f"placed otherwise than the plain version's own potentials")
-    log(f"phase resident ({placement}): {n_ticks + timed_ticks} ticks, "
+    log(f"phase resident ({placement}{', tenancy' if tenancy else ''}): "
+        f"{n_ticks + timed_ticks} ticks, "
         f"{launches} kernel "
         f"launches ({stats['steady_ticks']} ticks with exactly one; packet "
         f"overflow flushes on ticks {stats['overflow_ticks']}), "
@@ -810,16 +875,18 @@ def auction_case(seed: int, use_priority: bool, refresh: bool):
 
 
 def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
-                         plain_twin: bool):
+                         plain_twin: bool, tenancy: bool = False):
     """The auction kernel against its plain version from the same state,
     and (``plain_twin``) against the plain version with plain bids:
-    (mismatched fields, max abs error, rounds, spilled)."""
+    (mismatched fields and tenancy violations, max abs error, rounds,
+    spilled, bidder rows). ``tenancy``: the packet carries the lane."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
     from tpu_faas_torch.sched.resident import (
         _resident_tick_impl, state_from_numpy,
     )
 
-    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority)
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority,
+              **(TENANCY_KW if tenancy else {}))
     st_k = state_from_numpy(leaves, dev)
     packet = torch.from_numpy(pkt).to(dev)
     ptrs = [t.data_ptr() for t in st_k]
@@ -842,6 +909,8 @@ def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
         b1, e1 = compare(res_k, res_p, f"{label} vs {twin}: out")
         b2, e2 = compare(new_k, new_p, f"{label} vs {twin}: state")
         bad, err = bad + b1 + b2, max(err, e1, e2)
+    if tenancy:
+        bad += tenancy_violations(res_k, new_k.tenant, pkt)
     return (bad, err, int(res_k.auction_rounds), int(res_k.auction_spilled),
             int(res_k.auction_bid_rows))
 
@@ -999,7 +1068,12 @@ def sinkhorn_legal(pre, res, new, K: int, KP: int) -> list[str]:
         bad.append("a task placed twice")
     if not bool(pending[slots].all()) or bool(new.valid[slots].any()):
         bad.append("a placed task that was not pending")
-    if n != min(KP, n + int(res.n_pending), int(cap.sum())):
+    valid = n + int(res.n_pending)
+    if res.tenant_eligible is not None:  # tenancy: placement's valid set
+        valid = int(res.tenant_eligible.sum())
+        if not bool(res.tenant_eligible[slots].all()):
+            bad.append("a placed task that was not eligible")
+    if n != min(KP, valid, int(cap.sum())):
         bad.append("placed != min(KP, valid, capacity)")
     return bad
 
@@ -1020,15 +1094,23 @@ def sinkhorn_check(pre, packet, res_k, new_k, kw: dict, label: str) -> dict:
         packet, clone_state(pre), placement="sinkhorn",
         sinkhorn_potentials=(res_k.sinkhorn_f, res_k.sinkhorn_g), **kw)
     bad = []
+    differs = not (torch.equal(res_k.placed_slots, res_p.placed_slots)
+                   and torch.equal(res_k.placed_rows, res_p.placed_rows))
     for f in ("arrival_slots", "redispatch_slots", "purged", "live",
-              "n_pending", "straggler_slots", "sinkhorn_tau"):
-        if not torch.equal(getattr(res_k, f), getattr(res_p, f)):
+              "n_pending", "straggler_slots", "sinkhorn_tau",
+              "tenant_eligible"):
+        a, b = getattr(res_k, f), getattr(res_p, f)
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
             bad.append(f"(a) {f}")
     if int((res_k.placed_slots >= 0).sum()) != int(
             (res_p.placed_slots >= 0).sum()):
         bad.append("(a) placed count")
+    # the deficit carry follows the per-tenant placements: exact in (a)
+    # whenever they are the plain version's own, and always in (c)
+    decided = ("valid", "free") + (("t_deficit",) if differs else ())
     for f in new_k._fields:
-        if f not in ("valid", "free") and not torch.equal(
+        if f not in decided and not torch.equal(
                 getattr(new_k, f), getattr(new_p, f)):
             bad.append(f"(a) state.{f}")
     tau = float(res_k.sinkhorn_tau)
@@ -1044,8 +1126,6 @@ def sinkhorn_check(pre, packet, res_k, new_k, kw: dict, label: str) -> dict:
                                                 kw["max_slots"], kw["KP"])]
     for x in bad:
         log(f"  MISMATCH {label}: {x}")
-    differs = not (torch.equal(res_k.placed_slots, res_p.placed_slots)
-                   and torch.equal(res_k.placed_rows, res_p.placed_rows))
     pot = torch.cat([res_k.sinkhorn_f, res_k.sinkhorn_g])
     scale = float(pot[torch.isfinite(pot)].abs().max()) / tau
     return {"bad": len(bad), "df": df, "dg": dg, "differs": int(differs),
@@ -1317,7 +1397,7 @@ def time_resident_sinkhorn(dev, samples: list) -> dict:
     return out
 
 
-# -- phase 8: times -----------------------------------------------------------
+# -- phase 9: times -----------------------------------------------------------
 def event_ms(fn, n: int, setup=None) -> list[float]:
     """Per-call device time of ``fn`` with CUDA events, ``n`` calls after a
     warm-up; ``setup`` runs before each call, outside the timed pair. A spin
@@ -1468,6 +1548,253 @@ def time_auction(auction: dict, reps: int) -> dict:
     return out
 
 
+# -- phase 8: the tenancy lane (B1 with use_tenancy, all three branches) ----
+def tenant_table(total_slots: int):
+    """Config 16's tenancy (tpu_faas/bench/configs.py:2840): shares
+    light=8, heavy=1, heavy capped at the fleet's slots minus one; four more
+    tenants capped at 8, 64, 512 and 2,048 in flight, and the rest of the
+    32 rows registered uncapped at share 1. Rows: 0 default, 1 light,
+    2 heavy, 3.. the others."""
+    from tpu_faas_torch.tenancy import TenantTable
+
+    ten = TenantTable(max_tenants=NT_HEADLINE)
+    ten.apply_specs("light=8,heavy=1",
+                    f"heavy={total_slots - 1},t3=8,t4=64,t5=512,t6=2048")
+    for i in range(7, NT_HEADLINE):
+        ten.row_for(f"t{i}")
+    assert (ten.row_for("light"), ten.row_for("heavy")) == (1, 2)
+    assert ten.n_tenants == NT_HEADLINE
+    return ten
+
+
+def with_tenancy(leaves: dict, pkt: np.ndarray, rng, use_priority: bool):
+    """``random_case``'s state and packet with the tenancy lane at
+    NT_HEADLINE rows: tenant rows in the state over every row and past both
+    ends; deficits on both sides of the starvation threshold (1,024) and at
+    the cap (4,096); in the arrival lane rows past both ends, a NaN, a
+    saturating and two truncating values; caps of 0 (uncapped), at
+    ``ahead``, below it and above it."""
+    T, KA, NT = SHAPE["T"], SHAPE["KA"], NT_HEADLINE
+    f32 = np.float32
+    leaves = dict(
+        leaves, tenant=rng.integers(-2, NT + 2, T).astype(np.int32),
+        t_deficit=rng.choice(np.array([0.0, 5.5, 1023.75, 1024.0, 1500.0,
+                                       4096.0], f32), NT))
+    arr = rng.integers(-3, NT + 3, KA).astype(f32)
+    arr[:5] = [1e10, -1e10, np.nan, 2.7, -0.5]
+    share = rng.choice(np.array([8.0, 1.0, 2.0, 0.5, 3.0], f32), NT)
+    ahead = rng.integers(0, 2000, NT)
+    # half the rows uncapped, then at ahead, below it and above it: more
+    # tasks eligible than the fleet has slots, so the admission order
+    # decides which are placed
+    kind = np.minimum(np.arange(NT) % 8, 4)
+    cap = np.select(
+        [kind <= 1, kind == 2, kind == 3],
+        [0, ahead, np.maximum(ahead - rng.integers(1, 500, NT), 1)],
+        ahead + rng.integers(1, 1200, NT))
+    cut = 9 + KA * (2 if use_priority else 1)
+    pkt = np.concatenate([pkt[:cut], arr, pkt[cut:], share, ahead,
+                          cap]).astype(f32)
+    return leaves, pkt
+
+
+def tenancy_violations(res, tenant_leaf: torch.Tensor, pkt) -> int:
+    """Tenants one launch placed past their allowance (cap minus inflight
+    off the packet's tail, for the capped ones), plus placed tasks outside
+    the launch's eligibility mask."""
+    NT = NT_HEADLINE
+    tail = np.asarray(pkt, np.float32)[-3 * NT:].astype(np.int64)
+    ahead, cap = tail[NT : 2 * NT], tail[2 * NT :]
+    slots = res.placed_slots[res.placed_slots >= 0].long()
+    rows = tenant_leaf[slots].clamp(0, NT - 1).long()
+    per = torch.bincount(rows, minlength=NT).cpu().numpy()
+    allow = np.where(cap > 0, np.maximum(cap - ahead, 0), np.iinfo(np.int64).max)
+    return int((per > allow).sum()) + int((~res.tenant_eligible[slots]).sum())
+
+
+def tenancy_bound_ms(packet: torch.Tensor) -> float:
+    """The lane's own bytes at the HBM rate: the tenant leaf read and the
+    eligibility written (T each), the arrivals' tenant lane read and their
+    rows written, the deficits read and written and the packet's tail."""
+    T, NT = SHAPE["T"], NT_HEADLINE
+    n_arr = int(packet[1])
+    return (4 * T + T + 8 * n_arr + 8 * NT + 12 * NT) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_resident_tenancy(dev, card: str) -> dict:
+    """B1's tenancy lane in its three branches: against the plain version on
+    synthetic headline states (priority lanes off and on); its time with
+    the lane on against the same states with it off; then a resident loop
+    per branch with config 16's shares and caps (``phase_resident`` with
+    ``tenancy=True``), each launch counted with the counts set to 0 just
+    before the loop and read just after; and the rank branch with the lane
+    on the rank loop's own states, beside its plain version and its bound,
+    for the kernels line."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import (
+        _flush_kernel_impl, _resident_tick_impl, state_from_numpy,
+    )
+
+    bad = {"rank": 0, "auction": 0, "sinkhorn": 0}
+    err = dict.fromkeys(bad, 0.0)  # Sinkhorn: max |dg|/tau (contract b)
+    lane = {}  # branch -> (ms with the lane off, ms with it on)
+    for use_priority in (False, True):
+        rng = np.random.default_rng(20 + int(use_priority))
+        base, bpkt = random_case(rng, use_priority, now=100.0)
+        leaves, pkt = with_tenancy(base, bpkt, rng, use_priority)
+        kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority,
+                  **TENANCY_KW)
+        packet = torch.from_numpy(pkt).to(dev)
+        # rank, and the flush on the same packet
+        res_p, new_p = _resident_tick_impl(
+            packet, state_from_numpy(leaves, dev), **kw)
+        res_k, new_k = KERNEL(packet, state_from_numpy(leaves, dev),
+                              flush=False, **kw)
+        fkw = {k: v for k, v in kw.items() if k not in ("KP", "KR",
+                                                         "max_slots")}
+        fst_p, farr_p = _flush_kernel_impl(
+            packet, state_from_numpy(leaves, dev), **fkw)
+        fst_k, farr_k = KERNEL(packet, state_from_numpy(leaves, dev),
+                               flush=True, **kw)
+        torch.cuda.synchronize()
+        b1, e1 = compare(res_k, res_p, "tenancy rank out")
+        b2, e2 = compare(new_k, new_p, "tenancy rank state")
+        b3, e3 = compare(fst_k, fst_p, "tenancy flush state")
+        b4 = 0 if torch.equal(farr_k, farr_p) else 1
+        over = tenancy_violations(res_k, new_k.tenant, pkt)
+        b = b1 + b2 + b3 + b4 + over
+        bad["rank"] += b
+        err["rank"] = max(err["rank"], e1, e2, e3)
+        n_elig = int(res_k.tenant_eligible.sum())
+        valid = int(leaves["valid"].sum())
+        slots = int(torch.where(res_k.live, new_k.free.clamp(0, MAX_SLOTS),
+                                0).sum()) + int(SHAPE["KP"])
+        assert n_elig > slots, "the admission order decides nothing"
+        log(f"  rank prio={use_priority}: eligible {n_elig} of the "
+            f"{valid} valid before arrivals, more than the fleet's "
+            f"{slots} slots, placed (reported) "
+            f"{int((res_k.placed_slots >= 0).sum())}, deficits "
+            f"{int((new_k.t_deficit > 0).sum())} of {NT_HEADLINE} positive, "
+            f"flush equal {not (b3 + b4)}, mismatched fields and violations "
+            f"{b}")
+        # the auction, cold from the seed; the plain-bid twin on one state
+        aleaves = dict(leaves,
+                       price=(rng.integers(0, 64, SHAPE["W"] * MAX_SLOTS)
+                              / 16).astype(np.float32),
+                       refresh=np.asarray(True))
+        b, e, rounds, spilled, rows = compare_auction_tick(
+            dev, aleaves, pkt, use_priority,
+            f"tenancy auction prio={use_priority}",
+            plain_twin=not use_priority, tenancy=True)
+        bad["auction"] += b
+        err["auction"] = max(err["auction"], e)
+        log(f"  auction prio={use_priority}: rounds {rounds}, spilled "
+            f"{spilled}, bidder rows {rows}, mismatched fields and "
+            f"violations {b}" + ("; also against plain bids"
+                                 if not use_priority else ""))
+        # Sinkhorn, under its contract, eligibility and deficits added
+        pre = state_from_numpy(leaves, dev)
+        res_s, new_s = KERNEL.sinkhorn(packet, clone_state(pre), **kw)
+        torch.cuda.synchronize()
+        c = sinkhorn_check(pre, packet, res_s, new_s, kw,
+                           f"tenancy sinkhorn prio={use_priority}")
+        over = tenancy_violations(res_s, new_s.tenant, pkt)
+        bad["sinkhorn"] += c["bad"] + over
+        err["sinkhorn"] = max(err["sinkhorn"], c["dg"])
+        log(f"  sinkhorn prio={use_priority}: placed {c['placed']}, |df|/tau "
+            f"{c['df']:.3e}, |dg|/tau {c['dg']:.3e}, contract violations "
+            f"{c['bad']}, tenancy violations {over}, placements "
+            f"{'differ from' if c['differs'] else 'equal'} the plain "
+            f"version's")
+        if use_priority:
+            continue
+        # the lane's cost: the same state with the lane off and on
+        off = state_from_numpy(base, dev)
+        on = state_from_numpy(leaves, dev)
+        off_pkt = torch.from_numpy(bpkt).to(dev)
+        kw_off = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority)
+        aoff = state_from_numpy(dict(aleaves, tenant=base["tenant"],
+                                     t_deficit=base["t_deficit"]), dev)
+        aon = state_from_numpy(aleaves, dev)
+        for name, call, n, s_off, s_on in (
+            ("rank", lambda p, st, k: KERNEL(p, st, flush=False, **k),
+             N_TIMED, off, on),
+            ("auction", lambda p, st, k: KERNEL.auction(p, st, **k), 3,
+             aoff, aon),
+            ("sinkhorn", lambda p, st, k: KERNEL.sinkhorn(p, st, **k), 10,
+             off, on),
+        ):
+            t_off = event_ms(lambda st: call(off_pkt, st, kw_off), n,
+                             setup=lambda s0=s_off: clone_state(s0))
+            t_on = event_ms(lambda st: call(packet, st, kw), n,
+                            setup=lambda s0=s_on: clone_state(s0))
+            lane[name] = (statistics.median(t_off), statistics.median(t_on))
+            log(f"  {name} kernel on one synthetic state, lane off "
+                f"{lane[name][0]:.4f} ms, on {lane[name][1]:.4f} ms "
+                f"(+{lane[name][1] - lane[name][0]:.4f} ms), medians of "
+                f"{n} [{card}]")
+    total = sum(bad.values())
+    if total:
+        raise SystemExit(f"the tenancy lane disagrees with its plain "
+                         f"version: {bad}")
+    log("phase tenancy kernel: rank and auction ticks and flushes exactly "
+        "equal, Sinkhorn within its contract, every tenant within its "
+        "allowance")
+
+    loops = {}
+    for placement in ("rank", "auction", "sinkhorn"):
+        n_checked, n_timed = TENANCY_TICKS[placement]
+        KERNEL.launches = KERNEL.auction_launches = 0
+        KERNEL.sinkhorn_launches = KERNEL.tenancy_launches = 0
+        r = phase_resident(dev, n_checked, n_timed, placement=placement,
+                           tenancy=True)
+        r["tenancy_launches"] = KERNEL.tenancy_launches
+        r["branch_launches"] = {"rank": KERNEL.launches,
+                                "auction": KERNEL.auction_launches,
+                                "sinkhorn": KERNEL.sinkhorn_launches}
+        assert r["tenancy_launches"] > 0, f"{placement}: the lane never ran"
+        assert r["branch_launches"][placement] > 0
+        bad[placement] += r["mismatches"] + r["over_allowance"]
+        err[placement] = max(err[placement], r["max_abs_err"])
+        loops[placement] = r
+        log(f"  integrated tick_resident with tenancy, {placement} (diff, "
+            f"pack, upload, kernel; synchronized): "
+            f"{statistics.median(r['tick_ms']):.4f} ms against the 5 ms "
+            f"period, host enqueue alone "
+            f"{statistics.median(r['tick_enqueue_ms']):.4f} ms, packet "
+            f"upload + kernel on the card "
+            f"{statistics.median(r['launch_ms']):.4f} ms, medians of "
+            f"{len(r['tick_ms'])} ticks; launches with the lane "
+            f"{r['tenancy_launches']} [{card}]")
+
+    # the main path's entry: the rank branch with the lane on the rank
+    # loop's own states, its plain version on the same states, its bound
+    samples = loops["rank"]["samples"]
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=True, **TENANCY_KW)
+    order = iter(range(10**9))
+
+    def next_sample():
+        packet, pre, _ = samples[next(order) % len(samples)]
+        return packet, clone_state(pre)
+
+    k_ms = event_ms(lambda a: KERNEL(a[0], a[1], flush=False, **kw),
+                    len(samples), setup=next_sample)
+    p_ms = event_ms(lambda a: _resident_tick_impl(a[0], a[1], **kw),
+                    len(samples), setup=next_sample)
+    lane_b = statistics.median(tenancy_bound_ms(p.cpu()) for p, _, _ in samples)
+    bound = statistics.median(bound_ms(True, p.cpu()) for p, _, _ in samples)
+    log(f"  rank kernel with the lane on the tenancy loop's own states: "
+        f"{statistics.median(k_ms):.4f} ms (min {min(k_ms):.4f}), plain "
+        f"version {statistics.median(p_ms):.4f} ms, bound {bound + lane_b:.6f}"
+        f" ms (bytes: the rank tick's {bound:.6f} ms plus the lane's own "
+        f"{lane_b:.6f} ms), medians of {len(k_ms)} [{card}]")
+    return {"mismatches": bad, "max_abs_err": err, "lane": lane,
+            "loops": loops, "ms": statistics.median(k_ms),
+            "plain_ms": statistics.median(p_ms), "bound_ms": bound + lane_b,
+            "lane_bound_ms": lane_b,
+            "launches": loops["rank"]["tenancy_launches"]}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (no arguments: every phase "
@@ -1547,6 +1874,7 @@ def main() -> int:
         f"{len(rrs['tick_ms'])} ticks; Sinkhorn launches "
         f"{sinkhorn_launches} [{card}]")
     phase_sinkhorn_batch(dev)
+    rt = phase_resident_tenancy(dev, card)
     log(f"phase time [{card}]:")
     t = phase_time(dev, N_TIMED, rr["samples"])
     tb = time_bid(dev, N_TIMED // 3)
@@ -1556,8 +1884,10 @@ def main() -> int:
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,
-             "mismatches": rk["mismatches"] + rr["mismatches"],
-             "max_abs_err": max(rk["max_abs_err"], rr["max_abs_err"]),
+             "mismatches": (rk["mismatches"] + rr["mismatches"]
+                            + rt["mismatches"]["rank"]),
+             "max_abs_err": max(rk["max_abs_err"], rr["max_abs_err"],
+                                rt["max_abs_err"]["rank"]),
              "ms": t["loop"][0], "plain_ms": t[True][1],
              "bound_ms": t["loop"][1], "bound_by": "bytes",
              "library_ms": None}
@@ -1575,9 +1905,11 @@ def main() -> int:
                  "replaces": fused_tick.AUCTION_REPLACES,
                  "launches": auction_launches,
                  "mismatches": (rka["mismatches"] + rra["mismatches"]
-                                + ta["mismatches"]),
+                                + ta["mismatches"]
+                                + rt["mismatches"]["auction"]),
                  "max_abs_err": max(rka["max_abs_err"], rra["max_abs_err"],
-                                    ta["max_abs_err"]),
+                                    ta["max_abs_err"],
+                                    rt["max_abs_err"]["auction"]),
                  "ms": ta["ms"], "plain_ms": ta["plain_ms"],
                  "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"],
                  "library_ms": None}
@@ -1586,15 +1918,27 @@ def main() -> int:
                  "source": fused_tick.SOURCE,
                  "replaces": fused_tick.SINKHORN_REPLACES,
                  "launches": sinkhorn_launches,
-                 "mismatches": rks["mismatches"] + rrs["mismatches"],
-                 "max_abs_err": max(rks["dg"], rrs["max_abs_err"]),
+                 "mismatches": (rks["mismatches"] + rrs["mismatches"]
+                                + rt["mismatches"]["sinkhorn"]),
+                 "max_abs_err": max(rks["dg"], rrs["max_abs_err"],
+                                    rt["max_abs_err"]["sinkhorn"]),
                  "ms": ts["ms"], "plain_ms": ts["plain_ms"],
                  "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
                  "library_ms": None}
+    # the rank branch with the tenancy lane on; no single PyTorch call
+    # computes a resident tick with fair admission
+    entry_b1t = {"name": "fused_resident_tick_tenancy", "route": "cuda",
+                 "source": fused_tick.SOURCE,
+                 "replaces": fused_tick.TENANCY_REPLACES,
+                 "launches": rt["launches"],
+                 "mismatches": rt["mismatches"]["rank"],
+                 "max_abs_err": rt["max_abs_err"]["rank"], "ms": rt["ms"],
+                 "plain_ms": rt["plain_ms"], "bound_ms": rt["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None}
     log(f"card: {card}")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry, entry_b2, entry_b1a, entry_b1s]}),
-          flush=True)
+    print(json.dumps({"kernels": [entry, entry_b2, entry_b1a, entry_b1s,
+                                  entry_b1t]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,6 +18,7 @@ from tpu_faas.sched import resident as jres
 from tpu_faas_torch.sched import fused_tick
 from tpu_faas_torch.sched import resident as tres
 from tpu_faas_torch.sched.state import SchedulerArrays
+from tpu_faas_torch.tenancy import TenantTable
 
 f32, i32 = np.float32, np.int32
 
@@ -518,8 +519,12 @@ def test_delta_replay_equivalence():
     assert torch.equal(out_a.live, out_b.live)
 
 
-@pytest.mark.parametrize("kw", [dict(tenancy=object()),
-                                dict(spec_mult=2.0)])
+@pytest.mark.parametrize("kw", [
+    dict(spec_mult=2.0, tenancy=TenantTable(max_tenants=4)),
+    dict(spec_mult=2.0),
+])
 def test_unported_planes_raise(kw):
+    """Speculation is unported, with the tenancy plane (which is ported)
+    on or off."""
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         _mk(**kw)

@@ -118,13 +118,14 @@ def test_scheduler_arrays_tick_matches_jax():
 ])
 def test_unported_placements_raise(placement, exc):
     """What is still unported of each placement raises: of the auction and
-    of Sinkhorn only the resident tick's tenancy and speculation lanes; the
-    batch and resident ticks of both run (tests/test_torch_auction.py,
-    tests/test_torch_fused_auction.py, tests/test_torch_sinkhorn.py,
-    tests/test_torch_fused_sinkhorn.py)."""
+    of Sinkhorn only the resident tick's speculation lane; the batch and
+    resident ticks of both run, the tenancy lane included
+    (tests/test_torch_auction.py, tests/test_torch_fused_auction.py,
+    tests/test_torch_sinkhorn.py, tests/test_torch_fused_sinkhorn.py,
+    tests/test_torch_fused_tenancy.py)."""
     make, kw = TArrays, {}
     if placement in ("auction", "sinkhorn"):
-        make, kw = ResidentScheduler, dict(tenancy=object())
+        make, kw = ResidentScheduler, dict(spec_mult=2.0)
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else "unknown"):
         make(placement=placement, device="cpu", **kw)
@@ -140,10 +141,12 @@ def test_multi_device_layouts_raise(kw):
 @pytest.mark.parametrize("arg", [
     dict(dep_edges=(np.zeros(1, i32), np.zeros(1, i32))),
     dict(task_pref=np.zeros(4, i32)),
-    dict(task_tenants=np.zeros(2, i32)),
+    dict(pref_edges=(np.zeros(1, i32), np.zeros(1, i32), np.zeros(1, f32))),
     dict(task_avoid=np.zeros(2, i32)),
 ])
 def test_unported_tick_lanes_raise(arg):
+    """The graph and speculation lanes raise (the tenancy lane is ported:
+    tests/test_torch_tenancy.py)."""
     a = TArrays(max_workers=4, max_pending=8, max_inflight=8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         a.tick(np.ones(2, f32), **arg)

@@ -18,6 +18,10 @@ reader can find each module's twin:
   CUDA launch (``csrc/fused_tick.cu``; rank placement on one block, the
   auction and Sinkhorn cooperative over the card), with its plain-PyTorch
   version
+- :mod:`tpu_faas_torch.tenancy`          the tenancy plane: ``TenantTable``
+  and the spec parsers (``config``), the weighted-fair admission and the
+  deficit carry as torch ops (``fairshare``); the resident tick runs the
+  same lane inside ``csrc/fused_tick.cu``
 - :mod:`tpu_faas_torch.sim.fleet`        the simulated churn fleet
 
 Entry points take ``device=`` and default to ``"cuda"``; without a GPU they

@@ -1,19 +1,30 @@
 // The resident scheduling tick as hand-written CUDA kernels (Hopper, sm_90a).
 //
 // Replaces the TPU kernel tpu_faas/sched/pallas_fused.py::_fused_resident_tick_impl
-// (the pl.pallas_call that runs the whole resident tick) for rank and auction
-// placement with tenancy and speculation off. Its plain PyTorch version is
+// (the pl.pallas_call that runs the whole resident tick) for rank, auction and
+// Sinkhorn placement, with the tenancy lane on or off; the speculation lane
+// (use_spec) is not ported. Its plain PyTorch version is
 // tpu_faas_torch/sched/resident.py::_resident_tick_impl; the two agree exactly
-// on every output and every state leaf.
+// on every output and every state leaf (Sinkhorn: under the contract below).
 //
-// Phases, shared by both placements:
+// Phases, shared by the three placements:
 //   1. apply the delta packet: masked scatters with sentinel-drop, ADDITIVE
 //      free counts (atomicAdd), arrivals into the first KA invalid pending
 //      slots found by a block-wide scan, capped at min(n_arr, n_invalid);
 //   2. liveness (hb_age = now - last_hb <= tte, on the post-scatter state),
 //      purge, and the compacted redispatch of in-flight slots of dead rows;
+//      with tenancy, then the admission (tpu_faas/tenancy/fairshare.py) on
+//      block 0: the within-tenant FCFS rank from one stable radix sort on
+//      the tenant segment, the inflight-cap eligibility that every
+//      placement reads as its valid set (written to global memory before
+//      the cooperative branches' first grid barrier), the tenants with
+//      demand, and for rank the admission order (eligible tasks by -eff_prio,
+//      then v, then index) as two stable radix sorts;
 //   3. placement (below);
-//   4. compaction: the first KP placements (clearing their valid bit and
+//   4. with tenancy, the deficit carry on block 0 from the final assignment
+//      (integer shared-memory counts; the share sum is ONE float64 running
+//      sum in index order, rounded once, as the plain version takes it);
+//   5. compaction: the first KP placements (clearing their valid bit and
 //      taking their free slot on the device), and n_pending.
 // The state tensors are updated in place: the counterpart of the Pallas
 // kernel's input_output_aliases is that their addresses never change.
@@ -87,6 +98,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int HEADER = 9;
 constexpr int kRows = 4;          // bidders per warp in a bidding round
 constexpr unsigned long long kNoBid = ~0ull;
+constexpr int kMaxTenants = 1024; // tenancy: one shared-memory word each
 
 struct Dims {
   int T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, K, use_priority, flush;
@@ -95,6 +107,10 @@ struct Dims {
 struct State {
   float* sizes;
   uint8_t* valid;
+  // the set placement reads as valid: `valid` itself with tenancy off, the
+  // eligibility mask (valid minus the tasks past their tenant's inflight
+  // allowance) with it on; arrivals, compaction and n_pending read `valid`
+  const uint8_t* place_valid;
   int32_t* prio;
   float* last_hb;
   int32_t* free_cnt;
@@ -142,12 +158,30 @@ struct Auction {
   int warm_rounds;
 };
 
+// The tenancy lane's leaves, packet tail, output and scratch.
+struct Tenancy {
+  int on;                  // use_tenancy
+  int n;                   // NT: tenant rows, at most kMaxTenants
+  int32_t* tenant;         // [T] state leaf: dense tenant row per task
+  float* deficit;          // [n] state leaf: per-tenant deficit carry
+  const float* share;      // [n] packet tail: weights
+  const float* ahead;      // [n] packet tail: inflight per tenant
+  const float* cap;        // [n] packet tail: inflight ceilings, 0 = none
+  uint8_t* elig;           // [T] output: the placement's valid set
+  int32_t* adm_rank;       // [T] scratch: j, then the admission position
+  float starve_deficit, deficit_cap;
+  int starve_boost;
+};
+
 struct Smem {
   int cnt[NWARP][RADIX];     // per-warp digit counts, then offsets
   int hist[4][RADIX];        // digit histogram of every pass
   int bucket[RADIX];         // running start of each digit's bucket
   int trivial[4];            // pass p has one digit for every key
   int scan[NWARP];           // block scan scratch
+  int ten_cnt[kMaxTenants];  // tenancy: segment starts, then placed counts
+  uint8_t ten_demand[kMaxTenants];  // tenancy: an eligible task this tick
+  float ten_wsum;            // tenancy: the share sum
 };
 
 // f32 -> i32 as XLA converts: truncate, saturate, NaN -> 0 (cvt.rzi.s32.f32)
@@ -172,6 +206,11 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 // torch's clamp_min(x, m) on a float: NaN stays NaN, a tie keeps x
 __device__ __forceinline__ float clamp_min(float x, float m) {
   return x < m ? m : x;
+}
+
+// ... and clamp_max
+__device__ __forceinline__ float clamp_max(float x, float m) {
+  return x > m ? m : x;
 }
 
 __device__ __forceinline__ uint32_t int_key(int32_t x) {
@@ -334,8 +373,9 @@ __device__ int block_radix_sort(uint32_t* const k[2], int32_t* const v[2],
 // ---- phase 1: apply the delta packet (resident.py::_apply_deltas) --------
 // One block. Returns the packet's clock and time_to_expire.
 __device__ void apply_deltas(const float* packet, const Dims& D,
-                             const State& st, const Out& out, Smem& sm,
-                             float* now, float* tte) {
+                             const State& st, const Tenancy& tn,
+                             const Out& out, Smem& sm, float* now,
+                             float* tte) {
   const int tid = threadIdx.x;
   const int T = D.T, W = D.W, I = D.I;
   *now = packet[0];
@@ -349,6 +389,7 @@ __device__ void apply_deltas(const float* packet, const Dims& D,
   int off = HEADER;
   const float* arr_sizes = packet + off; off += D.KA;
   const float* arr_prio = packet + off; if (D.use_priority) off += D.KA;
+  const float* arr_tenant = packet + off; if (tn.on) off += D.KA;
   const float* hb_idx = packet + off; off += D.KH;
   const float* hb_val = packet + off; off += D.KH;
   const float* free_idx = packet + off; off += D.KF;
@@ -392,6 +433,7 @@ __device__ void apply_deltas(const float* packet, const Dims& D,
       st.sizes[s] = arr_sizes[j];
       st.valid[s] = 1;
       if (D.use_priority) st.prio[s] = f2i(arr_prio[j]);
+      if (tn.on) tn.tenant[s] = f2i(arr_tenant[j]);
     } else {
       out.arrival_slots[j] = -1;
     }
@@ -442,16 +484,156 @@ __device__ int sort_slots(const Dims& D, const State& st, const Out& out,
   return block_radix_sort(sc.sk, sc.sv, S, sm);
 }
 
+// ---- phase 2b: tenancy admission (fairshare.py) --------------------------
+__device__ __forceinline__ int tenant_row(const Tenancy& tn, int t) {
+  return min(max(tn.tenant[t], 0), tn.n - 1);
+}
+
+// int32 arithmetic as XLA's: wraps
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int wrap_sub(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+
+// tenant_fair_admission_impl on one block: tn.elig (the placement's valid
+// set), sm.ten_demand and, with `order` (rank placement), tn.adm_rank: the
+// position of each eligible task in the admission order (eligible first,
+// -eff_prio ascending, v ascending, index ascending); the ineligible tasks'
+// positions are never read. Ends with a barrier.
+__device__ void tenancy_admit(const Dims& D, const State& st,
+                              const Tenancy& tn, const Scratch& sc,
+                              bool order, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int T = D.T, N = tn.n;
+  for (int i = tid; i < N; i += NT) sm.ten_demand[i] = 0;
+  // the FCFS rank j within each tenant's valid backlog: one stable sort on
+  // the segment (the tenant, N for invalid rows), j = position - start
+  for (int t = tid; t < T; t += NT) {
+    sc.tk[0][t] = st.valid[t] ? static_cast<uint32_t>(tenant_row(tn, t))
+                              : static_cast<uint32_t>(N);
+    sc.tv[0][t] = t;
+  }
+  __syncthreads();
+  const int b = block_radix_sort(sc.tk, sc.tv, T, sm);
+  const uint32_t* seg = sc.tk[b];
+  const int32_t* by_seg = sc.tv[b];
+  for (int i = tid; i < T; i += NT) {
+    const uint32_t g = seg[i];
+    if (g < static_cast<uint32_t>(N) && (i == 0 || seg[i - 1] != g))
+      sm.ten_cnt[g] = i;
+  }
+  __syncthreads();
+  // the inflight-cap eligibility: j below the tenant's allowance
+  for (int i = tid; i < T; i += NT) {
+    const uint32_t g = seg[i];
+    const int t = by_seg[i];
+    bool e = false;
+    if (g < static_cast<uint32_t>(N)) {
+      const int j = i - sm.ten_cnt[g];
+      const int cap = f2i(tn.cap[g]);
+      const int allow = cap > 0 ? max(wrap_sub(cap, f2i(tn.ahead[g])), 0) : T;
+      e = j < allow;
+      if (e) sm.ten_demand[g] = 1;
+      tn.adm_rank[t] = j;
+    }
+    tn.elig[t] = e ? 1 : 0;
+  }
+  __syncthreads();
+  if (!order) return;
+  // the eligible tasks in index order, keyed by v = (j + 1 - d) / share
+  int lo, hi;
+  chunk_of(T, &lo, &hi);
+  int c = 0;
+  for (int t = lo; t < hi; ++t) c += tn.elig[t];
+  int n_elig;
+  int p = block_exclusive_scan(c, &n_elig, sm);
+  for (int t = lo; t < hi; ++t) {
+    if (!tn.elig[t]) continue;
+    const int g = tenant_row(tn, t);
+    const float v = __fdiv_rn(
+        __fsub_rn(__fadd_rn(static_cast<float>(tn.adm_rank[t]), 1.0f),
+                  tn.deficit[g]),
+        clamp_min(tn.share[g], 1e-6f));
+    sc.tk[0][p] = float_key(v);
+    sc.tv[0][p] = t;
+    ++p;
+  }
+  __syncthreads();
+  const int b1 = block_radix_sort(sc.tk, sc.tv, n_elig, sm);
+  // then by -eff_prio, a stable pass (eff_prio = prio + the starvation
+  // boost, int32 arithmetic as XLA's)
+  uint32_t* const k2[2] = {sc.tk[b1 ^ 1], sc.tk[b1]};
+  int32_t* const v2[2] = {sc.tv[b1 ^ 1], sc.tv[b1]};
+  for (int i = tid; i < n_elig; i += NT) {
+    const int t = sc.tv[b1][i];
+    const int g = tenant_row(tn, t);
+    const int prio = D.use_priority ? st.prio[t] : 0;
+    const int boost = tn.deficit[g] >= tn.starve_deficit ? tn.starve_boost : 0;
+    k2[0][i] = int_key(wrap_sub(0, wrap_add(prio, boost)));
+    v2[0][i] = t;
+  }
+  __syncthreads();
+  const int b2 = block_radix_sort(k2, v2, n_elig, sm);
+  for (int i = tid; i < n_elig; i += NT) tn.adm_rank[v2[b2][i]] = i;
+  __syncthreads();
+}
+
+// ---- phase 4: the deficit carry (fairshare.py::tenant_deficit_update_impl)
+// On one block, from the final assignment, in the plain version's order.
+__device__ void tenancy_deficit(const Dims& D, const Tenancy& tn,
+                                const int32_t* assign, Smem& sm) {
+  const int tid = threadIdx.x, N = tn.n;
+  for (int i = tid; i < N; i += NT) sm.ten_cnt[i] = 0;
+  __syncthreads();
+  int mine = 0;
+  for (int t = tid; t < D.T; t += NT) {
+    if (assign[t] >= 0) {
+      atomicAdd(&sm.ten_cnt[tenant_row(tn, t)], 1);
+      ++mine;
+    }
+  }
+  int total;
+  block_exclusive_scan(mine, &total, sm);  // also the barrier for ten_cnt
+  if (tid == 0) {
+    // w.sum(): ONE float64 running sum in index order, rounded once
+    double acc = 0.0;
+    for (int i = 0; i < N; ++i)
+      acc += sm.ten_demand[i] ? static_cast<double>(clamp_min(tn.share[i], 1e-6f))
+                              : 0.0;
+    sm.ten_wsum = static_cast<float>(acc);
+  }
+  __syncthreads();
+  const float wsum = clamp_min(sm.ten_wsum, 1e-9f);
+  for (int i = tid; i < N; i += NT) {
+    float d = 0.0f;
+    if (sm.ten_demand[i]) {
+      const float w = clamp_min(tn.share[i], 1e-6f);
+      const float entitled =
+          __fmul_rn(__fdiv_rn(w, wsum), static_cast<float>(total));
+      d = __fsub_rn(__fadd_rn(tn.deficit[i], entitled),
+                    static_cast<float>(sm.ten_cnt[i]));
+      d = clamp_max(clamp_min(d, 0.0f), tn.deficit_cap);
+    }
+    tn.deficit[i] = d;
+  }
+  __syncthreads();
+}
+
 // ---- phase 3, rank (greedy.py::rank_match_placement_impl) ----------------
 // Places the tasks with task_ok[t] set onto the live workers' free_cnt
-// slots, admitting by priority (use_priority) or FCFS. Fills sc.assign
-// (worker per task, -1 queued). The rank tick passes the pending valid bits
-// and the free counts; Sinkhorn's spill its spilled tasks and remaining
-// capacity.
+// slots, admitting FCFS, by priority, or by the tenancy lane's admission
+// positions (adm_rank). Fills sc.assign (worker per task, -1 queued). The
+// rank tick passes the placement's valid set and the free counts;
+// Sinkhorn's spill its spilled tasks and remaining capacity.
+enum Admit { kFcfs, kPriority, kRanked };
+
 template <class TaskOk>
 __device__ void rank_place(const Dims& D, const State& st, const Out& out,
                            TaskOk task_ok, const int32_t* free_cnt,
-                           bool use_priority, const Scratch& sc, Smem& sm) {
+                           Admit admit, const int32_t* adm_rank,
+                           const Scratch& sc, Smem& sm) {
   const int tid = threadIdx.x;
   const int T = D.T, K = D.K, S = D.W * K;
   int n_slots_total;
@@ -460,7 +642,10 @@ __device__ void rank_place(const Dims& D, const State& st, const Out& out,
   const int32_t* slot_order = sc.sv[slot_buf];
 
   // admission
-  if (use_priority) {
+  if (admit == kRanked) {
+    for (int t = tid; t < T; t += NT)
+      sc.admitted[t] = (task_ok(t) && adm_rank[t] < n_slots_total) ? 1 : 0;
+  } else if (admit == kPriority) {
     for (int t = tid; t < T; t += NT) {
       const int32_t key = task_ok(t)
           ? static_cast<int32_t>(0u - static_cast<uint32_t>(st.prio[t]))
@@ -532,16 +717,21 @@ __device__ void compact(const Dims& D, const State& st, const Out& out,
 
 __global__ void __launch_bounds__(NT, 1)
 fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
-                  Scratch sc) {
+                  Scratch sc, Tenancy tn) {
   __shared__ Smem sm;
   float now, tte;
-  apply_deltas(packet, D, st, out, sm, &now, &tte);
+  apply_deltas(packet, D, st, tn, out, sm, &now, &tte);
   if (D.flush) return;
   __syncthreads();
   liveness(D, st, out, now, tte, sm);
+  if (tn.on) tenancy_admit(D, st, tn, sc, true, sm);
+  // with tenancy, rank admits by the fair order and never by the priority
+  // sort: priorities enter through eff_prio
+  const Admit admit = tn.on ? kRanked : (D.use_priority ? kPriority : kFcfs);
   rank_place(
-      D, st, out, [&](int t) { return st.valid[t] != 0; }, st.free_cnt,
-      D.use_priority != 0, sc, sm);
+      D, st, out, [&](int t) { return st.place_valid[t] != 0; }, st.free_cnt,
+      admit, tn.adm_rank, sc, sm);
+  if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
 }
 
@@ -630,12 +820,12 @@ __device__ int auction_open(const Dims& D, const State& st, const Out& out,
   int lo, hi;
   chunk_of(T, &lo, &hi);
   int c = 0;
-  for (int t = lo; t < hi; ++t) c += st.valid[t] ? 1 : 0;
+  for (int t = lo; t < hi; ++t) c += st.place_valid[t] ? 1 : 0;
   int n_valid;
   int rank = block_exclusive_scan(c, &n_valid, sm);
   const int n_match = min(n_slots, n_valid);
   for (int t = lo; t < hi; ++t) {
-    const bool v = st.valid[t] != 0;
+    const bool v = st.place_valid[t] != 0;
     const bool adm = v && rank < n_match;
     sc.admitted[t] = adm ? 1 : 0;
     au.assigned[t] = -1;
@@ -767,7 +957,7 @@ __device__ __forceinline__ int load_volatile(const int32_t* p) {
 
 __global__ void __launch_bounds__(NT, 1)
 fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
-                     Out out, Scratch sc, Auction au) {
+                     Out out, Scratch sc, Auction au, Tenancy tn) {
   __shared__ Smem sm;
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31;
@@ -777,9 +967,11 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   int n_match = 0;
   if (blockIdx.x == 0) {
     float now, tte;
-    apply_deltas(packet, D, st, out, sm, &now, &tte);
+    apply_deltas(packet, D, st, tn, out, sm, &now, &tte);
     __syncthreads();
     liveness(D, st, out, now, tte, sm);
+    // the auction sees the eligibility mask alone (FCFS admission)
+    if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
     n_match = auction_open(D, st, out, sc, au, sm);
   }
   grid.sync();
@@ -825,6 +1017,7 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   }
   if (blockIdx.x != 0) return;
   auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+  if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
 }
 
@@ -917,7 +1110,7 @@ __device__ void sinkhorn_reduce(const Dims& D, const State& st,
   uint32_t lo = red_identity(2), hi = red_identity(3);
   uint32_t smax = red_identity(5), cmax = red_identity(6);
   for (int t = gthread; t < T; t += n_gthread) {
-    const bool v = st.valid[t] != 0;
+    const bool v = st.place_valid[t] != 0;
     n_valid += v ? 1 : 0;
     if (sk.bucketed) {
       const float ss = clamp_min(st.sizes[t], 1e-30f);
@@ -950,7 +1143,7 @@ __device__ void sinkhorn_reduce(const Dims& D, const State& st,
     const int n = T * W;
     for (int i = gthread; i < n; i += n_gthread) {
       const int t = i / W, w = i - t * W;
-      const bool fin = st.valid[t] && capacity(D, st, out, w) > 0;
+      const bool fin = st.place_valid[t] && capacity(D, st, out, w) > 0;
       const float c = fin ? __fdiv_rn(st.sizes[t],
                                       clamp_min(st.speed[w], 1e-6f))
                           : 0.0f;
@@ -1046,9 +1239,9 @@ __device__ void sinkhorn_setup(const Dims& D, const State& st,
                                 static_cast<float>(sk.nb));
       const int b = min(max(f2i(x), 0), sk.nb - 1);
       sk.bucket[t] = b;
-      if (st.valid[t]) atomicAdd(sk.counts + b, 1);
+      if (st.place_valid[t]) atomicAdd(sk.counts + b, 1);
     } else {
-      const bool v = st.valid[t] != 0;
+      const bool v = st.place_valid[t] != 0;
       sk.rowv[t] = st.sizes[t];
       sk.row_ok[t] = v ? 1 : 0;
       sk.loga[t] = log_marginal(v ? 1.0f : 0.0f);
@@ -1234,7 +1427,7 @@ __device__ void sinkhorn_close(const Dims& D, const State& st,
   const int T = D.T, W = D.W;
   int32_t* key_worker = sc.assign;  // until the spill rewrites it
   for (int t = tid; t < T; t += NT) {
-    const bool v = st.valid[t] != 0;
+    const bool v = st.place_valid[t] != 0;
     if (sk.bucketed) {
       const int b = sk.bucket[t];
       const int w = sk.best_w_b[b];
@@ -1281,11 +1474,11 @@ __device__ void sinkhorn_close(const Dims& D, const State& st,
   for (int w = tid; w < W; w += NT)
     sk.remaining[w] = max(capacity(D, st, out, w) - sk.used[w], 0);
   for (int t = tid; t < T; t += NT)
-    sk.spilled[t] = (st.valid[t] && sk.a0[t] < 0) ? 1 : 0;
+    sk.spilled[t] = (st.place_valid[t] && sk.a0[t] < 0) ? 1 : 0;
   __syncthreads();
   rank_place(
       D, st, out, [&](int t) { return sk.spilled[t] != 0; }, sk.remaining,
-      false, sc, sm);
+      kFcfs, nullptr, sc, sm);
   for (int t = tid; t < T; t += NT)
     if (sk.a0[t] >= 0) sc.assign[t] = sk.a0[t];
   __syncthreads();
@@ -1300,19 +1493,22 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // Block 0's thread 0 stamps the clock at the start and at the end of each
 // phase into sk.stamps (scratch, read back by the wrapper on request):
 // 0 start, 1 packet and liveness, 2 reductions, 3 setup, 4 iterations,
-// 5 rounding candidates, 6 capacity repair and spill, 7 compaction.
+// 5 rounding candidates, 6 capacity repair and spill, 7 the deficit carry
+// (tenancy) and compaction.
 __global__ void __launch_bounds__(NT, 1)
 fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
-                      Out out, Scratch sc, Sinkhorn sk) {
+                      Out out, Scratch sc, Sinkhorn sk, Tenancy tn) {
   __shared__ Smem sm;
   cg::grid_group grid = cg::this_grid();
   const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
   if (stamp) sk.stamps[0] = global_ns();
   if (blockIdx.x == 0) {
     float now, tte;
-    apply_deltas(packet, D, st, out, sm, &now, &tte);
+    apply_deltas(packet, D, st, tn, out, sm, &now, &tte);
     __syncthreads();
     liveness(D, st, out, now, tte, sm);
+    // the eligibility every block's placement reads, before the barrier
+    if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
     if (threadIdx.x < kRed) sk.red[threadIdx.x] = red_identity(threadIdx.x);
     if (sk.bucketed)
       for (int k = threadIdx.x; k < sk.nb; k += NT) sk.counts[k] = 0;
@@ -1344,6 +1540,7 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
   if (stamp) sk.stamps[5] = global_ns();
   sinkhorn_close(D, st, out, sc, sk, s, sm);
   if (stamp) sk.stamps[6] = global_ns();
+  if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
   if (stamp) sk.stamps[7] = global_ns();
 }
@@ -1386,6 +1583,32 @@ Out outputs(int32_t* out_i32, uint8_t* out_b8, int W, int KA, int KP, int KR,
              out_i32 + 2 * KP + KA + KR + 1 + KG};
 }
 
+// The tenancy lane's arguments: the tail (share ++ ahead ++ cap, n floats
+// each) ends the packet, after every lane; off, every pointer is null.
+Tenancy tenancy_args(const float* packet, const Dims& d, int on, int n,
+                     int32_t* tenant, float* deficit, uint8_t* elig,
+                     int32_t* adm_rank, float starve_deficit,
+                     int starve_boost, float deficit_cap) {
+  Tenancy tn{};
+  tn.on = on;
+  tn.n = n;
+  if (!on) return tn;
+  const long lanes = 1 + d.use_priority + 1;
+  const float* tail = packet + HEADER + d.KA * lanes +
+                      2L * (d.KH + d.KF + d.KI + d.KS + d.KB);
+  tn.tenant = tenant;
+  tn.deficit = deficit;
+  tn.share = tail;
+  tn.ahead = tail + n;
+  tn.cap = tail + 2 * n;
+  tn.elig = elig;
+  tn.adm_rank = adm_rank;
+  tn.starve_deficit = starve_deficit;
+  tn.starve_boost = starve_boost;
+  tn.deficit_cap = deficit_cap;
+  return tn;
+}
+
 // One cooperative launch of as many NT-thread blocks as the card holds at
 // once. Returns 0, a CUDA error code, -1 when the device has no cooperative
 // launch, or -2 when no block of the kernel fits on an SM.
@@ -1409,22 +1632,35 @@ int cooperative_launch(const void* kernel, void** args, void* stream) {
 
 }  // namespace
 
+// Every entry takes the tenancy lane's arguments last before the stream:
+// the tenant and t_deficit leaves, the eligibility output [T], the scratch
+// adm_rank [T], use_tenancy, NT, starve_deficit, starve_boost, deficit_cap.
+// With tenancy off the pointers may be null.
+#define TENANCY_PARAMS                                                      \
+  int32_t *tenant, float *t_deficit, uint8_t *elig, int32_t *adm_rank,    \
+      int use_tenancy, int n_tenants, float starve_deficit,               \
+      int starve_boost, float deficit_cap
+#define TENANCY_ARGS(packet, d)                                             \
+  tenancy_args(packet, d, use_tenancy, n_tenants, tenant, t_deficit, elig, \
+               adm_rank, starve_deficit, starve_boost, deficit_cap)
+
 extern "C" int tpu_faas_fused_resident_tick(
     const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
     float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
     float* speed, uint8_t* active, int32_t* out_i32, uint8_t* out_b8,
     int32_t* scratch, int T, int W, int I, int KA, int KH, int KF, int KI,
     int KS, int KB, int KP, int KR, int KG, int max_slots, int use_priority,
-    int flush, void* stream) {
+    int flush, TENANCY_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          flush};
-  State st{sizes, valid, prio, last_hb, free_cnt, inflight, prev_live, speed,
-           active};
+  const Tenancy tn = TENANCY_ARGS(packet, d);
+  State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
+           inflight, prev_live, speed, active};
   const Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
   const Scratch sc =
       sort_scratch(scratch, static_cast<long>(W) * max_slots, T);
   fused_tick_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      packet, d, st, o, sc);
+      packet, d, st, o, sc, tn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1441,11 +1677,12 @@ extern "C" int tpu_faas_fused_resident_auction(
     int32_t* out_i32, uint8_t* out_b8, int32_t* scratch, int T, int W, int I,
     int KA, int KH, int KF, int KI, int KS, int KB, int KP, int KR, int KG,
     int max_slots, int use_priority, int warm_rounds, float eps, float jitter,
-    void* stream) {
+    TENANCY_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          0};
-  State st{sizes, valid, prio, last_hb, free_cnt, inflight, prev_live, speed,
-           active};
+  Tenancy tn = TENANCY_ARGS(packet, d);
+  State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
+           inflight, prev_live, speed, active};
   Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
   const long S = static_cast<long>(W) * max_slots;
   int32_t* p = scratch;
@@ -1466,7 +1703,7 @@ extern "C" int tpu_faas_fused_resident_auction(
   au.jitter = jitter;
   au.warm_rounds = warm_rounds;
 
-  void* args[] = {&packet, &d, &st, &o, &sc, &au};
+  void* args[] = {&packet, &d, &st, &o, &sc, &au, &tn};
   return cooperative_launch(reinterpret_cast<const void*>(fused_auction_kernel),
                             args, stream);
 }
@@ -1541,14 +1778,15 @@ extern "C" int tpu_faas_fused_resident_sinkhorn(
     const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
     float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
     float* speed, uint8_t* active, int32_t* out_i32, uint8_t* out_b8,
-    float* f, float* g, float* tau_out, int32_t* scratch, int T, int W, int I, int KA, int KH,
-    int KF, int KI, int KS, int KB, int KP, int KR, int KG, int max_slots,
-    int use_priority, int bucketed, int n_buckets, int n_iters, float tau,
-    void* stream) {
+    float* f, float* g, float* tau_out, int32_t* scratch, int T, int W,
+    int I, int KA, int KH, int KF, int KI, int KS, int KB, int KP, int KR,
+    int KG, int max_slots, int use_priority, int bucketed, int n_buckets,
+    int n_iters, float tau, TENANCY_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          0};
-  State st{sizes, valid, prio, last_hb, free_cnt, inflight, prev_live, speed,
-           active};
+  Tenancy tn = TENANCY_ARGS(packet, d);
+  State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
+           inflight, prev_live, speed, active};
   Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
   Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
   sk.n_iters = n_iters;
@@ -1559,7 +1797,7 @@ extern "C" int tpu_faas_fused_resident_sinkhorn(
   Scratch sc;
   sinkhorn_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc,
                   &sk);
-  void* args[] = {&packet, &d, &st, &o, &sc, &sk};
+  void* args[] = {&packet, &d, &st, &o, &sc, &sk, &tn};
   return cooperative_launch(
       reinterpret_cast<const void*>(fused_sinkhorn_kernel), args, stream);
 }

@@ -22,7 +22,10 @@ spilled count and bidder rows (summed over its rounds) come back as device
 tensors, which the wrapper never reads. Sinkhorn placement is a third
 cooperative launch: its iterations alternate row and column logsumexps
 across the grid, and its final potentials also come back as device tensors
-the wrapper never reads.
+the wrapper never reads. With the tenancy plane on (``use_tenancy``, ``NT``
+tenant rows, at most :data:`MAX_TENANTS`) each entry and the flush also
+take the ``tenant`` and ``t_deficit`` leaves, update them in place, and
+return the tick's eligibility mask as a fresh output.
 """
 
 from __future__ import annotations
@@ -49,6 +52,12 @@ from tpu_faas_torch.sched.state import (
     check_placement,
     sinkhorn_bucketed,
 )
+from tpu_faas_torch.tenancy.fairshare import (
+    DEFAULT_DEFICIT_CAP,
+    DEFAULT_STARVE_BOOST,
+    DEFAULT_STARVE_DEFICIT,
+    check_segment_key,
+)
 
 SOURCE = "tpu_faas_torch/csrc/fused_tick.cu"
 REPLACES = "tpu_faas/sched/pallas_fused.py:147 (_fused_resident_tick_impl)"
@@ -60,6 +69,13 @@ AUCTION_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
 #: inside the same TPU kernel
 SINKHORN_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
                      "(_fused_resident_tick_impl, placement=\"sinkhorn\")")
+#: the tenancy lane of the same TPU kernel (use_tenancy, NT), traced inside
+#: it through scheduler_tick_impl's tenancy plane
+TENANCY_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
+                    "(_fused_resident_tick_impl, use_tenancy=True)")
+#: the most tenant rows the kernel takes: one thread and one shared-memory
+#: word of block 0 each
+MAX_TENANTS = 1024
 
 _P = ctypes.c_void_p
 _N_PTR = 13  # packet, 9 state leaves, out_i32, out_b8, scratch
@@ -70,6 +86,12 @@ _N_INT_AUCTION = 15  # T W I KA KH KF KI KS KB KP KR KG max_slots prio
 _N_PTR_SINKHORN = 16  # packet, 9 state leaves, outs, f, g, tau, scratch
 _N_INT_SINKHORN = 17  # T W I KA KH KF KI KS KB KP KR KG max_slots prio
 #                       bucketed n_buckets n_iters
+#: every entry's tenancy arguments, before the stream: the tenant and
+#: t_deficit leaves, the eligibility output, the adm_rank scratch;
+#: use_tenancy, NT, starve_deficit, starve_boost, deficit_cap
+_TENANCY_TYPES = [_P] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float,
+                                                  ctypes.c_int,
+                                                  ctypes.c_float]
 #: the cooperative entries' own error codes
 _COOP_ERRORS = {
     -1: "the device has no cooperative launch",
@@ -91,6 +113,9 @@ class FusedTickKernel:
         self.auction_launches = 0
         #: Sinkhorn-branch launches so far; callers may reset it to 0
         self.sinkhorn_launches = 0
+        #: launches of any branch (or flush) with the tenancy lane on, so
+        #: far; callers may reset it to 0
+        self.tenancy_launches = 0
         self.ptxas_report = ""
         self._fn = None
         self._fn_auction = None
@@ -107,17 +132,20 @@ class FusedTickKernel:
         self.ptxas_report = report
         lib = ctypes.CDLL(str(path))
         fn = lib.tpu_faas_fused_resident_tick
-        fn.argtypes = [_P] * _N_PTR + [ctypes.c_int] * _N_INT + [_P]  # stream
+        fn.argtypes = ([_P] * _N_PTR + [ctypes.c_int] * _N_INT
+                       + _TENANCY_TYPES + [_P])  # stream
         fn.restype = ctypes.c_int
         auction = lib.tpu_faas_fused_resident_auction
         auction.argtypes = ([_P] * _N_PTR_AUCTION
                             + [ctypes.c_int] * _N_INT_AUCTION
-                            + [ctypes.c_float] * 2 + [_P])  # eps jitter stream
+                            + [ctypes.c_float] * 2  # eps jitter
+                            + _TENANCY_TYPES + [_P])  # stream
         auction.restype = ctypes.c_int
         sinkhorn = lib.tpu_faas_fused_resident_sinkhorn
         sinkhorn.argtypes = ([_P] * _N_PTR_SINKHORN
                              + [ctypes.c_int] * _N_INT_SINKHORN
-                             + [ctypes.c_float, _P])  # tau stream
+                             + [ctypes.c_float]  # tau
+                             + _TENANCY_TYPES + [_P])  # stream
         sinkhorn.restype = ctypes.c_int
         words = lib.tpu_faas_fused_sinkhorn_scratch_words
         words.argtypes = [ctypes.c_int] * 5
@@ -147,10 +175,11 @@ class FusedTickKernel:
         return buf
 
     def _check(self, packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-               use_priority, auction_S=None):
+               use_priority, use_tenancy, NT, auction_S=None):
         dev = packet.device
-        P = (_HEADER + KA * (2 if use_priority else 1)
-             + 2 * (KH + KF + KI + KS + KB))
+        lanes = 1 + int(bool(use_priority)) + int(bool(use_tenancy))
+        P = (_HEADER + KA * lanes + 2 * (KH + KF + KI + KS + KB)
+             + (3 * NT if use_tenancy else 0))
         check_arg(packet, "packet", torch.float32, P, dev)
         leaves = [
             ("sizes", torch.float32, T), ("valid", torch.bool, T),
@@ -161,6 +190,13 @@ class FusedTickKernel:
         ]
         if auction_S is not None:
             leaves.append(("price", torch.float32, auction_S))
+        if use_tenancy:
+            if not 1 <= NT <= MAX_TENANTS:
+                raise ValueError(f"the tenancy lane takes 1 to {MAX_TENANTS} "
+                                 f"tenant rows, got NT={NT}")
+            check_segment_key(NT, T)
+            leaves += [("tenant", torch.int32, T),
+                       ("t_deficit", torch.float32, NT)]
         for name, dtype, n in leaves:
             check_arg(getattr(st, name), name, dtype, n, dev)
         if auction_S is not None:
@@ -168,8 +204,21 @@ class FusedTickKernel:
             check_arg(st.refresh.reshape(-1), "refresh", torch.bool, 1, dev)
         return dev
 
+    def _tenancy(self, st, dev, T, use_tenancy, NT):
+        """(eligibility output or None, the entries' tenancy arguments)."""
+        if not use_tenancy:
+            return None, (None, None, None, None, 0, 1,
+                          DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
+                          DEFAULT_DEFICIT_CAP)
+        elig = torch.empty(T, dtype=torch.bool, device=dev)
+        adm_rank = self._scratch_for(dev, ("tenancy", T), T)
+        return elig, (st.tenant.data_ptr(), st.t_deficit.data_ptr(),
+                      elig.data_ptr(), adm_rank.data_ptr(), 1, NT,
+                      DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
+                      DEFAULT_DEFICIT_CAP)
+
     @staticmethod
-    def _outputs(out_i32, out_b8, W, KA, KP, KR, aux=False):
+    def _outputs(out_i32, out_b8, W, KA, KP, KR, aux=False, elig=None):
         o = 2 * KP + KA + KR
         return ResidentTickOutput(
             placed_slots=out_i32[:KP],
@@ -183,14 +232,17 @@ class FusedTickKernel:
             auction_rounds=out_i32[o + 1 + _KG] if aux else None,
             auction_spilled=out_i32[o + 2 + _KG] if aux else None,
             auction_bid_rows=out_i32[o + 3 + _KG] if aux else None,
+            tenant_eligible=elig,
         )
 
     def __call__(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
-                 KR, max_slots, use_priority, flush):
+                 KR, max_slots, use_priority, flush, use_tenancy=False,
+                 NT=1):
         """A rank tick, or (``flush=True``) the delta packet alone."""
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-                          use_priority)
+                          use_priority, use_tenancy, NT)
         self.load()
+        elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
                               device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
@@ -206,24 +258,26 @@ class FusedTickKernel:
                 st.active.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
                 scratch.data_ptr(),
                 T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
-                int(bool(use_priority)), int(bool(flush)), stream,
+                int(bool(use_priority)), int(bool(flush)), *ten, stream,
             )
         if err != 0:
             raise RuntimeError(f"fused_tick launch failed: CUDA error {err}")
         self.launches += 1
-        res = self._outputs(out_i32, out_b8, W, KA, KP, KR)
+        self.tenancy_launches += int(bool(use_tenancy))
+        res = self._outputs(out_i32, out_b8, W, KA, KP, KR, elig=elig)
         if flush:
             return st, res.arrival_slots
         return res, st
 
     def auction(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
-                KR, max_slots, use_priority):
+                KR, max_slots, use_priority, use_tenancy=False, NT=1):
         """An auction tick: one cooperative launch. Updates every leaf it
         writes in place, ``price`` and ``refresh`` included."""
         S = W * max_slots
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-                          use_priority, auction_S=S)
+                          use_priority, use_tenancy, NT, auction_S=S)
         self.load()
+        elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG + 3,
                               dtype=torch.int32, device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
@@ -241,23 +295,27 @@ class FusedTickKernel:
                 st.refresh.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
                 scratch.data_ptr(),
                 T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
-                int(bool(use_priority)), WARM_ROUNDS, eps, jitter, stream,
+                int(bool(use_priority)), WARM_ROUNDS, eps, jitter, *ten,
+                stream,
             )
         if err != 0:
             why = _COOP_ERRORS.get(err, f"CUDA error {err}")
             raise RuntimeError(f"fused_tick auction launch failed: {why}")
         self.auction_launches += 1
-        return self._outputs(out_i32, out_b8, W, KA, KP, KR, aux=True), st
+        self.tenancy_launches += int(bool(use_tenancy))
+        return self._outputs(out_i32, out_b8, W, KA, KP, KR, aux=True,
+                             elig=elig), st
 
     def sinkhorn(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
-                 KR, max_slots, use_priority):
+                 KR, max_slots, use_priority, use_tenancy=False, NT=1):
         """A Sinkhorn tick: one cooperative launch, on the route the batch
         tick takes for this shape (bucketed when T*W > 2**24, else dense).
         Updates the leaves it writes in place; the outputs carry the final
         potentials f and g and the effective temperature."""
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-                          use_priority)
+                          use_priority, use_tenancy, NT)
         self.load()
+        elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
         bucketed = sinkhorn_bucketed(T, W)
         n_iters = BUCKETED_ITERS if bucketed else DENSE_ITERS
         R = (N_BUCKETS if bucketed else T) + 1
@@ -283,13 +341,14 @@ class FusedTickKernel:
                 scratch.data_ptr(),
                 T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
                 int(bool(use_priority)), int(bucketed), N_BUCKETS, n_iters,
-                TAU, stream,
+                TAU, *ten, stream,
             )
         if err != 0:
             why = _COOP_ERRORS.get(err, f"CUDA error {err}")
             raise RuntimeError(f"fused_tick sinkhorn launch failed: {why}")
         self.sinkhorn_launches += 1
-        res = self._outputs(out_i32, out_b8, W, KA, KP, KR)
+        self.tenancy_launches += int(bool(use_tenancy))
+        res = self._outputs(out_i32, out_b8, W, KA, KP, KR, elig=elig)
         return res._replace(sinkhorn_f=f, sinkhorn_g=g,
                             sinkhorn_tau=tau[0]), st
 
@@ -331,8 +390,8 @@ class FusedTickKernel:
         return e, lg
 
 
-#: the process's one instance: its ``launches``, ``auction_launches`` and
-#: ``sinkhorn_launches`` are the library's counts
+#: the process's one instance: its ``launches``, ``auction_launches``,
+#: ``sinkhorn_launches`` and ``tenancy_launches`` are the library's counts
 KERNEL = FusedTickKernel()
 
 

@@ -25,7 +25,11 @@ place by rank, by auction or by Sinkhorn. The auction carries its slot
 prices and staleness flag in the state, and on the card its bidding rounds
 loop inside the one launch, with no host round trip; Sinkhorn carries no
 state of its own, and on the card its iterations run inside the one launch
-too. Tenancy and speculation raise ``NotImplementedError``.
+too. A ``TenantTable`` turns the tenancy plane on: the packet grows a tenant
+arrival lane and a tail of the share, inflight and cap vectors, the state
+carries the tenant rows and the deficits, and on the card the kernel runs
+the lane in all three placements. Speculation raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from tpu_faas_torch.sched.state import (
     scheduler_tick_impl,
     unported,
 )
+from tpu_faas_torch.tenancy.fairshare import check_segment_key
 
 _I32 = torch.int32
 
@@ -75,13 +80,17 @@ class ResidentTickOutput(NamedTuple):
     sinkhorn_g: torch.Tensor | None = None
     #: f32 scalar (Sinkhorn only): the effective temperature
     sinkhorn_tau: torch.Tensor | None = None
+    #: bool[T] (tenancy only): the tasks placement saw as valid, the valid
+    #: tasks minus those past their tenant's inflight-cap allowance
+    tenant_eligible: torch.Tensor | None = None
 
 
 class _ResidentState(NamedTuple):
     """Everything carried on device between ticks — the 16 leaves of the
     JAX state, in its order. Rank placement reads and writes the first
     ten; the auction also carries ``price`` and ``refresh``; the tenancy
-    deficit and speculation leaves ride along untouched."""
+    plane the ``tenant`` rows and the ``t_deficit`` carry; the speculation
+    leaves ride along untouched."""
 
     sizes: torch.Tensor  # f32[T]
     valid: torch.Tensor  # bool[T]
@@ -152,7 +161,7 @@ def _first_k_indices(mask: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
-                  KS, KB, use_priority):
+                  KS, KB, use_priority, use_tenancy=False):
     """Scatter one delta packet into the carried state. Returns (state,
     arrival_slots i32[KA], now)."""
     now = packed[0]
@@ -169,6 +178,8 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
     arr_sizes = lane(KA)
     if use_priority:
         arr_prio = lane(KA, True)
+    if use_tenancy:
+        arr_tenant = lane(KA, True)
     hb_idx, hb_val = lane(KH, True), lane(KH)
     free_idx, free_val = lane(KF, True), lane(KF, True)
     infl_idx, infl_val = lane(KI, True), lane(KI, True)
@@ -213,22 +224,36 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
     prio = st.prio
     if use_priority:
         prio = scatter_set(prio, slots, arr_prio)
+    tenant = st.tenant
+    if use_tenancy:
+        tenant = scatter_set(tenant, slots, arr_tenant)
     arrival_slots = torch.where(ok, free_slots, -1).to(_I32)
-    new = st._replace(sizes=sizes, valid=valid, prio=prio, last_hb=last_hb,
-                      free=free, inflight=inflight, speed=speed,
-                      active=active)
+    new = st._replace(sizes=sizes, valid=valid, prio=prio, tenant=tenant,
+                      last_hb=last_hb, free=free, inflight=inflight,
+                      speed=speed, active=active)
     return new, arrival_slots, now
 
 
 def _flush_kernel_impl(packed, st, *, T, W, I, KA, KH, KF, KI, KS, KB,
-                       use_priority):
+                       use_priority, use_tenancy=False, NT=1):
     """Delta application alone — the plain version of the kernel's flush
-    mode, used when a tick's deltas exceed one packet's capacity."""
+    mode, used when a tick's deltas exceed one packet's capacity. ``NT``
+    shapes nothing here (the tenancy tail is tick-only) but rides the
+    statics so both share one ``_statics()`` dict."""
     st, arrival_slots, _ = _apply_deltas(
         packed, st, T=T, W=W, I=I, KA=KA, KH=KH, KF=KF, KI=KI, KS=KS,
-        KB=KB, use_priority=use_priority,
+        KB=KB, use_priority=use_priority, use_tenancy=use_tenancy,
     )
     return st, arrival_slots
+
+
+def tenancy_tail(packed, NT: int):
+    """The tenancy tail at the end of a packet: share f32[NT], and the
+    inflight counts and caps, i32[NT] each (XLA's f32 -> i32)."""
+    tail = packed.shape[0] - 3 * NT
+    return (packed[tail : tail + NT],
+            f32_to_i32(packed[tail + NT : tail + 2 * NT]),
+            f32_to_i32(packed[tail + 2 * NT :]))
 
 
 def _resident_tick_impl(
@@ -237,6 +262,8 @@ def _resident_tick_impl(
     *,
     T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, max_slots, use_priority,
     placement="rank",
+    use_tenancy=False,
+    NT=1,
     sinkhorn_potentials=None,
 ):
     """The full resident step as plain PyTorch ops — the plain version of
@@ -245,8 +272,16 @@ def _resident_tick_impl(
     replays a Sinkhorn tick's rounding from given final (f, g)."""
     st, arrival_slots, now = _apply_deltas(
         packed, st, T=T, W=W, I=I, KA=KA, KH=KH, KF=KF, KI=KI, KS=KS,
-        KB=KB, use_priority=use_priority,
+        KB=KB, use_priority=use_priority, use_tenancy=use_tenancy,
     )
+    tenant_kw: dict = {}
+    if use_tenancy:
+        # share, inflight and cap ride the END of every tick packet as
+        # values; the deficit carry stays a device-resident leaf
+        share, ahead, cap = tenancy_tail(packed, NT)
+        tenant_kw = dict(task_tenant=st.tenant, tenant_share=share,
+                         tenant_deficit=st.t_deficit, tenant_ahead=ahead,
+                         tenant_cap=cap)
     auction = placement == "auction"
     out = scheduler_tick_impl(
         st.sizes,
@@ -264,6 +299,7 @@ def _resident_tick_impl(
         auction_price=st.price if auction else None,
         auction_refresh=st.refresh if auction else None,
         sinkhorn_potentials=sinkhorn_potentials,
+        **tenant_kw,
     )
 
     # -- compact placements to KP (slot, row) pairs ------------------------
@@ -290,6 +326,8 @@ def _resident_tick_impl(
 
     new_state = st._replace(valid=valid_next, free=free_next,
                             prev_live=out.live)
+    if use_tenancy:
+        new_state = new_state._replace(t_deficit=out.tenant_deficit)
     rounds = spilled = bid_rows = None
     if auction:
         new_state = new_state._replace(price=out.auction_price,
@@ -303,7 +341,7 @@ def _resident_tick_impl(
         placed_slots, placed_rows, arrival_slots, redispatch_slots,
         out.purged, out.live, valid_next.sum(dtype=_I32), straggler_slots,
         rounds, spilled, bid_rows, out.sinkhorn_f, out.sinkhorn_g,
-        out.sinkhorn_tau,
+        out.sinkhorn_tau, out.tenant_eligible,
     )
     return res, new_state
 
@@ -378,11 +416,17 @@ class ResidentScheduler(SchedulerArrays):
         spec_mult: float | None = None,
         **kw,
     ):
-        if tenancy is not None:
-            raise unported("tenancy")
         if spec_mult is not None:
             raise unported("speculation")
         super().__init__(*args, **kw)
+        # tenancy plane: a TenantTable turns it on. NT (the vectors' padded
+        # length) shapes the state and the packet, so the table must exist
+        # at construction; its contents are values (hot-reloadable)
+        self.tenancy = tenancy
+        self.use_tenancy = tenancy is not None
+        self.NT = tenancy.max_tenants if tenancy is not None else 1
+        if self.use_tenancy:
+            check_segment_key(self.NT, self.max_pending)
         #: kernel launches issued by the LAST tick_resident() call (steady
         #: state: exactly 1; overflow bursts add one flush launch per
         #: surplus packet) and ever
@@ -504,7 +548,7 @@ class ResidentScheduler(SchedulerArrays):
             upload(self.worker_speed, dev),
             upload(self.worker_active, dev),
             upload(np.zeros(W * self.max_slots, dtype=np.float32), dev),
-            upload(np.zeros(1, dtype=np.float32), dev),  # tenant deficits
+            upload(np.zeros(self.NT, dtype=np.float32), dev),  # deficits
             upload(np.zeros(1, dtype=np.float32), dev),  # infl_start
             upload(np.zeros(1, dtype=np.float32), dev),  # infl_pred
             upload(np.full(1, -1, dtype=np.int32), dev),  # avoid
@@ -555,11 +599,13 @@ class ResidentScheduler(SchedulerArrays):
                 sp_idx, sp_val, ac_idx, ac_val)
 
     def packet_len(self) -> int:
-        lanes = 1 + (1 if self.use_priority else 0)
+        lanes = 1 + int(self.use_priority) + int(self.use_tenancy)
         return (
             _HEADER
             + self.KA * lanes
             + 2 * (self.KH + self.KF + self.KI + self.KS + self.KB)
+            # the tenancy tail: share, inflight and cap, on every packet
+            + (3 * self.NT if self.use_tenancy else 0)
         )
 
     def _pack(self, now_rel, arrivals, hb, fr, infl, sp, ac) -> np.ndarray:
@@ -579,12 +625,20 @@ class ResidentScheduler(SchedulerArrays):
         if self.use_priority:
             p[off : off + len(arrivals)] = [a.priority for a in arrivals]
             off += self.KA
+        if self.use_tenancy:
+            p[off : off + len(arrivals)] = [a.tenant for a in arrivals]
+            off += self.KA
         for (idx, val), K in ((hb, self.KH), (fr, self.KF), (infl, self.KI),
                               (sp, self.KS), (ac, self.KB)):
             p[off : off + len(idx)] = idx
             off += K
             p[off : off + len(val)] = val
             off += K
+        if self.use_tenancy:
+            NT, ten = self.NT, self.tenancy
+            p[off : off + NT] = ten.share[:NT]
+            p[off + NT : off + 2 * NT] = ten.inflight[:NT]
+            p[off + 2 * NT : off + 3 * NT] = ten.cap[:NT]
         return p
 
     def _statics(self) -> dict:
@@ -592,7 +646,16 @@ class ResidentScheduler(SchedulerArrays):
             T=self.max_pending, W=self.max_workers, I=self.max_inflight,
             KA=self.KA, KH=self.KH, KF=self.KF, KI=self.KI, KS=self.KS,
             KB=self.KB, use_priority=self.use_priority,
+            use_tenancy=self.use_tenancy, NT=self.NT,
         )
+
+    def tenant_deficits(self) -> np.ndarray | None:
+        """Host view of the resident deficit leaf (one sync, stats surface
+        only); None with the tenancy plane off or before the first tick."""
+        st = self._r_state
+        if not self.use_tenancy or st is None:
+            return None
+        return to_host(st.t_deficit)
 
     # -- kernel launch -----------------------------------------------------
     def _count_dispatch(self) -> None:

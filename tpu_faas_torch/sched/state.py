@@ -12,9 +12,10 @@ PyTorch: the tick, the cached fleet uploads and the delta-maintained
 in-flight mirror, and the auction's warm prices carried between ticks.
 All three placements are ported: rank, auction (its bids run kernel B2 on
 the card) and Sinkhorn (plain torch ops on both devices: the JAX batch tick
-reaches no Pallas kernel for it). The mesh and multihost layouts, tenancy,
-speculation and the graph lanes raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+reaches no Pallas kernel for it), and so is the tenancy plane
+(``tpu_faas_torch/tenancy``: plain torch ops here too). The mesh and
+multihost layouts, speculation and the graph lanes raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -27,12 +28,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpu_faas_torch.device import resolve_device, upload
+from tpu_faas_torch.device import resolve_device, to_host, upload
 from tpu_faas_torch.sched.auction import auction_placement_impl
 from tpu_faas_torch.sched.greedy import rank_match_placement_impl
 from tpu_faas_torch.sched.sinkhorn import (
     sinkhorn_placement_bucketed_impl,
     sinkhorn_placement_impl,
+)
+from tpu_faas_torch.tenancy.fairshare import (
+    DEFAULT_STARVE_BOOST,
+    DEFAULT_STARVE_DEFICIT,
+    tenant_deficit_update_impl,
+    tenant_fair_admission_impl,
 )
 
 _I32 = torch.int32
@@ -40,7 +47,6 @@ _I32 = torch.int32
 #: what each unported feature waits for, by ROADMAP item
 _UNPORTED = {
     "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
-    "tenancy": "ROADMAP A.7 (in-tick planes: tenancy)",
     "speculation": "ROADMAP A.7 (in-tick planes: speculation)",
     "mesh": "ROADMAP A.11 (multi-device)",
     "multihost": "ROADMAP A.11 (multi-device)",
@@ -94,6 +100,12 @@ class TickOutput(NamedTuple):
     sinkhorn_g: torch.Tensor | None = None
     #: f32 scalar (Sinkhorn only): the effective temperature
     sinkhorn_tau: torch.Tensor | None = None
+    #: f32[N_TENANTS] updated per-tenant deficit counters (tenancy plane
+    #: only): the next tick's carry, device-resident between ticks
+    tenant_deficit: torch.Tensor | None = None
+    #: bool[T] the tasks placement saw as valid (tenancy plane only): the
+    #: valid tasks minus those past their tenant's inflight-cap allowance
+    tenant_eligible: torch.Tensor | None = None
 
 
 def scheduler_tick_impl(
@@ -114,10 +126,20 @@ def scheduler_tick_impl(
     auction_price: torch.Tensor | None = None,  # f32[W*max_slots] warm start
     auction_refresh: torch.Tensor | None = None,  # bool scalar: resident carry
     sinkhorn_potentials: tuple[torch.Tensor, torch.Tensor] | None = None,
+    task_tenant: torch.Tensor | None = None,  # i32[T] dense tenant rows
+    tenant_share: torch.Tensor | None = None,  # f32[N] weights
+    tenant_deficit: torch.Tensor | None = None,  # f32[N] carried counters
+    tenant_ahead: torch.Tensor | None = None,  # i32[N] inflight per tenant
+    tenant_cap: torch.Tensor | None = None,  # i32[N] ceilings (0 = uncapped)
+    starve_deficit: float = DEFAULT_STARVE_DEFICIT,
+    starve_boost: int = DEFAULT_STARVE_BOOST,
 ) -> TickOutput:
     """One batch tick. ``sinkhorn_potentials`` (Sinkhorn only) replaces the
     solver's iterations with given final (f, g): the replay of a rounding
-    from the CUDA kernel's own potentials."""
+    from the CUDA kernel's own potentials. ``task_tenant`` turns the
+    tenancy plane on: the inflight-cap eligibility narrows ``task_valid``
+    for every placement, the weighted-fair admission order feeds rank's
+    cut, and the deficit carry runs on the final assignment."""
     check_placement(placement)
     # tail-health multiplier on effective speed, and the quarantine plane's
     # per-row placement ceiling: two elementwise lanes ahead of placement
@@ -139,6 +161,27 @@ def scheduler_tick_impl(
     worker_of = iw.clamp(0, W - 1).long()
     redispatch = occupied & ~live[worker_of]
 
+    # -- tenancy plane: the cap mask narrows task_valid for EVERY placement;
+    # the fair order feeds rank's admission cut alone
+    adm_rank = demand = None
+    if task_tenant is not None:
+        eligible, adm_rank, demand = tenant_fair_admission_impl(
+            task_valid, task_tenant, task_priority, tenant_share,
+            tenant_deficit, tenant_ahead, tenant_cap,
+            starve_deficit=starve_deficit, starve_boost=starve_boost,
+        )
+        task_valid = task_valid & eligible
+
+    def tenancy_out(assignment) -> dict:
+        if task_tenant is None:
+            return {}
+        return dict(
+            tenant_deficit=tenant_deficit_update_impl(
+                assignment, task_tenant, demand, tenant_share, tenant_deficit
+            ),
+            tenant_eligible=task_valid,
+        )
+
     # auction ignores task_priority: its admission order is FCFS
     if placement == "auction":
         res = auction_placement_impl(
@@ -148,7 +191,8 @@ def scheduler_tick_impl(
         )
         return TickOutput(res.assignment, live, purged, redispatch,
                           res.prices, res.refresh, res.n_rounds,
-                          res.n_spilled, res.n_bid_rows)
+                          res.n_spilled, res.n_bid_rows,
+                          **tenancy_out(res.assignment))
     # Sinkhorn ignores task_priority too: every valid task competes
     if placement == "sinkhorn":
         T, W = task_size.shape[0], worker_speed.shape[0]
@@ -167,12 +211,15 @@ def scheduler_tick_impl(
             )
         return TickOutput(res.assignment, live, purged, redispatch,
                           sinkhorn_f=res.f, sinkhorn_g=res.g,
-                          sinkhorn_tau=res.tau)
+                          sinkhorn_tau=res.tau,
+                          **tenancy_out(res.assignment))
     assignment = rank_match_placement_impl(
         task_size, task_valid, worker_speed, worker_free, live,
         max_slots=max_slots, task_priority=task_priority,
+        task_adm_rank=adm_rank,
     )
-    return TickOutput(assignment, live, purged, redispatch)
+    return TickOutput(assignment, live, purged, redispatch,
+                      **tenancy_out(assignment))
 
 
 def packed_tick(
@@ -191,11 +238,14 @@ def packed_tick(
     W: int,
     max_slots: int,
     placement: str = "rank",
+    **tenant_kw,
 ) -> TickOutput:
     """scheduler_tick behind a transfer-minimal calling convention:
     everything that changes every tick (sizes, heartbeat ages, free counts)
     rides ONE packed upload, and the valid mask is built on the device from
-    a host integer. The rest is device-resident between ticks."""
+    a host integer. The rest is device-resident between ticks.
+    ``tenant_kw`` are the tenancy plane's arguments of
+    :func:`scheduler_tick_impl`."""
     task_size = packed[:T]
     hb_age = packed[T : T + W]
     worker_free = packed[T + W :].to(_I32)
@@ -205,7 +255,7 @@ def packed_tick(
         hb_age, prev_live, inflight_worker, time_to_expire,
         max_slots=max_slots, task_priority=task_priority,
         placement=placement, worker_place_cap=worker_place_cap,
-        auction_price=auction_price,
+        auction_price=auction_price, **tenant_kw,
     )
 
 
@@ -274,8 +324,8 @@ class SchedulerArrays:
         self.inflight_pred: np.ndarray = np.zeros(
             self.max_inflight, dtype=np.float32
         )
-        #: straggler threshold (speculation plane): None = plane off, the
-        #: only setting this port supports
+        #: straggler threshold (speculation plane): None = plane off; a
+        #: value raises NotImplementedError at the tick (unported)
         self.spec_mult: float | None = None
         self.spec_min_s: float = 0.05
         self._inflight_slot: dict[str, int] = {}  # task_id -> slot
@@ -289,8 +339,11 @@ class SchedulerArrays:
         # tick compares the live host array against the cached snapshot and
         # re-uploads only on change
         self._dev_cache: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
-        #: tenancy plane (None = off, the only setting this port supports)
+        #: tenancy plane: the host TenantTable (None = off); with it set,
+        #: tick(task_tenants=...) runs the in-tick fairness lane
         self.tenancy = None
+        # the per-tenant deficit carry, device-resident between ticks
+        self._d_tenant_deficit: torch.Tensor | None = None
         # auction placement: last tick's slot prices, the next tick's warm
         # start (device-resident), and last tick's staleness flag, read one
         # tick late
@@ -497,8 +550,10 @@ class SchedulerArrays:
         return tid
 
     def tenant_deficits(self) -> np.ndarray | None:
-        """Per-tenant deficit carry: always None (tenancy is unported)."""
-        return None
+        """Host view of the device-carried per-tenant deficit vector (one
+        sync, stats surface only); None before the first tenancy tick."""
+        d = self._d_tenant_deficit
+        return None if d is None else to_host(d)
 
     # -- device side -------------------------------------------------------
     def _device_inflight(self) -> torch.Tensor:
@@ -563,15 +618,16 @@ class SchedulerArrays:
         ``task_priorities`` (optional, parallel to ``task_sizes``) orders
         admission under overload — higher first, FCFS within a priority.
         ``worker_place_cap`` (optional, i32[max_workers]) is the quarantine
-        plane's placement ceiling. The graph, tenancy and speculation
-        arguments raise ``NotImplementedError``.
+        plane's placement ceiling. ``task_tenants`` (optional, the dense
+        tenant row of each task) runs the tenancy plane when ``tenancy``
+        holds a TenantTable, with the deficit carried on the device between
+        ticks; without a table it is ignored, as in the JAX tick. The graph
+        and speculation arguments raise ``NotImplementedError``.
         """
         if dep_edges is not None or task_pref is not None or (
             pref_edges is not None
         ):
             raise unported("graph")
-        if task_tenants is not None:
-            raise unported("tenancy")
         if self.spec_mult is not None or task_avoid is not None:
             raise unported("speculation")
         n = len(task_sizes)
@@ -601,6 +657,26 @@ class SchedulerArrays:
             cap = self._cached_dev(
                 "place_cap", np.asarray(worker_place_cap, dtype=np.int32)
             )
+        tenancy_on = self.tenancy is not None and task_tenants is not None
+        tenant_kw: dict = {}
+        if tenancy_on:
+            ten = self.tenancy
+            tt = np.zeros(T, dtype=np.int32)
+            tt[:n] = task_tenants
+            if self._d_tenant_deficit is None:
+                self._d_tenant_deficit = torch.zeros(
+                    ten.max_tenants, dtype=torch.float32, device=self.device
+                )
+            # share and cap change only on a hot reload (cached uploads);
+            # the inflight counts are per tick. Snapshots throughout: the
+            # table mutates between ticks
+            tenant_kw = dict(
+                task_tenant=upload(tt, self.device),
+                tenant_share=self._cached_dev("tenant_share", ten.share),
+                tenant_deficit=self._d_tenant_deficit,
+                tenant_ahead=upload(ten.inflight, self.device),
+                tenant_cap=self._cached_dev("tenant_cap", ten.cap),
+            )
         out = packed_tick(
             upload(packed, self.device),
             n,
@@ -618,10 +694,13 @@ class SchedulerArrays:
             W=W,
             max_slots=self.max_slots,
             placement=self.placement,
+            **tenant_kw,
         )
         if self.placement == "auction":
             self._d_auction_price = out.auction_price
             self._d_auction_refresh = out.auction_refresh
+        if tenancy_on:
+            self._d_tenant_deficit = out.tenant_deficit
         # prev_live stays DEVICE-resident: it only feeds the next tick, and
         # reading it back here would put a sync inside every tick
         self.prev_live = out.live
