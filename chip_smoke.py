@@ -78,7 +78,26 @@ over):
    keeps them; every launch holds each tenant within its allowance. Last,
    the rank branch with the lane on the rank loop's own states, beside its
    plain version and its bound.
-9. ``time``   — CUDA-event medians of B1's rank branch (on the resident run's
+9. ``resident_spec`` — B1's speculation lane (config 18's knobs: straggler
+   multiplier 3, floor 0.02 s) in its three branches: against the plain
+   version on synthetic headline states with the tenancy lane off and on
+   (in-flight slots past, at and under their threshold, on dead rows, with
+   pred <= 0 and NaN; packet pred and avoid lanes with clears and wrapped
+   negative indices; the avoid rows of more than 64 tasks on the rows
+   placement gives them, so the veto fires and the fixup's bound binds;
+   over-cap free counts), rank and auction ticks and the flush exactly
+   equal on every output and state leaf (the straggler slots and the
+   ``infl_start``/``infl_pred``/``avoid`` leaves included), Sinkhorn under
+   its contract with the fixup added to (c) and (d); each branch timed with
+   the lane off and on, on the same state. Then a resident loop per branch
+   (phase 2's loop and checks: 60 rank ticks with priority, 16 auction, 20
+   Sinkhorn, and 25 rank ticks with the tenancy lane too) in which 64 live
+   workers never return results, so their slots flag; each tick re-submits
+   the newly flagged slots (at most KG) as hedges avoiding the original's
+   row, as the dispatcher does; no hedge lands on its avoid row. Last, the
+   rank branch with the lane on the rank loop's own states, beside its
+   plain version and its bound.
+10. ``time``  — CUDA-event medians of B1's rank branch (on the resident run's
    own states and packets, and on a synthetic state) and of B2 (at both bid
    shapes), and CUDA-event means of B1's auction branch over the resident
    auction run's own states (its warm and cold ticks differ forty-fold in
@@ -98,8 +117,9 @@ The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
 rank branch, the auction ticks for B2, the resident auction run for B1's
 auction branch, the resident Sinkhorn run for its Sinkhorn branch, and the
-resident tenancy rank run for its tenancy lane), errors and times. Without a CUDA device the script exits
-non-zero and prints no result.
+resident tenancy rank run for its tenancy lane, and the resident
+speculation rank run for its speculation lane), errors and times. Without a
+CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -134,6 +154,17 @@ TENANCY_KW = dict(use_tenancy=True, NT=NT_HEADLINE)
 TENANT_MIX = np.array([0.05, 0.15, 0.6] + [0.2 / 29] * 29)
 #: (checked, timed) resident ticks with the tenancy lane, per branch
 TENANCY_TICKS = {"rank": (40, 20), "auction": (12, 4), "sinkhorn": (15, 5)}
+#: the speculation lane: config 18's knobs (tpu_faas/bench/configs.py:3169),
+#: the scheduler's straggler output, the prediction stamped on every
+#: dispatch (seconds; flagged past 3 x 0.02 s = 12 ticks of 5 ms) and the
+#: live workers that never return a result
+SPEC_MULT, SPEC_MIN_S, KG = 3.0, 0.02, 64
+SPEC_KW = dict(use_spec=True, KG=KG)
+SPEC_PRED = 0.02
+N_STUCK = 64
+#: (checked, timed) resident ticks with the speculation lane, per loop
+SPEC_TICKS = {"rank": (40, 20), "auction": (12, 4), "sinkhorn": (15, 5),
+              "rank+tenancy": (20, 5)}
 
 
 def log(*a) -> None:
@@ -225,13 +256,24 @@ def clone_state(st):
     return type(st)(*(t.clone() for t in st))
 
 
+def same(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """torch.equal, with a NaN equal to a NaN in the same place (the
+    speculation lane carries NaN predictions as values)."""
+    if torch.equal(x, y):
+        return True
+    if not x.is_floating_point() or x.shape != y.shape:
+        return False
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+
+
 def compare(a, b, what: str) -> tuple[int, float]:
     """(mismatched fields, max abs error) between two tuples of tensors."""
     bad, err = 0, 0.0
     for name, x, y in zip(a._fields, a, b):
         if x is None and y is None:
             continue
-        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+        if x.shape != y.shape or x.dtype != y.dtype or not same(x, y):
             bad += 1
             if x.shape == y.shape:
                 d = (x.double() - y.double()).abs()
@@ -304,12 +346,13 @@ def phase_kernel(dev) -> dict:
 
 # -- phase 2: the resident path end to end ------------------------------------
 def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
-                           tenancy=None):
+                           tenancy=None, spec: bool = False):
     """A ResidentScheduler that records, for each kernel launch, the packet
     and a copy of the state before it, so the run can replay every launch
     through the plain version and compare. Recording makes only device
     copies inside the tick (no host sync). ``tenancy`` is its TenantTable
-    (None: the lane off)."""
+    (None: the lane off); ``spec`` turns the speculation lane on with
+    config 18's knobs."""
     from tpu_faas_torch.sched.resident import ResidentScheduler
 
     class Checked(ResidentScheduler):
@@ -341,6 +384,8 @@ def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
         max_inflight=SHAPE["I"], max_slots=MAX_SLOTS, time_to_expire=10.0,
         clock=clock, device=dev, use_priority=use_priority,
         placement=placement, tenancy=tenancy,
+        **(dict(spec_mult=SPEC_MULT, spec_min_s=SPEC_MIN_S, KG=KG)
+           if spec else {}),
         **{k: SHAPE[k] for k in ("KA", "KH", "KF", "KI", "KS", "KB", "KP",
                                  "KR")},
     )
@@ -374,12 +419,17 @@ def replay_plain(rs, pre0) -> tuple[int, float]:
 
 
 def phase_resident(dev, n_ticks: int, timed_ticks: int,
-                   placement: str = "rank", tenancy: bool = False) -> dict:
+                   placement: str = "rank", tenancy: bool = False,
+                   spec: bool = False) -> dict:
     """The resident loop (see the module docstring); ``tenancy`` runs it with
     the tenancy lane on: ``tenant_table``'s shares and caps, arrivals
     tagged across its tenants, the table's inflight counts kept with
     note_dispatched/note_done as the dispatcher keeps them, and every
-    launch's placements held to each tenant's allowance."""
+    launch's placements held to each tenant's allowance. ``spec`` runs it
+    with the speculation lane on: every dispatch stamped with SPEC_PRED,
+    N_STUCK live workers that never return a result, each resolved tick's
+    newly flagged slots re-submitted as hedges that avoid the original's
+    row, and every launch's placements held off their avoid rows."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
 
     def n_launches():  # rank ticks and flushes, auction and Sinkhorn ticks
@@ -410,7 +460,17 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
     # the auction and Sinkhorn ignore priorities: their loops run FCFS
     rs = make_checked_scheduler(dev, lambda: clock_box[0],
                                 use_priority=placement == "rank",
-                                placement=placement, tenancy=ten)
+                                placement=placement, tenancy=ten, spec=spec)
+    # the speculation lane's stuck rows and hedges draw from their own
+    # generator too
+    srng = np.random.default_rng(27)
+    stuck = (set(int(x) for x in srng.choice(W, N_STUCK, replace=False))
+             if spec else set())
+    hedge_avoid: dict[str, int] = {}  # hedge id -> its original's row
+    hedged: set[str] = set()
+    # hedges queued since the last tick's arrivals: they take the place of
+    # as many new arrivals, so a tick's arrivals still fill one packet lane
+    queued_hedges = [0]
     for i in range(W):
         rs.register(b"w%d" % i, int(procs[i]), speed=float(speeds[i]))
     sizes: dict[str, float] = {}
@@ -436,7 +496,8 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
                  steady_ticks=0, overflow_ticks=[], mismatches=0,
                  max_abs_err=0.0, cold_ticks=0, warm_ticks=0, rounds=[],
                  spilled=[], bid_rows=[], max_df=0.0, differs=0,
-                 scale=0.0, over_allowance=0,
+                 scale=0.0, over_allowance=0, on_avoid=0, flagged=0,
+                 flag_ticks=0, hedges=0, hedges_placed=0,
                  placed_by_tenant=np.zeros(NT_HEADLINE, np.int64))
     expected_redispatch: set[int] | None = None
     expected_purge: set[int] | None = None
@@ -449,7 +510,10 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
         for tid, row in r.placed:
             assert tid not in inflight and tid not in completed, (
                 f"{tid} placed twice")
-            rs.inflight_add(tid, row)
+            if tid in hedge_avoid:
+                assert row != hedge_avoid[tid], f"{tid} on its avoid row"
+                stats["hedges_placed"] += 1
+            rs.inflight_add(tid, row, pred=SPEC_PRED if spec else 0.0)
             inflight[tid] = row
             infl_list.append(tid)
             running[row] += 1
@@ -467,6 +531,25 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             assert set(r.redispatch_slots) == expected_redispatch, (
                 "redispatch != in-flight slots of the purged rows")
             expected_purge = None
+        assert not set(r.straggler_slots) & set(r.redispatch_slots), (
+            "a slot both flagged and redispatched")
+        stats["flagged"] += len(r.straggler_slots)
+        stats["flag_ticks"] += bool(r.straggler_slots)
+        for slot in r.straggler_slots:
+            # the dispatcher's hedge: the same work again, once per task,
+            # kept off the worker that runs the original
+            tid = rs.inflight_task[slot]
+            if tid is None or tid in hedged or tid in hedge_avoid:
+                continue
+            hedged.add(tid)
+            hid = f"hedge-{tid}"
+            sizes[hid], prios[hid] = sizes[tid], prios[tid]
+            tenant_of[hid] = tenant_of[tid]
+            hedge_avoid[hid] = int(rs.inflight_worker[slot])
+            rs.pending_add(hid, sizes[hid], prios[hid], tenant_of[hid],
+                           avoid=hedge_avoid[hid])
+            stats["hedges"] += 1
+            queued_hedges[0] += 1
         for slot in r.redispatch_slots:
             tid = rs.inflight_clear_slot(slot)
             if tid is None:
@@ -475,7 +558,8 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             running[row] -= 1
             if ten is not None:
                 ten.note_done(tenant_of[tid])
-            rs.pending_add(tid, sizes[tid], prios[tid], tenant_of[tid])
+            rs.pending_add(tid, sizes[tid], prios[tid], tenant_of[tid],
+                           avoid=hedge_avoid.get(tid, -1))
             stats["redispatched"] += 1
         for row in r.purged_rows:
             rs.deactivate(int(row))
@@ -503,7 +587,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             row = inflight.get(tid)
             if row is None:
                 continue  # redispatched meanwhile
-            if row in silenced:
+            if row in silenced or row in stuck:
                 infl_list.insert(0, tid)
                 done += 1
                 continue
@@ -518,12 +602,13 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             w = (k * n_hb + i) % W
             if w not in silenced:
                 rs.heartbeat(b"w%d" % w)
-        for _ in range(n_churn):
+        for _ in range(n_churn - min(queued_hedges[0], n_churn)):
             tid = f"new-{n_new}"
             n_new += 1
             sizes[tid] = float(rng.uniform(0.1, 10.0))
             prios[tid] = int(rng.integers(0, 4))
             rs.pending_add(tid, sizes[tid], prios[tid], tag(tid))
+        queued_hedges[0] = 0
         if k == silence_tick:
             expected_purge = set(silenced)
             expected_redispatch = {
@@ -575,6 +660,10 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
                 over = tenancy_violations(out[0], rs._r_state.tenant, pkt)
                 stats["over_allowance"] += over
                 assert not over, f"tick {k}: {over} tenancy violations"
+            if spec:
+                on = spec_violations(out[0], rs._r_state.avoid)
+                stats["on_avoid"] += on
+                assert not on, f"tick {k}: {on} tasks on their avoid row"
             if auction:
                 cold = bool(pre.refresh)
                 stats["cold_ticks" if cold else "warm_ticks"] += 1
@@ -615,13 +704,20 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             f"{NT_HEADLINE - 2} rows {by.sum() - by[1] - by[2]}; no launch "
             f"placed a tenant past its allowance; deficits at the end "
             f"{np.round(rs.tenant_deficits(), 2).tolist()}")
+    if spec:
+        assert stats["hedges_placed"] > 0, "no hedge was placed"
+        log(f"  speculation: {stats['flagged']} straggler slots reported on "
+            f"{stats['flag_ticks']} ticks, {stats['hedges']} hedges "
+            f"submitted, {stats['hedges_placed']} placed, none on its avoid "
+            f"row; {N_STUCK} live rows never returned a result")
     if sinkhorn:
         log(f"  Sinkhorn ticks held to the contract: max |df|/tau "
             f"{stats['max_df']:.3e}, max |dg|/tau {stats['max_abs_err']:.3e} "
             f"(bound {SINKHORN_TOL:g}), largest finite |f|/tau or |g|/tau "
             f"{stats['scale']:.3f}; {stats['differs']} checked ticks "
             f"placed otherwise than the plain version's own potentials")
-    log(f"phase resident ({placement}{', tenancy' if tenancy else ''}): "
+    log(f"phase resident ({placement}{', tenancy' if tenancy else ''}"
+        f"{', speculation' if spec else ''}): "
         f"{n_ticks + timed_ticks} ticks, "
         f"{launches} kernel "
         f"launches ({stats['steady_ticks']} ticks with exactly one; packet "
@@ -875,18 +971,20 @@ def auction_case(seed: int, use_priority: bool, refresh: bool):
 
 
 def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
-                         plain_twin: bool, tenancy: bool = False):
+                         plain_twin: bool, tenancy: bool = False,
+                         spec: bool = False):
     """The auction kernel against its plain version from the same state,
     and (``plain_twin``) against the plain version with plain bids:
-    (mismatched fields and tenancy violations, max abs error, rounds,
-    spilled, bidder rows). ``tenancy``: the packet carries the lane."""
+    (mismatched fields and tenancy or avoid-row violations, max abs error,
+    rounds, spilled, bidder rows). ``tenancy``, ``spec``: the packet
+    carries that lane."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
     from tpu_faas_torch.sched.resident import (
         _resident_tick_impl, state_from_numpy,
     )
 
     kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority,
-              **(TENANCY_KW if tenancy else {}))
+              **(TENANCY_KW if tenancy else {}), **(SPEC_KW if spec else {}))
     st_k = state_from_numpy(leaves, dev)
     packet = torch.from_numpy(pkt).to(dev)
     ptrs = [t.data_ptr() for t in st_k]
@@ -911,6 +1009,8 @@ def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
         bad, err = bad + b1 + b2, max(err, e1, e2)
     if tenancy:
         bad += tenancy_violations(res_k, new_k.tenant, pkt)
+    if spec:
+        bad += spec_violations(res_k, new_k.avoid)
     return (bad, err, int(res_k.auction_rounds), int(res_k.auction_spilled),
             int(res_k.auction_bid_rows))
 
@@ -1044,10 +1144,17 @@ def potential_err(a: torch.Tensor, b: torch.Tensor, tau: float) -> float:
     return float((a[fa].double() - b[fa].double()).abs().max()) / tau
 
 
-def sinkhorn_legal(pre, res, new, K: int, KP: int) -> list[str]:
+def sinkhorn_legal(pre, res, new, K: int, KP: int,
+                   spec_counts: tuple[int, int] | None = None) -> list[str]:
     """Contract (d) on one launch's outputs: no row over its capacity, no
     dead row, no task placed twice or placed without being pending, and
-    the count placed = min(KP, valid tasks, total capacity)."""
+    the count placed = min(KP, valid tasks, total capacity). With the
+    speculation lane (``spec_counts``: the tasks the main pass and the
+    fixup placed in all, and the vetoed tasks the fixup left queued): a
+    row's capacity is the fixup's, its raw free count; no task lands on
+    its avoid row; and the count placed = min(KP, the main pass's count
+    less the vetoed tasks left queued), the main pass's count being
+    min(valid tasks, total capacity)."""
     W = new.free.shape[0]
     ok = res.placed_slots >= 0
     slots = res.placed_slots[ok].long()
@@ -1055,12 +1162,13 @@ def sinkhorn_legal(pre, res, new, K: int, KP: int) -> list[str]:
     per_row = torch.bincount(rows, minlength=W).to(torch.int32)
     free_before = new.free + per_row  # the tick took one slot per placement
     cap = torch.where(res.live, free_before.clamp(max=K), 0).clamp_min(0)
+    raw = torch.where(res.live, free_before, 0).clamp_min(0)
     n = int(ok.sum())
     pending = pre.valid.clone()
     arr = res.arrival_slots[res.arrival_slots >= 0].long()
     pending[arr] = True
     bad = []
-    if bool((per_row > cap).any()):
+    if bool((per_row > (cap if spec_counts is None else raw)).any()):
         bad.append("a row over its capacity")
     if not bool(res.live[rows].all()):
         bad.append("a dead row placed")
@@ -1073,9 +1181,47 @@ def sinkhorn_legal(pre, res, new, K: int, KP: int) -> list[str]:
         valid = int(res.tenant_eligible.sum())
         if not bool(res.tenant_eligible[slots].all()):
             bad.append("a placed task that was not eligible")
-    if n != min(KP, valid, int(cap.sum())):
-        bad.append("placed != min(KP, valid, capacity)")
+    if spec_counts is None:
+        if n != min(KP, valid, int(cap.sum())):
+            bad.append("placed != min(KP, valid, capacity)")
+        return bad
+    total, left = spec_counts
+    if bool((new.avoid[slots] == rows).any()):
+        bad.append("a task placed on its avoid row")
+    if n != min(KP, total) or total != min(valid, int(cap.sum())) - left:
+        bad.append("placed != min(KP, valid, capacity) - vetoed left queued")
     return bad
+
+
+def spec_fixup_counts(pre, packet, res_k, avoid, kw: dict) -> tuple[int,
+                                                                    int]:
+    """For contract (d) with the speculation lane: the kernel's main-pass
+    assignment, as the plain rounding takes it from the kernel's own
+    potentials with no avoid row anywhere and every placement reported;
+    then the plain fixup on it, with ``avoid`` the avoid leaf after the
+    packet. Returns (tasks placed in all, vetoed tasks left queued)."""
+    from tpu_faas_torch.sched.resident import _resident_tick_impl
+    from tpu_faas_torch.spec.straggler import hedge_fixup_impl
+
+    T = kw["T"]
+    lanes = 1 + int(kw["use_priority"]) + int(kw.get("use_tenancy", False))
+    at = 9 + kw["KA"] * lanes  # the arrivals' avoid lane
+    pk = packet.clone()
+    pk[at : at + kw["KA"]] = -1.0
+    st0 = clone_state(pre)
+    st0.avoid.fill_(-1)
+    res0, new0 = _resident_tick_impl(
+        pk, st0, placement="sinkhorn",
+        sinkhorn_potentials=(res_k.sinkhorn_f, res_k.sinkhorn_g),
+        **dict(kw, KP=T))
+    ok = res0.placed_slots >= 0
+    a0 = torch.full((T,), -1, dtype=torch.int32, device=packet.device)
+    a0[res0.placed_slots[ok].long()] = res0.placed_rows[ok]
+    free = new0.free + torch.bincount(
+        res0.placed_rows[ok].long(), minlength=kw["W"]).to(torch.int32)
+    a1 = hedge_fixup_impl(a0, avoid, new0.speed, free, res0.live)
+    vetoed = (avoid >= 0) & (a0 == avoid)
+    return int((a1 >= 0).sum()), int((vetoed & (a1 < 0)).sum())
 
 
 def sinkhorn_check(pre, packet, res_k, new_k, kw: dict, label: str) -> dict:
@@ -1110,8 +1256,8 @@ def sinkhorn_check(pre, packet, res_k, new_k, kw: dict, label: str) -> dict:
     # whenever they are the plain version's own, and always in (c)
     decided = ("valid", "free") + (("t_deficit",) if differs else ())
     for f in new_k._fields:
-        if f not in decided and not torch.equal(
-                getattr(new_k, f), getattr(new_p, f)):
+        if f not in decided and not same(getattr(new_k, f),
+                                         getattr(new_p, f)):
             bad.append(f"(a) state.{f}")
     tau = float(res_k.sinkhorn_tau)
     df = potential_err(res_k.sinkhorn_f, res_p.sinkhorn_f, tau)
@@ -1122,8 +1268,11 @@ def sinkhorn_check(pre, packet, res_k, new_k, kw: dict, label: str) -> dict:
     b2, _ = compare(new_k, new_r, f"{label} replay: state")
     if b1 + b2:
         bad.append(f"(c) {b1 + b2} fields of the replay")
+    counts = (spec_fixup_counts(pre, packet, res_k, new_p.avoid, kw)
+              if kw.get("use_spec") else None)
     bad += [f"(d) {x}" for x in sinkhorn_legal(pre, res_k, new_k,
-                                                kw["max_slots"], kw["KP"])]
+                                                kw["max_slots"], kw["KP"],
+                                                counts)]
     for x in bad:
         log(f"  MISMATCH {label}: {x}")
     pot = torch.cat([res_k.sinkhorn_f, res_k.sinkhorn_g])
@@ -1423,9 +1572,9 @@ def bound_ms(use_priority: bool, packet: torch.Tensor) -> float:
     the packet's header and used lanes, and each state leaf the tick reads,
     once. Writes: valid, free and prev_live in full (any entry may change);
     sizes and prio at the arrivals, last_hb, inflight, speed and active at
-    this packet's counts (scatters); and the compacted outputs."""
-    from tpu_faas_torch.sched.resident import _KG
-
+    this packet's counts (scatters); and the compacted outputs (the
+    straggler output is its length-1 pad: the speculation lane's own bytes
+    are ``spec_bound_ms``)."""
     S = SHAPE
     T, W, I = S["T"], S["W"], S["I"]
     n_arr, n_hb, n_fr, n_if, n_sp, n_ac = (int(x) for x in packet[1:7])
@@ -1434,7 +1583,7 @@ def bound_ms(use_priority: bool, packet: torch.Tensor) -> float:
     reads = T * (4 + 1 + 4 * (lanes - 1)) + W * (4 + 4 + 1 + 4 + 1) + I * 4
     writes = (T + W * (4 + 1) + 4 * n_arr * lanes
               + 4 * (n_hb + n_if + n_sp) + n_ac)
-    outs = 4 * (2 * S["KP"] + S["KA"] + S["KR"] + 1 + _KG) + 2 * W
+    outs = 4 * (2 * S["KP"] + S["KA"] + S["KR"] + 1 + 1) + 2 * W
     return (pkt + reads + writes + outs) / HBM_BYTES_PER_S * 1e3
 
 
@@ -1795,6 +1944,278 @@ def phase_resident_tenancy(dev, card: str) -> dict:
             "launches": loops["rank"]["tenancy_launches"]}
 
 
+# -- phase 9: the speculation lane ------------------------------------------
+def with_spec(leaves: dict, pkt: np.ndarray, rng, use_priority: bool,
+              tenancy: bool, now: float):
+    """``random_case``'s state and packet (``with_tenancy``'s with
+    ``tenancy``) with the speculation lane: in-flight slots past, about at
+    and under their threshold (on live rows, dead rows and empty slots
+    alike), with pred 0, negative and NaN; avoid rows of -1, real rows and
+    rows past both ends; arrivals' avoid rows likewise, with a NaN, a
+    saturating and a truncating value; the in-flight scatter's pred lane
+    with clears and indices wrapped once from below."""
+    T, W, I, KA, KI = (SHAPE[k] for k in ("T", "W", "I", "KA", "KI"))
+    f32 = np.float32
+    pred = rng.choice(np.array([0.0, -1.0, 0.005, 0.02, 0.5, 2.0], f32), I)
+    pred[rng.random(I) < 0.01] = np.nan
+    thr = np.maximum(SPEC_MULT * np.nan_to_num(pred.astype(np.float64)),
+                     SPEC_MIN_S)
+    factor = rng.choice(np.array([0.25, 1.0, 1.5, 4.0]), I)
+    leaves = dict(leaves, infl_pred=pred,
+                  infl_start=(now - thr * factor).astype(f32),
+                  avoid=np.where(rng.random(T) < 0.8, -1,
+                                 rng.integers(-2, W + 2, T)).astype(np.int32))
+    lanes = 1 + int(use_priority) + int(tenancy)
+    cut = 9 + KA * lanes
+    at_idx = cut + 2 * (SHAPE["KH"] + SHAPE["KF"])
+    infl_end = at_idx + 2 * KI
+    body_end = len(pkt) - (3 * NT_HEADLINE if tenancy else 0)
+    pkt = pkt.copy()
+    n_if = int(pkt[4])
+    wrap = rng.random(n_if) < 0.3
+    pkt[at_idx : at_idx + n_if][wrap] -= I  # wraps once onto the same slot
+    arr = np.where(rng.random(KA) < 0.5, -1,
+                   rng.integers(-2, W + 2, KA)).astype(f32)
+    arr[:3] = [np.nan, 1e10, 7.9]
+    pred_lane = rng.choice(np.array([0.0, 0.02, 0.5, -1.0, np.nan], f32), KI)
+    pkt = np.concatenate([pkt[:cut], arr, pkt[cut:infl_end], pred_lane,
+                          pkt[infl_end:body_end],
+                          np.array([SPEC_MULT, SPEC_MIN_S], f32),
+                          pkt[body_end:]]).astype(f32)
+    return leaves, pkt
+
+
+def spec_violations(res, avoid_leaf: torch.Tensor) -> int:
+    """Tasks one launch placed (reported) on their avoid row."""
+    ok = res.placed_slots >= 0
+    slots = res.placed_slots[ok].long()
+    return int((avoid_leaf[slots] == res.placed_rows[ok]).sum())
+
+
+def spec_bound_ms(packet: torch.Tensor) -> float:
+    """The lane's own bytes at the HBM rate: infl_start and infl_pred read
+    over I, the avoid leaf read over T, the KG straggler slots written; the
+    arrivals' avoid lane read and their rows written; the pred lane read
+    and each scattered slot's stamp and prediction written; the 2-float
+    tail. The fixup's reads of speed, free and liveness are the rank
+    tick's own."""
+    T, I = SHAPE["T"], SHAPE["I"]
+    n_arr, n_if = int(packet[1]), int(packet[4])
+    return ((8 * I + 4 * T + 4 * KG + 8 * n_arr + 12 * n_if + 8)
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def spec_branch(name: str):
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+
+    return {"rank": lambda p, st, k: KERNEL(p, st, flush=False, **k),
+            "auction": lambda p, st, k: KERNEL.auction(p, st, **k),
+            "sinkhorn": lambda p, st, k: KERNEL.sinkhorn(p, st, **k)}[name]
+
+
+def phase_resident_spec(dev, card: str) -> dict:
+    """B1's speculation lane in its three branches: against the plain version
+    on synthetic headline states (tenancy lane off and on); its time with
+    the lane on against the same state with it off; then a resident loop
+    per branch (``phase_resident`` with ``spec=True``), and the rank loop
+    with the tenancy lane too, each launch counted with the counts set to 0
+    just before the loop and read just after; and the rank branch with the
+    lane on the rank loop's own states, beside its plain version and its
+    bound, for the kernels line."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import (
+        _flush_kernel_impl, _resident_tick_impl, state_from_numpy,
+    )
+
+    bad = {"rank": 0, "auction": 0, "sinkhorn": 0}
+    err = dict.fromkeys(bad, 0.0)  # Sinkhorn: max |dg|/tau (contract b)
+    lane = {}  # branch -> (ms with the lane off, ms with it on)
+    most_vetoed = 0
+    for tenancy in (False, True):
+        rng = np.random.default_rng(30 + int(tenancy))
+        base, bpkt = random_case(rng, True, now=100.0)
+        leaves, pkt = (with_tenancy(base, bpkt, rng, True) if tenancy
+                       else (base, bpkt))
+        leaves, pkt = with_spec(leaves, pkt, rng, True, tenancy, now=100.0)
+        kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=True, **SPEC_KW,
+                  **(TENANCY_KW if tenancy else {}))
+        packet = torch.from_numpy(pkt).to(dev)
+        tag = f"spec{' tenancy' if tenancy else ''}"
+        by_branch = {}
+        for name in ("rank", "auction", "sinkhorn"):
+            lv = dict(leaves)
+            if name == "auction":
+                lv.update(price=(rng.integers(0, 64, SHAPE["W"] * MAX_SLOTS)
+                                 / 16).astype(np.float32),
+                          refresh=np.asarray(True))
+            # the veto's target: each task this branch's main pass places
+            # (the first KP reported, with no avoid row anywhere) avoids the
+            # very row it gets, so the veto fires on all of them and the
+            # fixup's bound of 64 binds
+            res0, _ = spec_branch(name)(packet, state_from_numpy(
+                dict(lv, avoid=np.full(SHAPE["T"], -1, np.int32)), dev), kw)
+            ok = res0.placed_slots >= 0
+            slots = res0.placed_slots[ok].long().cpu().numpy()
+            lv["avoid"] = lv["avoid"].copy()
+            lv["avoid"][slots] = res0.placed_rows[ok].cpu().numpy()
+            assert len(slots) > 64 + SHAPE["KA"], "the fixup's bound idles"
+            most_vetoed = max(most_vetoed, len(slots))
+            by_branch[name] = lv
+            pre = state_from_numpy(lv, dev)
+            if name == "auction":
+                b, e, rounds, spilled, rows = compare_auction_tick(
+                    dev, lv, pkt, True, f"{tag} auction", plain_twin=False,
+                    tenancy=tenancy, spec=True)
+                res_k, _ = spec_branch(name)(packet, clone_state(pre), kw)
+                log(f"  {tag} auction: rounds {rounds}, spilled {spilled}, "
+                    f"bidder rows {rows}, mismatched fields and violations "
+                    f"{b}")
+            elif name == "sinkhorn":
+                res_k, new_k = KERNEL.sinkhorn(packet, clone_state(pre), **kw)
+                torch.cuda.synchronize()
+                c = sinkhorn_check(pre, packet, res_k, new_k, kw,
+                                   f"{tag} sinkhorn")
+                b = c["bad"] + (tenancy_violations(res_k, new_k.tenant, pkt)
+                                if tenancy else 0)
+                e = c["dg"]
+                log(f"  {tag} sinkhorn: placed {c['placed']}, |dg|/tau "
+                    f"{c['dg']:.3e}, contract violations {c['bad']}, "
+                    f"placements {'differ from' if c['differs'] else 'equal'}"
+                    f" the plain version's")
+            else:
+                res_p, new_p = _resident_tick_impl(packet, clone_state(pre),
+                                                   **kw)
+                res_k, new_k = KERNEL(packet, clone_state(pre), flush=False,
+                                      **kw)
+                fkw = {k: v for k, v in kw.items()
+                       if k not in ("KP", "KR", "max_slots")}
+                fst_p, farr_p = _flush_kernel_impl(packet, clone_state(pre),
+                                                   **fkw)
+                fst_k, farr_k = KERNEL(packet, clone_state(pre), flush=True,
+                                       **kw)
+                torch.cuda.synchronize()
+                b1, e1 = compare(res_k, res_p, f"{tag} rank out")
+                b2, e2 = compare(new_k, new_p, f"{tag} rank state")
+                b3, e3 = compare(fst_k, fst_p, f"{tag} flush state")
+                b = (b1 + b2 + b3 + int(not torch.equal(farr_k, farr_p))
+                     + spec_violations(res_k, new_k.avoid)
+                     + (tenancy_violations(res_k, new_k.tenant, pkt)
+                        if tenancy else 0))
+                e = max(e1, e2, e3)
+            # the vetoed tasks placed after all (arrivals carry the
+            # packet's avoid rows, not these)
+            arrived = res_k.arrival_slots.cpu().numpy()
+            placed = res_k.placed_slots.cpu().numpy()
+            rehomed = int((np.isin(placed, slots)
+                           & ~np.isin(placed, arrived)).sum())
+            n_flag = int((res_k.straggler_slots >= 0).sum())
+            log(f"  {tag} {name}: {len(slots)} tasks avoid the row placement "
+                f"gives them, {rehomed} re-placed by the fixup (at most 64), "
+                f"{n_flag} of KG={KG} straggler slots reported, mismatched "
+                f"fields and violations {b}")
+            assert rehomed <= 64 and n_flag == KG
+            bad[name] += b
+            err[name] = max(err[name], e)
+        if tenancy:
+            continue
+        # the lane's cost: the same state with the lane off and on
+        kw_off = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=True)
+        off_pkt = torch.from_numpy(bpkt).to(dev)
+        for name, n in (("rank", N_TIMED), ("auction", 3), ("sinkhorn", 10)):
+            s_on = state_from_numpy(by_branch[name], dev)
+            s_off = state_from_numpy(dict(
+                by_branch[name], infl_start=base["infl_start"],
+                infl_pred=base["infl_pred"], avoid=base["avoid"]), dev)
+            call = spec_branch(name)
+            t_off = event_ms(lambda st: call(off_pkt, st, kw_off), n,
+                             setup=lambda s0=s_off: clone_state(s0))
+            t_on = event_ms(lambda st: call(packet, st, kw), n,
+                            setup=lambda s0=s_on: clone_state(s0))
+            lane[name] = (statistics.median(t_off), statistics.median(t_on))
+            log(f"  {name} kernel on one synthetic state, speculation lane "
+                f"off {lane[name][0]:.4f} ms, on {lane[name][1]:.4f} ms "
+                f"(+{lane[name][1] - lane[name][0]:.4f} ms), medians of {n} "
+                f"[{card}]")
+    # the plain fixup reads nothing back to the host: its 64 steps under
+    # the sync check, every task vetoed (its avoid row is its placement)
+    from tpu_faas_torch.spec.straggler import hedge_fixup_impl
+
+    lv = by_branch["rank"]
+    assign = torch.from_numpy(np.where(lv["valid"], lv["avoid"], -1)).to(dev)
+    args = (assign, assign, torch.from_numpy(lv["speed"]).to(dev),
+            torch.from_numpy(lv["free"]).to(dev),
+            torch.from_numpy(lv["active"]).to(dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fixed = hedge_fixup_impl(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_fixed = int(((assign >= 0) & (fixed >= 0)).sum())
+    assert 0 < n_fixed <= 64, f"the plain fixup re-placed {n_fixed}"
+    fix_ms = statistics.median(event_ms(lambda _: hedge_fixup_impl(*args),
+                                        10))
+    log(f"  the plain fixup alone (64 steps of torch ops, no host read): "
+        f"{fix_ms:.4f} ms on the card, {n_fixed} tasks re-placed [{card}]")
+    if sum(bad.values()):
+        raise SystemExit(f"the speculation lane disagrees with its plain "
+                         f"version: {bad}")
+    log(f"phase speculation kernel: rank and auction ticks and flushes "
+        f"exactly equal, Sinkhorn within its contract, no task on its avoid "
+        f"row; up to {most_vetoed} tasks vetoed in one state")
+
+    loops = {}
+    for name, (n_checked, n_timed) in SPEC_TICKS.items():
+        placement = name.split("+")[0]
+        KERNEL.launches = KERNEL.auction_launches = 0
+        KERNEL.sinkhorn_launches = KERNEL.tenancy_launches = 0
+        KERNEL.spec_launches = 0
+        r = phase_resident(dev, n_checked, n_timed, placement=placement,
+                           tenancy="tenancy" in name, spec=True)
+        r["spec_launches"] = KERNEL.spec_launches
+        assert r["spec_launches"] > 0, f"{name}: the lane never ran"
+        assert r["flagged"] > 0, f"{name}: no straggler flagged"
+        bad[placement] += r["mismatches"] + r["on_avoid"]
+        err[placement] = max(err[placement], r["max_abs_err"])
+        loops[name] = r
+        log(f"  integrated tick_resident with speculation, {name} (diff, "
+            f"pack, upload, kernel; synchronized): "
+            f"{statistics.median(r['tick_ms']):.4f} ms against the 5 ms "
+            f"period, host enqueue alone "
+            f"{statistics.median(r['tick_enqueue_ms']):.4f} ms, packet "
+            f"upload + kernel on the card "
+            f"{statistics.median(r['launch_ms']):.4f} ms, medians of "
+            f"{len(r['tick_ms'])} ticks; launches with the lane "
+            f"{r['spec_launches']} [{card}]")
+
+    # the main path's entry: the rank branch with the lane on the rank
+    # loop's own states, its plain version on the same states, its bound
+    samples = loops["rank"]["samples"]
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=True, **SPEC_KW)
+    order = iter(range(10**9))
+
+    def next_sample():
+        packet, pre, _ = samples[next(order) % len(samples)]
+        return packet, clone_state(pre)
+
+    k_ms = event_ms(lambda a: KERNEL(a[0], a[1], flush=False, **kw),
+                    len(samples), setup=next_sample)
+    p_ms = event_ms(lambda a: _resident_tick_impl(a[0], a[1], **kw),
+                    len(samples), setup=next_sample)
+    lane_b = statistics.median(spec_bound_ms(p.cpu()) for p, _, _ in samples)
+    bound = statistics.median(bound_ms(True, p.cpu()) for p, _, _ in samples)
+    log(f"  rank kernel with the lane on the speculation loop's own states: "
+        f"{statistics.median(k_ms):.4f} ms (min {min(k_ms):.4f}), plain "
+        f"version {statistics.median(p_ms):.4f} ms, bound {bound + lane_b:.6f}"
+        f" ms (bytes: the rank tick's {bound:.6f} ms plus the lane's own "
+        f"{lane_b:.6f} ms), medians of {len(k_ms)} [{card}]")
+    return {"mismatches": bad, "max_abs_err": err, "lane": lane,
+            "loops": loops, "ms": statistics.median(k_ms),
+            "plain_ms": statistics.median(p_ms), "bound_ms": bound + lane_b,
+            "lane_bound_ms": lane_b,
+            "launches": loops["rank"]["spec_launches"]}
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (no arguments: every phase "
@@ -1875,6 +2296,9 @@ def main() -> int:
         f"{sinkhorn_launches} [{card}]")
     phase_sinkhorn_batch(dev)
     rt = phase_resident_tenancy(dev, card)
+    t0 = time.perf_counter()
+    rsp = phase_resident_spec(dev, card)
+    log(f"phase resident_spec: {time.perf_counter() - t0:.1f} s")
     log(f"phase time [{card}]:")
     t = phase_time(dev, N_TIMED, rr["samples"])
     tb = time_bid(dev, N_TIMED // 3)
@@ -1935,10 +2359,20 @@ def main() -> int:
                  "max_abs_err": rt["max_abs_err"]["rank"], "ms": rt["ms"],
                  "plain_ms": rt["plain_ms"], "bound_ms": rt["bound_ms"],
                  "bound_by": "bytes", "library_ms": None}
+    # the rank branch with the speculation lane on; no single PyTorch call
+    # computes a resident tick with straggler flags and the hedge fixup
+    entry_b1g = {"name": "fused_resident_tick_spec", "route": "cuda",
+                 "source": fused_tick.SOURCE,
+                 "replaces": fused_tick.SPEC_REPLACES,
+                 "launches": rsp["launches"],
+                 "mismatches": rsp["mismatches"]["rank"],
+                 "max_abs_err": rsp["max_abs_err"]["rank"], "ms": rsp["ms"],
+                 "plain_ms": rsp["plain_ms"], "bound_ms": rsp["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None}
     log(f"card: {card}")
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, entry_b2, entry_b1a, entry_b1s,
-                                  entry_b1t]}), flush=True)
+                                  entry_b1t, entry_b1g]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -524,7 +524,16 @@ def test_delta_replay_equivalence():
     dict(spec_mult=2.0),
 ])
 def test_unported_planes_raise(kw):
-    """Speculation is unported, with the tenancy plane (which is ported)
-    on or off."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        _mk(**kw)
+    """Speculation is ported, with the tenancy plane on or off: the
+    scheduler builds its spec leaves and a hedge lands off its avoid row
+    (the parity with JAX is in tests/test_torch_fused_spec.py)."""
+    r = _mk(**kw)
+    assert r.use_spec and r.KG == 32  # min(64, max_inflight)
+    r.register(b"w0", 4, speed=4.0)
+    r.register(b"w1", 4, speed=1.0)
+    r.pending_add("hedge", 1.0, avoid=0)
+    r.tick_resident()
+    (res,) = _drain(r)
+    assert res.placed == [("hedge", 1)] and res.straggler_slots == []
+    assert r._r_state.infl_pred.shape == (32,)
+    assert r._r_state.avoid.shape == (64,)

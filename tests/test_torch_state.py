@@ -113,22 +113,26 @@ def test_scheduler_arrays_tick_matches_jax():
 
 
 @pytest.mark.parametrize("placement,exc", [
-    ("auction", NotImplementedError), ("sinkhorn", NotImplementedError),
+    pytest.param("auction", None, id="auction-NotImplementedError"),
+    pytest.param("sinkhorn", None, id="sinkhorn-NotImplementedError"),
     ("bogus", ValueError),
 ])
 def test_unported_placements_raise(placement, exc):
-    """What is still unported of each placement raises: of the auction and
-    of Sinkhorn only the resident tick's speculation lane; the batch and
-    resident ticks of both run, the tenancy lane included
-    (tests/test_torch_auction.py, tests/test_torch_fused_auction.py,
-    tests/test_torch_sinkhorn.py, tests/test_torch_fused_sinkhorn.py,
-    tests/test_torch_fused_tenancy.py)."""
-    make, kw = TArrays, {}
-    if placement in ("auction", "sinkhorn"):
-        make, kw = ResidentScheduler, dict(spec_mult=2.0)
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
-                       else "unknown"):
-        make(placement=placement, device="cpu", **kw)
+    """Every placement is ported, the resident tick's speculation lane
+    included: a resident auction or Sinkhorn scheduler with ``spec_mult``
+    builds and ticks (tests/test_torch_fused_spec.py holds it against
+    JAX); an unknown placement raises."""
+    if exc is not None:
+        with pytest.raises(exc, match="unknown"):
+            TArrays(placement=placement, device="cpu")
+        return
+    r = ResidentScheduler(placement=placement, device="cpu", spec_mult=2.0,
+                          max_workers=4, max_pending=8, max_inflight=8)
+    r.register(b"w0", 2)
+    r.pending_add("t0", 1.0)
+    r.tick_resident()
+    res = r.resolve_next()
+    assert res.placed == [("t0", 0)] and res.straggler_slots == []
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_devices=2),
@@ -145,8 +149,15 @@ def test_multi_device_layouts_raise(kw):
     dict(task_avoid=np.zeros(2, i32)),
 ])
 def test_unported_tick_lanes_raise(arg):
-    """The graph and speculation lanes raise (the tenancy lane is ported:
-    tests/test_torch_tenancy.py)."""
+    """The graph lanes raise; the speculation lane runs (the tenancy and
+    speculation lanes are ported: tests/test_torch_tenancy.py,
+    tests/test_torch_spec.py). Both tasks avoid row 0, the only worker,
+    so the fixup leaves them queued."""
     a = TArrays(max_workers=4, max_pending=8, max_inflight=8, device="cpu")
+    a.register(b"w0", 2)
+    if "task_avoid" in arg:
+        out = a.tick(np.ones(2, f32), **arg)
+        assert (out.assignment.numpy() == -1).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         a.tick(np.ones(2, f32), **arg)

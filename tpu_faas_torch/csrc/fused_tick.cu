@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel tpu_faas/sched/pallas_fused.py::_fused_resident_tick_impl
 // (the pl.pallas_call that runs the whole resident tick) for rank, auction and
-// Sinkhorn placement, with the tenancy lane on or off; the speculation lane
-// (use_spec) is not ported. Its plain PyTorch version is
+// Sinkhorn placement, with the tenancy and speculation lanes each on or off.
+// Its plain PyTorch version is
 // tpu_faas_torch/sched/resident.py::_resident_tick_impl; the two agree exactly
 // on every output and every state leaf (Sinkhorn: under the contract below).
 //
@@ -11,8 +11,13 @@
 //   1. apply the delta packet: masked scatters with sentinel-drop, ADDITIVE
 //      free counts (atomicAdd), arrivals into the first KA invalid pending
 //      slots found by a block-wide scan, capped at min(n_arr, n_invalid);
+//      with speculation, each arrival's avoid row, and for each in-flight
+//      scatter its predicted runtime and dispatch stamp (now, 0 on a clear);
 //   2. liveness (hb_age = now - last_hb <= tte, on the post-scatter state),
 //      purge, and the compacted redispatch of in-flight slots of dead rows;
+//      with speculation, the first KG straggler slots (tpu_faas/spec/
+//      straggler.py: occupied on a live row, pred > 0, now - start past
+//      max(mult * pred, min_s) with NaN propagating);
 //      with tenancy, then the admission (tpu_faas/tenancy/fairshare.py) on
 //      block 0: the within-tenant FCFS rank from one stable radix sort on
 //      the tenant segment, the inflight-cap eligibility that every
@@ -20,7 +25,12 @@
 //      the cooperative branches' first grid barrier), the tenants with
 //      demand, and for rank the admission order (eligible tasks by -eff_prio,
 //      then v, then index) as two stable radix sorts;
-//   3. placement (below);
+//   3. placement (below); with speculation, then the hedge fixup on block 0
+//      (straggler.py::hedge_fixup_impl): the veto of tasks placed on their
+//      avoid row, the free slots left after placement from the RAW free
+//      counts, and the first 64 vetoed tasks in index order each placed in
+//      turn on the first-argmax live row with slots left, never its avoid
+//      row (a block-wide argmax: ties to the lower row, NaN the maximum);
 //   4. with tenancy, the deficit carry on block 0 from the final assignment
 //      (integer shared-memory counts; the share sum is ONE float64 running
 //      sum in index order, rounded once, as the plain version takes it);
@@ -99,6 +109,7 @@ constexpr int HEADER = 9;
 constexpr int kRows = 4;          // bidders per warp in a bidding round
 constexpr unsigned long long kNoBid = ~0ull;
 constexpr int kMaxTenants = 1024; // tenancy: one shared-memory word each
+constexpr int kFixupK = 64;       // speculation: vetoed rows re-placed a tick
 
 struct Dims {
   int T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, K, use_priority, flush;
@@ -173,6 +184,16 @@ struct Tenancy {
   int starve_boost;
 };
 
+// The speculation lane's leaves, packet lanes and scratch.
+struct Spec {
+  int on;                  // use_spec
+  float* start;            // [I] state leaf: dispatch stamp per slot
+  float* pred;             // [I] state leaf: predicted runtime per slot
+  int32_t* avoid;          // [T] state leaf: forbidden worker row per task
+  const float* tail;       // [2] packet: the multiplier and the floor
+  int32_t* free_rem;       // [W] scratch: free slots left for the fixup
+};
+
 struct Smem {
   int cnt[NWARP][RADIX];     // per-warp digit counts, then offsets
   int hist[4][RADIX];        // digit histogram of every pass
@@ -182,6 +203,9 @@ struct Smem {
   int ten_cnt[kMaxTenants];  // tenancy: segment starts, then placed counts
   uint8_t ten_demand[kMaxTenants];  // tenancy: an eligible task this tick
   float ten_wsum;            // tenancy: the share sum
+  float arg_v[NWARP];        // speculation: each warp's argmax value
+  int arg_i[NWARP];          //   ... and row
+  int vet[kFixupK];          // speculation: the fixup's vetoed rows
 };
 
 // f32 -> i32 as XLA converts: truncate, saturate, NaN -> 0 (cvt.rzi.s32.f32)
@@ -211,6 +235,28 @@ __device__ __forceinline__ float clamp_min(float x, float m) {
 // ... and clamp_max
 __device__ __forceinline__ float clamp_max(float x, float m) {
   return x > m ? m : x;
+}
+
+// torch.argmax / jnp.argmax order: a NaN is the maximum, and a tie goes to
+// the lower index.
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  const bool an = a != a, bn = b != b;
+  if (an || bn) return an && (!bn || ia < ib);
+  return a > b || (a == b && ia < ib);
+}
+
+// Merge each lane's (value, index) into the warp's first maximum; every lane
+// gets it.
+__device__ __forceinline__ void warp_argmax_merge(float* v, int* i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(FULL, *v, o);
+    const int i2 = __shfl_xor_sync(FULL, *i, o);
+    if (beats(v2, i2, *v, *i)) {
+      *v = v2;
+      *i = i2;
+    }
+  }
 }
 
 __device__ __forceinline__ uint32_t int_key(int32_t x) {
@@ -374,8 +420,8 @@ __device__ int block_radix_sort(uint32_t* const k[2], int32_t* const v[2],
 // One block. Returns the packet's clock and time_to_expire.
 __device__ void apply_deltas(const float* packet, const Dims& D,
                              const State& st, const Tenancy& tn,
-                             const Out& out, Smem& sm, float* now,
-                             float* tte) {
+                             const Spec& sp, const Out& out, Smem& sm,
+                             float* now, float* tte) {
   const int tid = threadIdx.x;
   const int T = D.T, W = D.W, I = D.I;
   *now = packet[0];
@@ -390,12 +436,14 @@ __device__ void apply_deltas(const float* packet, const Dims& D,
   const float* arr_sizes = packet + off; off += D.KA;
   const float* arr_prio = packet + off; if (D.use_priority) off += D.KA;
   const float* arr_tenant = packet + off; if (tn.on) off += D.KA;
+  const float* arr_avoid = packet + off; if (sp.on) off += D.KA;
   const float* hb_idx = packet + off; off += D.KH;
   const float* hb_val = packet + off; off += D.KH;
   const float* free_idx = packet + off; off += D.KF;
   const float* free_val = packet + off; off += D.KF;
   const float* infl_idx = packet + off; off += D.KI;
   const float* infl_val = packet + off; off += D.KI;
+  const float* pred_val = packet + off; if (sp.on) off += D.KI;
   const float* sp_idx = packet + off; off += D.KS;
   const float* sp_val = packet + off; off += D.KS;
   const float* ac_idx = packet + off; off += D.KB;
@@ -411,7 +459,14 @@ __device__ void apply_deltas(const float* packet, const Dims& D,
   }
   for (int j = tid; j < D.KI && j < n_infl; j += NT) {
     const int s = drop_index(f2i(infl_idx[j]), I);
-    if (s >= 0) st.inflight[s] = f2i(infl_val[j]);
+    if (s < 0) continue;
+    const int v = f2i(infl_val[j]);
+    st.inflight[s] = v;
+    if (sp.on) {
+      // a dispatch is stamped with the packet's clock; a clear zeroes both
+      sp.start[s] = v >= 0 ? *now : 0.0f;
+      sp.pred[s] = v >= 0 ? pred_val[j] : 0.0f;
+    }
   }
   for (int j = tid; j < D.KS && j < n_speed; j += NT) {
     const int r = drop_index(f2i(sp_idx[j]), W);
@@ -434,6 +489,7 @@ __device__ void apply_deltas(const float* packet, const Dims& D,
       st.valid[s] = 1;
       if (D.use_priority) st.prio[s] = f2i(arr_prio[j]);
       if (tn.on) tn.tenant[s] = f2i(arr_tenant[j]);
+      if (sp.on) sp.avoid[s] = f2i(arr_avoid[j]);
     } else {
       out.arrival_slots[j] = -1;
     }
@@ -441,8 +497,13 @@ __device__ void apply_deltas(const float* packet, const Dims& D,
 }
 
 // ---- phase 2: liveness, purge, redispatch (state.py) ----------------------
-__device__ void liveness(const Dims& D, const State& st, const Out& out,
-                         float now, float tte, Smem& sm) {
+// jnp.maximum: a NaN in either operand is the result
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+__device__ void liveness(const Dims& D, const State& st, const Spec& sp,
+                         const Out& out, float now, float tte, Smem& sm) {
   const int tid = threadIdx.x;
   const int W = D.W;
   for (int w = tid; w < W; w += NT) {
@@ -460,7 +521,21 @@ __device__ void liveness(const Dims& D, const State& st, const Out& out,
         return iw >= 0 && !out.live[min(iw, W - 1)];
       },
       [](int, int) {}, sm);
-  for (int j = tid; j < D.KG; j += NT) out.straggler[j] = -1;
+  if (!sp.on) {
+    for (int j = tid; j < D.KG; j += NT) out.straggler[j] = -1;
+    return;
+  }
+  const float mult = sp.tail[0], min_s = sp.tail[1];
+  first_k(
+      D.I, D.KG, out.straggler,
+      [&](int i) {
+        const int iw = st.inflight[i];
+        if (iw < 0 || !out.live[min(iw, W - 1)]) return false;
+        const float pred = sp.pred[i];
+        const float thr = max_nan(__fmul_rn(mult, pred), min_s);
+        return pred > 0.0f && __fsub_rn(now, sp.start[i]) > thr;
+      },
+      [](int, int) {}, sm);
 }
 
 // Slot expansion (greedy.py's layout: slot s is process s % K of worker
@@ -692,6 +767,74 @@ __device__ void rank_place(const Dims& D, const State& st, const Out& out,
   __syncthreads();
 }
 
+// ---- phase 3b: the hedge fixup (straggler.py::hedge_fixup_impl) ----------
+// On one block, after placement and before the deficit carry: veto every
+// task placed on its avoid row, then re-place the first kFixupK vetoed tasks
+// in index order, each in turn on the first-argmax row of `live & free
+// slots left & not its avoid row ? speed : -inf` (NaN counts as the maximum,
+// as in jnp.argmax); a row whose best is -inf or NaN stays queued. The slots
+// left are the RAW free count (not min(free, K)), as in the reference, less
+// the placements after the veto. Every pass ends in a barrier.
+__device__ void hedge_fixup(const Dims& D, const State& st, const Out& out,
+                            const Spec& sp, int32_t* assign, Smem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = D.T, W = D.W;
+  auto vetoed = [&](int t) {
+    const int a = sp.avoid[t];
+    return a >= 0 && assign[t] == a;
+  };
+  const int n_vetoed = first_k(T, kFixupK, sm.vet, vetoed, [](int, int) {},
+                               sm);
+  // first_k reads the mask by contiguous chunks, the clear below by
+  // strides: no thread clears before every thread has read
+  __syncthreads();
+  for (int t = tid; t < T; t += NT)
+    if (vetoed(t)) assign[t] = -1;
+  for (int w = tid; w < W; w += NT)
+    sp.free_rem[w] = out.live[w] ? st.free_cnt[w] : 0;
+  __syncthreads();
+  for (int t = tid; t < T; t += NT) {
+    const int a = assign[t];
+    if (a >= 0) atomicSub(&sp.free_rem[a], 1);  // int32 wraps, as XLA's
+  }
+  __syncthreads();
+  for (int w = tid; w < W; w += NT) sp.free_rem[w] = max(sp.free_rem[w], 0);
+  __syncthreads();
+  // a step with no vetoed row changes nothing in the reference: stop there
+  const int n_steps = min(n_vetoed, kFixupK);
+  for (int k = 0; k < n_steps; ++k) {
+    const int t = sm.vet[k];
+    const int avoid = sp.avoid[t];
+    float v = neg_inf();
+    int at = INT32_MAX;  // loses to every real row
+    for (int w = tid; w < W; w += NT) {
+      const float x = (out.live[w] && sp.free_rem[w] > 0 && w != avoid)
+                          ? st.speed[w]
+                          : neg_inf();
+      if (beats(x, w, v, at)) {
+        v = x;
+        at = w;
+      }
+    }
+    warp_argmax_merge(&v, &at);
+    if (lane == 0) {
+      sm.arg_v[warp] = v;
+      sm.arg_i[warp] = at;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      v = sm.arg_v[lane];
+      at = sm.arg_i[lane];
+      warp_argmax_merge(&v, &at);
+      if (lane == 0 && v > neg_inf()) {
+        assign[t] = at;
+        sp.free_rem[at] -= 1;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // ---- phase 4: compaction (resident.py::_resident_tick_impl) --------------
 __device__ void compact(const Dims& D, const State& st, const Out& out,
                         const int32_t* assign, Smem& sm) {
@@ -717,13 +860,13 @@ __device__ void compact(const Dims& D, const State& st, const Out& out,
 
 __global__ void __launch_bounds__(NT, 1)
 fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
-                  Scratch sc, Tenancy tn) {
+                  Scratch sc, Tenancy tn, Spec sp) {
   __shared__ Smem sm;
   float now, tte;
-  apply_deltas(packet, D, st, tn, out, sm, &now, &tte);
+  apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
   if (D.flush) return;
   __syncthreads();
-  liveness(D, st, out, now, tte, sm);
+  liveness(D, st, sp, out, now, tte, sm);
   if (tn.on) tenancy_admit(D, st, tn, sc, true, sm);
   // with tenancy, rank admits by the fair order and never by the priority
   // sort: priorities enter through eff_prio
@@ -731,6 +874,7 @@ fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
   rank_place(
       D, st, out, [&](int t) { return st.place_valid[t] != 0; }, st.free_cnt,
       admit, tn.adm_rank, sc, sm);
+  if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
   if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
 }
@@ -957,7 +1101,7 @@ __device__ __forceinline__ int load_volatile(const int32_t* p) {
 
 __global__ void __launch_bounds__(NT, 1)
 fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
-                     Out out, Scratch sc, Auction au, Tenancy tn) {
+                     Out out, Scratch sc, Auction au, Tenancy tn, Spec sp) {
   __shared__ Smem sm;
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x, lane = tid & 31;
@@ -967,9 +1111,9 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   int n_match = 0;
   if (blockIdx.x == 0) {
     float now, tte;
-    apply_deltas(packet, D, st, tn, out, sm, &now, &tte);
+    apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
     __syncthreads();
-    liveness(D, st, out, now, tte, sm);
+    liveness(D, st, sp, out, now, tte, sm);
     // the auction sees the eligibility mask alone (FCFS admission)
     if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
     n_match = auction_open(D, st, out, sc, au, sm);
@@ -1017,6 +1161,7 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   }
   if (blockIdx.x != 0) return;
   auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+  if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
   if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
 }
@@ -1340,14 +1485,6 @@ __device__ void sinkhorn_g_update(const Sinkhorn& sk, const SkScalars& s) {
   }
 }
 
-// torch.argmax / jnp.argmax order: a NaN is the maximum, and a tie goes to
-// the lower index.
-__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
-  const bool an = a != a, bn = b != b;
-  if (an || bn) return an && (!bn || ia < ib);
-  return a > b || (a == b && ia < ib);
-}
-
 // The first maximum of x(0..W-1) by one warp: every lane gets (value, index).
 template <class X>
 __device__ void warp_argmax(int n, X x, float* best, int* at) {
@@ -1360,15 +1497,7 @@ __device__ void warp_argmax(int n, X x, float* best, int* at) {
       i_best = i;
     }
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(FULL, v, o);
-    const int i2 = __shfl_xor_sync(FULL, i_best, o);
-    if (beats(v2, i2, v, i_best)) {
-      v = v2;
-      i_best = i2;
-    }
-  }
+  warp_argmax_merge(&v, &i_best);
   *best = v;
   *at = i_best;
 }
@@ -1493,20 +1622,20 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // Block 0's thread 0 stamps the clock at the start and at the end of each
 // phase into sk.stamps (scratch, read back by the wrapper on request):
 // 0 start, 1 packet and liveness, 2 reductions, 3 setup, 4 iterations,
-// 5 rounding candidates, 6 capacity repair and spill, 7 the deficit carry
-// (tenancy) and compaction.
+// 5 rounding candidates, 6 capacity repair and spill, 7 the hedge fixup
+// (speculation), the deficit carry (tenancy) and compaction.
 __global__ void __launch_bounds__(NT, 1)
 fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
-                      Out out, Scratch sc, Sinkhorn sk, Tenancy tn) {
+                      Out out, Scratch sc, Sinkhorn sk, Tenancy tn, Spec sp) {
   __shared__ Smem sm;
   cg::grid_group grid = cg::this_grid();
   const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
   if (stamp) sk.stamps[0] = global_ns();
   if (blockIdx.x == 0) {
     float now, tte;
-    apply_deltas(packet, D, st, tn, out, sm, &now, &tte);
+    apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
     __syncthreads();
-    liveness(D, st, out, now, tte, sm);
+    liveness(D, st, sp, out, now, tte, sm);
     // the eligibility every block's placement reads, before the barrier
     if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
     if (threadIdx.x < kRed) sk.red[threadIdx.x] = red_identity(threadIdx.x);
@@ -1540,6 +1669,7 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
   if (stamp) sk.stamps[5] = global_ns();
   sinkhorn_close(D, st, out, sc, sk, s, sm);
   if (stamp) sk.stamps[6] = global_ns();
+  if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
   if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
   if (stamp) sk.stamps[7] = global_ns();
@@ -1583,19 +1713,25 @@ Out outputs(int32_t* out_i32, uint8_t* out_b8, int W, int KA, int KP, int KR,
              out_i32 + 2 * KP + KA + KR + 1 + KG};
 }
 
-// The tenancy lane's arguments: the tail (share ++ ahead ++ cap, n floats
-// each) ends the packet, after every lane; off, every pointer is null.
+// The packet's lanes end where the speculation tail (2 floats) starts; the
+// tenancy tail (share ++ ahead ++ cap, n floats each) follows it and ends
+// the packet.
+long lanes_len(const Dims& d, int tenancy, int spec) {
+  const long lanes = 1 + d.use_priority + tenancy + spec;
+  return HEADER + d.KA * lanes + 2L * (d.KH + d.KF + d.KI + d.KS + d.KB) +
+         (spec ? d.KI : 0);
+}
+
+// The tenancy lane's arguments; off, every pointer is null.
 Tenancy tenancy_args(const float* packet, const Dims& d, int on, int n,
                      int32_t* tenant, float* deficit, uint8_t* elig,
                      int32_t* adm_rank, float starve_deficit,
-                     int starve_boost, float deficit_cap) {
+                     int starve_boost, float deficit_cap, int spec) {
   Tenancy tn{};
   tn.on = on;
   tn.n = n;
   if (!on) return tn;
-  const long lanes = 1 + d.use_priority + 1;
-  const float* tail = packet + HEADER + d.KA * lanes +
-                      2L * (d.KH + d.KF + d.KI + d.KS + d.KB);
+  const float* tail = packet + lanes_len(d, 1, spec) + (spec ? 2 : 0);
   tn.tenant = tenant;
   tn.deficit = deficit;
   tn.share = tail;
@@ -1607,6 +1743,20 @@ Tenancy tenancy_args(const float* packet, const Dims& d, int on, int n,
   tn.starve_boost = starve_boost;
   tn.deficit_cap = deficit_cap;
   return tn;
+}
+
+// The speculation lane's arguments; off, every pointer is null.
+Spec spec_args(const float* packet, const Dims& d, int on, int tenancy,
+               float* start, float* pred, int32_t* avoid, int32_t* free_rem) {
+  Spec sp{};
+  sp.on = on;
+  if (!on) return sp;
+  sp.start = start;
+  sp.pred = pred;
+  sp.avoid = avoid;
+  sp.tail = packet + lanes_len(d, tenancy, 1);
+  sp.free_rem = free_rem;
+  return sp;
 }
 
 // One cooperative launch of as many NT-thread blocks as the card holds at
@@ -1632,17 +1782,24 @@ int cooperative_launch(const void* kernel, void** args, void* stream) {
 
 }  // namespace
 
-// Every entry takes the tenancy lane's arguments last before the stream:
-// the tenant and t_deficit leaves, the eligibility output [T], the scratch
-// adm_rank [T], use_tenancy, NT, starve_deficit, starve_boost, deficit_cap.
-// With tenancy off the pointers may be null.
-#define TENANCY_PARAMS                                                      \
+// Every entry takes the tenancy lane's arguments, then the speculation
+// lane's, last before the stream: the tenant and t_deficit leaves, the
+// eligibility output [T], the scratch adm_rank [T], use_tenancy, NT,
+// starve_deficit, starve_boost, deficit_cap; the infl_start, infl_pred and
+// avoid leaves, the fixup's scratch free_rem [W], use_spec. With a lane off
+// its pointers may be null.
+#define LANE_PARAMS                                                         \
   int32_t *tenant, float *t_deficit, uint8_t *elig, int32_t *adm_rank,    \
       int use_tenancy, int n_tenants, float starve_deficit,               \
-      int starve_boost, float deficit_cap
+      int starve_boost, float deficit_cap, float *infl_start,             \
+      float *infl_pred, int32_t *avoid, int32_t *free_rem, int use_spec
 #define TENANCY_ARGS(packet, d)                                             \
   tenancy_args(packet, d, use_tenancy, n_tenants, tenant, t_deficit, elig, \
-               adm_rank, starve_deficit, starve_boost, deficit_cap)
+               adm_rank, starve_deficit, starve_boost, deficit_cap,        \
+               use_spec)
+#define SPEC_ARGS(packet, d)                                                \
+  spec_args(packet, d, use_spec, use_tenancy, infl_start, infl_pred, avoid, \
+            free_rem)
 
 extern "C" int tpu_faas_fused_resident_tick(
     const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
@@ -1650,17 +1807,18 @@ extern "C" int tpu_faas_fused_resident_tick(
     float* speed, uint8_t* active, int32_t* out_i32, uint8_t* out_b8,
     int32_t* scratch, int T, int W, int I, int KA, int KH, int KF, int KI,
     int KS, int KB, int KP, int KR, int KG, int max_slots, int use_priority,
-    int flush, TENANCY_PARAMS, void* stream) {
+    int flush, LANE_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          flush};
   const Tenancy tn = TENANCY_ARGS(packet, d);
+  const Spec sp = SPEC_ARGS(packet, d);
   State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
            inflight, prev_live, speed, active};
   const Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
   const Scratch sc =
       sort_scratch(scratch, static_cast<long>(W) * max_slots, T);
   fused_tick_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      packet, d, st, o, sc, tn);
+      packet, d, st, o, sc, tn, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1677,10 +1835,11 @@ extern "C" int tpu_faas_fused_resident_auction(
     int32_t* out_i32, uint8_t* out_b8, int32_t* scratch, int T, int W, int I,
     int KA, int KH, int KF, int KI, int KS, int KB, int KP, int KR, int KG,
     int max_slots, int use_priority, int warm_rounds, float eps, float jitter,
-    TENANCY_PARAMS, void* stream) {
+    LANE_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          0};
   Tenancy tn = TENANCY_ARGS(packet, d);
+  Spec sp = SPEC_ARGS(packet, d);
   State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
            inflight, prev_live, speed, active};
   Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
@@ -1703,7 +1862,7 @@ extern "C" int tpu_faas_fused_resident_auction(
   au.jitter = jitter;
   au.warm_rounds = warm_rounds;
 
-  void* args[] = {&packet, &d, &st, &o, &sc, &au, &tn};
+  void* args[] = {&packet, &d, &st, &o, &sc, &au, &tn, &sp};
   return cooperative_launch(reinterpret_cast<const void*>(fused_auction_kernel),
                             args, stream);
 }
@@ -1781,10 +1940,11 @@ extern "C" int tpu_faas_fused_resident_sinkhorn(
     float* f, float* g, float* tau_out, int32_t* scratch, int T, int W,
     int I, int KA, int KH, int KF, int KI, int KS, int KB, int KP, int KR,
     int KG, int max_slots, int use_priority, int bucketed, int n_buckets,
-    int n_iters, float tau, TENANCY_PARAMS, void* stream) {
+    int n_iters, float tau, LANE_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          0};
   Tenancy tn = TENANCY_ARGS(packet, d);
+  Spec sp = SPEC_ARGS(packet, d);
   State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
            inflight, prev_live, speed, active};
   Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
@@ -1797,7 +1957,7 @@ extern "C" int tpu_faas_fused_resident_sinkhorn(
   Scratch sc;
   sinkhorn_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc,
                   &sk);
-  void* args[] = {&packet, &d, &st, &o, &sc, &sk, &tn};
+  void* args[] = {&packet, &d, &st, &o, &sc, &sk, &tn, &sp};
   return cooperative_launch(
       reinterpret_cast<const void*>(fused_sinkhorn_kernel), args, stream);
 }

@@ -25,7 +25,10 @@ across the grid, and its final potentials also come back as device tensors
 the wrapper never reads. With the tenancy plane on (``use_tenancy``, ``NT``
 tenant rows, at most :data:`MAX_TENANTS`) each entry and the flush also
 take the ``tenant`` and ``t_deficit`` leaves, update them in place, and
-return the tick's eligibility mask as a fresh output.
+return the tick's eligibility mask as a fresh output. With the speculation
+plane on (``use_spec``) each entry and the flush also take the
+``infl_start``, ``infl_pred`` and ``avoid`` leaves and update them in
+place, and the tick reports its first ``KG`` straggler slots.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ from tpu_faas_torch.build import build, check_arg
 from tpu_faas_torch.sched.auction import EPS, WARM_ROUNDS, bid_scalars
 from tpu_faas_torch.sched.resident import (
     _HEADER,
-    _KG,
     ResidentTickOutput,
     _flush_kernel_impl,
     _resident_tick_impl,
@@ -73,6 +75,10 @@ SINKHORN_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
 #: it through scheduler_tick_impl's tenancy plane
 TENANCY_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
                     "(_fused_resident_tick_impl, use_tenancy=True)")
+#: the speculation lane of the same TPU kernel (use_spec, KG), traced inside
+#: it through scheduler_tick_impl's straggler flags and hedge fixup
+SPEC_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
+                 "(_fused_resident_tick_impl, use_spec=True)")
 #: the most tenant rows the kernel takes: one thread and one shared-memory
 #: word of block 0 each
 MAX_TENANTS = 1024
@@ -92,6 +98,9 @@ _N_INT_SINKHORN = 17  # T W I KA KH KF KI KS KB KP KR KG max_slots prio
 _TENANCY_TYPES = [_P] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float,
                                                   ctypes.c_int,
                                                   ctypes.c_float]
+#: then the speculation arguments: the infl_start, infl_pred and avoid
+#: leaves, the fixup's free-count scratch [W]; use_spec
+_SPEC_TYPES = [_P] * 4 + [ctypes.c_int]
 #: the cooperative entries' own error codes
 _COOP_ERRORS = {
     -1: "the device has no cooperative launch",
@@ -116,6 +125,9 @@ class FusedTickKernel:
         #: launches of any branch (or flush) with the tenancy lane on, so
         #: far; callers may reset it to 0
         self.tenancy_launches = 0
+        #: launches of any branch (or flush) with the speculation lane on,
+        #: so far; callers may reset it to 0
+        self.spec_launches = 0
         self.ptxas_report = ""
         self._fn = None
         self._fn_auction = None
@@ -133,19 +145,20 @@ class FusedTickKernel:
         lib = ctypes.CDLL(str(path))
         fn = lib.tpu_faas_fused_resident_tick
         fn.argtypes = ([_P] * _N_PTR + [ctypes.c_int] * _N_INT
-                       + _TENANCY_TYPES + [_P])  # stream
+                       + _TENANCY_TYPES + _SPEC_TYPES + [_P])  # stream
         fn.restype = ctypes.c_int
         auction = lib.tpu_faas_fused_resident_auction
         auction.argtypes = ([_P] * _N_PTR_AUCTION
                             + [ctypes.c_int] * _N_INT_AUCTION
                             + [ctypes.c_float] * 2  # eps jitter
-                            + _TENANCY_TYPES + [_P])  # stream
+                            + _TENANCY_TYPES + _SPEC_TYPES + [_P])  # stream
         auction.restype = ctypes.c_int
         sinkhorn = lib.tpu_faas_fused_resident_sinkhorn
         sinkhorn.argtypes = ([_P] * _N_PTR_SINKHORN
                              + [ctypes.c_int] * _N_INT_SINKHORN
                              + [ctypes.c_float]  # tau
-                             + _TENANCY_TYPES + [_P])  # stream
+                             + _TENANCY_TYPES + _SPEC_TYPES
+                             + [_P])  # stream
         sinkhorn.restype = ctypes.c_int
         words = lib.tpu_faas_fused_sinkhorn_scratch_words
         words.argtypes = [ctypes.c_int] * 5
@@ -175,10 +188,12 @@ class FusedTickKernel:
         return buf
 
     def _check(self, packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-               use_priority, use_tenancy, NT, auction_S=None):
+               use_priority, use_tenancy, NT, use_spec, KG, auction_S=None):
         dev = packet.device
-        lanes = 1 + int(bool(use_priority)) + int(bool(use_tenancy))
+        lanes = (1 + int(bool(use_priority)) + int(bool(use_tenancy))
+                 + int(bool(use_spec)))
         P = (_HEADER + KA * lanes + 2 * (KH + KF + KI + KS + KB)
+             + (KI + 2 if use_spec else 0)
              + (3 * NT if use_tenancy else 0))
         check_arg(packet, "packet", torch.float32, P, dev)
         leaves = [
@@ -197,6 +212,12 @@ class FusedTickKernel:
             check_segment_key(NT, T)
             leaves += [("tenant", torch.int32, T),
                        ("t_deficit", torch.float32, NT)]
+        if KG < 1:
+            raise ValueError(f"the straggler output takes KG >= 1, got {KG}")
+        if use_spec:
+            leaves += [("infl_start", torch.float32, I),
+                       ("infl_pred", torch.float32, I),
+                       ("avoid", torch.int32, T)]
         for name, dtype, n in leaves:
             check_arg(getattr(st, name), name, dtype, n, dev)
         if auction_S is not None:
@@ -217,8 +238,20 @@ class FusedTickKernel:
                       DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
                       DEFAULT_DEFICIT_CAP)
 
+    def _spec(self, st, dev, W, use_spec):
+        """The entries' speculation arguments."""
+        if not use_spec:
+            return (None, None, None, None, 0)
+        free_rem = self._scratch_for(dev, ("spec", W), W)
+        return (st.infl_start.data_ptr(), st.infl_pred.data_ptr(),
+                st.avoid.data_ptr(), free_rem.data_ptr(), 1)
+
+    def _count(self, use_tenancy, use_spec):
+        self.tenancy_launches += int(bool(use_tenancy))
+        self.spec_launches += int(bool(use_spec))
+
     @staticmethod
-    def _outputs(out_i32, out_b8, W, KA, KP, KR, aux=False, elig=None):
+    def _outputs(out_i32, out_b8, W, KA, KP, KR, KG, aux=False, elig=None):
         o = 2 * KP + KA + KR
         return ResidentTickOutput(
             placed_slots=out_i32[:KP],
@@ -228,22 +261,23 @@ class FusedTickKernel:
             purged=out_b8[:W],
             live=out_b8[W:],
             n_pending=out_i32[o],
-            straggler_slots=out_i32[o + 1 : o + 1 + _KG],
-            auction_rounds=out_i32[o + 1 + _KG] if aux else None,
-            auction_spilled=out_i32[o + 2 + _KG] if aux else None,
-            auction_bid_rows=out_i32[o + 3 + _KG] if aux else None,
+            straggler_slots=out_i32[o + 1 : o + 1 + KG],
+            auction_rounds=out_i32[o + 1 + KG] if aux else None,
+            auction_spilled=out_i32[o + 2 + KG] if aux else None,
+            auction_bid_rows=out_i32[o + 3 + KG] if aux else None,
             tenant_eligible=elig,
         )
 
     def __call__(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
                  KR, max_slots, use_priority, flush, use_tenancy=False,
-                 NT=1):
+                 NT=1, use_spec=False, KG=1):
         """A rank tick, or (``flush=True``) the delta packet alone."""
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-                          use_priority, use_tenancy, NT)
+                          use_priority, use_tenancy, NT, use_spec, KG)
         self.load()
         elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
-        out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
+        spec = self._spec(st, dev, W, use_spec)
+        out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG, dtype=torch.int32,
                               device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
         S = W * max_slots
@@ -257,28 +291,32 @@ class FusedTickKernel:
                 st.prev_live.data_ptr(), st.speed.data_ptr(),
                 st.active.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
                 scratch.data_ptr(),
-                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
-                int(bool(use_priority)), int(bool(flush)), *ten, stream,
+                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots,
+                int(bool(use_priority)), int(bool(flush)), *ten, *spec,
+                stream,
             )
         if err != 0:
             raise RuntimeError(f"fused_tick launch failed: CUDA error {err}")
         self.launches += 1
-        self.tenancy_launches += int(bool(use_tenancy))
-        res = self._outputs(out_i32, out_b8, W, KA, KP, KR, elig=elig)
+        self._count(use_tenancy, use_spec)
+        res = self._outputs(out_i32, out_b8, W, KA, KP, KR, KG, elig=elig)
         if flush:
             return st, res.arrival_slots
         return res, st
 
     def auction(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
-                KR, max_slots, use_priority, use_tenancy=False, NT=1):
+                KR, max_slots, use_priority, use_tenancy=False, NT=1,
+                use_spec=False, KG=1):
         """An auction tick: one cooperative launch. Updates every leaf it
         writes in place, ``price`` and ``refresh`` included."""
         S = W * max_slots
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-                          use_priority, use_tenancy, NT, auction_S=S)
+                          use_priority, use_tenancy, NT, use_spec, KG,
+                          auction_S=S)
         self.load()
         elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
-        out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG + 3,
+        spec = self._spec(st, dev, W, use_spec)
+        out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG + 3,
                               dtype=torch.int32, device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
         scratch = self._scratch_for(dev, ("auction", T, S),
@@ -294,32 +332,34 @@ class FusedTickKernel:
                 st.active.data_ptr(), st.price.data_ptr(),
                 st.refresh.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
                 scratch.data_ptr(),
-                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
+                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots,
                 int(bool(use_priority)), WARM_ROUNDS, eps, jitter, *ten,
-                stream,
+                *spec, stream,
             )
         if err != 0:
             why = _COOP_ERRORS.get(err, f"CUDA error {err}")
             raise RuntimeError(f"fused_tick auction launch failed: {why}")
         self.auction_launches += 1
-        self.tenancy_launches += int(bool(use_tenancy))
-        return self._outputs(out_i32, out_b8, W, KA, KP, KR, aux=True,
+        self._count(use_tenancy, use_spec)
+        return self._outputs(out_i32, out_b8, W, KA, KP, KR, KG, aux=True,
                              elig=elig), st
 
     def sinkhorn(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
-                 KR, max_slots, use_priority, use_tenancy=False, NT=1):
+                 KR, max_slots, use_priority, use_tenancy=False, NT=1,
+                 use_spec=False, KG=1):
         """A Sinkhorn tick: one cooperative launch, on the route the batch
         tick takes for this shape (bucketed when T*W > 2**24, else dense).
         Updates the leaves it writes in place; the outputs carry the final
         potentials f and g and the effective temperature."""
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
-                          use_priority, use_tenancy, NT)
+                          use_priority, use_tenancy, NT, use_spec, KG)
         self.load()
         elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
+        spec = self._spec(st, dev, W, use_spec)
         bucketed = sinkhorn_bucketed(T, W)
         n_iters = BUCKETED_ITERS if bucketed else DENSE_ITERS
         R = (N_BUCKETS if bucketed else T) + 1
-        out_i32 = torch.empty(2 * KP + KA + KR + 1 + _KG, dtype=torch.int32,
+        out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG, dtype=torch.int32,
                               device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
         f = torch.empty(R, dtype=torch.float32, device=dev)
@@ -339,16 +379,16 @@ class FusedTickKernel:
                 st.active.data_ptr(), out_i32.data_ptr(), out_b8.data_ptr(),
                 f.data_ptr(), g.data_ptr(), tau.data_ptr(),
                 scratch.data_ptr(),
-                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, _KG, max_slots,
+                T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots,
                 int(bool(use_priority)), int(bucketed), N_BUCKETS, n_iters,
-                TAU, *ten, stream,
+                TAU, *ten, *spec, stream,
             )
         if err != 0:
             why = _COOP_ERRORS.get(err, f"CUDA error {err}")
             raise RuntimeError(f"fused_tick sinkhorn launch failed: {why}")
         self.sinkhorn_launches += 1
-        self.tenancy_launches += int(bool(use_tenancy))
-        res = self._outputs(out_i32, out_b8, W, KA, KP, KR, elig=elig)
+        self._count(use_tenancy, use_spec)
+        res = self._outputs(out_i32, out_b8, W, KA, KP, KR, KG, elig=elig)
         return res._replace(sinkhorn_f=f, sinkhorn_g=g,
                             sinkhorn_tau=tau[0]), st
 
@@ -391,7 +431,8 @@ class FusedTickKernel:
 
 
 #: the process's one instance: its ``launches``, ``auction_launches``,
-#: ``sinkhorn_launches`` and ``tenancy_launches`` are the library's counts
+#: ``sinkhorn_launches``, ``tenancy_launches`` and ``spec_launches`` are the
+#: library's counts
 KERNEL = FusedTickKernel()
 
 

@@ -28,8 +28,12 @@ state of its own, and on the card its iterations run inside the one launch
 too. A ``TenantTable`` turns the tenancy plane on: the packet grows a tenant
 arrival lane and a tail of the share, inflight and cap vectors, the state
 carries the tenant rows and the deficits, and on the card the kernel runs
-the lane in all three placements. Speculation raises
-``NotImplementedError``.
+the lane in all three placements. ``spec_mult`` turns the speculation plane
+on: the packet grows an avoid arrival lane, a predicted-runtime lane on the
+in-flight scatter and a 2-float threshold tail; the state carries real
+``infl_start``/``infl_pred``/``avoid`` leaves; the tick flags stragglers
+(the first KG, compacted) and runs the hedge fixup after placement, and on
+the card the kernel runs this lane in all three placements too.
 """
 
 from __future__ import annotations
@@ -48,11 +52,8 @@ from tpu_faas_torch.sched.scatter import (
     scatter_add,
     scatter_set,
 )
-from tpu_faas_torch.sched.state import (
-    SchedulerArrays,
-    scheduler_tick_impl,
-    unported,
-)
+from tpu_faas_torch.sched.state import SchedulerArrays, scheduler_tick_impl
+from tpu_faas_torch.spec.straggler import DEFAULT_MIN_RUNTIME_S
 from tpu_faas_torch.tenancy.fairshare import check_segment_key
 
 _I32 = torch.int32
@@ -66,7 +67,8 @@ class ResidentTickOutput(NamedTuple):
     purged: torch.Tensor  # bool[W]
     live: torch.Tensor  # bool[W]
     n_pending: torch.Tensor  # i32 pending tasks still valid after this tick
-    #: i32[KG] straggler slots (speculation plane; length 1, all -1, off)
+    #: i32[KG] in-flight slots flagged as stragglers (speculation plane;
+    #: length 1, all -1, while it is off), -1 = pad
     straggler_slots: torch.Tensor | None = None
     #: i32 scalar (auction only): bidding rounds this tick ran
     auction_rounds: torch.Tensor | None = None
@@ -90,7 +92,8 @@ class _ResidentState(NamedTuple):
     JAX state, in its order. Rank placement reads and writes the first
     ten; the auction also carries ``price`` and ``refresh``; the tenancy
     plane the ``tenant`` rows and the ``t_deficit`` carry; the speculation
-    leaves ride along untouched."""
+    plane the ``infl_start``/``infl_pred``/``avoid`` leaves (length 1 and
+    inert while it is off)."""
 
     sizes: torch.Tensor  # f32[T]
     valid: torch.Tensor  # bool[T]
@@ -104,9 +107,13 @@ class _ResidentState(NamedTuple):
     active: torch.Tensor  # bool[W]
     price: torch.Tensor  # f32[W*max_slots] auction slot prices
     t_deficit: torch.Tensor  # f32[NT] per-tenant deficits
-    infl_start: torch.Tensor  # f32[1] (speculation plane off)
-    infl_pred: torch.Tensor  # f32[1] (speculation plane off)
-    avoid: torch.Tensor  # i32[1] (speculation plane off)
+    #: f32[I] epoch-relative dispatch stamp per in-flight slot (the
+    #: packet's now when its scatter applied)
+    infl_start: torch.Tensor
+    #: f32[I] predicted runtime per in-flight slot (<= 0 never flags)
+    infl_pred: torch.Tensor
+    #: i32[T] the worker row each pending task must not land on (-1 none)
+    avoid: torch.Tensor
     refresh: torch.Tensor  # bool scalar (auction staleness flag)
 
 
@@ -145,8 +152,6 @@ def state_to_numpy(st: _ResidentState) -> dict[str, np.ndarray]:
 # 1 = flush) and time_to_expire
 _OP_TICK, _OP_FLUSH = 0.0, 1.0
 _HEADER = 9
-#: length of the straggler output: its inert pad while speculation is off
-_KG = 1
 
 
 def _first_k_indices(mask: torch.Tensor, K: int) -> torch.Tensor:
@@ -161,7 +166,7 @@ def _first_k_indices(mask: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
-                  KS, KB, use_priority, use_tenancy=False):
+                  KS, KB, use_priority, use_tenancy=False, use_spec=False):
     """Scatter one delta packet into the carried state. Returns (state,
     arrival_slots i32[KA], now)."""
     now = packed[0]
@@ -180,9 +185,16 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
         arr_prio = lane(KA, True)
     if use_tenancy:
         arr_tenant = lane(KA, True)
+    if use_spec:
+        # the forbidden worker row of each arrival (-1 on ordinary ones)
+        arr_avoid = lane(KA, True)
     hb_idx, hb_val = lane(KH, True), lane(KH)
     free_idx, free_val = lane(KF, True), lane(KF, True)
     infl_idx, infl_val = lane(KI, True), lane(KI, True)
+    if use_spec:
+        # the predicted runtime of each scattered in-flight slot, on the
+        # same indices as the in-flight scatter
+        infl_pred_val = lane(KI)
     sp_idx, sp_val = lane(KS, True), lane(KS)
     ac_idx, ac_val = lane(KB, True), lane(KB)
 
@@ -199,10 +211,17 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
     free = scatter_add(
         st.free, drop_index(free_idx, live_lanes(KF, n_free), W), free_val
     )
-    inflight = scatter_set(
-        st.inflight, drop_index(infl_idx, live_lanes(KI, n_infl), I),
-        infl_val,
-    )
+    infl_sidx = drop_index(infl_idx, live_lanes(KI, n_infl), I)
+    inflight = scatter_set(st.inflight, infl_sidx, infl_val)
+    infl_start, infl_pred = st.infl_start, st.infl_pred
+    if use_spec:
+        # a slot's dispatch stamp is the packet's now at apply time; a
+        # cleared slot (value < 0) zeroes both
+        occupied_w = infl_val >= 0
+        infl_start = scatter_set(infl_start, infl_sidx,
+                                 torch.where(occupied_w, now, 0.0))
+        infl_pred = scatter_set(infl_pred, infl_sidx,
+                                torch.where(occupied_w, infl_pred_val, 0.0))
     speed = scatter_set(
         st.speed, drop_index(sp_idx, live_lanes(KS, n_speed), W), sp_val
     )
@@ -227,22 +246,29 @@ def _apply_deltas(packed, st: _ResidentState, *, T, W, I, KA, KH, KF, KI,
     tenant = st.tenant
     if use_tenancy:
         tenant = scatter_set(tenant, slots, arr_tenant)
+    avoid = st.avoid
+    if use_spec:
+        avoid = scatter_set(avoid, slots, arr_avoid)
     arrival_slots = torch.where(ok, free_slots, -1).to(_I32)
     new = st._replace(sizes=sizes, valid=valid, prio=prio, tenant=tenant,
                       last_hb=last_hb, free=free, inflight=inflight,
-                      speed=speed, active=active)
+                      speed=speed, active=active, infl_start=infl_start,
+                      infl_pred=infl_pred, avoid=avoid)
     return new, arrival_slots, now
 
 
 def _flush_kernel_impl(packed, st, *, T, W, I, KA, KH, KF, KI, KS, KB,
-                       use_priority, use_tenancy=False, NT=1):
+                       use_priority, use_tenancy=False, NT=1,
+                       use_spec=False, KG=1):
     """Delta application alone — the plain version of the kernel's flush
     mode, used when a tick's deltas exceed one packet's capacity. ``NT``
-    shapes nothing here (the tenancy tail is tick-only) but rides the
-    statics so both share one ``_statics()`` dict."""
+    and ``KG`` shape nothing here (the tails and the straggler compaction
+    are tick-only) but ride the statics so both share one ``_statics()``
+    dict."""
     st, arrival_slots, _ = _apply_deltas(
         packed, st, T=T, W=W, I=I, KA=KA, KH=KH, KF=KF, KI=KI, KS=KS,
         KB=KB, use_priority=use_priority, use_tenancy=use_tenancy,
+        use_spec=use_spec,
     )
     return st, arrival_slots
 
@@ -256,6 +282,13 @@ def tenancy_tail(packed, NT: int):
             f32_to_i32(packed[tail + 2 * NT :]))
 
 
+def spec_tail(packed, use_tenancy: bool, NT: int):
+    """The speculation tail (the straggler multiplier and the floor), just
+    before the tenancy tail, or at the end of the packet without it."""
+    at = packed.shape[0] - (3 * NT if use_tenancy else 0) - 2
+    return packed[at], packed[at + 1]
+
+
 def _resident_tick_impl(
     packed,
     st: _ResidentState,
@@ -264,6 +297,8 @@ def _resident_tick_impl(
     placement="rank",
     use_tenancy=False,
     NT=1,
+    use_spec=False,
+    KG=1,
     sinkhorn_potentials=None,
 ):
     """The full resident step as plain PyTorch ops — the plain version of
@@ -273,7 +308,16 @@ def _resident_tick_impl(
     st, arrival_slots, now = _apply_deltas(
         packed, st, T=T, W=W, I=I, KA=KA, KH=KH, KF=KF, KI=KI, KS=KS,
         KB=KB, use_priority=use_priority, use_tenancy=use_tenancy,
+        use_spec=use_spec,
     )
+    spec_kw: dict = {}
+    if use_spec:
+        # elapsed per in-flight slot from the carried dispatch stamps; the
+        # thresholds ride the packet as values
+        mult, min_s = spec_tail(packed, use_tenancy, NT)
+        spec_kw = dict(spec_elapsed=now - st.infl_start,
+                       spec_predicted=st.infl_pred, spec_mult=mult,
+                       spec_min_s=min_s, task_avoid_worker=st.avoid)
     tenant_kw: dict = {}
     if use_tenancy:
         # share, inflight and cap ride the END of every tick packet as
@@ -300,6 +344,7 @@ def _resident_tick_impl(
         auction_refresh=st.refresh if auction else None,
         sinkhorn_potentials=sinkhorn_potentials,
         **tenant_kw,
+        **spec_kw,
     )
 
     # -- compact placements to KP (slot, row) pairs ------------------------
@@ -321,8 +366,11 @@ def _resident_tick_impl(
         st.free, torch.where(pok, placed_rows, W).long(), -1
     )
     redispatch_slots = _first_k_indices(out.redispatch, KR)
-    # inert pad: the speculation plane is off
-    straggler_slots = torch.full((_KG,), -1, dtype=_I32, device=packed.device)
+    if use_spec:
+        straggler_slots = _first_k_indices(out.straggler, KG)
+    else:  # the inert length-KG pad
+        straggler_slots = torch.full((KG,), -1, dtype=_I32,
+                                     device=packed.device)
 
     new_state = st._replace(valid=valid_next, free=free_next,
                             prev_live=out.live)
@@ -393,6 +441,7 @@ class ResidentScheduler(SchedulerArrays):
     KB: int = 256  # worker-active scatters
     KP: int = 2048  # reported placements / tick
     KR: int = 512  # reported redispatches / tick
+    KG: int = 64  # reported straggler flags / tick (speculation plane)
     use_priority: bool = False
     #: uptime (seconds) after which the heartbeat epoch is re-based, so f32
     #: epoch-relative stamps never approach heartbeat granularity
@@ -412,13 +461,20 @@ class ResidentScheduler(SchedulerArrays):
         KB: int | None = None,
         KP: int | None = None,
         KR: int | None = None,
+        KG: int | None = None,
         tenancy=None,
         spec_mult: float | None = None,
+        spec_min_s: float = DEFAULT_MIN_RUNTIME_S,
         **kw,
     ):
-        if spec_mult is not None:
-            raise unported("speculation")
         super().__init__(*args, **kw)
+        # speculation plane: a straggler multiplier turns it on. The leaf
+        # shapes and the packet layout follow at construction; the
+        # threshold values ride every packet (hot-tunable)
+        self.use_spec = spec_mult is not None
+        if self.use_spec:
+            self.spec_mult = float(spec_mult)
+            self.spec_min_s = float(spec_min_s)
         # tenancy plane: a TenantTable turns it on. NT (the vectors' padded
         # length) shapes the state and the packet, so the table must exist
         # at construction; its contents are values (hot-reloadable)
@@ -433,7 +489,8 @@ class ResidentScheduler(SchedulerArrays):
         self.device_dispatches_last_tick: int = 0
         self.device_dispatches_total: int = 0
         for name, v in (("KA", KA), ("KH", KH), ("KF", KF), ("KI", KI),
-                        ("KS", KS), ("KB", KB), ("KP", KP), ("KR", KR)):
+                        ("KS", KS), ("KB", KB), ("KP", KP), ("KR", KR),
+                        ("KG", KG)):
             if v is not None:
                 setattr(self, name, int(v))
         # packet capacities can't exceed the arrays they scatter into
@@ -445,6 +502,8 @@ class ResidentScheduler(SchedulerArrays):
         self.KB = min(self.KB, self.max_workers)
         self.KI = min(self.KI, self.max_inflight)
         self.KR = min(self.KR, self.max_inflight)
+        # spec off collapses the straggler output to its length-1 pad
+        self.KG = min(self.KG, self.max_inflight) if self.use_spec else 1
         self.use_priority = bool(use_priority)
         self._epoch = self.clock()
         self._arrivals: deque[_Arrival] = deque()
@@ -498,8 +557,12 @@ class ResidentScheduler(SchedulerArrays):
         if tenants is not None:
             tn[:n] = np.asarray(tenants, dtype=np.int32)
         st = self._r_state
-        for leaf, host in ((st.sizes, s), (st.valid, v), (st.prio, p),
-                           (st.tenant, tn)):
+        leaves = [(st.sizes, s), (st.valid, v), (st.prio, p), (st.tenant, tn)]
+        if self.use_spec:
+            # bulk loads are adoption backlogs, never hedges: no slot keeps
+            # a stale veto
+            leaves.append((st.avoid, np.full(T, -1, dtype=np.int32)))
+        for leaf, host in leaves:
             leaf.copy_(upload(host, self.device), non_blocking=True)
         for i, tid in enumerate(ids):
             self.slot_task[i] = tid
@@ -534,6 +597,10 @@ class ResidentScheduler(SchedulerArrays):
             else upload(np.asarray(pl), self.device)
         )
         dev = self.device
+        # the speculation leaves: real [I]/[I]/[T] with the plane on, inert
+        # length-1 leaves otherwise
+        SI = self.max_inflight if self.use_spec else 1
+        ST = T if self.use_spec else 1
         # live fleet mirrors are uploaded as snapshots (see upload): they
         # are mutated in place by membership/result events between ticks
         self._r_state = _ResidentState(
@@ -549,9 +616,9 @@ class ResidentScheduler(SchedulerArrays):
             upload(self.worker_active, dev),
             upload(np.zeros(W * self.max_slots, dtype=np.float32), dev),
             upload(np.zeros(self.NT, dtype=np.float32), dev),  # deficits
-            upload(np.zeros(1, dtype=np.float32), dev),  # infl_start
-            upload(np.zeros(1, dtype=np.float32), dev),  # infl_pred
-            upload(np.full(1, -1, dtype=np.int32), dev),  # avoid
+            upload(np.zeros(SI, dtype=np.float32), dev),  # infl_start
+            upload(np.zeros(SI, dtype=np.float32), dev),  # infl_pred
+            upload(np.full(ST, -1, dtype=np.int32), dev),  # avoid
             # a bool scalar, as the tick returns it (upload makes 1-d)
             upload(np.asarray(True), dev).reshape(()),  # refresh
         )
@@ -599,11 +666,15 @@ class ResidentScheduler(SchedulerArrays):
                 sp_idx, sp_val, ac_idx, ac_val)
 
     def packet_len(self) -> int:
-        lanes = 1 + int(self.use_priority) + int(self.use_tenancy)
+        lanes = (1 + int(self.use_priority) + int(self.use_tenancy)
+                 + int(self.use_spec))
         return (
             _HEADER
             + self.KA * lanes
             + 2 * (self.KH + self.KF + self.KI + self.KS + self.KB)
+            # speculation: the pred lane on the in-flight scatter's indices
+            # and the 2-float threshold tail (before the tenancy tail)
+            + (self.KI + 2 if self.use_spec else 0)
             # the tenancy tail: share, inflight and cap, on every packet
             + (3 * self.NT if self.use_tenancy else 0)
         )
@@ -620,25 +691,36 @@ class ResidentScheduler(SchedulerArrays):
         p[7] = _OP_TICK  # _run_flush overwrites for flush packets
         p[8] = self.time_to_expire
         off = _HEADER
-        p[off : off + len(arrivals)] = [a.size for a in arrivals]
-        off += self.KA
+
+        def put(vals, K):
+            nonlocal off
+            p[off : off + len(vals)] = vals
+            off += K
+
+        put([a.size for a in arrivals], self.KA)
         if self.use_priority:
-            p[off : off + len(arrivals)] = [a.priority for a in arrivals]
-            off += self.KA
+            put([a.priority for a in arrivals], self.KA)
         if self.use_tenancy:
-            p[off : off + len(arrivals)] = [a.tenant for a in arrivals]
-            off += self.KA
-        for (idx, val), K in ((hb, self.KH), (fr, self.KF), (infl, self.KI),
-                              (sp, self.KS), (ac, self.KB)):
-            p[off : off + len(idx)] = idx
-            off += K
-            p[off : off + len(val)] = val
-            off += K
+            put([a.tenant for a in arrivals], self.KA)
+        if self.use_spec:
+            put([a.avoid for a in arrivals], self.KA)
+        for (idx, val), K in ((hb, self.KH), (fr, self.KF), (infl, self.KI)):
+            put(idx, K)
+            put(val, K)
+        if self.use_spec:
+            # the pred lane: the host mirror's prediction for each slot of
+            # the in-flight scatter, read at pack time
+            put(self.inflight_pred[np.asarray(infl[0], dtype=np.int64)],
+                self.KI)
+        for (idx, val), K in ((sp, self.KS), (ac, self.KB)):
+            put(idx, K)
+            put(val, K)
+        if self.use_spec:
+            put([self.spec_mult, self.spec_min_s], 2)
         if self.use_tenancy:
-            NT, ten = self.NT, self.tenancy
-            p[off : off + NT] = ten.share[:NT]
-            p[off + NT : off + 2 * NT] = ten.inflight[:NT]
-            p[off + 2 * NT : off + 3 * NT] = ten.cap[:NT]
+            ten = self.tenancy
+            for vec in (ten.share, ten.inflight, ten.cap):
+                put(vec[: self.NT], self.NT)
         return p
 
     def _statics(self) -> dict:
@@ -647,6 +729,7 @@ class ResidentScheduler(SchedulerArrays):
             KA=self.KA, KH=self.KH, KF=self.KF, KI=self.KI, KS=self.KS,
             KB=self.KB, use_priority=self.use_priority,
             use_tenancy=self.use_tenancy, NT=self.NT,
+            use_spec=self.use_spec, KG=self.KG,
         )
 
     def tenant_deficits(self) -> np.ndarray | None:
@@ -813,6 +896,11 @@ class ResidentScheduler(SchedulerArrays):
                 self._free_sent[row] -= 1
         redisp = [int(s) for s in to_host(out.redispatch_slots) if s >= 0]
         purged_rows = np.flatnonzero(to_host(out.purged))
+        stragglers: list[int] = []
+        if self.use_spec:
+            stragglers = [int(s) for s in to_host(out.straggler_slots)
+                          if s >= 0]
         return ResolvedTick(
-            placed, redisp, purged_rows, rejected, int(out.n_pending)
+            placed, redisp, purged_rows, rejected, int(out.n_pending),
+            stragglers,
         )

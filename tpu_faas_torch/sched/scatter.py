@@ -37,7 +37,9 @@ def scatter_set(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
 
 def scatter_add(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     buf = torch.cat([arr, arr.new_zeros(1)])
-    buf.index_put_((idx,), torch.as_tensor(vals, dtype=arr.dtype,
-                                           device=arr.device)
-                   .expand(idx.shape), accumulate=True)
+    if isinstance(vals, torch.Tensor):
+        vals = vals.to(arr.dtype).expand(idx.shape)
+    else:  # filled on the device: no host-to-device copy of the scalar
+        vals = torch.full(idx.shape, vals, dtype=arr.dtype, device=arr.device)
+    buf.index_put_((idx,), vals, accumulate=True)
     return buf[:-1]

@@ -12,10 +12,12 @@ PyTorch: the tick, the cached fleet uploads and the delta-maintained
 in-flight mirror, and the auction's warm prices carried between ticks.
 All three placements are ported: rank, auction (its bids run kernel B2 on
 the card) and Sinkhorn (plain torch ops on both devices: the JAX batch tick
-reaches no Pallas kernel for it), and so is the tenancy plane
-(``tpu_faas_torch/tenancy``: plain torch ops here too). The mesh and
-multihost layouts, speculation and the graph lanes raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+reaches no Pallas kernel for it), and so are the tenancy plane
+(``tpu_faas_torch/tenancy``: plain torch ops here too) and the speculation
+plane (``tpu_faas_torch/spec``: the straggler flags, the anti-affinity veto
+and the hedge fixup, plain torch ops too). The mesh and multihost layouts
+and the graph lanes raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ from tpu_faas_torch.sched.sinkhorn import (
     sinkhorn_placement_bucketed_impl,
     sinkhorn_placement_impl,
 )
+from tpu_faas_torch.spec.straggler import (
+    hedge_fixup_impl,
+    straggler_flags_impl,
+)
 from tpu_faas_torch.tenancy.fairshare import (
     DEFAULT_STARVE_BOOST,
     DEFAULT_STARVE_DEFICIT,
@@ -47,7 +53,6 @@ _I32 = torch.int32
 #: what each unported feature waits for, by ROADMAP item
 _UNPORTED = {
     "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
-    "speculation": "ROADMAP A.7 (in-tick planes: speculation)",
     "mesh": "ROADMAP A.11 (multi-device)",
     "multihost": "ROADMAP A.11 (multi-device)",
 }
@@ -106,6 +111,9 @@ class TickOutput(NamedTuple):
     #: bool[T] the tasks placement saw as valid (tenancy plane only): the
     #: valid tasks minus those past their tenant's inflight-cap allowance
     tenant_eligible: torch.Tensor | None = None
+    #: bool[I] straggler flags (speculation plane only, else None): in-flight
+    #: slots past their predicted runtime on a still-live worker
+    straggler: torch.Tensor | None = None
 
 
 def scheduler_tick_impl(
@@ -133,13 +141,22 @@ def scheduler_tick_impl(
     tenant_cap: torch.Tensor | None = None,  # i32[N] ceilings (0 = uncapped)
     starve_deficit: float = DEFAULT_STARVE_DEFICIT,
     starve_boost: int = DEFAULT_STARVE_BOOST,
+    spec_elapsed: torch.Tensor | None = None,  # f32[I] seconds since dispatch
+    spec_predicted: torch.Tensor | None = None,  # f32[I] predicted runtime
+    spec_mult=None,  # f32 scalar straggler multiplier
+    spec_min_s=None,  # f32 scalar absolute floor
+    task_avoid_worker: torch.Tensor | None = None,  # i32[T] forbidden row
 ) -> TickOutput:
     """One batch tick. ``sinkhorn_potentials`` (Sinkhorn only) replaces the
     solver's iterations with given final (f, g): the replay of a rounding
     from the CUDA kernel's own potentials. ``task_tenant`` turns the
     tenancy plane on: the inflight-cap eligibility narrows ``task_valid``
     for every placement, the weighted-fair admission order feeds rank's
-    cut, and the deficit carry runs on the final assignment."""
+    cut, and the deficit carry runs on the final assignment.
+    ``spec_elapsed`` turns the straggler flags on (they ride the liveness
+    pass: a slot flags only while its worker is live); ``task_avoid_worker``
+    runs the hedge fixup after every placement, before the deficit carry,
+    on the effective speeds and the capped free counts."""
     check_placement(placement)
     # tail-health multiplier on effective speed, and the quarantine plane's
     # per-row placement ceiling: two elementwise lanes ahead of placement
@@ -161,6 +178,21 @@ def scheduler_tick_impl(
     worker_of = iw.clamp(0, W - 1).long()
     redispatch = occupied & ~live[worker_of]
 
+    # -- speculation plane: straggler flags on the same liveness pass
+    straggler = None
+    if spec_elapsed is not None:
+        straggler = straggler_flags_impl(
+            spec_elapsed, spec_predicted, occupied & live[worker_of],
+            spec_mult, spec_min_s,
+        )
+
+    def veto(assignment):
+        # anti-affinity for hedge rows: veto, then re-place the vetoed tail
+        if task_avoid_worker is None:
+            return assignment
+        return hedge_fixup_impl(assignment, task_avoid_worker, worker_speed,
+                                worker_free, live)
+
     # -- tenancy plane: the cap mask narrows task_valid for EVERY placement;
     # the fair order feeds rank's admission cut alone
     adm_rank = demand = None
@@ -174,8 +206,9 @@ def scheduler_tick_impl(
 
     def tenancy_out(assignment) -> dict:
         if task_tenant is None:
-            return {}
+            return dict(straggler=straggler)
         return dict(
+            straggler=straggler,
             tenant_deficit=tenant_deficit_update_impl(
                 assignment, task_tenant, demand, tenant_share, tenant_deficit
             ),
@@ -189,10 +222,11 @@ def scheduler_tick_impl(
             max_slots=max_slots, init_price=auction_price,
             carry_refresh=auction_refresh,
         )
-        return TickOutput(res.assignment, live, purged, redispatch,
+        assignment = veto(res.assignment)
+        return TickOutput(assignment, live, purged, redispatch,
                           res.prices, res.refresh, res.n_rounds,
                           res.n_spilled, res.n_bid_rows,
-                          **tenancy_out(res.assignment))
+                          **tenancy_out(assignment))
     # Sinkhorn ignores task_priority too: every valid task competes
     if placement == "sinkhorn":
         T, W = task_size.shape[0], worker_speed.shape[0]
@@ -209,15 +243,17 @@ def scheduler_tick_impl(
                 max_slots=max_slots, n_iters=DENSE_ITERS,
                 potentials=sinkhorn_potentials,
             )
-        return TickOutput(res.assignment, live, purged, redispatch,
+        assignment = veto(res.assignment)
+        return TickOutput(assignment, live, purged, redispatch,
                           sinkhorn_f=res.f, sinkhorn_g=res.g,
                           sinkhorn_tau=res.tau,
-                          **tenancy_out(res.assignment))
+                          **tenancy_out(assignment))
     assignment = rank_match_placement_impl(
         task_size, task_valid, worker_speed, worker_free, live,
         max_slots=max_slots, task_priority=task_priority,
         task_adm_rank=adm_rank,
     )
+    assignment = veto(assignment)
     return TickOutput(assignment, live, purged, redispatch,
                       **tenancy_out(assignment))
 
@@ -238,13 +274,13 @@ def packed_tick(
     W: int,
     max_slots: int,
     placement: str = "rank",
-    **tenant_kw,
+    **plane_kw,
 ) -> TickOutput:
     """scheduler_tick behind a transfer-minimal calling convention:
     everything that changes every tick (sizes, heartbeat ages, free counts)
     rides ONE packed upload, and the valid mask is built on the device from
     a host integer. The rest is device-resident between ticks.
-    ``tenant_kw`` are the tenancy plane's arguments of
+    ``plane_kw`` are the tenancy and speculation planes' arguments of
     :func:`scheduler_tick_impl`."""
     task_size = packed[:T]
     hb_age = packed[T : T + W]
@@ -255,7 +291,7 @@ def packed_tick(
         hb_age, prev_live, inflight_worker, time_to_expire,
         max_slots=max_slots, task_priority=task_priority,
         placement=placement, worker_place_cap=worker_place_cap,
-        auction_price=auction_price, **tenant_kw,
+        auction_price=auction_price, **plane_kw,
     )
 
 
@@ -324,8 +360,8 @@ class SchedulerArrays:
         self.inflight_pred: np.ndarray = np.zeros(
             self.max_inflight, dtype=np.float32
         )
-        #: straggler threshold (speculation plane): None = plane off; a
-        #: value raises NotImplementedError at the tick (unported)
+        #: straggler threshold (speculation plane): None = plane off; the
+        #: dispatcher sets both from its --speculate-* knobs
         self.spec_mult: float | None = None
         self.spec_min_s: float = 0.05
         self._inflight_slot: dict[str, int] = {}  # task_id -> slot
@@ -621,15 +657,17 @@ class SchedulerArrays:
         plane's placement ceiling. ``task_tenants`` (optional, the dense
         tenant row of each task) runs the tenancy plane when ``tenancy``
         holds a TenantTable, with the deficit carried on the device between
-        ticks; without a table it is ignored, as in the JAX tick. The graph
-        and speculation arguments raise ``NotImplementedError``.
+        ticks; without a table it is ignored, as in the JAX tick. With
+        ``spec_mult`` set the tick flags stragglers (``TickOutput.straggler``)
+        from the host's dispatch stamps and predictions, and scales speeds
+        by the recovered ``worker_health``; ``task_avoid`` (optional, the
+        forbidden worker row of each task, -1 none) runs the hedge fixup.
+        The graph arguments raise ``NotImplementedError``.
         """
         if dep_edges is not None or task_pref is not None or (
             pref_edges is not None
         ):
             raise unported("graph")
-        if self.spec_mult is not None or task_avoid is not None:
-            raise unported("speculation")
         n = len(task_sizes)
         if n > self.max_pending:
             raise ValueError(f"{n} pending > max_pending={self.max_pending}")
@@ -677,6 +715,26 @@ class SchedulerArrays:
                 tenant_ahead=upload(ten.inflight, self.device),
                 tenant_cap=self._cached_dev("tenant_cap", ten.cap),
             )
+        spec_kw: dict = {}
+        if self.spec_mult is not None:
+            # elapsed ages are computed on the host in float64, like the
+            # heartbeat ages, then cast; pred ships as a snapshot (the act
+            # loop mutates it as soon as tick() returns). Tail health rides
+            # the same gate: only the speculation plane produces losses
+            self._recover_health(now_f)
+            spec_kw = dict(
+                spec_elapsed=upload(
+                    (now_f - self.inflight_started).astype(np.float32),
+                    self.device),
+                spec_predicted=upload(self.inflight_pred, self.device),
+                spec_mult=float(np.float32(self.spec_mult)),
+                spec_min_s=float(np.float32(self.spec_min_s)),
+                worker_health=self._cached_dev("health", self.worker_health),
+            )
+        if task_avoid is not None:
+            av = np.full(T, -1, dtype=np.int32)
+            av[:n] = task_avoid
+            spec_kw["task_avoid_worker"] = upload(av, self.device)
         out = packed_tick(
             upload(packed, self.device),
             n,
@@ -695,6 +753,7 @@ class SchedulerArrays:
             max_slots=self.max_slots,
             placement=self.placement,
             **tenant_kw,
+            **spec_kw,
         )
         if self.placement == "auction":
             self._d_auction_price = out.auction_price
