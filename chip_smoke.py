@@ -6,9 +6,11 @@ Phases, all run every time (each fails the run; nothing is caught and passed
 over):
 
 0. ``build``  — print the card's name and power limit, the torch and CUDA
-   versions; build both libraries from ``tpu_faas_torch/csrc`` with nvcc for
-   sm_90a, one nvcc per source, started together: the fused tick (B1, rank,
-   auction and Sinkhorn branches) and the top-2 bid (B2).
+   versions; build the libraries from ``tpu_faas_torch/csrc`` with nvcc for
+   sm_90a, one nvcc per build, started together: the fused tick (B1, rank,
+   auction and Sinkhorn branches), its probe build (``-DTPU_FAAS_PROBE``:
+   the auction branch stamps block 0's clock at each phase and round) and
+   the top-2 bid (B2); print each kernel's registers and shared memory.
 1. ``kernel`` — the fused tick's rank branch against its plain PyTorch
    version on the card, at 51,200 pending x 4,096 workers x 65,536
    in-flight slots, priority admission on and off, several seeds: every
@@ -39,12 +41,18 @@ over):
 6. ``resident_auction`` — B1's auction branch: first against its plain
    version on synthetic headline states (refresh on and off, priority lanes
    on and off, two seeds; seed 0 also against the plain version with plain
+   bids; a warm tick with 13 bidders and a cold tick in which every task
    bids), every output and state leaf exactly equal, prices, refresh, round
    and spilled counts included; then ``ResidentScheduler(placement=
    "auction")`` through phase 2's loop for 40 ticks (FCFS), with phase 2's
    checks, one cooperative launch per steady tick, and at least one cold
    (refresh) and one warm tick. The kernel also reports the bidder rows
-   summed over its rounds, equal to the plain version's count.
+   summed over its rounds, equal to the plain version's count. Then the
+   round split: the probe build on the 13-bidder and every-bidder ticks and
+   on the loop's last 10 states (each launch equal to the kernel proper's),
+   block 0's clock at the opening, the seed or rebase, each round's bids
+   (until the last block is done), their barrier, the install pass and the
+   bidder collection with theirs, and the close.
 7. ``resident_sinkhorn`` — B1's Sinkhorn branch: the kernel's ``expf`` and
    ``logf`` bit for bit against ``torch.exp``/``torch.log``; the branch
    against its plain version on synthetic headline states (bucketed route,
@@ -75,7 +83,9 @@ over):
    config 16's shares and caps (light=8, heavy=1, heavy capped at the
    fleet's slots minus one) and four more capped tenants, arrivals tagged
    across all 32 rows, the table's inflight counts kept as the dispatcher
-   keeps them; every launch holds each tenant within its allowance. Last,
+   keeps them; every launch holds each tenant within its allowance. A rank
+   and an auction tick with 4,096 tenant rows (past the 1,024 whose counts
+   block 0 keeps in shared memory) are exactly equal too. Last,
    the rank branch with the lane on the rank loop's own states, beside its
    plain version and its bound.
 9. ``resident_spec`` — B1's speculation lane (config 18's knobs: straggler
@@ -104,7 +114,9 @@ over):
    bidders; each kind's medians are printed too), and of their plain
    versions, each beside its bound (the auction's counts the cells its
    bidders swept); the auction's plain version bids with the plain top-2,
-   and each of its ticks is held exactly against the kernel's; CUDA-event
+   and each of its ticks is held exactly against the kernel's; the bids'
+   bound counts each cell's instructions per issue pipe, read from the
+   compiled loop, at the card's clock; CUDA-event
    means of B1's Sinkhorn branch and its plain version over the resident
    Sinkhorn run's states, with a launch's split by block 0's clock and a
    grid barrier timed alone; host-clock medians of the integrated
@@ -149,6 +161,8 @@ SPIN_CYCLES = 20_000_000
 #: (tpu_faas/dispatch/tpu_push.py:104), and the statics that turn it on
 NT_HEADLINE = 32
 TENANCY_KW = dict(use_tenancy=True, NT=NT_HEADLINE)
+#: tenant rows past the 1,024 whose counts block 0 keeps in shared memory
+NT_WIDE = 4096
 #: the resident loops' arrival mix over the 32 rows: default, light, heavy,
 #: then the 29 other tenants evenly
 TENANT_MIX = np.array([0.05, 0.15, 0.6] + [0.2 / 29] * 29)
@@ -756,11 +770,134 @@ def phase_sim(dev) -> dict:
 #: bench config 7's headline bid and BASELINE config 3's auction shape
 BID_HEADLINE = (51_200, 32_768)
 BID_CONFIG3 = (10_240, 4_096)
-#: operations per cell the bid cannot avoid: the index product and sum (2),
-#: the Wang hash (three shift-xor pairs and two products, 9), the shift by 8,
-#: the int->float conversion, the 2^-24 scale (3) and four float ops
-BID_OPS_PER_CELL = 18
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+#: The bids' inner loop (csrc/bid_top2.cuh::warp_top2, 4 rows) as nvcc
+#: compiles it (CUDA 12.8, sm_90a), counted in the SASS of the built
+#: libraries (cuobjdump -sass): one pass sweeps BID_LOOP_CELLS cells (4 rows
+#: x 1 slot). Per pass, by issue pipe, in kernel B2 (bid_top2_kernel) and
+#: in B1's auction branch (fused_auction_kernel):
+#:   ALU (integer add, logic, shift, compare, select, min/max):
+#:     SHF.R.U32.HI 16, LOP3.LUT 12, FSETP 5, FSEL 4, FMNMX 4, ISETP 1, and
+#:     B2 IADD3 3 + VIADD 4, B1 VIADD 1: B2 49, B1 43;
+#:   FMA-heavy (integer multiply, and the moves nvcc spells with it):
+#:     B2 IMAD 9, IMAD.MOV.U32 22, IMAD.X 3: 34; B1 IMAD 12,
+#:     IMAD.MOV.U32 16, IMAD.WIDE 3: 31;
+#:   FMA heavy or lite (float32): FMUL 12, FADD 8 = 20;
+#:   XU (conversion): I2FP.F32.S32 4;
+#:   besides 3 loads and a branch (B2), and a uniform and 3 constant loads
+#:   (B1): 111 instructions in all in B2, 106 in B1. The bound takes the
+#:   fewer of the two copies on each pipe and in all: the least the same
+#:   work has compiled to.
+BID_LOOP_CELLS = 4
+BID_ALU, BID_IMAD, BID_F32, BID_CVT, BID_ALL = 43, 31, 20, 4, 106
+#: instructions each pipe of an SM issues per clock on sm_90 (NVIDIA's
+#: arithmetic instruction throughputs, compute capability 9.0): integer,
+#: logic and compare 64; integer multiply 64, on the FMA-heavy half;
+#: float32 add and multiply 128, on both halves; conversions 16; and any
+#: instruction 128 (each of the 4 schedulers issues one warp's a clock)
+ALU_PER_SM_CLOCK, IMAD_PER_SM_CLOCK = 64, 64
+F32_PER_SM_CLOCK, CVT_PER_SM_CLOCK, ISSUE_PER_SM_CLOCK = 128, 16, 128
+
+
+#: the pipe each SASS opcode of the bid loop issues to (its base name, the
+#: text before the first dot); None: a load or branch unit
+SASS_PIPE = {"IMAD": "FMA-heavy", "FMUL": "float32", "FADD": "float32",
+             "FFMA": "float32", "I2FP": "conversion", "I2F": "conversion",
+             "LDG": None, "LD": None, "LDC": None, "ULDC": None, "BRA": None}
+
+
+def sass_loop_counts(lib, kernel: str) -> dict:
+    """The bid loop of ``kernel`` in the built library ``lib``, counted
+    from ``cuobjdump -sass``: the shortest loop (a backward branch and the
+    code it jumps over) with four int->float conversions. Returns its
+    instructions by pipe (``SASS_PIPE``, ALU for the rest) and by
+    opcode."""
+    import collections
+    import os
+    import re
+
+    from tpu_faas_torch.build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs = text.split("Function : ")
+    (body,) = [f for f in funcs[1:] if kernel in f.splitlines()[0]]
+    code = []  # (address, opcode, branch target or None)
+    for line in body.splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)(?:\s+(0x[0-9a-f]+))?", line)
+        if m:
+            target = int(m[3], 16) if m[2].startswith("BRA") and m[3] else None
+            code.append((int(m[1], 16), m[2], target))
+    loops = []
+    for at, op, target in code:
+        if target is not None and target < at:
+            ops = [o for a, o, _ in code if target <= a <= at]
+            if sum(o.startswith("I2F") for o in ops) == 4:
+                loops.append(ops)
+    ops = min(loops, key=len)
+    by_op = collections.Counter(ops)
+    by_pipe = collections.Counter()
+    for o, n in by_op.items():
+        pipe = SASS_PIPE.get(o.split(".")[0], "ALU")
+        if pipe:
+            by_pipe[pipe] += n
+    return {"pipes": dict(by_pipe), "ops": dict(by_op), "n": len(ops)}
+
+
+def log_bid_loops() -> None:
+    """Count the bid loop of B2 and of B1's auction branch in the built
+    libraries and set them beside the bound's constants."""
+    from tpu_faas_torch.build import library_path
+
+    counts = []
+    for lib, kernel in (("bid_top2", "bid_top2_kernel"),
+                        ("fused_tick", "fused_auction_kernel")):
+        c = sass_loop_counts(library_path(lib), kernel)
+        counts.append(dict(c["pipes"], all=c["n"]))
+        log(f"  SASS of {kernel}'s bid loop ({c['n']} instructions per "
+            f"{BID_LOOP_CELLS} cells): by pipe {c['pipes']}; by opcode "
+            f"{c['ops']}")
+    least = {p: min(c.get(p, 0) for c in counts)
+             for p in ("ALU", "FMA-heavy", "float32", "conversion", "all")}
+    want = {"ALU": BID_ALU, "FMA-heavy": BID_IMAD, "float32": BID_F32,
+            "conversion": BID_CVT, "all": BID_ALL}
+    log(f"  the fewer of the two per pipe {least}; the bound's constants "
+        f"{want}" + ("" if least == want else
+                      " -- they differ: recount the constants"))
+
+
+def bid_cell_clocks() -> tuple[float, str]:
+    """SM clocks per (row, slot) cell of the bids on the pipe that binds,
+    and its name: the ALU's, the FMA pipes' (IMAD on the heavy half alone,
+    float32 on either), the conversion's, or the schedulers' issue of
+    every instruction."""
+    per = {
+        "ALU": BID_ALU / ALU_PER_SM_CLOCK,
+        "FMA": max(BID_IMAD / IMAD_PER_SM_CLOCK,
+                   (BID_IMAD + BID_F32) / F32_PER_SM_CLOCK),
+        "conversion": BID_CVT / CVT_PER_SM_CLOCK,
+        "issue": BID_ALL / ISSUE_PER_SM_CLOCK,
+    }
+    pipe = max(per, key=per.get)
+    return per[pipe] / BID_LOOP_CELLS, pipe
+
+
+def bid_pipe_text(clock_hz: float) -> str:
+    clocks, pipe = bid_cell_clocks()
+    return (f"{clocks:.4f} SM clocks a cell on the {pipe} pipe "
+            f"({BID_ALL} instructions per {BID_LOOP_CELLS} cells: {BID_ALU} "
+            f"ALU, {BID_IMAD} IMAD, {BID_F32} float32, {BID_CVT} "
+            f"conversions), "
+            f"{torch.cuda.get_device_properties(0).multi_processor_count} "
+            f"SMs at {clock_hz / 1e9:.3f} GHz")
+
+
+def bid_cells_ms(cells: int, clock_hz: float) -> float:
+    """The least time for ``cells`` bid cells spread over every SM at
+    ``clock_hz``, on the pipe that binds."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return cells * bid_cell_clocks()[0] / (n_sm * clock_hz) * 1e3
 
 
 def bid_inputs(dev, T: int, S: int, seed: int, frac_valid: float = 1.0):
@@ -773,10 +910,11 @@ def bid_inputs(dev, T: int, S: int, seed: int, frac_valid: float = 1.0):
         valid, rng.uniform(0.0, 1.0, S))]
 
 
-def bid_bound_ms(T: int, S: int) -> tuple[float, str]:
-    """The least time for one bid: the larger of its operations at the
-    f32 rate and its bytes (inputs once, outputs once) at the HBM rate."""
-    ops_ms = T * S * BID_OPS_PER_CELL / F32_OPS_PER_S * 1e3
+def bid_bound_ms(T: int, S: int, clock_hz: float) -> tuple[float, str]:
+    """The least time for one bid: the larger of its cells' instructions
+    on the pipe that binds (``bid_cell_clocks``) and its bytes (inputs
+    once, outputs once) at the HBM rate."""
+    ops_ms = bid_cells_ms(T * S, clock_hz)
     bytes_ms = (4 * T + 12 * S + 12 * T) / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -944,15 +1082,16 @@ def phase_auction(dev) -> dict:
 
 
 # -- phase 6: the resident auction (B1's auction branch) ---------------------
-def auction_bound_ms(bid_rows: int, packet: torch.Tensor) -> tuple[float,
-                                                                   str]:
-    """The least time for one resident auction tick: the larger of B2's
-    operations per cell over the (bidder, slot) cells this tick's rounds
-    needed (``bid_rows``, the bidders summed over the rounds, times S) at
-    the f32 rate, and its bytes at the HBM rate: the rank tick's, plus the
-    carried prices read and written, the refresh flag and the aux counts."""
+def auction_bound_ms(bid_rows: int, packet: torch.Tensor,
+                     clock_hz: float) -> tuple[float, str]:
+    """The least time for one resident auction tick: the larger of the
+    bids' instructions on the pipe that binds (``bid_cell_clocks``) over
+    the (bidder, slot) cells this tick's rounds needed (``bid_rows``, the
+    bidders summed over the rounds, times S), and its bytes at the HBM
+    rate: the rank tick's, plus the carried prices read and written, the
+    refresh flag and the aux counts."""
     S = SHAPE["W"] * MAX_SLOTS
-    ops_ms = bid_rows * S * BID_OPS_PER_CELL / F32_OPS_PER_S * 1e3
+    ops_ms = bid_cells_ms(bid_rows * S, clock_hz)
     bytes_ms = (bound_ms(False, packet)
                 + (8 * S + 2 + 12) / HBM_BYTES_PER_S * 1e3)
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
@@ -972,19 +1111,20 @@ def auction_case(seed: int, use_priority: bool, refresh: bool):
 
 def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
                          plain_twin: bool, tenancy: bool = False,
-                         spec: bool = False):
+                         spec: bool = False, nt: int = NT_HEADLINE):
     """The auction kernel against its plain version from the same state,
     and (``plain_twin``) against the plain version with plain bids:
     (mismatched fields and tenancy or avoid-row violations, max abs error,
     rounds, spilled, bidder rows). ``tenancy``, ``spec``: the packet
-    carries that lane."""
+    carries that lane (``nt`` tenant rows)."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
     from tpu_faas_torch.sched.resident import (
         _resident_tick_impl, state_from_numpy,
     )
 
     kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=use_priority,
-              **(TENANCY_KW if tenancy else {}), **(SPEC_KW if spec else {}))
+              **(dict(use_tenancy=True, NT=nt) if tenancy else {}),
+              **(SPEC_KW if spec else {}))
     st_k = state_from_numpy(leaves, dev)
     packet = torch.from_numpy(pkt).to(dev)
     ptrs = [t.data_ptr() for t in st_k]
@@ -1008,19 +1148,54 @@ def compare_auction_tick(dev, leaves, pkt, use_priority: bool, label: str,
         b2, e2 = compare(new_k, new_p, f"{label} vs {twin}: state")
         bad, err = bad + b1 + b2, max(err, e1, e2)
     if tenancy:
-        bad += tenancy_violations(res_k, new_k.tenant, pkt)
+        bad += tenancy_violations(res_k, new_k.tenant, pkt, nt)
     if spec:
         bad += spec_violations(res_k, new_k.avoid)
     return (bad, err, int(res_k.auction_rounds), int(res_k.auction_spilled),
             int(res_k.auction_bid_rows))
 
 
-def phase_auction_kernel(dev) -> dict:
+def few_bidder_case(seed: int):
+    """A warm tick with few bidders: ``auction_case``'s state with carried
+    prices, 13 free slots on live rows and 14 valid tasks (one slot short),
+    and a packet with no deltas, so every round has at most 13 bidders."""
+    leaves, pkt = auction_case(seed, False, refresh=False)
+    rng = np.random.default_rng(100 + seed)
+    T, W = SHAPE["T"], SHAPE["W"]
+    now, tte = np.float32(pkt[0]), np.float32(pkt[8])
+    live = np.flatnonzero(leaves["active"]
+                          & (now - leaves["last_hb"] <= tte))
+    free = np.zeros(W, np.int32)
+    free[rng.choice(live, 13, replace=False)] = 1
+    valid = np.zeros(T, bool)
+    valid[rng.choice(T, 14, replace=False)] = True
+    pkt = pkt.copy()
+    pkt[1:7] = 0
+    return dict(leaves, free=free, valid=valid), pkt
+
+
+def all_bid_case(seed: int):
+    """A cold tick in which every admitted task bids: ``auction_case``'s
+    state from the seed (refresh set), every task valid and every row's
+    slots free, and a packet with no deltas, so the first round's bidders
+    are as many as the live rows' slots."""
+    leaves, pkt = auction_case(seed, False, refresh=True)
+    pkt = pkt.copy()
+    pkt[1:7] = 0
+    return dict(leaves, free=np.full(SHAPE["W"], MAX_SLOTS, np.int32),
+                valid=np.ones(SHAPE["T"], bool)), pkt
+
+
+def phase_auction_kernel(dev, probe) -> dict:
     """B1's auction branch against its plain version on the card, at the
     headline shape: refresh on and off, priority lanes on and off, two
-    seeds; every output and state leaf exactly equal, round and spilled
-    counts included. Seed 0 is also held against the plain version with
-    plain bids."""
+    seeds; a warm tick with few bidders and a cold tick in which every
+    admitted task bids; every output and state leaf exactly equal, round
+    and spilled counts included. Seed 0 is also held against the plain
+    version with plain bids. The few-bidder and every-bidder ticks are also
+    run once on ``probe`` (the probe build) for their round split."""
+    from tpu_faas_torch.sched.resident import state_from_numpy
+
     mismatches, max_err, cases = 0, 0.0, 0
     for refresh in (True, False):
         for use_priority in (False, True):
@@ -1037,11 +1212,85 @@ def phase_auction_kernel(dev) -> dict:
                 mismatches += b
                 max_err = max(max_err, e)
                 cases += 1
+    for label, (leaves, pkt) in (("few bidders", few_bidder_case(3)),
+                                 ("every task bids", all_bid_case(4))):
+        b, e, rounds, spilled, bid_rows = compare_auction_tick(
+            dev, leaves, pkt, False, label, plain_twin=False)
+        packet = torch.from_numpy(pkt).to(dev)
+        sp, bp = auction_split(dev, probe, packet,
+                               state_from_numpy(leaves, dev))
+        log(f"  {label}: rounds {rounds}, spilled {spilled}, bidder rows "
+            f"{bid_rows}, mismatched fields {b + bp}; split (probe build, "
+            f"block 0's clock): {split_text(sp)}; rounds (bidders: bids us) "
+            f"{rounds_text(sp)}")
+        mismatches += b + bp
+        max_err = max(max_err, e)
+        cases += 1
     if mismatches:
         raise SystemExit(f"the auction kernel disagrees with its plain "
                          f"version: {mismatches} mismatched fields")
     log(f"phase auction kernel: {cases} ticks exactly equal")
     return {"mismatches": 0, "max_abs_err": max_err}
+
+
+def auction_split(dev, probe, packet, pre) -> tuple[dict, int]:
+    """One launch of the probe build from ``pre`` (left untouched), beside
+    one of the kernel proper: (the probe's split, fields that differ
+    between the two launches)."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False)
+    res_k, st_k = KERNEL.auction(packet, clone_state(pre), **kw)
+    res_p, st_p = probe.auction(packet, clone_state(pre), **kw)
+    sp = probe.auction_split(dev, SHAPE["T"], SHAPE["W"], MAX_SLOTS)
+    b1, _ = compare(res_p, res_k, "probe build: out")
+    b2, _ = compare(st_p, st_k, "probe build: state")
+    return sp, b1 + b2
+
+
+def resident_auction_split(dev, probe, samples: list) -> dict:
+    """The round split on the resident auction loop's own states: one
+    launch of the probe build each, beside the kernel proper; then each
+    round's parts averaged over every round of those launches, and the bid
+    time of the rounds grouped by their bidders."""
+    splits, bad = [], 0
+    for i, (packet, pre, _) in enumerate(samples):
+        sp, b = auction_split(dev, probe, packet, pre)
+        bad += b
+        splits.append(sp)
+        log(f"  state {i} ({'cold' if bool(pre.refresh) else 'warm'}): "
+            f"{split_text(sp)}")
+        log(f"    rounds (bidders: bids us) {rounds_text(sp)}")
+    rounds = [r for sp in splits for r in sp["rounds"]]
+    means = [statistics.mean(r[i] for r in rounds) * 1e3 for i in range(1, 5)]
+    log(f"  per round, means over the {len(rounds)} rounds of the "
+        f"{len(splits)} states: bids {means[0]:.2f} us, their barrier "
+        f"{means[1]:.2f} us, install+barrier {means[2]:.2f} us, "
+        f"collection+barrier {means[3]:.2f} us")
+    for lo, hi in ((1, 32), (33, 256), (257, 1024), (1025, 1 << 30)):
+        sel = [r[1] * 1e3 for r in rounds if lo <= r[0] <= hi]
+        if sel:
+            log(f"  rounds with {lo}-{min(hi, SHAPE['T'])} bidders: "
+                f"{len(sel)}, bids {statistics.mean(sel):.2f} us mean "
+                f"(min {min(sel):.2f}, max {max(sel):.2f})")
+    return {"mismatches": bad, "splits": splits, "round_means_us": means}
+
+
+def split_text(sp: dict) -> str:
+    """A split with its rounds summed: bids, their barriers, installs and
+    collections (each with its barrier)."""
+    bids, bar, inst, coll = (sum(r[i] for r in sp["rounds"])
+                             for i in range(1, 5))
+    return (f"opening {sp['open']:.4f} ms + seed/rebase {sp['seed']:.4f} ms "
+            f"+ first barrier {sp['start']:.4f} ms; {len(sp['rounds'])} "
+            f"rounds: bids {bids:.4f} ms, their barriers {bar:.4f} ms, "
+            f"install+barrier {inst:.4f} ms, collection+barrier {coll:.4f} "
+            f"ms; close {sp['close']:.4f} ms, fixup/deficit/compaction "
+            f"{sp['end']:.4f} ms; launch {sp['total']:.4f} ms")
+
+
+def rounds_text(sp: dict) -> str:
+    return " ".join(f"{n}:{b * 1e3:.1f}" for n, b, *_ in sp["rounds"])
 
 
 def time_resident_auction(dev, samples: list) -> dict:
@@ -1091,7 +1340,8 @@ def time_resident_auction(dev, samples: list) -> dict:
         raise SystemExit(f"the auction kernel disagrees with its plain "
                          f"version with plain bids on the loop's states: "
                          f"{bad} mismatched fields")
-    bounds = [auction_bound_ms(r, p.cpu()) for p, _, r in samples]
+    clock = sm_clock_hz()
+    bounds = [auction_bound_ms(r, p.cpu(), clock) for p, _, r in samples]
     out = {"ms": statistics.mean(k_ms), "plain_ms": statistics.mean(p_ms),
            "bound_ms": statistics.mean(b for b, _ in bounds),
            "bound_by": statistics.mode(by for _, by in bounds),
@@ -1107,13 +1357,12 @@ def time_resident_auction(dev, samples: list) -> dict:
             f"{statistics.median(bounds[i][0] for i in idx):.4f} ms, plain "
             f"version with plain bids "
             f"{statistics.median(p_ms[i] for i in idx):.1f} ms")
-    every_row = (64 * SHAPE["T"] * SHAPE["W"] * MAX_SLOTS * BID_OPS_PER_CELL
-                 / F32_OPS_PER_S * 1e3)
+    every_row = bid_cells_ms(64 * SHAPE["T"] * SHAPE["W"] * MAX_SLOTS, clock)
     log(f"  auction kernel on the resident auction run's {n} states, means: "
         f"{out['ms']:.4f} ms (min {min(k_ms):.4f}, max {max(k_ms):.4f}); "
         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: bidder rows x "
-        f"{SHAPE['W'] * MAX_SLOTS} slots x {BID_OPS_PER_CELL} ops at "
-        f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s), kernel/bound "
+        f"{SHAPE['W'] * MAX_SLOTS} slots x {bid_pipe_text(clock)}), "
+        f"kernel/bound "
         f"{out['ms'] / out['bound_ms']:.1f}; plain version with plain bids "
         f"{out['plain_ms']:.1f} ms, exactly equal on every state; plain "
         f"tick with B2's bids {statistics.mean(b2_ms):.4f} ms; were every "
@@ -1657,6 +1906,7 @@ def time_bid(dev, n: int) -> dict:
     from tpu_faas_torch.sched.bid import KERNEL, bid_top2_stream_impl
 
     out = {}
+    clock = sm_clock_hz()
     for name, (T, S), seed in (("headline", BID_HEADLINE, 7),
                                ("config3", BID_CONFIG3, 33)):
         args = bid_inputs(dev, T, S, seed)
@@ -1664,14 +1914,15 @@ def time_bid(dev, n: int) -> dict:
         k_ms = event_ms(lambda _: KERNEL(*args, js), n)
         p_ms = event_ms(lambda _: bid_top2_stream_impl(*args, js),
                         max(3, n // 10))
-        bound, by = bid_bound_ms(T, S)
+        bound, by = bid_bound_ms(T, S, clock)
         out[name] = (statistics.median(k_ms), statistics.median(p_ms),
                      bound, by)
         log(f"  bid_top2 {T} x {S}: kernel {out[name][0]:.4f} ms (min "
             f"{min(k_ms):.4f}), plain version on the card "
             f"{out[name][1]:.4f} ms, bound {bound:.4f} ms ({by}: "
-            f"{BID_OPS_PER_CELL} ops/cell at {F32_OPS_PER_S / 1e12:.0f} "
-            f"TFLOP/s), kernel/bound {out[name][0] / bound:.2f}")
+            f"{bid_pipe_text(clock)}), kernel/bound "
+            f"{out[name][0] / bound:.2f}, the kernel at "
+            f"{100 * bound / out[name][0]:.1f}% of its bound")
     return out
 
 
@@ -1716,14 +1967,15 @@ def tenant_table(total_slots: int):
     return ten
 
 
-def with_tenancy(leaves: dict, pkt: np.ndarray, rng, use_priority: bool):
-    """``random_case``'s state and packet with the tenancy lane at
-    NT_HEADLINE rows: tenant rows in the state over every row and past both
-    ends; deficits on both sides of the starvation threshold (1,024) and at
-    the cap (4,096); in the arrival lane rows past both ends, a NaN, a
-    saturating and two truncating values; caps of 0 (uncapped), at
-    ``ahead``, below it and above it."""
-    T, KA, NT = SHAPE["T"], SHAPE["KA"], NT_HEADLINE
+def with_tenancy(leaves: dict, pkt: np.ndarray, rng, use_priority: bool,
+                 NT: int = NT_HEADLINE):
+    """``random_case``'s state and packet with the tenancy lane at ``NT``
+    rows (NT_HEADLINE by default): tenant rows in the state over every row
+    and past both ends; deficits on both sides of the starvation threshold
+    (1,024) and at the cap (4,096); in the arrival lane rows past both
+    ends, a NaN, a saturating and two truncating values; caps of 0
+    (uncapped), at ``ahead``, below it and above it."""
+    T, KA = SHAPE["T"], SHAPE["KA"]
     f32 = np.float32
     leaves = dict(
         leaves, tenant=rng.integers(-2, NT + 2, T).astype(np.int32),
@@ -1747,11 +1999,11 @@ def with_tenancy(leaves: dict, pkt: np.ndarray, rng, use_priority: bool):
     return leaves, pkt
 
 
-def tenancy_violations(res, tenant_leaf: torch.Tensor, pkt) -> int:
+def tenancy_violations(res, tenant_leaf: torch.Tensor, pkt,
+                       NT: int = NT_HEADLINE) -> int:
     """Tenants one launch placed past their allowance (cap minus inflight
     off the packet's tail, for the capped ones), plus placed tasks outside
     the launch's eligibility mask."""
-    NT = NT_HEADLINE
     tail = np.asarray(pkt, np.float32)[-3 * NT:].astype(np.int64)
     ahead, cap = tail[NT : 2 * NT], tail[2 * NT :]
     slots = res.placed_slots[res.placed_slots >= 0].long()
@@ -1882,6 +2134,38 @@ def phase_resident_tenancy(dev, card: str) -> dict:
                 f"{lane[name][0]:.4f} ms, on {lane[name][1]:.4f} ms "
                 f"(+{lane[name][1] - lane[name][0]:.4f} ms), medians of "
                 f"{n} [{card}]")
+    # tenant rows past the 1,024 block 0 counts in shared memory: their
+    # counts live in global scratch; rank and auction exactly equal
+    rng = np.random.default_rng(24)
+    base, bpkt = random_case(rng, False, now=100.0)
+    leaves, pkt = with_tenancy(base, bpkt, rng, False, NT=NT_WIDE)
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False,
+              use_tenancy=True, NT=NT_WIDE)
+    packet = torch.from_numpy(pkt).to(dev)
+    res_p, new_p = _resident_tick_impl(
+        packet, state_from_numpy(leaves, dev), **kw)
+    res_k, new_k = KERNEL(packet, state_from_numpy(leaves, dev),
+                          flush=False, **kw)
+    torch.cuda.synchronize()
+    b1, e1 = compare(res_k, res_p, f"tenancy NT={NT_WIDE} rank out")
+    b2, e2 = compare(new_k, new_p, f"tenancy NT={NT_WIDE} rank state")
+    over = tenancy_violations(res_k, new_k.tenant, pkt, NT_WIDE)
+    bad["rank"] += b1 + b2 + over
+    err["rank"] = max(err["rank"], e1, e2)
+    aleaves = dict(leaves,
+                   price=(rng.integers(0, 64, SHAPE["W"] * MAX_SLOTS)
+                          / 16).astype(np.float32),
+                   refresh=np.asarray(True))
+    b, e, rounds, spilled, rows = compare_auction_tick(
+        dev, aleaves, pkt, False, f"tenancy auction NT={NT_WIDE}",
+        plain_twin=False, tenancy=True, nt=NT_WIDE)
+    bad["auction"] += b
+    err["auction"] = max(err["auction"], e)
+    log(f"  NT={NT_WIDE} tenant rows: rank placed "
+        f"{int((res_k.placed_slots >= 0).sum())}, deficits "
+        f"{int((new_k.t_deficit > 0).sum())} of {NT_WIDE} positive, "
+        f"mismatched fields and violations {b1 + b2 + over}; auction rounds "
+        f"{rounds}, bidder rows {rows}, mismatched fields and violations {b}")
     total = sum(bad.values())
     if total:
         raise SystemExit(f"the tenancy lane disagrees with its plain "
@@ -2236,16 +2520,22 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, device {kind}")
     t0 = time.perf_counter()
-    kernels = (fused_tick.KERNEL, bid.KERNEL)
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
+    # the probe build: the fused tick with the auction's phase stamps
+    probe = fused_tick.FusedTickKernel(probe=True)
+    kernels = (fused_tick.KERNEL, probe, bid.KERNEL)
+    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per build
         for f in [pool.submit(k.load) for k in kernels]:
             f.result()
-    log(f"phase build: fused_tick and bid_top2 built in "
+    log(f"phase build: fused_tick, its probe build and bid_top2 built in "
         f"{time.perf_counter() - t0:.1f} s")
     for k in kernels:
+        name = k.name + (" (probe)" if k is probe else "")
         for line in k.ptxas_report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {k.name}: {line.strip()}")
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Function properties")):
+                log(f"  ptxas {name}: {line.strip()}")
+
+    log_bid_loops()
 
     rk = phase_kernel(dev)
     fused_tick.KERNEL.launches = 0  # count the main path alone
@@ -2266,7 +2556,7 @@ def main() -> int:
     assert bid_launches > 0, "the auction path never launched bid_top2"
     log(f"  B2 launches on the auction path: {bid_launches} in "
         f"{ra['ticks']} ticks, rounds per tick {ra['rounds']}")
-    rka = phase_auction_kernel(dev)
+    rka = phase_auction_kernel(dev, probe)
     fused_tick.KERNEL.launches = 0  # count the resident auction loop alone
     fused_tick.KERNEL.auction_launches = 0
     rra = phase_resident(dev, N_AUCTION_TICKS, N_AUCTION_TIMED,
@@ -2280,6 +2570,8 @@ def main() -> int:
         f"{statistics.median(rra['launch_ms']):.4f} ms, medians of "
         f"{len(rra['tick_ms'])} ticks; auction launches {auction_launches} "
         f"[{card}]")
+    log(f"  round split of the loop's states (probe build) [{card}]:")
+    rsa = resident_auction_split(dev, probe, rra["samples"])
     rks = phase_sinkhorn_kernel(dev)
     fused_tick.KERNEL.launches = 0  # count the resident Sinkhorn loop alone
     fused_tick.KERNEL.sinkhorn_launches = 0
@@ -2329,7 +2621,7 @@ def main() -> int:
                  "replaces": fused_tick.AUCTION_REPLACES,
                  "launches": auction_launches,
                  "mismatches": (rka["mismatches"] + rra["mismatches"]
-                                + ta["mismatches"]
+                                + rsa["mismatches"] + ta["mismatches"]
                                 + rt["mismatches"]["auction"]),
                  "max_abs_err": max(rka["max_abs_err"], rra["max_abs_err"],
                                     ta["max_abs_err"],

@@ -180,6 +180,79 @@ def test_empty_shapes():
     assert (got[0] == -np.inf).all() and (got[1] == 0).all()
 
 
+def _split_case(kind, S, edge):
+    """Inputs for the chunk-merge cases: 64 rows over S slots."""
+    rng = np.random.default_rng(hash(kind) % 2**32)
+    ts, inv, valid, price = _inputs(rng, 64, S)
+    scale = f32(2.5e-4)
+    if kind == "duplicate max at a chunk edge":
+        # zero jitter keeps the tie: slots edge-1 and edge share the max
+        ts, inv, valid = np.ones(64, f32), np.ones(S, f32), np.ones(S, f32)
+        price = np.ones(S, f32)
+        price[[edge - 1, edge]] = 0.0
+        scale = f32(0.0)
+    elif kind == "all slots invalid":
+        valid = np.zeros(S, f32)
+    elif kind == "one valid slot":
+        valid = np.zeros(S, f32)
+        valid[S // 2 + 3] = 1.0
+    elif kind == "signed zero sizes":
+        ts[::2], ts[1::4] = 0.0, -0.0
+    elif kind == "NaN sizes":
+        ts[::5] = np.nan
+    return (ts, inv, valid, price), scale
+
+
+@pytest.mark.parametrize("kind", [
+    "random", "duplicate max at a chunk edge", "all slots invalid",
+    "one valid slot", "signed zero sizes", "NaN sizes",
+])
+@pytest.mark.parametrize("C", [1, 2, 3, 7, 128])
+def test_chunk_merge_matches_jax_in_any_order(kind, C):
+    """The auction branch splits a round's slots into C chunks, sweeps each
+    in its own warp and merges the chunks' top-2s with the kernel's merge
+    (``bid.merge_top2``). Here the plain top-2 of each chunk (its last
+    chunk ragged), merged in shuffled orders, must equal JAX's
+    ``bid_top2_xla`` over all the slots exactly. A NaN size makes every
+    valid cell NaN: the kernel's sweep skips NaN cells, so the row gets
+    (-inf, 0, -inf), as a row with no valid slot, in every order; JAX's v1
+    is NaN. Neither bids (the auction bids only on a finite v1)."""
+    S = 4201  # every C gives C chunks, the last ragged
+    L = -(-S // C)
+    edge = L if C > 1 else S // 2
+    (ts, inv, valid, price), scale = _split_case(kind, S, edge)
+    want = _jax(jpk.bid_top2_xla, (ts, inv, valid, price), scale)
+    t = [torch.from_numpy(a) for a in (ts, inv, valid, price)]
+    rows = torch.arange(64, dtype=torch.int64)[:, None]
+    parts = []
+    for lo in range(0, S, L):
+        hi = min(lo + L, S)
+        val = bid._bid_block(t[0][:, None], t[1][None, lo:hi],
+                             t[3][None, lo:hi], t[2][None, lo:hi], rows,
+                             torch.arange(lo, hi)[None], float(scale), S)
+        # the kernel's sweep never takes a NaN cell
+        val = torch.where(torch.isnan(val), float("-inf"), val)
+        parts.append(bid._top2_block(val, lo))
+    assert len(parts) == C and (C == 1 or hi - lo < L)
+    nan_rows = np.isnan(ts)
+    rng = np.random.default_rng(C)
+    for _ in range(4):
+        acc = (torch.full((64,), float("-inf")),
+               torch.zeros(64, dtype=torch.int32),
+               torch.full((64,), float("-inf")))
+        for k in rng.permutation(len(parts)):
+            acc = bid.merge_top2(acc, parts[k])
+        got = [a.numpy() for a in acc]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[~nan_rows], w[~nan_rows])
+        assert (got[0][nan_rows] == -np.inf).all()
+        assert (got[1][nan_rows] == 0).all()
+        assert (got[2][nan_rows] == -np.inf).all()
+        assert np.isnan(want[0][nan_rows]).all()
+    if kind == "duplicate max at a chunk edge":
+        assert (got[1] == edge - 1).all() and np.array_equal(got[0], got[2])
+
+
 def test_wrapper_validates_kernel_inputs():
     """The CUDA wrapper checks device, dtype, shape and contiguity before
     it builds or launches anything; other devices raise."""

@@ -97,6 +97,21 @@ def test_tenancy_tick_matches_fused_kernel(seed, placement, use_priority):
     assert elig.any() and not elig.all()
 
 
+@pytest.mark.parametrize("placement", PLACEMENTS)
+def test_wide_tenancy_tick_matches_fused_kernel(placement):
+    """More tenant rows than the kernel's block 0 counts in shared memory
+    (1,024; past it the counts live in global scratch): the port's tick
+    with NT = 1,100 against the TPU kernel under the Pallas interpreter."""
+    leaves, packet, statics = _tenancy_case(5, False, placement, NT=1100)
+    want, wst, got, gst = _tick_both(leaves, packet, statics, placement)
+    for field in want._fields:
+        np.testing.assert_array_equal(tres.to_host(getattr(got, field)),
+                                      np.asarray(getattr(want, field)),
+                                      err_msg=field)
+    _assert_state_matches(wst, gst)
+    assert (np.asarray(want.placed_slots) >= 0).any()
+
+
 @pytest.mark.parametrize("use_priority", [False, True])
 def test_tenancy_flush_matches_jax(use_priority):
     """The flush path's tenant arrival lane, against JAX's flush."""
@@ -210,9 +225,15 @@ def test_resident_tenant_packet_roundtrip(KA):
                                   np.asarray(j._r_state.tenant))
 
 
-def test_tenancy_wrapper_checks_before_building():
-    """The CUDA wrapper checks the packet's tenancy length, the tenant
-    leaves and the NT limit before it builds or launches anything."""
+class _Built(Exception):
+    """Raised in place of the build: every check before it passed."""
+
+
+def test_tenancy_wrapper_checks_before_building(monkeypatch):
+    """The CUDA wrapper checks the packet's tenancy length and the tenant
+    leaves before it builds or launches anything, and takes tenant rows
+    past 1,024 (NT = 4,096): their counts live in global scratch on the
+    card."""
     leaves, packet, statics = _tenancy_case(3, False, "rank")
     st = tres.state_from_numpy(leaves, "cpu")
     kernel = fused_tick.FusedTickKernel()
@@ -221,12 +242,43 @@ def test_tenancy_wrapper_checks_before_building():
     with pytest.raises(ValueError, match="t_deficit"):
         kernel(torch.from_numpy(packet), st._replace(
             t_deficit=st.t_deficit[:-1]), flush=False, **statics)
-    big = dict(statics, NT=fused_tick.MAX_TENANTS + 1)
-    pad = np.zeros(3 * (big["NT"] - statics["NT"]), f32)
-    with pytest.raises(ValueError, match="tenant rows"):
-        kernel(torch.from_numpy(np.concatenate([packet, pad])), st,
-               flush=False, **big)
     assert kernel.launches == 0 and kernel._fn is None
+
+    def built():
+        raise _Built
+
+    monkeypatch.setattr(kernel, "load", built)
+    big = dict(statics, NT=4096)
+    pad = np.zeros(3 * (big["NT"] - statics["NT"]), f32)
+    wide = st._replace(t_deficit=torch.zeros(big["NT"]))
+    for call in (lambda p: kernel(p, wide, flush=False, **big),
+                 lambda p: kernel.auction(p, wide, **big)):
+        with pytest.raises(_Built):
+            call(torch.from_numpy(np.concatenate([packet, pad])))
+    assert kernel.launches == 0 and kernel.auction_launches == 0
+
+
+@pytest.mark.parametrize("NT,match", [
+    (0, "at least 1 tenant row"),
+    (-3, "at least 1 tenant row"),
+    # (NT + 1) * T past 2^31 - 1 with _case's T = 128
+    (2**31 // 128, "overflows the int32 segment key"),
+])
+def test_tenancy_wrapper_refuses_tenant_rows(NT, match):
+    """NT below 1, and NT whose segment key ``(NT + 1) * T`` overflows
+    int32, are refused before the packet is read or anything is built."""
+    leaves, packet, statics = _tenancy_case(3, False, "rank")
+    st = tres.state_from_numpy(leaves, "cpu")
+    kernel = fused_tick.FusedTickKernel()
+    for call in (lambda: kernel(torch.from_numpy(packet), st, flush=False,
+                                **dict(statics, NT=NT)),
+                 lambda: kernel.auction(torch.from_numpy(packet), st,
+                                        **dict(statics, NT=NT)),
+                 lambda: kernel.sinkhorn(torch.from_numpy(packet), st,
+                                         **dict(statics, NT=NT))):
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert kernel._fn is None
 
 
 @pytest.mark.cuda

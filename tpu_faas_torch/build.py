@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 plain-C shared library under ``csrc/build/`` (listed in ``.gitignore``),
 named by a hash of its source, of every ``csrc`` header it includes
 (``#include "name.cuh"``, followed through headers that include others)
-and of the flags, so an unchanged source is built once per checkout and a
-changed source or header never loads a stale library. The
+and of the flags (a probe build's ``-D`` defines among them), so an
+unchanged source is built once per checkout and a changed source or header
+never loads a stale library. The
 libraries are loaded with ``ctypes``; :func:`check_arg` is the check each
 wrapper makes on a tensor before it hands the kernel a raw pointer.
 """
@@ -60,21 +61,26 @@ def _sources(path: Path, seen: dict[Path, bytes]) -> None:
             _sources(dep, seen)
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     seen: dict[Path, bytes] = {}
     _sources(CSRC / f"{name}.cu", seen)
     h = hashlib.sha256()
     for path, text in seen.items():
         h.update(path.name.encode() + b"\0" + text + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns the
-    library path and nvcc's ptxas report (empty for a library that was
-    already built). Raises if the build fails."""
-    lib = library_path(name)
+def build(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
+    unless its library exists. Returns the library path and nvcc's ptxas
+    report (empty for a library that was already built). Raises if the
+    build fails."""
+    lib = library_path(name, defines)
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,7 +88,8 @@ def build(name: str) -> tuple[Path, str]:
     # source at once never load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", tmp,
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:

@@ -56,7 +56,7 @@ bid_top2_kernel(const float* __restrict__ size,
   float v1[kRows], v2[kRows];
   int best[kRows];
   tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, inv_speed, valid, price,
-                                 jitter, S, v1, best, v2);
+                                 jitter, 0, S, v1, best, v2);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int t = t0 + r;

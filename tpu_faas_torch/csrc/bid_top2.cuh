@@ -3,14 +3,15 @@
 // (fused_tick.cu), so both bid with the same code.
 //
 // For each of ROWS task rows it computes the best value v1, its first
-// argmax slot `best` and the runner-up v2 of
+// argmax slot `best` and the runner-up v2, over the slots [s_lo, s_hi), of
 //
 //     v[t,s] = -size[t]*inv_speed[s] + u(t,s)*jitter - price[s]
 //
 // (-inf where valid[s] == 0), where u is the Wang hash of the uint32 cell
 // index row_base[r] + s, shifted right by 8 and scaled by 2^-24:
-//   - lane l walks slots l, l+32, ... in increasing order, so the three slot
-//     loads of a step are coalesced and cached, and each load feeds ROWS
+//   - lane l walks slots s_lo+l, s_lo+l+32, ... in increasing order, so the
+//     three slot loads of a step are coalesced and cached, and each load
+//     feeds ROWS
 //     independent hash chains (ILP);
 //   - each lane keeps a running top-2 per row: if v > v1 then
 //     (v2, v1, best) = (v1, v, s), else v2 = max(v2, v) -- the first argmax
@@ -24,6 +25,13 @@
 // nothing into an FMA and the result equals the plain version
 // (tpu_faas_torch/sched/bid.py::bid_top2_stream_impl) bit for bit.
 // A row whose slots are all invalid gives v1 = v2 = -inf and best = 0.
+//
+// Top-2 results over disjoint slot sets merge exactly in any order and any
+// grouping (`merge`): v1 is the maximum with ties to the lower slot, v2 the
+// largest of the runner-ups and of the maxima that lose, and fmaxf/fminf
+// drop a NaN in every order. So a row's slots may be split into chunks, each
+// swept by its own warp, and the chunks' results merged: the outcome equals
+// one warp's sweep over [0, S) bit for bit.
 
 #pragma once
 
@@ -52,14 +60,25 @@ __device__ __forceinline__ void merge(float& v1, int& b, float& v2, float v1b,
   }
 }
 
-// The top-2 of ROWS rows over slots [0, S), in every lane of the calling
-// warp. neg_size[r] is -size of row r; row_base[r] its hash base, the
-// uint32 product (global row id) * n_slots_total.
+// Merge every lane's (v1, b, v2) into the warp's, in every lane.
+__device__ __forceinline__ void warp_merge(float& v1, int& b, float& v2) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o1 = __shfl_xor_sync(0xffffffffu, v1, off);
+    const int ob = __shfl_xor_sync(0xffffffffu, b, off);
+    const float o2 = __shfl_xor_sync(0xffffffffu, v2, off);
+    merge(v1, b, v2, o1, ob, o2);
+  }
+}
+
+// The top-2 of ROWS rows over slots [s_lo, s_hi), in every lane of the
+// calling warp. neg_size[r] is -size of row r; row_base[r] its hash base,
+// the uint32 product (global row id) * n_slots_total.
 template <int ROWS>
 __device__ __forceinline__ void warp_top2(
     const float (&neg_size)[ROWS], const uint32_t (&row_base)[ROWS],
     const float* inv_speed, const float* valid, const float* price,
-    float jitter, int S, float (&v1)[ROWS], int (&best)[ROWS],
+    float jitter, int s_lo, int s_hi, float (&v1)[ROWS], int (&best)[ROWS],
     float (&v2)[ROWS]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -68,7 +87,7 @@ __device__ __forceinline__ void warp_top2(
     v2[r] = -CUDART_INF_F;
     best[r] = 0;
   }
-  for (int s = lane; s < S; s += 32) {
+  for (int s = s_lo + lane; s < s_hi; s += 32) {
     const float inv = inv_speed[s];
     const float p = price[s];
     const bool ok = valid[s] > 0.0f;
@@ -89,15 +108,7 @@ __device__ __forceinline__ void warp_top2(
     }
   }
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o1 = __shfl_xor_sync(0xffffffffu, v1[r], off);
-      const int ob = __shfl_xor_sync(0xffffffffu, best[r], off);
-      const float o2 = __shfl_xor_sync(0xffffffffu, v2[r], off);
-      merge(v1[r], best[r], v2[r], o1, ob, o2);
-    }
-  }
+  for (int r = 0; r < ROWS; ++r) warp_merge(v1[r], best[r], v2[r]);
 }
 
 }  // namespace tpu_faas_bid

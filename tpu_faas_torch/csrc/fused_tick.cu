@@ -32,7 +32,9 @@
 //      turn on the first-argmax live row with slots left, never its avoid
 //      row (a block-wide argmax: ties to the lower row, NaN the maximum);
 //   4. with tenancy, the deficit carry on block 0 from the final assignment
-//      (integer shared-memory counts; the share sum is ONE float64 running
+//      (integer counts per tenant, in shared memory up to 1,024 tenant rows
+//      and in the wrapper's global scratch past that, so NT is bounded only
+//      by the int32 segment key; the share sum is ONE float64 running
 //      sum in index order, rounded once, as the plain version takes it);
 //   5. compaction: the first KP placements (clearing their valid bit and
 //      taking their free slot on the device), and n_pending.
@@ -56,8 +58,10 @@
 //     carried refresh flag is set, else the carried prices re-based;
 //   - then at most warm_rounds bidding rounds across the whole grid while an
 //     admitted task has no slot. Each round: every bidder's top-2 bid with
-//     the code of kernel B2 (bid_top2.cuh), one warp per 4 bidders; each
-//     bid an atomicMin on its slot's 64-bit key (order-preserving bits of
+//     the code of kernel B2 (bid_top2.cuh), spread over the grid's warps as
+//     (4 bidders, slot chunk) work items when bidders are few, the chunks'
+//     partial top-2s merged exactly by the group's last warp (bid_round);
+//     each bid an atomicMin on its slot's 64-bit key (order-preserving bits of
 //     -bid_price, then the task index, so the highest bid wins and a tie goes
 //     to the lower task, as the plain version's lexsort decides); a grid
 //     barrier; every won slot evicts its previous owner and installs the
@@ -83,9 +87,12 @@
 // What bounds them on this card. Rank: a few MB of state, packet and sort
 // traffic, a few microseconds of HBM time; the single-SM design runs at one
 // SM's share of the memory system and is latency-bound on its ~400
-// block-wide barriers per tick. Auction: the bids, 18 operations per
-// (bidder, slot) cell at the float32 rate; the grid holds every SM for the
-// rounds, but the block-0 phases and the serial seed leave the rest idle.
+// block-wide barriers per tick. Auction: the bids' instructions per
+// (bidder, slot) cell on the integer pipe (the Wang hash, the index and the
+// compares: 64 a clock per SM, against 128 for float32), the int->float
+// conversion on its 16-a-clock pipe besides; a round spreads its cells over
+// every warp of the grid, so it costs its cells plus three grid barriers,
+// but the block-0 phases and the serial seed leave the rest idle.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Interface: plain C (ctypes), launches on the given stream, allocates nothing,
@@ -106,10 +113,31 @@ constexpr int NWARP = NT / 32;
 constexpr int RADIX = 256;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int HEADER = 9;
-constexpr int kRows = 4;          // bidders per warp in a bidding round
+constexpr int kRows = 4;          // bidders per work item of a bidding round
+constexpr int kMinChunk = 256;    // fewest slots a work item sweeps
+constexpr int kMaxItems = 8192;   // work items that keep a partial top-2
 constexpr unsigned long long kNoBid = ~0ull;
-constexpr int kMaxTenants = 1024; // tenancy: one shared-memory word each
+constexpr int kSmemTenants = 1024;  // tenancy: rows counted in shared memory
 constexpr int kFixupK = 64;       // speculation: vetoed rows re-placed a tick
+
+// The auction's phase stamps (a probe build, -DTPU_FAAS_PROBE, alone writes
+// them; the layout exists in every build): 0 start, 1 packet, liveness and
+// tenancy admission, 2 the opening (slot sort, seed or rebase), 3 the first
+// grid barrier; then per round r < kStampRounds five words from
+// kStampRound + 5r: the round's bidders, the last block's end of its bids
+// (the largest clock over the blocks), and block 0's clock after the bids'
+// barrier, after the install pass and its barrier, and after the bidder
+// collection and its barrier; then the close (spill, refresh) and the end
+// (fixup, deficit, compaction).
+constexpr int kStampRounds = 64;
+constexpr int kStampRound = 4;
+constexpr int kStampClose = kStampRound + 5 * kStampRounds;
+constexpr int kAuStamps = kStampClose + 2;
+#ifdef TPU_FAAS_PROBE
+#define PROBE(...) __VA_ARGS__
+#else
+#define PROBE(...)
+#endif
 
 struct Dims {
   int T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, K, use_priority, flush;
@@ -165,6 +193,11 @@ struct Auction {
   float* bid;            // [T] this round's bid price of each bidder
   int32_t* list[2];      // [T] bidders of even and odd rounds
   int32_t* cnt;          // [2] their counts
+  float* part_v1;        // [kMaxItems kRows] a round's partial top-2 per
+  int32_t* part_b;       //   work item and row: v1, best, v2
+  float* part_v2;
+  int32_t* ticket;       // [kMaxItems] work items done per bidder group
+  unsigned long long* stamps;  // [kAuStamps] phase clocks (probe build)
   float eps, jitter;
   int warm_rounds;
 };
@@ -172,7 +205,7 @@ struct Auction {
 // The tenancy lane's leaves, packet tail, output and scratch.
 struct Tenancy {
   int on;                  // use_tenancy
-  int n;                   // NT: tenant rows, at most kMaxTenants
+  int n;                   // NT: tenant rows
   int32_t* tenant;         // [T] state leaf: dense tenant row per task
   float* deficit;          // [n] state leaf: per-tenant deficit carry
   const float* share;      // [n] packet tail: weights
@@ -180,6 +213,8 @@ struct Tenancy {
   const float* cap;        // [n] packet tail: inflight ceilings, 0 = none
   uint8_t* elig;           // [T] output: the placement's valid set
   int32_t* adm_rank;       // [T] scratch: j, then the admission position
+  int32_t* cnt;            // [n] scratch: segment starts, then placed counts
+  uint8_t* demand;         // [n] scratch: an eligible task this tick
   float starve_deficit, deficit_cap;
   int starve_boost;
 };
@@ -200,8 +235,8 @@ struct Smem {
   int bucket[RADIX];         // running start of each digit's bucket
   int trivial[4];            // pass p has one digit for every key
   int scan[NWARP];           // block scan scratch
-  int ten_cnt[kMaxTenants];  // tenancy: segment starts, then placed counts
-  uint8_t ten_demand[kMaxTenants];  // tenancy: an eligible task this tick
+  int ten_cnt[kSmemTenants];  // tenancy: Tenancy::cnt, for n <= kSmemTenants
+  uint8_t ten_demand[kSmemTenants];  // ... and Tenancy::demand
   float ten_wsum;            // tenancy: the share sum
   float arg_v[NWARP];        // speculation: each warp's argmax value
   int arg_i[NWARP];          //   ... and row
@@ -226,6 +261,12 @@ __device__ __forceinline__ uint32_t float_key(float x) {
 }
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 // torch's clamp_min(x, m) on a float: NaN stays NaN, a tie keeps x
 __device__ __forceinline__ float clamp_min(float x, float m) {
@@ -572,8 +613,22 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
 }
 
+// The per-tenant words: shared memory for up to kSmemTenants rows, else the
+// wrapper's global scratch. One code path serves both: the generic pointers
+// take plain loads, stores and atomicAdd in either space.
+struct TenantWords {
+  int32_t* cnt;
+  uint8_t* demand;
+};
+
+__device__ __forceinline__ TenantWords tenant_words(const Tenancy& tn,
+                                                    Smem& sm) {
+  if (tn.n <= kSmemTenants) return TenantWords{sm.ten_cnt, sm.ten_demand};
+  return TenantWords{tn.cnt, tn.demand};
+}
+
 // tenant_fair_admission_impl on one block: tn.elig (the placement's valid
-// set), sm.ten_demand and, with `order` (rank placement), tn.adm_rank: the
+// set), the demand words and, with `order` (rank placement), tn.adm_rank: the
 // position of each eligible task in the admission order (eligible first,
 // -eff_prio ascending, v ascending, index ascending); the ineligible tasks'
 // positions are never read. Ends with a barrier.
@@ -582,7 +637,8 @@ __device__ void tenancy_admit(const Dims& D, const State& st,
                               bool order, Smem& sm) {
   const int tid = threadIdx.x;
   const int T = D.T, N = tn.n;
-  for (int i = tid; i < N; i += NT) sm.ten_demand[i] = 0;
+  const TenantWords tw = tenant_words(tn, sm);
+  for (int i = tid; i < N; i += NT) tw.demand[i] = 0;
   // the FCFS rank j within each tenant's valid backlog: one stable sort on
   // the segment (the tenant, N for invalid rows), j = position - start
   for (int t = tid; t < T; t += NT) {
@@ -597,7 +653,7 @@ __device__ void tenancy_admit(const Dims& D, const State& st,
   for (int i = tid; i < T; i += NT) {
     const uint32_t g = seg[i];
     if (g < static_cast<uint32_t>(N) && (i == 0 || seg[i - 1] != g))
-      sm.ten_cnt[g] = i;
+      tw.cnt[g] = i;
   }
   __syncthreads();
   // the inflight-cap eligibility: j below the tenant's allowance
@@ -606,11 +662,11 @@ __device__ void tenancy_admit(const Dims& D, const State& st,
     const int t = by_seg[i];
     bool e = false;
     if (g < static_cast<uint32_t>(N)) {
-      const int j = i - sm.ten_cnt[g];
+      const int j = i - tw.cnt[g];
       const int cap = f2i(tn.cap[g]);
       const int allow = cap > 0 ? max(wrap_sub(cap, f2i(tn.ahead[g])), 0) : T;
       e = j < allow;
-      if (e) sm.ten_demand[g] = 1;
+      if (e) tw.demand[g] = 1;
       tn.adm_rank[t] = j;
     }
     tn.elig[t] = e ? 1 : 0;
@@ -660,35 +716,36 @@ __device__ void tenancy_admit(const Dims& D, const State& st,
 __device__ void tenancy_deficit(const Dims& D, const Tenancy& tn,
                                 const int32_t* assign, Smem& sm) {
   const int tid = threadIdx.x, N = tn.n;
-  for (int i = tid; i < N; i += NT) sm.ten_cnt[i] = 0;
+  const TenantWords tw = tenant_words(tn, sm);
+  for (int i = tid; i < N; i += NT) tw.cnt[i] = 0;
   __syncthreads();
   int mine = 0;
   for (int t = tid; t < D.T; t += NT) {
     if (assign[t] >= 0) {
-      atomicAdd(&sm.ten_cnt[tenant_row(tn, t)], 1);
+      atomicAdd(&tw.cnt[tenant_row(tn, t)], 1);
       ++mine;
     }
   }
   int total;
-  block_exclusive_scan(mine, &total, sm);  // also the barrier for ten_cnt
+  block_exclusive_scan(mine, &total, sm);  // also the barrier for tw.cnt
   if (tid == 0) {
     // w.sum(): ONE float64 running sum in index order, rounded once
     double acc = 0.0;
     for (int i = 0; i < N; ++i)
-      acc += sm.ten_demand[i] ? static_cast<double>(clamp_min(tn.share[i], 1e-6f))
-                              : 0.0;
+      acc += tw.demand[i] ? static_cast<double>(clamp_min(tn.share[i], 1e-6f))
+                          : 0.0;
     sm.ten_wsum = static_cast<float>(acc);
   }
   __syncthreads();
   const float wsum = clamp_min(sm.ten_wsum, 1e-9f);
   for (int i = tid; i < N; i += NT) {
     float d = 0.0f;
-    if (sm.ten_demand[i]) {
+    if (tw.demand[i]) {
       const float w = clamp_min(tn.share[i], 1e-6f);
       const float entitled =
           __fmul_rn(__fdiv_rn(w, wsum), static_cast<float>(total));
       d = __fsub_rn(__fadd_rn(tn.deficit[i], entitled),
-                    static_cast<float>(sm.ten_cnt[i]));
+                    static_cast<float>(tw.cnt[i]));
       d = clamp_max(clamp_min(d, 0.0f), tn.deficit_cap);
     }
     tn.deficit[i] = d;
@@ -999,14 +1056,59 @@ __device__ int auction_open(const Dims& D, const State& st, const Out& out,
 }
 
 // ---- the auction: one bidding round's bids (whole grid) -------------------
+// One bidder's bid (auction.py's round): the increment v1 - v2 + eps (1 + eps
+// when a single slot is valid), the bid price over the slot's price, and the
+// 64-bit atomicMin on the slot's key. A row with no valid slot (v1 = -inf)
+// does not bid.
+__device__ __forceinline__ void issue_bid(const Auction& au, int row, float v1,
+                                          int best, float v2) {
+  if (!isfinite(v1)) return;
+  const float incr =
+      __fadd_rn(isfinite(v2) ? __fsub_rn(v1, v2) : 1.0f, au.eps);
+  const float bp = __fadd_rn(au.price[best], incr);
+  au.bid[row] = bp;
+  const unsigned long long key =
+      (static_cast<unsigned long long>(float_key(-bp)) << 32) |
+      static_cast<uint32_t>(row);
+  atomicMin(au.slot_bid + best, key);
+}
+
+// The round's work split, the same in every block (it depends on n_bid and
+// the grid alone): groups of kRows bidders, and chunks of `len` slots (a
+// multiple of 32, at least kMinChunk) so that groups x chunks fills the
+// grid's warps when bidders are few.
+struct BidPlan {
+  int groups, chunks, len;
+};
+
+__device__ __forceinline__ BidPlan bid_plan(int n_bid, int S) {
+  const int warps = min(static_cast<int>(gridDim.x) * NWARP, kMaxItems);
+  const int groups = (n_bid + kRows - 1) / kRows;
+  const int most = max((S + kMinChunk - 1) / kMinChunk, 1);
+  const int chunks = min(max(warps / groups, 1), most);
+  const int len = max((((S + chunks - 1) / chunks) + 31) & ~31, 32);
+  return BidPlan{groups, (S + len - 1) / len, len};
+}
+
+// Every bidder's top-2 bid over the whole grid. Warp w of block b takes the
+// work items (group, chunk) w * blocks + b, w * blocks + b + grid warps, ...
+// (a round's items reach every SM before any SM takes two): its kRows rows'
+// top-2 over its chunk with the code of kernel B2 (bid_top2.cuh). With one
+// chunk the warp bids at once. Otherwise lane r stores row r's partial, the
+// warp fences and takes a ticket on its group's counter, and the warp that
+// draws the last ticket merges the group's partials (through L2, never a
+// stale L1 line: they merge exactly in any order, bid_top2.cuh), bids, and
+// resets the counter for the next round, which the round's barriers order.
 __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
                           const int32_t* bidders, int n_bid) {
   const int lane = threadIdx.x & 31;
   const int S = D.W * D.K;
-  const int n_groups = (n_bid + kRows - 1) / kRows;
+  const BidPlan pl = bid_plan(n_bid, S);
+  const int n_items = pl.groups * pl.chunks;
   const int n_gwarp = gridDim.x * NWARP;
-  for (int g = blockIdx.x * NWARP + (threadIdx.x >> 5); g < n_groups;
-       g += n_gwarp) {
+  for (int item = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+       item < n_items; item += n_gwarp) {
+    const int g = item / pl.chunks, c = item - g * pl.chunks;
     float neg_size[kRows];
     uint32_t row_base[kRows];
     int row[kRows];
@@ -1019,22 +1121,46 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
     }
     float v1[kRows], v2[kRows];
     int best[kRows];
+    const int s_lo = c * pl.len;
     tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, au.inv, au.valid_f,
-                                   au.price, au.jitter, S, v1, best, v2);
+                                   au.price, au.jitter, s_lo,
+                                   min(s_lo + pl.len, S), v1, best, v2);
+    if (pl.chunks > 1) {
+      const int base = g * pl.chunks * kRows;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      // a row with no valid slot (v1 = -inf) does not bid
-      if (lane != r || g * kRows + r >= n_bid || !isfinite(v1[r])) continue;
-      // a single valid slot (v2 = -inf): the bid caps at a large increment
-      const float incr = __fadd_rn(
-          isfinite(v2[r]) ? __fsub_rn(v1[r], v2[r]) : 1.0f, au.eps);
-      const float bp = __fadd_rn(au.price[best[r]], incr);
-      au.bid[row[r]] = bp;
-      const unsigned long long key =
-          (static_cast<unsigned long long>(float_key(-bp)) << 32) |
-          static_cast<uint32_t>(row[r]);
-      atomicMin(au.slot_bid + best[r], key);
+      for (int r = 0; r < kRows; ++r) {
+        if (lane != r) continue;
+        const int i = base + c * kRows + r;
+        au.part_v1[i] = v1[r];
+        au.part_b[i] = best[r];
+        au.part_v2[i] = v2[r];
+      }
+      __threadfence();
+      __syncwarp();
+      int ticket = 0;
+      if (lane == 0) ticket = atomicAdd(au.ticket + g, 1);
+      if (__shfl_sync(FULL, ticket, 0) != pl.chunks - 1) continue;
+      __threadfence();
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float a1 = neg_inf(), a2 = neg_inf();
+        int ab = 0;
+        for (int k = lane; k < pl.chunks; k += 32) {
+          const int i = base + k * kRows + r;
+          tpu_faas_bid::merge(a1, ab, a2, __ldcg(au.part_v1 + i),
+                              __ldcg(au.part_b + i), __ldcg(au.part_v2 + i));
+        }
+        tpu_faas_bid::warp_merge(a1, ab, a2);
+        v1[r] = a1;
+        best[r] = ab;
+        v2[r] = a2;
+      }
+      if (lane == 0) au.ticket[g] = 0;
     }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (lane == r && g * kRows + r < n_bid)
+        issue_bid(au, row[r], v1[r], best[r], v2[r]);
   }
 }
 
@@ -1108,17 +1234,25 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   const int T = D.T, S = D.W * D.K;
   const int gthread = blockIdx.x * NT + tid;
   const int n_gthread = gridDim.x * NT;
+  PROBE(const bool stamp = blockIdx.x == 0 && tid == 0;
+        if (stamp) au.stamps[0] = global_ns();)
   int n_match = 0;
+  // the bidder groups' tickets start at 0; the first barrier orders it
+  for (int i = gthread; i < kMaxItems; i += n_gthread) au.ticket[i] = 0;
   if (blockIdx.x == 0) {
+    PROBE(for (int i = 1 + tid; i < kAuStamps; i += NT) au.stamps[i] = 0;)
     float now, tte;
     apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
     __syncthreads();
     liveness(D, st, sp, out, now, tte, sm);
     // the auction sees the eligibility mask alone (FCFS admission)
     if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
+    PROBE(if (stamp) au.stamps[1] = global_ns();)
     n_match = auction_open(D, st, out, sc, au, sm);
+    PROBE(__syncthreads(); if (stamp) au.stamps[2] = global_ns();)
   }
   grid.sync();
+  PROBE(if (stamp) au.stamps[3] = global_ns();)
   int rounds = 0, bid_rows = 0;
   for (;;) {
     // every thread reads the same count after the barrier: the loop ends
@@ -1127,9 +1261,15 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
     const int n_bid = load_volatile(au.cnt + p);
     if (rounds >= au.warm_rounds || n_bid == 0) break;
     bid_rows += n_bid;
+    PROBE(unsigned long long* rs = au.stamps + kStampRound + 5 * rounds;
+          const bool rstamp = rounds < kStampRounds;
+          if (stamp && rstamp) rs[0] = n_bid;)
     if (gthread == 0) au.cnt[p ^ 1] = 0;  // last read before this round
     bid_round(D, st, au, au.list[p], n_bid);
+    PROBE(__syncthreads();
+          if (tid == 0 && rstamp) atomicMax(rs + 1, global_ns());)
     grid.sync();
+    PROBE(if (stamp && rstamp) rs[2] = global_ns();)
     // each won slot: evict the previous owner, install the winner
     for (int s = gthread; s < S; s += n_gthread) {
       const unsigned long long k = au.slot_bid[s];
@@ -1143,6 +1283,7 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
       au.assigned[t] = s;
     }
     grid.sync();
+    PROBE(if (stamp && rstamp) rs[3] = global_ns();)
     // the next round's bidders: admitted tasks still without a slot (their
     // order does not matter: each bid depends on its row alone)
     int32_t* next = au.list[p ^ 1];
@@ -1157,13 +1298,16 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
       if (want) next[pos + __popc(m & lt_mask)] = t;
     }
     grid.sync();
+    PROBE(if (stamp && rstamp) rs[4] = global_ns();)
     ++rounds;
   }
   if (blockIdx.x != 0) return;
   auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+  PROBE(if (stamp) au.stamps[kStampClose] = global_ns();)
   if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
   if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
   compact(D, st, out, sc.assign, sm);
+  PROBE(__syncthreads(); if (stamp) au.stamps[kStampClose + 1] = global_ns();)
 }
 
 // ---- Sinkhorn placement (sinkhorn.py, the tick's branch at state.py) -----
@@ -1613,12 +1757,6 @@ __device__ void sinkhorn_close(const Dims& D, const State& st,
   __syncthreads();
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // Block 0's thread 0 stamps the clock at the start and at the end of each
 // phase into sk.stamps (scratch, read back by the wrapper on request):
 // 0 start, 1 packet and liveness, 2 reductions, 3 setup, 4 iterations,
@@ -1739,6 +1877,8 @@ Tenancy tenancy_args(const float* packet, const Dims& d, int on, int n,
   tn.cap = tail + 2 * n;
   tn.elig = elig;
   tn.adm_rank = adm_rank;
+  tn.cnt = adm_rank + d.T;
+  tn.demand = reinterpret_cast<uint8_t*>(adm_rank + d.T + n);
   tn.starve_deficit = starve_deficit;
   tn.starve_boost = starve_boost;
   tn.deficit_cap = deficit_cap;
@@ -1784,10 +1924,11 @@ int cooperative_launch(const void* kernel, void** args, void* stream) {
 
 // Every entry takes the tenancy lane's arguments, then the speculation
 // lane's, last before the stream: the tenant and t_deficit leaves, the
-// eligibility output [T], the scratch adm_rank [T], use_tenancy, NT,
-// starve_deficit, starve_boost, deficit_cap; the infl_start, infl_pred and
-// avoid leaves, the fixup's scratch free_rem [W], use_spec. With a lane off
-// its pointers may be null.
+// eligibility output [T], the tenancy scratch (adm_rank [T] ++ the per-tenant
+// counts [NT] ++ the demand bytes [NT], in int32 words T + NT + ceil(NT/4)),
+// use_tenancy, NT, starve_deficit, starve_boost, deficit_cap; the infl_start,
+// infl_pred and avoid leaves, the fixup's scratch free_rem [W], use_spec.
+// With a lane off its pointers may be null.
 #define LANE_PARAMS                                                         \
   int32_t *tenant, float *t_deficit, uint8_t *elig, int32_t *adm_rank,    \
       int use_tenancy, int n_tenants, float starve_deficit,               \
@@ -1822,12 +1963,45 @@ extern "C" int tpu_faas_fused_resident_tick(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Scratch of the auction branch, in int32 words: slot_bid [2S] ++ the rank
+// layout [4S + 6T] ++ inv valid_f owner [S each] ++ assigned bid list0
+// list1 [T each] ++ cnt [2] ++ part_v1 part_b part_v2 [kMaxItems kRows each]
+// ++ ticket [kMaxItems] ++ (8-byte alignment) ++ stamps [2 kAuStamps].
+// With p null it only counts; returns the words.
+long long auction_layout(int32_t* p, long long T, long long S, Scratch* sc,
+                         Auction* au) {
+  long long off = 0;
+  auto take = [&](long long n) {
+    int32_t* q = p ? p + off : nullptr;
+    off += n;
+    return q;
+  };
+  auto takef = [&](long long n) { return reinterpret_cast<float*>(take(n)); };
+  au->slot_bid = reinterpret_cast<unsigned long long*>(take(2 * S));
+  int32_t* rank = take(4 * S + 6 * T);
+  if (p) *sc = sort_scratch(rank, S, T);
+  au->inv = takef(S);
+  au->valid_f = takef(S);
+  au->owner = take(S);
+  au->assigned = take(T);
+  au->bid = takef(T);
+  au->list[0] = take(T);
+  au->list[1] = take(T);
+  au->cnt = take(2);
+  au->part_v1 = takef(kMaxItems * kRows);
+  au->part_b = take(kMaxItems * kRows);
+  au->part_v2 = takef(kMaxItems * kRows);
+  au->ticket = take(kMaxItems);
+  take(off & 1);
+  au->stamps = reinterpret_cast<unsigned long long*>(take(2 * kAuStamps));
+  return off;
+}
+
 // The auction branch: one cooperative launch. Returns 0, a CUDA error code,
 // -1 when the device has no cooperative launch, or -2 when no block of the
 // kernel fits on an SM. out_i32 ends with the aux triple (rounds, spilled,
-// bidder rows summed over the rounds).
-// scratch = slot_bid [2S] ++ the rank layout [4S + 6T] ++ inv valid_f owner
-// [S each] ++ assigned bid list0 list1 [T each] ++ cnt [2].
+// bidder rows summed over the rounds). scratch holds
+// tpu_faas_fused_auction_scratch_words() words.
 extern "C" int tpu_faas_fused_resident_auction(
     const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
     float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
@@ -1843,21 +2017,11 @@ extern "C" int tpu_faas_fused_resident_auction(
   State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
            inflight, prev_live, speed, active};
   Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
-  const long S = static_cast<long>(W) * max_slots;
-  int32_t* p = scratch;
   Auction au;
   au.price = price;
   au.refresh = refresh;
-  au.slot_bid = reinterpret_cast<unsigned long long*>(p); p += 2 * S;
-  Scratch sc = sort_scratch(p, S, T); p += 4 * S + 6 * T;
-  au.inv = reinterpret_cast<float*>(p); p += S;
-  au.valid_f = reinterpret_cast<float*>(p); p += S;
-  au.owner = p; p += S;
-  au.assigned = p; p += T;
-  au.bid = reinterpret_cast<float*>(p); p += T;
-  au.list[0] = p; p += T;
-  au.list[1] = p; p += T;
-  au.cnt = p;
+  Scratch sc;
+  auction_layout(scratch, T, static_cast<long long>(W) * max_slots, &sc, &au);
   au.eps = eps;
   au.jitter = jitter;
   au.warm_rounds = warm_rounds;
@@ -1866,6 +2030,23 @@ extern "C" int tpu_faas_fused_resident_auction(
   return cooperative_launch(reinterpret_cast<const void*>(fused_auction_kernel),
                             args, stream);
 }
+
+extern "C" long long tpu_faas_fused_auction_scratch_words(int T, int W,
+                                                          int max_slots) {
+  Auction au;
+  return auction_layout(nullptr, T, static_cast<long long>(W) * max_slots,
+                        nullptr, &au);
+}
+
+// The scratch offset, in int32 words, of the auction branch's phase stamps
+// (kAuStamps uint64 nanosecond clocks of the last launch on that scratch;
+// written by a probe build alone).
+extern "C" long long tpu_faas_fused_auction_stamps_offset(int T, int W,
+                                                          int max_slots) {
+  return tpu_faas_fused_auction_scratch_words(T, W, max_slots) - 2 * kAuStamps;
+}
+
+extern "C" int tpu_faas_fused_auction_stamp_count() { return kAuStamps; }
 
 // Scratch of the Sinkhorn branch, in int32 words: the rank layout
 // [4S + 6T] ++ rowv row_ok loga ft [R each] ++ logb gt [C each] ++ colv capf

@@ -83,6 +83,20 @@ def _top2_block(val: torch.Tensor, col_offset: int):
     return v1[:, 0], (best_local[:, 0] + col_offset).to(_I32), v2
 
 
+def merge_top2(a, b):
+    """The kernel's merge of two top-2 results over disjoint slot sets
+    (``csrc/bid_top2.cuh::merge``), in torch: the larger ``v1`` wins and a
+    tie goes to the lower slot, and the runner-up is the largest of both
+    runner-ups and of the losing maximum, through ``fmax``/``fmin`` as the
+    kernel's ``fmaxf``/``fminf`` (a NaN drops out). Exact in any order and
+    grouping, so the auction branch may sweep a row's slots in chunks and
+    merge the chunks' results. ``a`` and ``b`` are (v1, best, v2)."""
+    (v1a, ba, v2a), (v1b, bb, v2b) = a, b
+    take = (v1b > v1a) | ((v1b == v1a) & (bb < ba))
+    v2 = torch.fmax(torch.fmax(v2a, v2b), torch.fmin(v1a, v1b))
+    return torch.where(take, v1b, v1a), torch.where(take, bb, ba), v2
+
+
 def bid_top2_stream_impl(
     task_size: torch.Tensor,  # f32[T]
     slot_inv_speed: torch.Tensor,  # f32[S]

@@ -23,12 +23,13 @@ tensors, which the wrapper never reads. Sinkhorn placement is a third
 cooperative launch: its iterations alternate row and column logsumexps
 across the grid, and its final potentials also come back as device tensors
 the wrapper never reads. With the tenancy plane on (``use_tenancy``, ``NT``
-tenant rows, at most :data:`MAX_TENANTS`) each entry and the flush also
-take the ``tenant`` and ``t_deficit`` leaves, update them in place, and
-return the tick's eligibility mask as a fresh output. With the speculation
-plane on (``use_spec``) each entry and the flush also take the
-``infl_start``, ``infl_pred`` and ``avoid`` leaves and update them in
-place, and the tick reports its first ``KG`` straggler slots.
+tenant rows, as many as the int32 segment key holds: ``check_segment_key``)
+each entry and the flush also take the ``tenant`` and ``t_deficit`` leaves,
+update them in place, and return the tick's eligibility mask as a fresh
+output. With the speculation plane on (``use_spec``) each entry and the
+flush also take the ``infl_start``, ``infl_pred`` and ``avoid`` leaves and
+update them in place, and the tick reports its first ``KG`` straggler
+slots.
 """
 
 from __future__ import annotations
@@ -79,10 +80,6 @@ TENANCY_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
 #: it through scheduler_tick_impl's straggler flags and hedge fixup
 SPEC_REPLACES = ("tpu_faas/sched/pallas_fused.py:147 "
                  "(_fused_resident_tick_impl, use_spec=True)")
-#: the most tenant rows the kernel takes: one thread and one shared-memory
-#: word of block 0 each
-MAX_TENANTS = 1024
-
 _P = ctypes.c_void_p
 _N_PTR = 13  # packet, 9 state leaves, out_i32, out_b8, scratch
 _N_INT = 15  # T W I KA KH KF KI KS KB KP KR KG max_slots prio flush
@@ -111,11 +108,14 @@ _COOP_ERRORS = {
 class FusedTickKernel:
     """The built library, its per-shape scratch and its launch counts: one
     for the rank tick and the flush, one for the auction branch, one for
-    the Sinkhorn branch."""
+    the Sinkhorn branch. ``probe=True`` builds the library with
+    ``-DTPU_FAAS_PROBE``: its auction launches also stamp block 0's clock at
+    each phase and round (:meth:`auction_split`)."""
 
     name = "fused_tick"
 
-    def __init__(self) -> None:
+    def __init__(self, probe: bool = False) -> None:
+        self.probe = probe
         #: rank-tick and flush launches so far; callers may reset it to 0
         self.launches = 0
         #: auction-branch launches so far; callers may reset it to 0
@@ -134,13 +134,16 @@ class FusedTickKernel:
         self._fn_sinkhorn = None
         self._sinkhorn_words = None
         self._fn_math = self._stamps_at = self._fn_barrier = None
+        self._auction_words = self._auction_stamps_at = None
+        self._n_auction_stamps = 0
         self._scratch: dict[tuple, torch.Tensor] = {}
 
     def load(self) -> None:
         """Build (if needed) and load the library; idempotent."""
         if self._fn is not None:
             return
-        path, report = build(self.name)
+        path, report = build(self.name,
+                             ("TPU_FAAS_PROBE",) if self.probe else ())
         self.ptxas_report = report
         lib = ctypes.CDLL(str(path))
         fn = lib.tpu_faas_fused_resident_tick
@@ -175,6 +178,13 @@ class FusedTickKernel:
         barrier.restype = ctypes.c_int
         self._fn_math, self._stamps_at, self._fn_barrier = (probe, stamps,
                                                             barrier)
+        awords = lib.tpu_faas_fused_auction_scratch_words
+        astamps = lib.tpu_faas_fused_auction_stamps_offset
+        for f in (awords, astamps):
+            f.argtypes = [ctypes.c_int] * 3
+            f.restype = ctypes.c_longlong
+        self._auction_words, self._auction_stamps_at = awords, astamps
+        self._n_auction_stamps = lib.tpu_faas_fused_auction_stamp_count()
         self._fn, self._fn_auction = fn, auction
 
     def _scratch_for(self, dev: torch.device, key: tuple,
@@ -190,6 +200,11 @@ class FusedTickKernel:
     def _check(self, packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
                use_priority, use_tenancy, NT, use_spec, KG, auction_S=None):
         dev = packet.device
+        if use_tenancy:
+            if NT < 1:
+                raise ValueError(f"the tenancy lane takes at least 1 tenant "
+                                 f"row, got NT={NT}")
+            check_segment_key(NT, T)
         lanes = (1 + int(bool(use_priority)) + int(bool(use_tenancy))
                  + int(bool(use_spec)))
         P = (_HEADER + KA * lanes + 2 * (KH + KF + KI + KS + KB)
@@ -206,10 +221,6 @@ class FusedTickKernel:
         if auction_S is not None:
             leaves.append(("price", torch.float32, auction_S))
         if use_tenancy:
-            if not 1 <= NT <= MAX_TENANTS:
-                raise ValueError(f"the tenancy lane takes 1 to {MAX_TENANTS} "
-                                 f"tenant rows, got NT={NT}")
-            check_segment_key(NT, T)
             leaves += [("tenant", torch.int32, T),
                        ("t_deficit", torch.float32, NT)]
         if KG < 1:
@@ -232,7 +243,9 @@ class FusedTickKernel:
                           DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
                           DEFAULT_DEFICIT_CAP)
         elig = torch.empty(T, dtype=torch.bool, device=dev)
-        adm_rank = self._scratch_for(dev, ("tenancy", T), T)
+        # adm_rank [T], then per tenant a count word and a demand byte
+        adm_rank = self._scratch_for(dev, ("tenancy", T, NT),
+                                     T + NT + (NT + 3) // 4)
         return elig, (st.tenant.data_ptr(), st.t_deficit.data_ptr(),
                       elig.data_ptr(), adm_rank.data_ptr(), 1, NT,
                       DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
@@ -319,8 +332,8 @@ class FusedTickKernel:
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG + 3,
                               dtype=torch.int32, device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
-        scratch = self._scratch_for(dev, ("auction", T, S),
-                                    9 * S + 10 * T + 2)
+        scratch = self._scratch_for(dev, ("auction", T, W, max_slots),
+                                    self._auction_words(T, W, max_slots))
         jitter, eps = bid_scalars(EPS)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -405,6 +418,46 @@ class FusedTickKernel:
                   and k[1:] == ("sinkhorn", T, W, max_slots)]
         ns = buf[at : at + 16].cpu().view(torch.int64).tolist()
         return [(b - a) / 1e6 for a, b in zip(ns, ns[1:])]
+
+    def auction_split(self, dev: torch.device, T: int, W: int,
+                      max_slots: int) -> dict:
+        """The last auction launch's phases at this shape, in ms, from block
+        0's clock (a probe build's stamps; reads the card, a sync):
+        ``open`` (packet, liveness, tenancy admission), ``seed`` (the slot
+        sort and the opening prices), ``start`` (the first grid barrier),
+        per round ``rounds`` of ``(bidders, bids, bid barrier, install and
+        its barrier, collection and its barrier)`` — ``bids`` ends when the
+        last block finished its bids — then ``close`` (spill, refresh) and
+        ``end`` (fixup, deficit, compaction)."""
+        if not self.probe:
+            raise RuntimeError("auction_split needs a probe build: "
+                               "FusedTickKernel(probe=True)")
+        at = self._auction_stamps_at(T, W, max_slots)
+        (buf,) = [b for k, b in self._scratch.items()
+                  if k[0].type == dev.type and dev.index in (None, k[0].index)
+                  and k[1:] == ("auction", T, W, max_slots)]
+        n = self._n_auction_stamps
+        ns = buf[at : at + 2 * n].cpu().view(torch.int64).tolist()
+
+        def ms(a, b):
+            return (b - a) / 1e6
+
+        out = {"open": ms(ns[0], ns[1]), "seed": ms(ns[1], ns[2]),
+               "start": ms(ns[2], ns[3]), "rounds": []}
+        last = ns[3]
+        # 4 stamps open the launch, 5 follow each stamped round, 2 close it
+        for r in range((n - 6) // 5):
+            n_bid, bids, bar, inst, coll = ns[4 + 5 * r : 9 + 5 * r]
+            if n_bid == 0:
+                break
+            out["rounds"].append((n_bid, ms(last, bids), ms(bids, bar),
+                                  ms(bar, inst), ms(inst, coll)))
+            last = coll
+        close, end = ns[n - 2 : n]
+        out["close"] = ms(last, close)
+        out["end"] = ms(close, end)
+        out["total"] = ms(ns[0], end)
+        return out
 
     def barrier_probe(self, n: int) -> None:
         """n grid barriers alone, cooperatively on one block per SM (not

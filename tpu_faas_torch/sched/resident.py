@@ -430,6 +430,11 @@ class ResidentScheduler(SchedulerArrays):
     tick order — to learn placements. All SchedulerArrays membership calls
     work unchanged; their effects reach the device as automatic diffs
     against the last-uploaded copy.
+
+    With ``tenancy`` (a TenantTable), its ``max_tenants`` rows are the
+    tick's NT on every device and placement: the only limit is the int32
+    segment key, ``(max_tenants + 1) * max_pending < 2**31``
+    (``check_segment_key``, raised at construction).
     """
 
     # delta-packet capacities
