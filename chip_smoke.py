@@ -30,7 +30,9 @@ over):
    equal on v1, best and v2: at bench config 7's headline bid (51,200 x
    32,768), at BASELINE config 3's shape (10,240 x 4,096), ragged, with no
    valid slot and one, with a max duplicated across lanes at zero jitter,
-   and with a hash index past 2^32 (row_offset, n_slots_total).
+   with a hash index past 2^32 (row_offset, n_slots_total), and with
+   ROADMAP C.3's NaN sizes, speed, prices and jitter and an inf - inf cell
+   (4,096 x 32,768; a NaN equal to a NaN in the same place).
 5. ``auction`` — ``SchedulerArrays(placement="auction")`` on the card, the
    batch auction tick with the price carry: config 3's uniform and
    lognormal legs (10,000 tasks, 1,000 workers x 4) over 4 ticks each, and
@@ -42,8 +44,9 @@ over):
    version on synthetic headline states (refresh on and off, priority lanes
    on and off, two seeds; seed 0 also against the plain version with plain
    bids; a warm tick with 13 bidders and a cold tick in which every task
-   bids), every output and state leaf exactly equal, prices, refresh, round
-   and spilled counts included; then ``ResidentScheduler(placement=
+   bids; C.3's NaN sizes, cold and warm, NaN speeds and NaN carried
+   prices), every output and state leaf exactly equal, prices, refresh,
+   round and spilled counts included; then ``ResidentScheduler(placement=
    "auction")`` through phase 2's loop for 40 ticks (FCFS), with phase 2's
    checks, one cooperative launch per steady tick, and at least one cold
    (refresh) and one warm tick. The kernel also reports the bidder rows
@@ -56,10 +59,11 @@ over):
 7. ``resident_sinkhorn`` — B1's Sinkhorn branch: the kernel's ``expf`` and
    ``logf`` bit for bit against ``torch.exp``/``torch.log``; the branch
    against its plain version on synthetic headline states (bucketed route,
-   priority lanes on and off, two seeds) and on one dense-route state at
-   4,096 x 4,096, under the contract: (a) exact on every output and state
-   leaf that placement does not decide, the count placed and the effective
-   temperature; (b) final potentials within SINKHORN_TOL of tau; (c) the
+   priority lanes on and off, two seeds; one with -inf sizes and speeds,
+   whose spill must take rank placement's own sorts) and on one
+   dense-route state at 4,096 x 4,096, under the contract: (a) exact on
+   every output and state leaf that placement does not decide, the count
+   placed and the effective temperature; (b) final potentials within SINKHORN_TOL of tau; (c) the
    plain rounding from the kernel's own potentials equal to the kernel's
    tick on every output and leaf; (d) no row over-booked, no task placed
    twice, placed = min(KP, valid, capacity). Ticks placed otherwise than
@@ -118,8 +122,12 @@ over):
    bound counts each cell's instructions per issue pipe, read from the
    compiled loop, at the card's clock; CUDA-event
    means of B1's Sinkhorn branch and its plain version over the resident
-   Sinkhorn run's states, with a launch's split by block 0's clock and a
-   grid barrier timed alone; host-clock medians of the integrated
+   Sinkhorn run's states, with a launch's split by block 0's clock, a grid
+   barrier timed alone, the probe build's split of each state (f-updates,
+   g-updates and their barriers, the close's sorts and spill, candidates
+   and spilled tasks), the bound per pipe (one exp a cell on the SFU
+   against 5 issue slots) and the iterations' library yardstick (40
+   torch.logsumexp calls over the materialized matrix, context only); host-clock medians of the integrated
    ``tick_resident`` (rank, auction and Sinkhorn), of the batch tick and of
    the auction tick cold and warm, all printed beside the card's name and
    power limit. Each timed launch is queued behind a spin kernel, so its
@@ -920,6 +928,35 @@ def bid_bound_ms(T: int, S: int, clock_hz: float) -> tuple[float, str]:
                                                               "bytes")
 
 
+def bid_nan_cases(dev) -> list:
+    """ROADMAP C.3's inputs for B2: a NaN size on some rows, a NaN speed on
+    one valid slot, a NaN price on two valid slots, a NaN jitter, and an
+    infinite product against an infinite price (inf - inf), each at the
+    headline's slot count and beside finite rows."""
+    T, S = 4096, BID_HEADLINE[1]
+    cases = []
+    for name in ("NaN size", "NaN speed on one valid slot", "NaN price",
+                 "NaN jitter", "inf - inf"):
+        ts, inv, valid, price = bid_inputs(dev, T, S, 70 + len(cases), 0.9)
+        js = 1e-4
+        slot = 20_011
+        valid[slot] = 1.0
+        if name == "NaN size":
+            ts[[3, 999, 1000, T - 1]] = float("nan")
+        elif name == "NaN speed on one valid slot":
+            inv[slot] = float("nan")
+        elif name == "NaN price":
+            price[[slot, S - 1]] = float("nan")
+            valid[S - 1] = 1.0
+        elif name == "NaN jitter":
+            js = float("nan")
+        else:
+            ts[[5, 6]] = float("-inf")
+            price[slot] = float("inf")
+        cases.append((f"C.3 {name}", [ts, inv, valid, price], js, {}))
+    return cases
+
+
 def phase_bid(dev) -> dict:
     """B2 against its plain version on the card, exactly equal on v1,
     best and v2, at config 7's and config 3's shapes and the edge cases."""
@@ -947,14 +984,23 @@ def phase_bid(dev) -> dict:
     cases.append(("row_offset/n_slots_total past 2^32",
                   bid_inputs(dev, 2000, 3001, 3, 0.7), 2.5e-4,
                   dict(row_offset=2**20 + 5, n_slots_total=8193)))
+    cases += bid_nan_cases(dev)
     mismatches = 0
     for name, args, js, kw in cases:
         js = float(np.float32(js))
         got = KERNEL(*args, js, **kw)
         want = bid_top2_stream_impl(*args, js, **kw)
         torch.cuda.synchronize()
+        # a NaN equals a NaN in the same place (C.3's cases)
         bad = [f for f, a, b in zip(("v1", "best", "v2"), got, want)
-               if not torch.equal(a, b)]
+               if not same(a, b)]
+        if name.startswith("C.3"):
+            nan_v1 = int(torch.isnan(got[0]).sum())
+            bits = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got[0::2], want[0::2]))
+            log(f"  {name}: rows with v1 NaN {nan_v1}, with v2 NaN "
+                f"{int(torch.isnan(got[2]).sum())}, float bits "
+                f"{'equal' if bits else 'differ in a NaN payload'}")
         if name == "duplicated max, zero jitter":
             assert bool((got[1] == 37).all()), "duplicate max: wrong argmax"
             assert torch.equal(got[0], got[2]), "duplicate max: v2 != v1"
@@ -1186,6 +1232,41 @@ def all_bid_case(seed: int):
                 valid=np.ones(SHAPE["T"], bool)), pkt
 
 
+def nan_auction_cases():
+    """ROADMAP C.3's inputs for B1's auction branch, on ``auction_case``'s
+    states: NaN sizes in the state and the arrival lane (cold and warm), a
+    NaN speed on live rows with free slots, and NaN carried prices (warm)."""
+    out = []
+    for label, refresh in (("C.3 NaN sizes, cold", True),
+                           ("C.3 NaN sizes, warm", False),
+                           ("C.3 NaN speeds", True),
+                           ("C.3 NaN prices, warm", False)):
+        leaves, pkt = auction_case(40 + len(out), False, refresh)
+        rng = np.random.default_rng(50 + len(out))
+        leaves = dict(leaves)
+        if "sizes" in label:
+            sizes = leaves["sizes"].copy()
+            sizes[rng.choice(SHAPE["T"], 64, replace=False)] = np.nan
+            leaves["sizes"] = sizes
+            pkt = pkt.copy()
+            pkt[9 + rng.choice(int(pkt[1]), 8, replace=False)] = np.nan
+        elif "speeds" in label:
+            speed = leaves["speed"].copy()
+            rows = rng.choice(SHAPE["W"], 3, replace=False)
+            speed[rows] = np.nan
+            free = leaves["free"].copy()
+            free[rows] = MAX_SLOTS
+            leaves.update(speed=speed, free=free,
+                          active=leaves["active"] | np.isin(
+                              np.arange(SHAPE["W"]), rows))
+        else:
+            price = leaves["price"].copy()
+            price[rng.choice(price.size, 16, replace=False)] = np.nan
+            leaves["price"] = price
+        out.append((label, (leaves, pkt)))
+    return out
+
+
 def phase_auction_kernel(dev, probe) -> dict:
     """B1's auction branch against its plain version on the card, at the
     headline shape: refresh on and off, priority lanes on and off, two
@@ -1212,6 +1293,16 @@ def phase_auction_kernel(dev, probe) -> dict:
                 mismatches += b
                 max_err = max(max_err, e)
                 cases += 1
+    for label, (leaves, pkt) in nan_auction_cases():
+        # C.3: each bid's NaN cells take JAX's rule in the kernel too
+        b, e, rounds, spilled, bid_rows = compare_auction_tick(
+            dev, leaves, pkt, False, label, plain_twin=label.endswith(
+                "NaN sizes, cold"))
+        log(f"  {label}: rounds {rounds}, spilled {spilled}, bidder rows "
+            f"{bid_rows}, mismatched fields {b}")
+        mismatches += b
+        max_err = max(max_err, e)
+        cases += 1
     for label, (leaves, pkt) in (("few bidders", few_bidder_case(3)),
                                  ("every task bids", all_bid_case(4))):
         b, e, rounds, spilled, bid_rows = compare_auction_tick(
@@ -1581,7 +1672,7 @@ def check_math(dev) -> int:
     return bad
 
 
-def phase_sinkhorn_kernel(dev) -> dict:
+def phase_sinkhorn_kernel(dev, probe) -> dict:
     """B1's Sinkhorn branch against its plain version under the contract:
     synthetic headline states (bucketed route, priority lanes on and off,
     two seeds) and one dense-route state at 4,096 x 4,096; and the
@@ -1593,9 +1684,26 @@ def phase_sinkhorn_kernel(dev) -> dict:
     out = {"df": 0.0, "dg": 0.0, "differs": 0, "cases": 0}
     cases = [(SHAPE, prio, seed) for prio in (False, True) for seed in (0, 1)]
     cases.append((DENSE_SHAPE, False, 5))
+    # a -inf speed on a live row with free slots and a -inf size on a valid
+    # task sort among the invalid ones in rank placement, so the close's
+    # spill takes rank placement's own sorts; on row 0 and task 0 they sort
+    # first among those, so the placements stay legal (contract (d))
+    cases.append((SHAPE, False, 6))
     for shape, use_priority, seed in cases:
         leaves, pkt = random_case(np.random.default_rng(seed), use_priority,
                                   now=100.0, shape=shape)
+        if seed == 6:
+            leaves["valid"][0], leaves["sizes"][0] = True, -np.inf
+            leaves["speed"][0], leaves["free"][0] = -np.inf, 3
+            leaves["active"][0], leaves["last_hb"][0] = True, 99.0
+            # the packet's row lanes leave row 0 alone (index W: dropped)
+            off = 9 + shape["KA"]
+            for K, n in ((shape["KH"], pkt[2]), (shape["KF"], pkt[3]),
+                         (shape["KI"], 0), (shape["KS"], pkt[5]),
+                         (shape["KB"], pkt[6])):
+                lane = pkt[off : off + int(n)]
+                lane[lane == 0] = shape["W"]
+                off += 2 * K
         kw = dict(shape, max_slots=MAX_SLOTS, use_priority=use_priority)
         pre = state_from_numpy(leaves, dev)
         packet = torch.from_numpy(pkt).to(dev)
@@ -1606,7 +1714,8 @@ def phase_sinkhorn_kernel(dev) -> dict:
         assert [t.data_ptr() for t in new_k] == ptrs, "state moved"
         route = "dense" if shape is DENSE_SHAPE else "bucketed"
         label = f"{route} {shape['T']}x{shape['W']} prio={use_priority} " \
-                f"seed={seed}"
+                f"seed={seed}" + (", a -inf size and speed" if seed == 6
+                                  else "")
         phases = KERNEL.sinkhorn_phase_ms(dev, shape["T"], shape["W"],
                                           MAX_SLOTS)
         c = sinkhorn_check(pre, packet, res_k, new_k, kw, label)
@@ -1616,6 +1725,15 @@ def phase_sinkhorn_kernel(dev) -> dict:
             f"contract violations {c['bad']}, placements "
             f"{'differ from' if c['differs'] else 'equal'} the plain "
             f"version's; phases {phase_text(phases)}")
+        if shape is DENSE_SHAPE or seed in (0, 6):
+            sp, b = sinkhorn_probe(dev, probe, packet, pre, kw)
+            log(f"    split (probe build): {sinkhorn_split_text(sp)}; probe "
+                f"fields differing from the kernel proper's {b}")
+            bad += b
+            if seed == 6 and not sp["rank_spill"]:
+                log("  MISMATCH: the -inf state's spill kept its compacted "
+                    "sorts")
+                bad += 1
         bad += c["bad"]
         out["differs"] += c["differs"]
         out["df"] = max(out["df"], c["df"])
@@ -1703,21 +1821,72 @@ def phase_text(ms: list[float]) -> str:
     return ", ".join(f"{n} {t:.4f} ms" for n, t in zip(SINKHORN_PHASES, ms))
 
 
-def sinkhorn_bound_ms(packet: torch.Tensor, clock_hz: float) -> tuple[
-        float, str]:
-    """The least time for one headline Sinkhorn tick: the larger of the
-    iterations' exps (each iteration takes one exp per cell of the
-    [R, C] = [1,025, 4,097] problem for f and one for g) at the SFU rate,
-    and the rank tick's bytes plus the potentials written."""
+#: a logsumexp cell's work, counted from the plain expression (sinkhorn.py:
+#: ``_logsumexp(negc + g/tau)``) with its row and column factors hoisted
+#: out of the cell: the cell (one fma), the max, the shift, the exp and
+#: the sum: 5 issue slots, one of them the exp on the SFU. The count does
+#: not move with the kernel's code.
+SK_CELL_ISSUE, SK_CELL_SFU = 5, 1
+
+
+def sinkhorn_pipes_ms(clock_hz: float) -> dict:
+    """The headline iterations' least time on each pipe: 2 x 20 x 1,025 x
+    4,097 cells (one per cell of the [R, C] problem for f and for g in each
+    of 20 iterations), their exps at the SFU's 16 a clock per SM and their
+    issue slots at the schedulers' 128, on every SM at ``clock_hz``."""
     from tpu_faas_torch.sched.state import BUCKETED_ITERS, N_BUCKETS
 
     R, C = N_BUCKETS + 1, SHAPE["W"] + 1
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    exps = 2 * BUCKETED_ITERS * R * C
-    exp_ms = exps / (SFU_PER_SM_CLOCK * n_sm * clock_hz) * 1e3
+    cells = 2 * BUCKETED_ITERS * R * C
+    per_s = n_sm * clock_hz / 1e3
+    return {"cells": cells,
+            "SFU": cells * SK_CELL_SFU / SFU_PER_SM_CLOCK / per_s,
+            "issue": cells * SK_CELL_ISSUE / ISSUE_PER_SM_CLOCK / per_s}
+
+
+def sinkhorn_bound_ms(packet: torch.Tensor, clock_hz: float) -> tuple[
+        float, str]:
+    """The least time for one headline Sinkhorn tick: the larger of the
+    iterations' operations on the pipe that binds (``sinkhorn_pipes_ms``)
+    and the rank tick's bytes plus the potentials written."""
+    from tpu_faas_torch.sched.state import N_BUCKETS
+
+    R, C = N_BUCKETS + 1, SHAPE["W"] + 1
+    pipes = sinkhorn_pipes_ms(clock_hz)
+    ops_ms = max(pipes["SFU"], pipes["issue"])
     bytes_ms = bound_ms(False, packet) + 4 * (R + C + 1) / HBM_BYTES_PER_S * 1e3
-    return (exp_ms, "operations") if exp_ms >= bytes_ms else (bytes_ms,
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
+
+
+def sinkhorn_library_ms(dev, samples: list) -> float:
+    """The iterations' library yardstick (context only; the port never
+    calls it): 20 iterations of torch.logsumexp over the materialized
+    [1,025, 4,097] matrix of -cost/tau (16.8 MB), plus g/tau by rows and
+    f/tau by columns, on the loop's first state; CUDA-event mean of one
+    tick's 40 calls."""
+    from tpu_faas_torch.sched.state import BUCKETED_ITERS, N_BUCKETS
+
+    st = samples[0][1]
+    R, C = N_BUCKETS + 1, SHAPE["W"] + 1
+    rng = np.random.default_rng(3)
+    rep = torch.exp(torch.linspace(-3.0, 3.0, R - 1, device=dev))
+    inv = 1.0 / st.speed.clamp_min(1e-6)
+    tau = float(0.05 * rep.max() * inv.max())
+    negc = torch.full((R, C), float("-inf"), device=dev)
+    negc[:-1, :-1] = -(rep[:, None] * inv[None, :]) / tau
+    negc[:-1, -1] = -(float(rep.max() * inv.max()) + 1.0) / tau
+    negc[-1, :-1] = 0.0
+    g = torch.from_numpy(rng.uniform(-5, 5, C).astype(np.float32)).to(dev)
+    f = torch.from_numpy(rng.uniform(-5, 5, R).astype(np.float32)).to(dev)
+
+    def iterations(_):
+        for _ in range(BUCKETED_ITERS):
+            torch.logsumexp(negc + g[None, :], dim=1)
+            torch.logsumexp(negc + f[:, None], dim=0)
+
+    return statistics.mean(event_ms(iterations, 10))
 
 
 def sm_clock_hz() -> float:
@@ -1730,7 +1899,7 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def time_resident_sinkhorn(dev, samples: list) -> dict:
+def time_resident_sinkhorn(dev, samples: list, probe) -> dict:
     """The Sinkhorn kernel per tick on the resident Sinkhorn loop's own
     states (CUDA-event means), beside its bound and its plain version on
     the card, with the plain bucketed 20-iteration solve alone as
@@ -1775,24 +1944,101 @@ def time_resident_sinkhorn(dev, samples: list) -> dict:
     per_barrier = (bar1 - bar0) / n_bar
     clock = sm_clock_hz()
     bounds = [sinkhorn_bound_ms(p.cpu(), clock) for p, _, _ in samples]
+    pipes = sinkhorn_pipes_ms(clock)
+    lib_ms = sinkhorn_library_ms(dev, samples)
     out = {"ms": statistics.mean(k_ms), "plain_ms": statistics.mean(p_ms),
            "solve_ms": statistics.mean(s_ms), "split": split,
            "barrier_ms": per_barrier,
            "bound_ms": statistics.mean(b for b, _ in bounds),
-           "bound_by": statistics.mode(by for _, by in bounds)}
+           "bound_by": statistics.mode(by for _, by in bounds),
+           "pipes": pipes, "library_iters_ms": lib_ms}
+    pipe = max(("SFU", "issue"), key=pipes.get)
     log(f"  Sinkhorn kernel on the resident Sinkhorn run's {n} states, "
         f"means: {out['ms']:.4f} ms (min {min(k_ms):.4f}, max "
         f"{max(k_ms):.4f}); bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}: 2 x 20 x 1,025 x 4,097 exps at "
-        f"{SFU_PER_SM_CLOCK} per SM per clock, {clock / 1e9:.3f} GHz), "
-        f"kernel/bound {out['ms'] / out['bound_ms']:.1f}; plain version "
+        f"({out['bound_by']}, the {pipe} pipe: {pipes['cells']} cells "
+        f"(2 x 20 x 1,025 x 4,097), one exp each at {SFU_PER_SM_CLOCK} per "
+        f"SM per clock {pipes['SFU']:.4f} ms, {SK_CELL_ISSUE} issue slots "
+        f"each at {ISSUE_PER_SM_CLOCK} {pipes['issue']:.4f} ms; "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs "
+        f"at {clock / 1e9:.3f} GHz), kernel/bound "
+        f"{out['ms'] / out['bound_ms']:.1f}; plain version "
         f"{out['plain_ms']:.4f} ms; the plain bucketed 20-iteration solve "
-        f"alone {out['solve_ms']:.4f} ms")
+        f"alone {out['solve_ms']:.4f} ms; the iterations' library "
+        f"yardstick, 40 torch.logsumexp calls over the materialized "
+        f"[1,025, 4,097] matrix: {lib_ms:.4f} ms")
     log(f"  its split (block 0's clock, means over the {n} states): "
         f"{phase_text(split)}; a grid barrier alone {per_barrier * 1e3:.3f} "
         f"us, so the iterations' 40 barriers {40 * per_barrier:.4f} ms and "
         f"their compute {split[3] - 40 * per_barrier:.4f} ms")
+    out.update(resident_sinkhorn_split(dev, probe, samples))
     return out
+
+
+def sinkhorn_probe(dev, probe, packet, pre, kw: dict) -> tuple[dict, int]:
+    """One launch of the probe build from ``pre`` (left untouched), beside
+    one of the kernel proper: (the probe's split, fields that differ
+    between the two launches, potentials included)."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+
+    res_k, st_k = KERNEL.sinkhorn(packet, clone_state(pre), **kw)
+    res_p, st_p = probe.sinkhorn(packet, clone_state(pre), **kw)
+    sp = probe.sinkhorn_split(dev, kw["T"], kw["W"], kw["max_slots"])
+    b1, _ = compare(res_p, res_k, "probe build: out")
+    b2, _ = compare(st_p, st_k, "probe build: state")
+    return sp, b1 + b2
+
+
+def sinkhorn_split_text(sp: dict) -> str:
+    """A probe split with its iterations summed."""
+    f, fb, g, gb = (sum(it[i] for it in sp["iters"]) for i in range(4))
+    c = sp["close"]
+    return (f"{len(sp['iters'])} iterations: f-updates {f:.4f} ms, their "
+            f"barriers {fb:.4f} ms, g-updates {g:.4f} ms, their barriers "
+            f"{gb:.4f} ms; close {c['total']:.4f} ms: candidates' keys "
+            f"{c['keys']:.4f}, sorts {c['sort1']:.4f} + {c['sort2']:.4f}, "
+            f"repair {c['repair']:.4f}, spill admission and slot sort "
+            f"{c['slots']:.4f}, spill task sort and pairs {c['spill']:.4f} "
+            f"ms; candidates {sp['candidates']}, "
+            f"spilled {sp['spilled']}, spilled pairs placed {sp['pairs']}"
+            + ("; the spill took rank placement's own sorts"
+               if sp["rank_spill"] else ""))
+
+
+def resident_sinkhorn_split(dev, probe, samples: list) -> dict:
+    """The probe build's split on the resident Sinkhorn loop's own states,
+    each launch beside the kernel proper's (exactly equal), and its means
+    over them."""
+    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False)
+    splits, bad = [], 0
+    for i, (packet, pre, _) in enumerate(samples):
+        sp, b = sinkhorn_probe(dev, probe, packet, pre, kw)
+        bad += b
+        splits.append(sp)
+        log(f"  state {i}: {sinkhorn_split_text(sp)}")
+    mean = {k: statistics.mean(sum(it[i] for it in sp["iters"])
+                               for sp in splits)
+            for i, k in enumerate(("f_ms", "f_bar_ms", "g_ms", "g_bar_ms"))}
+    for k in ("keys", "sort1", "sort2", "repair", "slots", "spill", "total"):
+        mean["close_" + k] = statistics.mean(sp["close"][k] for sp in splits)
+    for k in ("candidates", "spilled", "pairs"):
+        mean[k] = statistics.mean(sp[k] for sp in splits)
+    log(f"  split means over the {len(splits)} states (probe build, block "
+        f"0's clock): f-updates {mean['f_ms']:.4f} ms, barriers "
+        f"{mean['f_bar_ms']:.4f} ms, g-updates {mean['g_ms']:.4f} ms, "
+        f"barriers {mean['g_bar_ms']:.4f} ms; close {mean['close_total']:.4f}"
+        f" ms (candidates' keys {mean['close_keys']:.4f}, sorts "
+        f"{mean['close_sort1']:.4f} + {mean['close_sort2']:.4f}, repair "
+        f"{mean['close_repair']:.4f}, spill admission and slot sort "
+        f"{mean['close_slots']:.4f}, spill task sort and pairs "
+        f"{mean['close_spill']:.4f}); "
+        f"candidates {mean['candidates']:.1f}, spilled {mean['spilled']:.1f},"
+        f" spilled pairs placed {mean['pairs']:.1f} a tick; probe launches "
+        f"differing from the kernel proper's: {bad} fields")
+    if bad:
+        raise SystemExit(f"the Sinkhorn probe build differs from the kernel "
+                         f"proper: {bad} fields")
+    return {"split_means": mean}
 
 
 # -- phase 9: times -----------------------------------------------------------
@@ -2572,7 +2818,7 @@ def main() -> int:
         f"[{card}]")
     log(f"  round split of the loop's states (probe build) [{card}]:")
     rsa = resident_auction_split(dev, probe, rra["samples"])
-    rks = phase_sinkhorn_kernel(dev)
+    rks = phase_sinkhorn_kernel(dev, probe)
     fused_tick.KERNEL.launches = 0  # count the resident Sinkhorn loop alone
     fused_tick.KERNEL.sinkhorn_launches = 0
     rrs = phase_resident(dev, N_SINKHORN_TICKS, N_SINKHORN_TIMED,
@@ -2596,7 +2842,7 @@ def main() -> int:
     tb = time_bid(dev, N_TIMED // 3)
     time_auction(ra, 3)
     ta = time_resident_auction(dev, rra["samples"])
-    ts = time_resident_sinkhorn(dev, rrs["samples"])
+    ts = time_resident_sinkhorn(dev, rrs["samples"], probe)
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,

@@ -123,14 +123,18 @@ def test_bid_matches_jax_stream(T, S, row_offset, n_total):
 
 
 def test_plain_version_does_not_depend_on_its_tile(monkeypatch):
-    """The tile-by-tile merge gives the same bits for any tile shape."""
-    args = _inputs(np.random.default_rng(8), 333, 1111, frac_valid=0.5)
-    whole = _port(args, f32(3e-4), row_offset=17)
+    """The tile-by-tile merge gives the same bits for any tile shape, with
+    NaN cells (C.3's inputs) too."""
+    cases = [(_inputs(np.random.default_rng(8), 333, 1111, frac_valid=0.5),
+              f32(3e-4))]
+    cases += [_nan_case(kind, 333, 1111) for kind in NAN_KINDS]
+    whole = [_port(args, scale, row_offset=17) for args, scale in cases]
     monkeypatch.setattr(bid, "_PLAIN_ROWS", 64)
     monkeypatch.setattr(bid, "_PLAIN_COLS", 100)
-    tiled = _port(args, f32(3e-4), row_offset=17)
-    for a, b in zip(whole, tiled):
-        np.testing.assert_array_equal(a, b)
+    for (args, scale), w in zip(cases, whole):
+        tiled = _port(args, scale, row_offset=17)
+        for a, b in zip(w, tiled):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_cross_chunk_duplicate_max():
@@ -214,43 +218,165 @@ def test_chunk_merge_matches_jax_in_any_order(kind, C):
     (``bid.merge_top2``). Here the plain top-2 of each chunk (its last
     chunk ragged), merged in shuffled orders, must equal JAX's
     ``bid_top2_xla`` over all the slots exactly. A NaN size makes every
-    valid cell NaN: the kernel's sweep skips NaN cells, so the row gets
-    (-inf, 0, -inf), as a row with no valid slot, in every order; JAX's v1
-    is NaN. Neither bids (the auction bids only on a finite v1)."""
+    valid cell of its row NaN: the kernel's sweep takes JAX's NaN rule on
+    such a row, so the merged result is JAX's own (v1 = NaN at the first
+    valid slot, v2 = NaN) in every order. Neither bids (the auction bids
+    only on a finite v1)."""
     S = 4201  # every C gives C chunks, the last ragged
     L = -(-S // C)
     edge = L if C > 1 else S // 2
     (ts, inv, valid, price), scale = _split_case(kind, S, edge)
     want = _jax(jpk.bid_top2_xla, (ts, inv, valid, price), scale)
-    t = [torch.from_numpy(a) for a in (ts, inv, valid, price)]
-    rows = torch.arange(64, dtype=torch.int64)[:, None]
+    parts = _chunk_parts((ts, inv, valid, price), scale, L)
+    assert len(parts) == C
+    nan_rows = np.isnan(ts)
+    rng = np.random.default_rng(C)
+    for _ in range(4):
+        got = _merged(parts, rng.permutation(len(parts)))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    if kind == "NaN sizes":
+        assert np.isnan(got[0][nan_rows]).all()
+        assert np.isnan(got[2][nan_rows]).all()
+        assert (got[1][nan_rows] == 0).all()
+    if kind == "duplicate max at a chunk edge":
+        assert (got[1] == edge - 1).all() and np.array_equal(got[0], got[2])
+
+
+def _chunk_parts(args, scale, L):
+    """The plain top-2 of each slot chunk of length L (the last ragged) of
+    the 1-D inputs ``args`` = (size, inv_speed, valid, price)."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    T, S = t[0].shape[0], t[1].shape[0]
+    rows = torch.arange(T, dtype=torch.int64)[:, None]
     parts = []
     for lo in range(0, S, L):
         hi = min(lo + L, S)
         val = bid._bid_block(t[0][:, None], t[1][None, lo:hi],
                              t[3][None, lo:hi], t[2][None, lo:hi], rows,
                              torch.arange(lo, hi)[None], float(scale), S)
-        # the kernel's sweep never takes a NaN cell
-        val = torch.where(torch.isnan(val), float("-inf"), val)
         parts.append(bid._top2_block(val, lo))
-    assert len(parts) == C and (C == 1 or hi - lo < L)
-    nan_rows = np.isnan(ts)
-    rng = np.random.default_rng(C)
-    for _ in range(4):
-        acc = (torch.full((64,), float("-inf")),
-               torch.zeros(64, dtype=torch.int32),
-               torch.full((64,), float("-inf")))
-        for k in rng.permutation(len(parts)):
-            acc = bid.merge_top2(acc, parts[k])
-        got = [a.numpy() for a in acc]
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g[~nan_rows], w[~nan_rows])
-        assert (got[0][nan_rows] == -np.inf).all()
-        assert (got[1][nan_rows] == 0).all()
-        assert (got[2][nan_rows] == -np.inf).all()
-        assert np.isnan(want[0][nan_rows]).all()
-    if kind == "duplicate max at a chunk edge":
-        assert (got[1] == edge - 1).all() and np.array_equal(got[0], got[2])
+    return parts
+
+
+def _merged(parts, order):
+    """``parts`` merged with ``bid.merge_top2`` in ``order``, from the
+    empty top-2."""
+    T = parts[0][0].shape[0]
+    acc = (torch.full((T,), float("-inf")), torch.zeros(T, dtype=torch.int32),
+           torch.full((T,), float("-inf")))
+    for k in order:
+        acc = bid.merge_top2(acc, parts[k])
+    return [a.numpy() for a in acc]
+
+
+def _nan_case(kind, T=96, S=1500):
+    """C.3's inputs: a NaN size, a NaN speed on one valid slot, a NaN price
+    on one, a NaN jitter, and an infinite size beside an infinite price
+    (inf - inf); each with slots valid or not around it."""
+    rng = np.random.default_rng(len(kind))
+    ts, inv, valid, price = _inputs(rng, T, S, frac_valid=0.7)
+    scale = f32(2.5e-4)
+    slot = 977  # past the port's small test tiles and the chunks' edges
+    valid[slot] = 1.0
+    if kind == "NaN size":
+        ts[[3, 40, 41]] = np.nan
+    elif kind == "NaN speed on one valid slot":
+        inv[slot] = np.nan
+    elif kind == "NaN price":
+        price[slot] = np.nan
+        price[slot + 1] = np.nan  # a second NaN cell: v2 is NaN too
+        valid[slot + 1] = 1.0
+    elif kind == "NaN jitter":
+        scale = f32(np.nan)
+    elif kind == "inf size and price":
+        ts[5] = -np.inf  # +inf products
+        price[slot] = np.inf
+    elif kind == "NaN on an invalid slot":
+        inv[slot], valid[slot] = np.nan, 0.0
+    return (ts, inv, valid, price), scale
+
+
+NAN_KINDS = ["NaN size", "NaN speed on one valid slot", "NaN price",
+             "NaN jitter", "inf size and price", "NaN on an invalid slot"]
+
+
+@pytest.mark.parametrize("kind", NAN_KINDS)
+def test_nan_cells_match_jax_xla(kind, monkeypatch):
+    """C.3: on NaN inputs the port's plain version, at its own tile and at
+    small tiles (so a NaN meets a number at a tile edge), equals JAX's
+    ``bid_top2_xla`` exactly: the first NaN is the maximum, v2 excludes only
+    the argmax position and propagates any other NaN. ``merge_top2`` over
+    the chunks' top-2s in shuffled orders gives the same."""
+    args, scale = _nan_case(kind)
+    want = _jax(jpk.bid_top2_xla, args, scale)
+    if kind != "NaN on an invalid slot":
+        assert np.isnan(want[0]).any()
+    for g, w in zip(_port(args, scale), want):
+        np.testing.assert_array_equal(g, w)
+    monkeypatch.setattr(bid, "_PLAIN_ROWS", 32)
+    monkeypatch.setattr(bid, "_PLAIN_COLS", 128)
+    for g, w in zip(_port(args, scale), want):
+        np.testing.assert_array_equal(g, w)
+    parts = _chunk_parts(args, scale, 128)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        for g, w in zip(_merged(parts, rng.permutation(len(parts))), want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_nan_smallest_input_matches_jax():
+    """ROADMAP C.3's smallest input: one task whose size is NaN and one
+    valid slot. JAX's ``bid_top2_xla`` gives v1 = NaN at that slot and
+    v2 = -inf (every other cell is invalid); so do the port's plain
+    version and the merge of the slots' chunks, in every order (the kernel
+    once gave (-inf, 0, -inf))."""
+    ts = np.array([np.nan, 1.5], f32)
+    inv, price = np.ones(8, f32), np.zeros(8, f32)
+    valid = np.zeros(8, f32)
+    valid[5] = 1.0
+    args = (ts, inv, valid, price)
+    want = _jax(jpk.bid_top2_xla, args, f32(1e-4))
+    got = _port(args, f32(1e-4))
+    assert np.isnan(got[0][0]) and got[1][0] == 5 and got[2][0] == -np.inf
+    parts = _chunk_parts(args, f32(1e-4), 3)
+    for order in ([0, 1, 2], [2, 1, 0], [1, 2, 0]):
+        for g, w, m in zip(got, want, _merged(parts, order)):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(m, w)
+
+
+@pytest.mark.parametrize("route", ["pallas", "stream"])
+def test_jax_chunked_routes_keep_a_number_over_a_later_nan(route):
+    """JAX's own chunked routes disagree with ``bid_top2_xla`` when a NaN
+    cell lies in a later slot chunk than a number: their fold
+    (``pallas_kernels.py:181-185``, and the stream impl's) takes a chunk only
+    on a strict ``>``, so the earlier chunk's number stays v1 with its slot,
+    and ``jnp.minimum`` of it and the NaN makes v2 NaN; ``bid_top2_xla``
+    takes the NaN as v1 at its slot and the number as v2. The port follows
+    ``bid_top2_xla`` whatever its tile (C.3)."""
+    T, S = jpk.TILE_T, 2 * jpk.CHUNK_S
+    ts, inv, valid, price = _inputs(np.random.default_rng(6), T, S, 1.0)
+    nan_slot = jpk.CHUNK_S + 17
+    price[nan_slot] = np.nan
+    scale = f32(2.5e-4)
+    args = (ts, inv, valid, price)
+    want = _jax(jpk.bid_top2_xla, args, scale)
+    if route == "pallas":
+        chunked = _jax(jpk.bid_top2_pallas, args, scale, interpret=True)
+    else:
+        chunked = _jax(jpk.bid_top2_stream_impl, args, scale)
+    port = _port(args, scale)
+    assert np.isnan(want[0]).all() and (want[1] == nan_slot).all()
+    assert np.isfinite(want[2]).all()
+    assert np.isfinite(chunked[0]).all() and (chunked[1] < jpk.CHUNK_S).all()
+    assert np.isnan(chunked[2]).all()
+    # the number kept is the first chunk's maximum
+    (first,) = _chunk_parts(args, scale, jpk.CHUNK_S)[:1]
+    np.testing.assert_allclose(chunked[0], first[0].numpy(), rtol=0,
+                               atol=ATOL)
+    for g, w in zip(port, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_wrapper_validates_kernel_inputs():

@@ -19,6 +19,11 @@
 // fused resident tick, documents the loop, the tie rules and the op order
 // that makes the kernel equal its plain version bit for bit).
 //
+// NaN cells: a pre-pass (one block, O(S)) flags a valid slot with a
+// non-finite inverse speed or price, or a non-finite jitter; then every
+// warp sweeps with JAX's NaN rule, and otherwise only a warp with a
+// non-finite size among its rows does. The finite loop pays nothing.
+//
 // The kernel launches on the caller's stream, does not synchronise and
 // allocates nothing; the C entry returns the launch's CUDA error code.
 
@@ -32,14 +37,28 @@ namespace {
 constexpr int kWarps = 4;  // warps per block
 constexpr int kRows = 4;   // task rows per warp
 
+// flag[0] = 1 when some cell of any row can be NaN through a slot or the
+// jitter: a valid slot with a non-finite inverse speed or price.
+__global__ void __launch_bounds__(1024)
+bid_flag_kernel(const float* __restrict__ inv_speed,
+                const float* __restrict__ valid,
+                const float* __restrict__ price, float jitter, int S,
+                int* __restrict__ flag) {
+  bool bad = !isfinite(jitter);
+  for (int s = threadIdx.x; s < S; s += blockDim.x)
+    bad |= tpu_faas_bid::slot_nonfinite(inv_speed[s], valid[s], price[s]);
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) flag[0] = bad ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kWarps * 32)
 bid_top2_kernel(const float* __restrict__ size,
                 const float* __restrict__ inv_speed,
                 const float* __restrict__ valid,
                 const float* __restrict__ price, float jitter, int T, int S,
                 uint32_t row_offset, uint32_t n_slots_total,
-                float* __restrict__ out_v1, int* __restrict__ out_best,
-                float* __restrict__ out_v2) {
+                const int* __restrict__ flag, float* __restrict__ out_v1,
+                int* __restrict__ out_best, float* __restrict__ out_v2) {
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int t0 = warp * kRows;
@@ -47,16 +66,24 @@ bid_top2_kernel(const float* __restrict__ size,
 
   float neg_size[kRows];
   uint32_t row_base[kRows];
+  bool nan_rule = flag[0] != 0;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int t = min(t0 + r, T - 1);  // rows past T compute, never store
     neg_size[r] = -size[t];
+    nan_rule |= !isfinite(neg_size[r]);
     row_base[r] = (row_offset + (uint32_t)(t0 + r)) * n_slots_total;
   }
   float v1[kRows], v2[kRows];
   int best[kRows];
-  tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, inv_speed, valid, price,
-                                 jitter, 0, S, v1, best, v2);
+  if (nan_rule) {  // warp-uniform: every lane read the same rows and flag
+    tpu_faas_bid::warp_top2<kRows, true>(neg_size, row_base, inv_speed,
+                                         valid, price, jitter, 0, S, v1,
+                                         best, v2);
+  } else {
+    tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, inv_speed, valid,
+                                   price, jitter, 0, S, v1, best, v2);
+  }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int t = t0 + r;
@@ -70,17 +97,22 @@ bid_top2_kernel(const float* __restrict__ size,
 
 }  // namespace
 
+// flag: one int of scratch, written by the pre-pass before the bid reads it.
 extern "C" int tpu_faas_bid_top2(const float* size, const float* inv_speed,
                                  const float* valid, const float* price,
                                  float jitter, int T, int S,
                                  unsigned int row_offset,
-                                 unsigned int n_slots_total, float* v1,
-                                 int* best, float* v2, void* stream) {
+                                 unsigned int n_slots_total, int* flag,
+                                 float* v1, int* best, float* v2,
+                                 void* stream) {
   if (T <= 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  bid_flag_kernel<<<1, 1024, 0, st>>>(inv_speed, valid, price, jitter, S,
+                                      flag);
   const int rows_per_block = kWarps * kRows;
   const int blocks = (T + rows_per_block - 1) / rows_per_block;
-  bid_top2_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  bid_top2_kernel<<<blocks, kWarps * 32, 0, st>>>(
       size, inv_speed, valid, price, jitter, T, S, row_offset, n_slots_total,
-      v1, best, v2);
+      flag, v1, best, v2);
   return (int)cudaGetLastError();
 }

@@ -58,7 +58,9 @@
 //     carried refresh flag is set, else the carried prices re-based;
 //   - then at most warm_rounds bidding rounds across the whole grid while an
 //     admitted task has no slot. Each round: every bidder's top-2 bid with
-//     the code of kernel B2 (bid_top2.cuh), spread over the grid's warps as
+//     the code of kernel B2 (bid_top2.cuh; JAX's NaN rule for a row with a
+//     non-finite size, and for every row once the opening or an installed
+//     price flags a slot or the jitter), spread over the grid's warps as
 //     (4 bidders, slot chunk) work items when bidders are few, the chunks'
 //     partial top-2s merged exactly by the group's last warp (bid_round);
 //     each bid an atomicMin on its slot's 64-bit key (order-preserving bits of
@@ -193,6 +195,9 @@ struct Auction {
   float* bid;            // [T] this round's bid price of each bidder
   int32_t* list[2];      // [T] bidders of even and odd rounds
   int32_t* cnt;          // [2] their counts
+  int32_t* nonfinite;    // [1] a valid slot's inverse speed or price, or
+                         //     the jitter, is not finite: bid by JAX's NaN
+                         //     rule (bid_top2.cuh) in every row
   float* part_v1;        // [kMaxItems kRows] a round's partial top-2 per
   int32_t* part_b;       //   work item and row: v1, best, v2
   float* part_v2;
@@ -765,13 +770,15 @@ template <class TaskOk>
 __device__ void rank_place(const Dims& D, const State& st, const Out& out,
                            TaskOk task_ok, const int32_t* free_cnt,
                            Admit admit, const int32_t* adm_rank,
-                           const Scratch& sc, Smem& sm) {
+                           const Scratch& sc, Smem& sm,
+                           unsigned long long* stamp = nullptr) {
   const int tid = threadIdx.x;
   const int T = D.T, K = D.K, S = D.W * K;
   int n_slots_total;
   const int slot_buf =
       sort_slots(D, st, out, free_cnt, sc, sm, &n_slots_total);
   const int32_t* slot_order = sc.sv[slot_buf];
+  PROBE(if (stamp && tid == 0) *stamp = global_ns();)
 
   // admission
   if (admit == kRanked) {
@@ -1052,6 +1059,12 @@ __device__ int auction_open(const Dims& D, const State& st, const Out& out,
   } else {
     rebase(S, au, sm);
   }
+  __syncthreads();
+  bool bad = !isfinite(au.jitter);
+  for (int s = tid; s < S; s += NT)
+    bad |= tpu_faas_bid::slot_nonfinite(au.inv[s], au.valid_f[s], au.price[s]);
+  bad = __syncthreads_or(bad);
+  if (tid == 0) au.nonfinite[0] = bad ? 1 : 0;
   return n_match;
 }
 
@@ -1106,6 +1119,9 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
   const BidPlan pl = bid_plan(n_bid, S);
   const int n_items = pl.groups * pl.chunks;
   const int n_gwarp = gridDim.x * NWARP;
+  // read after the round's barriers (they order the opening's and the
+  // installs' writes); it only decides a second sweep
+  const bool slots_nonfinite = au.nonfinite[0] != 0;
   for (int item = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
        item < n_items; item += n_gwarp) {
     const int g = item / pl.chunks, c = item - g * pl.chunks;
@@ -1122,9 +1138,20 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
     float v1[kRows], v2[kRows];
     int best[kRows];
     const int s_lo = c * pl.len;
+    const int s_hi = min(s_lo + pl.len, S);
     tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, au.inv, au.valid_f,
-                                   au.price, au.jitter, s_lo,
-                                   min(s_lo + pl.len, S), v1, best, v2);
+                                   au.price, au.jitter, s_lo, s_hi, v1, best,
+                                   v2);
+    // a row or slot that can make a cell NaN: sweep again by JAX's NaN
+    // rule (warp-uniform: the same rows and flag in every lane). Deciding
+    // after the sweep keeps the flag and the sizes off its loads' path.
+    bool nan_rule = slots_nonfinite;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) nan_rule |= !isfinite(neg_size[r]);
+    if (nan_rule)
+      tpu_faas_bid::warp_top2<kRows, true>(neg_size, row_base, au.inv,
+                                           au.valid_f, au.price, au.jitter,
+                                           s_lo, s_hi, v1, best, v2);
     if (pl.chunks > 1) {
       const int base = g * pl.chunks * kRows;
 #pragma unroll
@@ -1147,10 +1174,19 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
         int ab = 0;
         for (int k = lane; k < pl.chunks; k += 32) {
           const int i = base + k * kRows + r;
-          tpu_faas_bid::merge(a1, ab, a2, __ldcg(au.part_v1 + i),
-                              __ldcg(au.part_b + i), __ldcg(au.part_v2 + i));
+          const float p1 = __ldcg(au.part_v1 + i), p2 = __ldcg(au.part_v2 + i);
+          const int pb = __ldcg(au.part_b + i);
+          if (nan_rule) {
+            tpu_faas_bid::merge<true>(a1, ab, a2, p1, pb, p2);
+          } else {
+            tpu_faas_bid::merge(a1, ab, a2, p1, pb, p2);
+          }
         }
-        tpu_faas_bid::warp_merge(a1, ab, a2);
+        if (nan_rule) {
+          tpu_faas_bid::warp_merge<true>(a1, ab, a2);
+        } else {
+          tpu_faas_bid::warp_merge(a1, ab, a2);
+        }
         v1[r] = a1;
         best[r] = ab;
         v2[r] = a2;
@@ -1279,8 +1315,12 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
       const int prev = au.owner[s];
       if (prev >= 0) au.assigned[prev] = -1;
       au.owner[s] = t;
-      au.price[s] = au.bid[t];
+      const float bp = au.bid[t];
+      au.price[s] = bp;
       au.assigned[t] = s;
+      // a bid price past the float range (a huge v1 - v2): the next
+      // round's cells may be NaN; the barriers order the flag
+      if (!isfinite(bp)) au.nonfinite[0] = 1;
     }
     grid.sync();
     PROBE(if (stamp && rstamp) rs[3] = global_ns();)
@@ -1315,10 +1355,64 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
 // quantized onto nb log-spaced classes, the [nb+1, W+1] problem, bucket
 // rounding) when T*W > 2^24, else dense (the [T+1, W+1] problem, per-task
 // rounding). The [R, C] matrices are never built: every cell of -cost/tau is
-// recomputed from the row and column vectors with the plain version's own
-// expression, op by op.
+// recomputed from the row and column vectors.
+//
+// The iterations (what bounds them: one exp per cell on the SFU, 16 a clock
+// per SM, and a few issue slots around it). Each update is a logsumexp per
+// row (f) or per column (g), spread over the grid as lines: block b takes
+// ceil(lines / blocks) consecutive lines and gives each several warps when
+// they are fewer than its 32 (bucketed f-update: 8 rows a block, 4 warps a
+// row), so every warp works. A lane folds its cells into an online
+// (max, sum) pair in base 2, four cells at a time: one evaluation and one
+// ex2 a cell, the sum rescaled only when a batch raises the max. The pairs
+// merge per warp by shuffles and per line through shared memory, with a
+// __syncthreads and no grid barrier. A cell is ONE fma on vectors staged in
+// shared memory: -rep[r] (row, 0 on absent rows) times inv[c] * log2(e)/tau
+// (column, 0 on the slack column) plus g[c]/tau * log2(e) (column: -inf on a
+// closed one, and the slack cost folded into the slack column) or plus
+// f[r]/tau * log2(e) (row). JAX 0.9's hazards hold: a non-finite max is
+// replaced by 0 (so an all -inf line gives -inf, and exp(-inf - -inf) never
+// runs), a NaN cell is skipped by the max and reaches the sum, an absent
+// line gets a -inf potential, and a row whose representative size is not
+// finite takes an exact path in which a closed column gives -inf. The
+// potentials differ from the plain version's by rounding only (PERF.md,
+// contract (b): within 1e-4 of tau); the rounding candidates that follow
+// replay the plain expression op by op.
+//
+// The close (capacity repair and spill) runs on block 0 over compacted
+// lists: the grid gathers each task's candidate (valid and not sent to
+// slack) into per-block lists in index order; block 0 sorts only the
+// candidates by (worker, -best_p) and keeps each worker's first cap; then
+// the spill pairs the first (by index) spilled tasks, sorted by size, with
+// the valid slots left, sorted by speed: both compacted in index order, so
+// the stable sorts give rank_place's own pairs. A valid slot whose speed or
+// an admitted task whose size is -inf or NaN would sort among the invalid
+// ones there; such a tick takes rank_place itself.
 constexpr int kRed = 7;  // grid reductions, see sinkhorn_reduce
+constexpr int kMaxBlocks = 1024;  // the close's per-block candidate lists
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// the iteration vectors stay in shared memory up to this many floats
+// (227 KB a block, less the static Smem); past it they are read from
+// global memory
+constexpr int kVecSmemFloats = 40960;
 constexpr int kStamps = 8;  // phase stamps, see fused_sinkhorn_kernel
+// The probe build's Sinkhorn split (-DTPU_FAAS_PROBE alone writes it; the
+// layout follows the phase stamps in every build): per iteration it <
+// kSkIters four words from kSkIter + 4 it: the last block's end of its
+// f-update (the largest clock over the blocks), block 0's clock after the
+// f-update's barrier, the last block's end of its g-update, block 0's after
+// its barrier; then the close's clocks from kSkClose: the candidates'
+// keys built, the repair's first and second sort (or their counterparts),
+// the repair done, the spill's slot order, the spill done; then its counts
+// from kSkCount: candidates (valid and not to_slack), spilled tasks,
+// spilled pairs placed, and 1 when the spill took rank placement's own
+// sorts (a non-finite size or speed).
+constexpr int kSkIters = 64;
+constexpr int kSkIter = kStamps;
+constexpr int kSkClose = kSkIter + 4 * kSkIters;
+constexpr int kSkCount = kSkClose + 6;
+constexpr int kSkStamps = kSkCount + 4;
 
 struct Sinkhorn {
   int bucketed;         // 1: bucketed solver and rounding; 0: dense
@@ -1329,7 +1423,8 @@ struct Sinkhorn {
   float* f;             // [R] output: final row potentials
   float* g;             // [C] output: final column potentials
   float* tau_out;       // [1] output: the effective temperature
-  unsigned long long* stamps;  // [kStamps] block 0's clock at each phase
+  unsigned long long* stamps;  // [kSkStamps] block 0's clock at each phase,
+                               // then the probe build's split
   float* rowv;          // [R-1] bucket representative size, or task size
   int32_t* row_ok;      // [R-1] bucket populated, or task valid
   float* loga;          // [R] log row supplies
@@ -1352,6 +1447,17 @@ struct Sinkhorn {
   int32_t* remaining;   // [W]
   int32_t* seg_first;   // [W] first sorted position of each worker
   uint32_t* red;        // [kRed]
+  // the iterations' cell vectors, in base-2 units (see above)
+  float* col_a;         // [C] inv * log2(e) / tau, 0 on the slack column
+  float* col_g;         // [C] g/tau * log2(e); -inf closed; slack cost folded
+  float* row_a;         // [R] -rep (or -size); 0 on absent and slack rows
+  float* row_f;         // [R] f/tau * log2(e)
+  int vec_smem;         // 1: the block stages the four in shared memory
+  // the close's candidate lists: block b's candidates, in index order, at
+  // cand[b * chunk], their count cand_n[b], then their offsets
+  int32_t* cand;        // [T]
+  int32_t* cand_n;      // [kMaxBlocks]
+  int32_t* cand_off;    // [kMaxBlocks]
 };
 
 // The scalars every thread derives from the grid reductions.
@@ -1534,17 +1640,30 @@ __device__ void sinkhorn_setup(const Dims& D, const State& st,
       sk.rowv[t] = st.sizes[t];
       sk.row_ok[t] = v ? 1 : 0;
       sk.loga[t] = log_marginal(v ? 1.0f : 0.0f);
+      sk.row_a[t] = v ? -st.sizes[t] : 0.0f;
     }
   }
+  // the cell vectors: cost/tau = rep * (inv / tau) in base 2; g starts at 0
+  const float a = __fdiv_rn(kLog2e, s.tau);
   for (int c = gthread; c < sk.C; c += n_gthread) {
     sk.logb[c] = log_marginal(
         c < W ? sk.capf[c]
               : clamp_min(__fsub_rn(s.n_tasks, s.total_cap), 0.0f));
     sk.gt[c] = __fdiv_rn(0.0f, s.tau);
+    if (c < W) {
+      const float inv = sk.bucketed ? sk.colv[c] : __frcp_rn(sk.colv[c]);
+      sk.col_a[c] = __fmul_rn(inv, a);
+      sk.col_g[c] = sk.capf[c] > 0.0f ? 0.0f : neg_inf();
+    } else {
+      sk.col_a[c] = 0.0f;
+      sk.col_g[c] = __fmul_rn(s.neg_slack_over_tau, kLog2e);
+    }
   }
-  if (gthread == 0)
+  if (gthread == 0) {
     sk.loga[sk.R - 1] =
         log_marginal(clamp_min(__fsub_rn(s.total_cap, s.n_tasks), 0.0f));
+    sk.row_a[sk.R - 1] = 0.0f;
+  }
 }
 
 // The bucket rows (bucketed only, after the populations are complete):
@@ -1556,77 +1675,216 @@ __device__ void sinkhorn_buckets(const Sinkhorn& sk, const SkScalars& s) {
   for (int k = gthread; k < sk.nb; k += n_gthread) {
     const float q = __fdiv_rn(__fadd_rn(static_cast<float>(k), 0.5f),
                               static_cast<float>(sk.nb));
-    sk.rowv[k] = expf(__fadd_rn(s.lo, __fmul_rn(q, s.span)));
+    const float rep = expf(__fadd_rn(s.lo, __fmul_rn(q, s.span)));
+    sk.rowv[k] = rep;
     const int n = sk.counts[k];
     sk.row_ok[k] = n > 0 ? 1 : 0;
     sk.loga[k] = log_marginal(static_cast<float>(n));
+    sk.row_a[k] = n > 0 ? -rep : 0.0f;
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+// ---- the iterations: online logsumexp in base 2 -------------------------
+__device__ __forceinline__ float fin0(float m) { return isfinite(m) ? m : 0.0f; }
+
+// 2^x on the SFU (MUFU.EX2): -inf gives +0, NaN gives NaN
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
+// An online logsumexp over base-2 cells: m is the largest non-NaN cell
+// (-inf while there is none), s the sum of 2^(x - fin0(m)) over the cells
+// (a NaN cell makes it NaN). fin0 is JAX's replacement of a non-finite max
+// by 0, so 2^(-inf - -inf) never runs: an all -inf line keeps s = 0.
+struct Lse {
+  float m, s;
+};
 
-// JAX 0.9's logsumexp over x(0..n-1) by one warp, every lane gets it: the
-// max, a non-finite max replaced by 0, then log(sum(exp(x - m))) + m. Only
-// the order of the sum differs from the plain version's. (A NaN the max
-// skips still reaches the sum, so the result is NaN as the plain one is.)
+// Fold the cells x(i), i = i0, i0 + step, ... < n, four at a time: one
+// evaluation and one ex2 a cell; s is rescaled only when a batch raises
+// the max past a finite one.
 template <class X>
-__device__ float warp_logsumexp(int n, X x) {
-  const int lane = threadIdx.x & 31;
-  float m = neg_inf();
-  for (int i = lane; i < n; i += 32) m = fmaxf(m, x(i));
-  m = warp_max(m);
-  const float m0 = isfinite(m) ? m : 0.0f;
-  float sum = 0.0f;
-  for (int i = lane; i < n; i += 32) sum += expf(__fsub_rn(x(i), m0));
-  sum = warp_sum(sum);
-  return __fadd_rn(logf(sum), m0);
-}
-
-// One Sinkhorn iteration's f-update (rows hit their supply), one warp per
-// row: f = tau * (loga - lse_c(negc + g/tau)), -inf on absent rows.
-__device__ void sinkhorn_f_update(const Sinkhorn& sk, const SkScalars& s) {
-  const int gwarp = (blockIdx.x * NT + threadIdx.x) >> 5;
-  const int n_gwarp = gridDim.x * NWARP;
-  for (int r = gwarp; r < sk.R; r += n_gwarp) {
-    const float lse = warp_logsumexp(sk.C, [&](int c) {
-      return __fadd_rn(sk_negc(sk, s, r, c), sk.gt[c]);
-    });
-    if ((threadIdx.x & 31) == 0) {
-      const float la = sk.loga[r];
-      const float f =
-          isfinite(la) ? __fmul_rn(s.tau, __fsub_rn(la, lse)) : neg_inf();
-      sk.f[r] = f;
-      sk.ft[r] = __fdiv_rn(f, s.tau);
+__device__ __forceinline__ void lse_fold(Lse& a, int i0, int n, int step,
+                                         X x) {
+  for (int i = i0; i < n; i += 4 * step) {
+    float v[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = i + b * step;
+      v[b] = j < n ? x(j) : neg_inf();
     }
+    // fmaxf skips a NaN; four NaNs give NaN, which raises nothing
+    const float bm = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+    if (bm > a.m) {
+      const float mh = fin0(a.m), bh = fin0(bm);
+      if (a.s != 0.0f && bh != mh) a.s *= ex2(mh - bh);
+      a.m = bm;
+    }
+    const float mh = fin0(a.m);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) a.s += ex2(v[b] - mh);
   }
 }
 
-// ... and its g-update (columns hit their demand), one warp per column.
-__device__ void sinkhorn_g_update(const Sinkhorn& sk, const SkScalars& s) {
-  const int gwarp = (blockIdx.x * NT + threadIdx.x) >> 5;
-  const int n_gwarp = gridDim.x * NWARP;
-  for (int c = gwarp; c < sk.C; c += n_gwarp) {
-    const float lse = warp_logsumexp(sk.R, [&](int r) {
-      return __fadd_rn(sk_negc(sk, s, r, c), sk.ft[r]);
-    });
-    if ((threadIdx.x & 31) == 0) {
-      const float lb = sk.logb[c];
-      const float g =
-          isfinite(lb) ? __fmul_rn(s.tau, __fsub_rn(lb, lse)) : neg_inf();
-      sk.g[c] = g;
-      sk.gt[c] = __fdiv_rn(g, s.tau);
-    }
+// Merge two folds over disjoint cells (exact up to rounding in any order;
+// sched/sinkhorn.py::split_logsumexp is its plain form).
+__device__ __forceinline__ void lse_merge(Lse& a, const Lse& b) {
+  const float m = fmaxf(a.m, b.m);  // neither is NaN
+  const float mh = fin0(m);
+  const float sa = a.s == 0.0f ? 0.0f : a.s * ex2(fin0(a.m) - mh);
+  const float sb = b.s == 0.0f ? 0.0f : b.s * ex2(fin0(b.m) - mh);
+  a.m = m;
+  a.s = sa + sb;
+}
+
+__device__ __forceinline__ void warp_lse_merge(Lse& a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const Lse b{__shfl_xor_sync(FULL, a.m, o), __shfl_xor_sync(FULL, a.s, o)};
+    lse_merge(a, b);
   }
+}
+
+// The natural logsumexp of a fold: ln(s) + fin0(m) ln 2 (-inf when s = 0).
+__device__ __forceinline__ float lse_value(const Lse& a) {
+  return __fadd_rn(logf(a.s), __fmul_rn(fin0(a.m), kLn2));
+}
+
+// The iteration vectors as each block reads them: shared memory when
+// sk.vec_smem, else the global scratch (one code path: generic pointers).
+struct SkVecs {
+  const float* col_a;
+  float* col_g;
+  const float* row_a;
+  float* row_f;
+  Lse* part;  // [NWARP] the warps' folds, for the line merge
+};
+
+// One update's lines (rows or columns) over the grid: block b takes lines
+// [b * per_block, (b + 1) * per_block), `at_once` of them at a time with
+// `warps` warps each (32 / at_once; one when a block has more lines than
+// warps). Every block takes the same plan.
+struct LinePlan {
+  int per_block, at_once, warps, rounds;
+};
+
+__device__ __forceinline__ LinePlan line_plan(int n_lines) {
+  const int per_block = (n_lines + gridDim.x - 1) / gridDim.x;
+  const int at_once = min(per_block, NWARP);
+  return LinePlan{per_block, at_once, NWARP / at_once,
+                  (per_block + at_once - 1) / at_once};
+}
+
+// For every line of this block's plan: each of its warps folds its lanes'
+// cells (fold(line, lse, first cell, stride)), the folds merge, and one
+// lane calls finish(line, lse). Every thread of the block must call it.
+template <class Fold, class Finish>
+__device__ void lines_lse(int n_lines, const SkVecs& v, Fold fold,
+                          Finish finish) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const LinePlan pl = line_plan(n_lines);
+  const int slot = warp / pl.warps, part = warp - slot * pl.warps;
+  for (int r = 0; r < pl.rounds; ++r) {
+    const int j = r * pl.at_once + slot;
+    const int line = blockIdx.x * pl.per_block + j;
+    const bool mine = slot < pl.at_once && j < pl.per_block && line < n_lines;
+    Lse a{neg_inf(), 0.0f};
+    if (mine) fold(line, a, part * 32 + lane, pl.warps * 32);
+    warp_lse_merge(a);
+    if (pl.warps > 1) {
+      if (lane == 0) v.part[warp] = a;
+      __syncthreads();
+      if (mine && part == 0) {
+        a = lane < pl.warps ? v.part[warp + lane] : Lse{neg_inf(), 0.0f};
+        warp_lse_merge(a);
+      }
+      __syncthreads();  // v.part is reused by the next round
+    }
+    if (mine && part == 0 && lane == 0) finish(line, a);
+  }
+}
+
+// One Sinkhorn iteration's f-update (rows hit their supply): f = tau *
+// (loga - lse_c(negc + g/tau)), -inf on absent rows. The slack row's cells
+// are g/tau on the open columns and -inf on the slack column.
+__device__ void sinkhorn_f_update(const Sinkhorn& sk, const SkScalars& s,
+                                  const SkVecs& v) {
+  const int W = sk.C - 1, nr = sk.R - 1;
+  if (sk.vec_smem) {  // this iteration's g, staged
+    for (int c = threadIdx.x; c < sk.C; c += NT) v.col_g[c] = sk.col_g[c];
+    __syncthreads();
+  }
+  const float* ca = v.col_a;
+  const float* cg = v.col_g;
+  lines_lse(
+      sk.R, v,
+      [&](int r, Lse& a, int i0, int step) {
+        if (!isfinite(sk.loga[r])) return;  // f = -inf whatever the lse
+        const float ra = v.row_a[r];
+        if (r == nr) {
+          lse_fold(a, i0, W, step, [&](int c) { return cg[c]; });
+        } else if (isfinite(ra)) {
+          lse_fold(a, i0, sk.C, step,
+                   [&](int c) { return fmaf(ra, ca[c], cg[c]); });
+        } else {
+          // a non-finite size class: a closed column stays -inf
+          lse_fold(a, i0, sk.C, step, [&](int c) {
+            if (c == W) return cg[c];
+            return sk.capf[c] > 0.0f ? fmaf(ra, ca[c], cg[c]) : neg_inf();
+          });
+        }
+      },
+      [&](int r, const Lse& a) {
+        const float la = sk.loga[r];
+        const float f = isfinite(la)
+                            ? __fmul_rn(s.tau, __fsub_rn(la, lse_value(a)))
+                            : neg_inf();
+        sk.f[r] = f;
+        const float ft = __fdiv_rn(f, s.tau);
+        sk.ft[r] = ft;
+        sk.row_f[r] = __fmul_rn(ft, kLog2e);
+      });
+}
+
+// ... and its g-update (columns hit their demand). The slack column's
+// cells are f/tau - slack/tau on the real rows and -inf on the slack row.
+__device__ void sinkhorn_g_update(const Sinkhorn& sk, const SkScalars& s,
+                                  const SkVecs& v) {
+  const int W = sk.C - 1, nr = sk.R - 1;
+  if (sk.vec_smem) {  // this iteration's f, staged
+    for (int r = threadIdx.x; r < sk.R; r += NT) v.row_f[r] = sk.row_f[r];
+    __syncthreads();
+  }
+  const float* ra = v.row_a;
+  const float* rf = v.row_f;
+  const float slack = __fmul_rn(s.neg_slack_over_tau, kLog2e);
+  lines_lse(
+      sk.C, v,
+      [&](int c, Lse& a, int i0, int step) {
+        if (!isfinite(sk.logb[c])) return;  // g = -inf whatever the lse
+        if (c == W) {
+          lse_fold(a, i0, nr, step,
+                   [&](int r) { return __fadd_rn(rf[r], slack); });
+        } else {
+          const float cc = v.col_a[c];
+          lse_fold(a, i0, sk.R, step,
+                   [&](int r) { return fmaf(ra[r], cc, rf[r]); });
+        }
+      },
+      [&](int c, const Lse& a) {
+        const float lb = sk.logb[c];
+        const float g = isfinite(lb)
+                            ? __fmul_rn(s.tau, __fsub_rn(lb, lse_value(a)))
+                            : neg_inf();
+        sk.g[c] = g;
+        const float gt = __fdiv_rn(g, s.tau);
+        sk.gt[c] = gt;
+        sk.col_g[c] = __fmul_rn(c == W ? __fadd_rn(gt, s.neg_slack_over_tau)
+                                       : gt,
+                                kLog2e);
+      });
 }
 
 // The first maximum of x(0..W-1) by one warp: every lane gets (value, index).
@@ -1687,74 +1945,185 @@ __device__ void sinkhorn_candidates(const Dims& D, const Sinkhorn& sk,
   }
 }
 
-// ---- Sinkhorn close (block 0): sinkhorn.py::_repair_candidates ------------
-// The bucket candidates gathered per task (bucketed), then the lexsort by
-// (worker, -best_p) as two stable radix sorts, the secondary key first; the
-// segment rank keeps each worker's first cap tasks; the rank spill places
-// the rest over the remaining capacity. Fills sc.assign.
+// ---- Sinkhorn close: sinkhorn.py::_repair_candidates ---------------------
+// Each task's candidate (whole grid, after the rounding candidates): the
+// bucket's worker, its per-task log-mass and the slack test (bucketed), or
+// the task's own (dense); the candidates (valid and not to_slack) of block
+// b's tasks [b * chunk, (b + 1) * chunk) compacted in index order into
+// sk.cand at b * chunk, their count in sk.cand_n[b]. Also clears the
+// assignment, the repair's and the per-worker counts.
+__device__ void sinkhorn_task_candidates(const Dims& D, const State& st,
+                                         const Scratch& sc,
+                                         const Sinkhorn& sk,
+                                         const SkScalars& s, Smem& sm) {
+  const int T = D.T, W = D.W, tid = threadIdx.x;
+  const int chunk = (T + gridDim.x - 1) / gridDim.x;
+  const int lo = min(static_cast<int>(blockIdx.x) * chunk, T);
+  const int hi = min(lo + chunk, T);
+  int n = 0;
+  for (int base = lo; base < hi; base += NT) {  // block-uniform
+    const int t = base + tid;
+    bool cand = false;
+    if (t < hi) {
+      const bool v = st.place_valid[t] != 0;
+      if (sk.bucketed) {
+        const int b = sk.bucket[t];
+        const int w = sk.best_w_b[b];
+        sk.best_w[t] = w;
+        const float ss = clamp_min(st.sizes[t], 1e-30f);
+        sk.best_p[t] = __fdiv_rn(
+            __fsub_rn(sk.g[w], __fmul_rn(ss, sk.colv[min(max(w, 0), W - 1)])),
+            s.tau);
+        sk.to_slack[t] = (sk.to_slack_b[b] || !v) ? 1 : 0;
+      }
+      cand = v && !sk.to_slack[t];
+      sk.a0[t] = -1;
+      sc.assign[t] = -1;
+    }
+    int total;
+    const int at = block_exclusive_scan(cand ? 1 : 0, &total, sm);
+    if (cand) sk.cand[lo + n + at] = t;
+    n += total;
+  }
+  if (tid == 0) sk.cand_n[blockIdx.x] = n;
+  const int gthread = blockIdx.x * NT + tid;
+  for (int w = gthread; w < W; w += gridDim.x * NT) sk.used[w] = 0;
+}
+
+// The close on block 0: the candidates gathered in index order, sorted by
+// (worker, -best_p) as two stable radix sorts (the secondary key first);
+// each worker keeps its first cap; then the spill: the first spilled tasks
+// in index order (as many as there are valid slots left), sorted by -size,
+// paired rank for rank with the valid slots left, sorted by -speed. Fills
+// sc.assign.
 __device__ void sinkhorn_close(const Dims& D, const State& st,
                                const Out& out, const Scratch& sc,
-                               const Sinkhorn& sk, const SkScalars& s,
-                               Smem& sm) {
-  const int tid = threadIdx.x;
-  const int T = D.T, W = D.W;
-  int32_t* key_worker = sc.assign;  // until the spill rewrites it
-  for (int t = tid; t < T; t += NT) {
-    const bool v = st.place_valid[t] != 0;
-    if (sk.bucketed) {
-      const int b = sk.bucket[t];
-      const int w = sk.best_w_b[b];
-      sk.best_w[t] = w;
-      const float ss = clamp_min(st.sizes[t], 1e-30f);
-      sk.best_p[t] = __fdiv_rn(
-          __fsub_rn(sk.g[w], __fmul_rn(ss, sk.colv[min(max(w, 0), W - 1)])),
-          s.tau);
-      sk.to_slack[t] = (sk.to_slack_b[b] || !v) ? 1 : 0;
-    }
-    const bool cand = v && !sk.to_slack[t];
-    key_worker[t] = cand ? sk.best_w[t] : W;
-    sc.tk[0][t] = float_key(-sk.best_p[t]);
-    sc.tv[0][t] = t;
+                               const Sinkhorn& sk, Smem& sm) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = D.T, W = D.W, K = D.K, S = W * K;
+  const int G = gridDim.x;
+  const int chunk = (T + G - 1) / G;
+  PROBE(unsigned long long* cs = sk.stamps + kSkClose;)
+  // the candidates in index order: block b's list at its offset
+  int n_cand;
+  {
+    const int c = tid < G ? sk.cand_n[tid] : 0;
+    const int off = block_exclusive_scan(c, &n_cand, sm);
+    if (tid < G) sk.cand_off[tid] = off;
+    __syncthreads();
   }
-  for (int w = tid; w < W; w += NT) sk.used[w] = 0;
+  for (int b = warp; b < G; b += NWARP) {
+    const int n = sk.cand_n[b], off = sk.cand_off[b];
+    for (int i = lane; i < n; i += 32) {
+      const int t = sk.cand[b * chunk + i];
+      sc.tk[0][off + i] = float_key(-sk.best_p[t]);
+      sc.tv[0][off + i] = t;
+    }
+  }
+  PROBE(if (tid == 0) sk.stamps[kSkCount] = n_cand;)
   __syncthreads();
-  const int b1 = block_radix_sort(sc.tk, sc.tv, T, sm);
+  PROBE(if (tid == 0) cs[0] = global_ns();)
+  const int b1 = block_radix_sort(sc.tk, sc.tv, n_cand, sm);
+  PROBE(if (tid == 0) cs[1] = global_ns();)
   uint32_t* const k2[2] = {sc.tk[b1 ^ 1], sc.tk[b1]};
   int32_t* const v2[2] = {sc.tv[b1 ^ 1], sc.tv[b1]};
-  for (int i = tid; i < T; i += NT) {
+  for (int i = tid; i < n_cand; i += NT) {
     const int t = sc.tv[b1][i];
-    k2[0][i] = static_cast<uint32_t>(key_worker[t]);
+    k2[0][i] = static_cast<uint32_t>(sk.best_w[t]);
     v2[0][i] = t;
   }
   __syncthreads();
-  const int b2 = block_radix_sort(k2, v2, T, sm);
+  const int b2 = block_radix_sort(k2, v2, n_cand, sm);
+  PROBE(if (tid == 0) cs[2] = global_ns();)
   const uint32_t* sorted_w = k2[b2];
   const int32_t* order = v2[b2];
-  for (int i = tid; i < T; i += NT) {
+  for (int i = tid; i < n_cand; i += NT) {
     const int w = static_cast<int>(sorted_w[i]);
-    if (w < W && (i == 0 || static_cast<int>(sorted_w[i - 1]) != w))
-      sk.seg_first[w] = i;
+    if (i == 0 || static_cast<int>(sorted_w[i - 1]) != w) sk.seg_first[w] = i;
   }
   __syncthreads();
-  for (int i = tid; i < T; i += NT) {
+  int my_kept = 0;
+  for (int i = tid; i < n_cand; i += NT) {
     const int w = static_cast<int>(sorted_w[i]);
-    const bool keep =
-        w < W && i - sk.seg_first[w] < capacity(D, st, out, w);
-    sk.a0[order[i]] = keep ? w : -1;
-    if (keep) atomicAdd(sk.used + w, 1);
+    if (i - sk.seg_first[w] < capacity(D, st, out, w)) {
+      const int t = order[i];
+      sk.a0[t] = w;
+      sc.assign[t] = w;
+      atomicAdd(sk.used + w, 1);
+      ++my_kept;
+    }
   }
+  int n_kept;
+  block_exclusive_scan(my_kept, &n_kept, sm);  // also orders sk.used
+  // the valid slots left, in index order: worker w's first remaining[w]
+  int lo_w, hi_w;
+  chunk_of(W, &lo_w, &hi_w);
+  int my_slots = 0;
+  bool bad = false;  // a valid slot that would sort among the invalid ones
+  for (int w = lo_w; w < hi_w; ++w) {
+    const int rem = max(capacity(D, st, out, w) - sk.used[w], 0);
+    sk.remaining[w] = rem;
+    my_slots += rem;
+    bad |= rem > 0 && !(st.speed[w] > neg_inf());
+  }
+  int n_slots;
+  int p = block_exclusive_scan(my_slots, &n_slots, sm);
+  for (int w = lo_w; w < hi_w; ++w) {
+    for (int k = 0; k < sk.remaining[w]; ++k, ++p) {
+      sc.sk[0][p] = float_key(-st.speed[w]);
+      sc.sv[0][p] = w * K + k;
+    }
+  }
+  PROBE(if (tid == 0) cs[3] = global_ns();)
+  // the spill's admission: the first n_adm spilled tasks in index order
+  int lo_t, hi_t;
+  chunk_of(T, &lo_t, &hi_t);
+  auto spilled = [&](int t) {
+    return st.place_valid[t] != 0 && sk.a0[t] < 0;
+  };
+  int my_spill = 0;
+  for (int t = lo_t; t < hi_t; ++t) my_spill += spilled(t) ? 1 : 0;
+  int n_spill;
+  int q = block_exclusive_scan(my_spill, &n_spill, sm);
+  const int n_adm = min(n_slots, n_spill);
+  for (int t = lo_t; t < hi_t && q < n_adm; ++t) {
+    if (!spilled(t)) continue;
+    const float size = st.sizes[t];
+    bad |= !(size > neg_inf());
+    sc.tk[0][q] = float_key(-size);
+    sc.tv[0][q] = t;
+    ++q;
+  }
+  PROBE(if (tid == 0) sk.stamps[kSkCount + 1] = n_spill;)
+  if (__syncthreads_or(bad)) {
+    // rank_place's own sorts over every slot and task
+    for (int t = tid; t < T; t += NT) sk.spilled[t] = spilled(t) ? 1 : 0;
+    __syncthreads();
+    unsigned long long* slot_stamp = nullptr;
+    PROBE(slot_stamp = cs + 4; if (tid == 0) sk.stamps[kSkCount + 3] = 1;)
+    rank_place(
+        D, st, out, [&](int t) { return sk.spilled[t] != 0; }, sk.remaining,
+        kFcfs, nullptr, sc, sm, slot_stamp);
+    for (int t = tid; t < T; t += NT) {
+      PROBE(if (sk.a0[t] < 0 && sc.assign[t] >= 0)
+              atomicAdd(sk.stamps + kSkCount + 2, 1ull);)
+      if (sk.a0[t] >= 0) sc.assign[t] = sk.a0[t];
+    }
+    __syncthreads();
+    PROBE(if (tid == 0) cs[5] = global_ns();)
+    return;
+  }
+  const int sb = block_radix_sort(sc.sk, sc.sv, n_slots, sm);
+  PROBE(if (tid == 0) cs[4] = global_ns();)
+  const int tb = block_radix_sort(sc.tk, sc.tv, n_adm, sm);
+  const int n_pairs = min(n_adm, min(T, S));
+  for (int i = tid; i < n_pairs; i += NT)
+    sc.assign[sc.tv[tb][i]] = sc.sv[sb][i] / K;
   __syncthreads();
-  for (int w = tid; w < W; w += NT)
-    sk.remaining[w] = max(capacity(D, st, out, w) - sk.used[w], 0);
-  for (int t = tid; t < T; t += NT)
-    sk.spilled[t] = (st.place_valid[t] && sk.a0[t] < 0) ? 1 : 0;
-  __syncthreads();
-  rank_place(
-      D, st, out, [&](int t) { return sk.spilled[t] != 0; }, sk.remaining,
-      kFcfs, nullptr, sc, sm);
-  for (int t = tid; t < T; t += NT)
-    if (sk.a0[t] >= 0) sc.assign[t] = sk.a0[t];
-  __syncthreads();
+  PROBE(if (tid == 0) {
+    sk.stamps[kSkCount + 2] = n_pairs;
+    cs[5] = global_ns();
+  })
 }
 
 // Block 0's thread 0 stamps the clock at the start and at the end of each
@@ -1766,6 +2135,9 @@ __global__ void __launch_bounds__(NT, 1)
 fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
                       Out out, Scratch sc, Sinkhorn sk, Tenancy tn, Spec sp) {
   __shared__ Smem sm;
+  // the lines' folds [2 NWARP], then (sk.vec_smem) col_a col_g [C each]
+  // and row_a row_f [R each]
+  extern __shared__ float sk_dyn[];
   cg::grid_group grid = cg::this_grid();
   const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
   if (stamp) sk.stamps[0] = global_ns();
@@ -1779,6 +2151,8 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
     if (threadIdx.x < kRed) sk.red[threadIdx.x] = red_identity(threadIdx.x);
     if (sk.bucketed)
       for (int k = threadIdx.x; k < sk.nb; k += NT) sk.counts[k] = 0;
+    PROBE(for (int i = kStamps + threadIdx.x; i < kSkStamps; i += NT)
+            sk.stamps[i] = 0;)
     if (stamp) sk.stamps[1] = global_ns();
   }
   grid.sync();
@@ -1793,19 +2167,38 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
     sinkhorn_buckets(sk, s);
     grid.sync();
   }
+  SkVecs v{sk.col_a, sk.col_g, sk.row_a, sk.row_f,
+           reinterpret_cast<Lse*>(sk_dyn)};
+  if (sk.vec_smem) {
+    float* p = sk_dyn + 2 * NWARP;
+    // the fixed vectors once; g and f before each update that reads them
+    for (int c = threadIdx.x; c < sk.C; c += NT) p[c] = sk.col_a[c];
+    for (int r = threadIdx.x; r < sk.R; r += NT) p[2 * sk.C + r] = sk.row_a[r];
+    v = SkVecs{p, p + sk.C, p + 2 * sk.C, p + 2 * sk.C + sk.R, v.part};
+  }
   if (stamp) sk.stamps[3] = global_ns();
   for (int it = 0; it < sk.n_iters; ++it) {
-    sinkhorn_f_update(sk, s);
+    PROBE(unsigned long long* is = sk.stamps + kSkIter + 4 * it;
+          const bool istamp = it < kSkIters;)
+    sinkhorn_f_update(sk, s, v);
+    PROBE(__syncthreads();
+          if (threadIdx.x == 0 && istamp) atomicMax(is, global_ns());)
     grid.sync();
-    sinkhorn_g_update(sk, s);
+    PROBE(if (stamp && istamp) is[1] = global_ns();)
+    sinkhorn_g_update(sk, s, v);
+    PROBE(__syncthreads();
+          if (threadIdx.x == 0 && istamp) atomicMax(is + 2, global_ns());)
     grid.sync();
+    PROBE(if (stamp && istamp) is[3] = global_ns();)
   }
   if (stamp) sk.stamps[4] = global_ns();
   sinkhorn_candidates(D, sk, s);
   grid.sync();
+  sinkhorn_task_candidates(D, st, sc, sk, s, sm);
+  grid.sync();
   if (blockIdx.x != 0) return;
   if (stamp) sk.stamps[5] = global_ns();
-  sinkhorn_close(D, st, out, sc, sk, s, sm);
+  sinkhorn_close(D, st, out, sc, sk, sm);
   if (stamp) sk.stamps[6] = global_ns();
   if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
   if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
@@ -1900,22 +2293,29 @@ Spec spec_args(const float* packet, const Dims& d, int on, int tenancy,
 }
 
 // One cooperative launch of as many NT-thread blocks as the card holds at
-// once. Returns 0, a CUDA error code, -1 when the device has no cooperative
+// once (at most max_blocks), each with smem bytes of dynamic shared memory.
+// Returns 0, a CUDA error code, -1 when the device has no cooperative
 // launch, or -2 when no block of the kernel fits on an SM.
-int cooperative_launch(const void* kernel, void** args, void* stream) {
+int cooperative_launch(const void* kernel, void** args, void* stream,
+                       int smem = 0, int max_blocks = 1 << 30) {
   int dev = 0, coop = 0, n_sm = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return -1;
   if (per_sm < 1) return -2;
-  e = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * n_sm), dim3(NT), args,
-                                  0, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(kernel, dim3(min(per_sm * n_sm, max_blocks)),
+                                  dim3(NT), args, smem,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1965,7 +2365,8 @@ extern "C" int tpu_faas_fused_resident_tick(
 
 // Scratch of the auction branch, in int32 words: slot_bid [2S] ++ the rank
 // layout [4S + 6T] ++ inv valid_f owner [S each] ++ assigned bid list0
-// list1 [T each] ++ cnt [2] ++ part_v1 part_b part_v2 [kMaxItems kRows each]
+// list1 [T each] ++ cnt [2] ++ nonfinite [1] ++ part_v1 part_b part_v2
+// [kMaxItems kRows each]
 // ++ ticket [kMaxItems] ++ (8-byte alignment) ++ stamps [2 kAuStamps].
 // With p null it only counts; returns the words.
 long long auction_layout(int32_t* p, long long T, long long S, Scratch* sc,
@@ -1988,6 +2389,7 @@ long long auction_layout(int32_t* p, long long T, long long S, Scratch* sc,
   au->list[0] = take(T);
   au->list[1] = take(T);
   au->cnt = take(2);
+  au->nonfinite = take(1);
   au->part_v1 = takef(kMaxItems * kRows);
   au->part_b = take(kMaxItems * kRows);
   au->part_v2 = takef(kMaxItems * kRows);
@@ -2049,10 +2451,11 @@ extern "C" long long tpu_faas_fused_auction_stamps_offset(int T, int W,
 extern "C" int tpu_faas_fused_auction_stamp_count() { return kAuStamps; }
 
 // Scratch of the Sinkhorn branch, in int32 words: the rank layout
-// [4S + 6T] ++ rowv row_ok loga ft [R each] ++ logb gt [C each] ++ colv capf
-// used remaining seg_first [W each] ++ logs bucket best_w best_p to_slack a0
-// spilled [T each] ++ counts best_w_b to_slack_b [nb each] ++ red [kRed]
-// ++ stamps [2 kStamps].
+// [4S + 6T] ++ rowv row_ok loga ft row_a row_f [R each] ++ logb gt col_a
+// col_g [C each] ++ colv capf used remaining seg_first [W each] ++ logs
+// bucket best_w best_p to_slack a0 spilled cand [T each] ++ counts best_w_b
+// to_slack_b [nb each] ++ cand_n cand_off [kMaxBlocks each] ++ red [kRed]
+// ++ stamps [2 kSkStamps].
 // With p null it only counts; returns the words.
 long long sinkhorn_layout(int32_t* p, long long T, long long W,
                           long long S, Scratch* sc, Sinkhorn* sk) {
@@ -2070,8 +2473,12 @@ long long sinkhorn_layout(int32_t* p, long long T, long long W,
   sk->row_ok = take(R);
   sk->loga = takef(R);
   sk->ft = takef(R);
+  sk->row_a = takef(R);
+  sk->row_f = takef(R);
   sk->logb = takef(C);
   sk->gt = takef(C);
+  sk->col_a = takef(C);
+  sk->col_g = takef(C);
   sk->colv = takef(W);
   sk->capf = takef(W);
   sk->used = take(W);
@@ -2084,12 +2491,15 @@ long long sinkhorn_layout(int32_t* p, long long T, long long W,
   sk->to_slack = take(T);
   sk->a0 = take(T);
   sk->spilled = take(T);
+  sk->cand = take(T);
   sk->counts = take(nb);
   sk->best_w_b = take(nb);
   sk->to_slack_b = take(nb);
+  sk->cand_n = take(kMaxBlocks);
+  sk->cand_off = take(kMaxBlocks);
   sk->red = reinterpret_cast<uint32_t*>(take(kRed));
   take(off & 1);  // 8-byte alignment for the stamps
-  sk->stamps = reinterpret_cast<unsigned long long*>(take(2 * kStamps));
+  sk->stamps = reinterpret_cast<unsigned long long*>(take(2 * kSkStamps));
   return off;
 }
 
@@ -2099,6 +2509,7 @@ Sinkhorn sinkhorn_shape(int T, int W, int bucketed, int n_buckets) {
   sk.nb = bucketed ? n_buckets : 0;
   sk.R = (bucketed ? n_buckets : T) + 1;
   sk.C = W + 1;
+  sk.vec_smem = 2LL * (sk.R + sk.C) <= kVecSmemFloats;
   return sk;
 }
 
@@ -2139,8 +2550,11 @@ extern "C" int tpu_faas_fused_resident_sinkhorn(
   sinkhorn_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc,
                   &sk);
   void* args[] = {&packet, &d, &st, &o, &sc, &sk, &tn, &sp};
+  const int smem = static_cast<int>(
+      sizeof(float) * (2 * NWARP + (sk.vec_smem ? 2 * (sk.R + sk.C) : 0)));
   return cooperative_launch(
-      reinterpret_cast<const void*>(fused_sinkhorn_kernel), args, stream);
+      reinterpret_cast<const void*>(fused_sinkhorn_kernel), args, stream,
+      smem, kMaxBlocks);
 }
 
 // expf and logf of n floats, compiled as the Sinkhorn branch compiles them:
@@ -2161,13 +2575,16 @@ extern "C" int tpu_faas_math_probe(const float* x, float* e, float* l, int n,
 }
 
 // The scratch offset, in int32 words, of the Sinkhorn branch's phase stamps
-// (kStamps uint64 nanosecond clocks of the last launch on that scratch).
+// (kSkStamps uint64 nanosecond clocks and counts of the last launch on that
+// scratch: the phases in every build, then the probe build's split).
 extern "C" long long tpu_faas_fused_sinkhorn_stamps_offset(
     int T, int W, int max_slots, int bucketed, int n_buckets) {
   Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
   return sinkhorn_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
-                         nullptr, &sk) - 2 * kStamps;
+                         nullptr, &sk) - 2 * kSkStamps;
 }
+
+extern "C" int tpu_faas_fused_sinkhorn_stamp_count() { return kSkStamps; }
 
 extern "C" int tpu_faas_barrier_probe(int n, void* stream) {
   int dev = 0, n_sm = 0;

@@ -20,7 +20,10 @@ The plain version fixes the op order once — ``((-size) * inv_speed) + (u *
 jitter_scale) - price``, each op rounded on its own — and the kernel does
 the same with ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``, so the two agree
 bit for bit on the card. Against JAX, whose compiler may contract a product
-into an add, values agree within 1e-5 (the JAX suite's own contract).
+into an add, values agree within 1e-5 (the JAX suite's own contract). NaN
+cells (a non-finite size, inverse speed, price or jitter) take JAX's
+``bid_top2_xla`` rule in both: the first NaN is the maximum, and the
+runner-up propagates a NaN.
 """
 
 from __future__ import annotations
@@ -85,15 +88,20 @@ def _top2_block(val: torch.Tensor, col_offset: int):
 
 def merge_top2(a, b):
     """The kernel's merge of two top-2 results over disjoint slot sets
-    (``csrc/bid_top2.cuh::merge``), in torch: the larger ``v1`` wins and a
-    tie goes to the lower slot, and the runner-up is the largest of both
-    runner-ups and of the losing maximum, through ``fmax``/``fmin`` as the
-    kernel's ``fmaxf``/``fminf`` (a NaN drops out). Exact in any order and
+    (``csrc/bid_top2.cuh::merge``), in torch: the larger ``v1`` wins, a NaN
+    first (as JAX's argmax takes it), and a tie goes to the lower slot; the
+    runner-up is the largest of both runner-ups and of the losing maximum,
+    through ``fmax``/``fmin`` as the kernel's ``fmaxf``/``fminf``, and NaN
+    when a runner-up is NaN or both maxima are. Exact in any order and
     grouping, so the auction branch may sweep a row's slots in chunks and
     merge the chunks' results. ``a`` and ``b`` are (v1, best, v2)."""
     (v1a, ba, v2a), (v1b, bb, v2b) = a, b
-    take = (v1b > v1a) | ((v1b == v1a) & (bb < ba))
+    na, nb = torch.isnan(v1a), torch.isnan(v1b)
+    take = torch.where(nb, ~na | (bb < ba),
+                       ~na & ((v1b > v1a) | ((v1b == v1a) & (bb < ba))))
+    nan2 = torch.isnan(v2a) | torch.isnan(v2b) | (na & nb)
     v2 = torch.fmax(torch.fmax(v2a, v2b), torch.fmin(v1a, v1b))
+    v2 = torch.where(nan2, float("nan"), v2)
     return torch.where(take, v1b, v1a), torch.where(take, bb, ba), v2
 
 
@@ -110,8 +118,12 @@ def bid_top2_stream_impl(
     [T, S] matrix. Slot chunks fold into a running per-row top-2 with the
     TPU kernel's merge: strict ``>`` keeps the earlier chunk on ties (the
     global first argmax), and the runner-up of the union is the max of both
-    runner-ups and the losing max. ``row_offset``/``n_slots_total`` keep the
-    hash global when only a shard of the rows is in hand."""
+    runner-ups and the losing max. A NaN cell follows ``bid_top2_xla``
+    whatever the tile: the first NaN is the maximum and the runner-up
+    propagates every other NaN (the TPU kernel's own fold keeps an earlier
+    chunk's number over a later chunk's NaN). ``row_offset``/
+    ``n_slots_total`` keep the hash global when only a shard of the rows is
+    in hand."""
     T, S = task_size.shape[0], slot_inv_speed.shape[0]
     hash_S = S if n_slots_total is None else n_slots_total
     dev = task_size.device
@@ -133,8 +145,16 @@ def bid_top2_stream_impl(
                 slot_valid[None, s0:s1], rows, cols, jitter_scale, hash_S,
             )
             c1, cb, c2 = _top2_block(val, s0)
-            take = c1 > a1
-            a2 = torch.maximum(torch.maximum(a2, c2), torch.minimum(a1, c1))
+            # a later chunk's NaN maximum beats a number, as in JAX's
+            # argmax over the whole row; between numbers a tie keeps the
+            # earlier chunk
+            n1, nc = torch.isnan(a1), torch.isnan(c1)
+            take = (nc & ~n1) | (c1 > a1)
+            # the union's runner-up: both runner-ups and the losing maximum,
+            # which beside a NaN maximum is the other one
+            lose = torch.where(n1 | nc, torch.where(n1, c1, a1),
+                               torch.minimum(a1, c1))
+            a2 = torch.maximum(torch.maximum(a2, c2), lose)
             a1 = torch.where(take, c1, a1)
             ab = torch.where(take, cb, ab)
         v1[t0:t1], best[t0:t1], v2[t0:t1] = a1, ab, a2
@@ -151,6 +171,9 @@ class BidTop2Kernel:
         self.launches = 0
         self.ptxas_report = ""
         self._fn = None
+        #: per device: the one int the NaN pre-pass writes (launches on one
+        #: stream run in order, so it is reused)
+        self._flag: dict[torch.device, torch.Tensor] = {}
 
     def load(self) -> None:
         """Build (if needed) and load the library; idempotent."""
@@ -161,7 +184,7 @@ class BidTop2Kernel:
         fn = ctypes.CDLL(str(path)).tpu_faas_bid_top2
         P = ctypes.c_void_p
         fn.argtypes = [P, P, P, P, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_uint, ctypes.c_uint, P, P, P, P]
+                       ctypes.c_uint, ctypes.c_uint, P, P, P, P, P]
         fn.restype = ctypes.c_int
         self._fn = fn
 
@@ -179,13 +202,17 @@ class BidTop2Kernel:
         best = torch.empty(T, dtype=_I32, device=dev)
         v2 = torch.empty(T, dtype=torch.float32, device=dev)
         hash_S = S if n_slots_total is None else n_slots_total
+        flag = self._flag.get(dev)
+        if flag is None:
+            flag = self._flag[dev] = torch.empty(1, dtype=_I32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(
                 task_size.data_ptr(), slot_inv_speed.data_ptr(),
                 slot_valid.data_ptr(), price.data_ptr(), float(jitter_scale),
                 T, S, row_offset & _MASK32, hash_S & _MASK32,
-                v1.data_ptr(), best.data_ptr(), v2.data_ptr(), stream,
+                flag.data_ptr(), v1.data_ptr(), best.data_ptr(),
+                v2.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(f"bid_top2 launch failed: CUDA error {err}")

@@ -99,6 +99,14 @@ _TENANCY_TYPES = [_P] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float,
 #: leaves, the fixup's free-count scratch [W]; use_spec
 _SPEC_TYPES = [_P] * 4 + [ctypes.c_int]
 #: the cooperative entries' own error codes
+#: the Sinkhorn stamps' layout (``csrc/fused_tick.cu``: kStamps phase
+#: stamps, then the probe build's kSkIters x 4 iteration words from
+#: kSkIter, 6 close words from kSkClose and 4 counts from kSkCount)
+SK_PHASES, SK_ITERS = 8, 64
+SK_ITER = SK_PHASES
+SK_CLOSE = SK_ITER + 4 * SK_ITERS
+SK_COUNT = SK_CLOSE + 6
+SK_STAMPS = SK_COUNT + 4
 _COOP_ERRORS = {
     -1: "the device has no cooperative launch",
     -2: "no block of the kernel fits on an SM",
@@ -110,7 +118,9 @@ class FusedTickKernel:
     for the rank tick and the flush, one for the auction branch, one for
     the Sinkhorn branch. ``probe=True`` builds the library with
     ``-DTPU_FAAS_PROBE``: its auction launches also stamp block 0's clock at
-    each phase and round (:meth:`auction_split`)."""
+    each phase and round (:meth:`auction_split`), and its Sinkhorn launches
+    at each iteration's updates and barriers and in the close
+    (:meth:`sinkhorn_split`)."""
 
     name = "fused_tick"
 
@@ -185,6 +195,10 @@ class FusedTickKernel:
             f.restype = ctypes.c_longlong
         self._auction_words, self._auction_stamps_at = awords, astamps
         self._n_auction_stamps = lib.tpu_faas_fused_auction_stamp_count()
+        n_sk = lib.tpu_faas_fused_sinkhorn_stamp_count()
+        if n_sk != SK_STAMPS:
+            raise RuntimeError(f"the library keeps {n_sk} Sinkhorn stamps, "
+                               f"the wrapper reads {SK_STAMPS}")
         self._fn, self._fn_auction = fn, auction
 
     def _scratch_for(self, dev: torch.device, key: tuple,
@@ -405,6 +419,15 @@ class FusedTickKernel:
         return res._replace(sinkhorn_f=f, sinkhorn_g=g,
                             sinkhorn_tau=tau[0]), st
 
+    def _clocks(self, dev: torch.device, key: tuple, at: int,
+                n: int) -> list[int]:
+        """The n uint64 words at int32 offset ``at`` of the scratch kept
+        for ``key`` on ``dev`` (a launch's stamps; reads the card)."""
+        (buf,) = [b for k, b in self._scratch.items()
+                  if k[0].type == dev.type and dev.index in (None, k[0].index)
+                  and k[1:] == key]
+        return buf[at : at + 2 * n].cpu().view(torch.int64).tolist()
+
     def sinkhorn_phase_ms(self, dev: torch.device, T: int, W: int,
                           max_slots: int) -> list[float]:
         """The last Sinkhorn launch's phases at this shape, in ms, from
@@ -413,11 +436,49 @@ class FusedTickKernel:
         the compaction. Reads the card (a sync)."""
         bucketed = int(sinkhorn_bucketed(T, W))
         at = self._stamps_at(T, W, max_slots, bucketed, N_BUCKETS)
-        (buf,) = [b for k, b in self._scratch.items()
-                  if k[0].type == dev.type and dev.index in (None, k[0].index)
-                  and k[1:] == ("sinkhorn", T, W, max_slots)]
-        ns = buf[at : at + 16].cpu().view(torch.int64).tolist()
+        ns = self._clocks(dev, ("sinkhorn", T, W, max_slots), at, SK_PHASES)
         return [(b - a) / 1e6 for a, b in zip(ns, ns[1:])]
+
+    def sinkhorn_split(self, dev: torch.device, T: int, W: int,
+                       max_slots: int) -> dict:
+        """The last Sinkhorn launch's split at this shape, from block 0's
+        clock (a probe build's stamps; reads the card, a sync), in ms:
+        ``iters``, per iteration ``(f-update, its barrier, g-update, its
+        barrier)`` — each update ends when the last block finished it;
+        ``close``, the capacity repair and spill as ``keys`` (the
+        candidates gathered with their keys), ``sort1`` and ``sort2`` (the
+        repair's two sorts), ``repair`` (the kept set and the valid slots
+        left), ``slots`` (the spill's admission and slot sort), ``spill``
+        (its task sort and pairs; with a non-finite size or speed there,
+        rank placement's own sorts); and the counts ``candidates`` (valid
+        tasks not sent to slack), ``spilled`` (valid tasks the repair did
+        not keep), ``pairs`` (spilled tasks the spill placed) and
+        ``rank_spill`` (the spill took rank placement's own sorts)."""
+        if not self.probe:
+            raise RuntimeError("sinkhorn_split needs a probe build: "
+                               "FusedTickKernel(probe=True)")
+        bucketed = int(sinkhorn_bucketed(T, W))
+        at = self._stamps_at(T, W, max_slots, bucketed, N_BUCKETS)
+        ns = self._clocks(dev, ("sinkhorn", T, W, max_slots), at, SK_STAMPS)
+
+        def ms(a, b):
+            return (b - a) / 1e6
+
+        n_iters = BUCKETED_ITERS if bucketed else DENSE_ITERS
+        iters, last = [], ns[3]
+        for it in range(min(n_iters, SK_ITERS)):
+            f, fb, g, gb = ns[SK_ITER + 4 * it : SK_ITER + 4 * it + 4]
+            iters.append((ms(last, f), ms(f, fb), ms(fb, g), ms(g, gb)))
+            last = gb
+        c = ns[SK_CLOSE : SK_CLOSE + 6]
+        close = {"keys": ms(ns[5], c[0]), "sort1": ms(c[0], c[1]),
+                 "sort2": ms(c[1], c[2]), "repair": ms(c[2], c[3]),
+                 "slots": ms(c[3], c[4]), "spill": ms(c[4], c[5]),
+                 "total": ms(ns[5], ns[6])}
+        cand, spilled, pairs, rank_spill = ns[SK_COUNT : SK_COUNT + 4]
+        return {"iters": iters, "close": close, "candidates": cand,
+                "spilled": spilled, "pairs": pairs,
+                "rank_spill": bool(rank_spill)}
 
     def auction_split(self, dev: torch.device, T: int, W: int,
                       max_slots: int) -> dict:
@@ -433,11 +494,8 @@ class FusedTickKernel:
             raise RuntimeError("auction_split needs a probe build: "
                                "FusedTickKernel(probe=True)")
         at = self._auction_stamps_at(T, W, max_slots)
-        (buf,) = [b for k, b in self._scratch.items()
-                  if k[0].type == dev.type and dev.index in (None, k[0].index)
-                  and k[1:] == ("auction", T, W, max_slots)]
         n = self._n_auction_stamps
-        ns = buf[at : at + 2 * n].cpu().view(torch.int64).tolist()
+        ns = self._clocks(dev, ("auction", T, W, max_slots), at, n)
 
         def ms(a, b):
             return (b - a) / 1e6

@@ -40,6 +40,8 @@ from tpu_faas_torch.sched.scatter import f32_to_i32
 
 _I32 = torch.int32
 _INF = float("inf")
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 #: the temperature the scheduler tick solves at, relative to the cost scale
 TAU = 0.05
 
@@ -234,6 +236,111 @@ def _repair_candidates(
         max_slots=max_slots,
     )
     return torch.where(assignment >= 0, assignment, spill_assignment)
+
+
+def _lse_fold(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's fold of base-2 cells along the last dim, as the CUDA
+    kernel's lanes keep it: (m, s) with m the largest non-NaN cell (-inf
+    when there is none) and s the sum of 2^(x - fin0(m)) (a NaN cell makes
+    it NaN); fin0 is JAX's replacement of a non-finite max by 0."""
+    m = torch.where(torch.isnan(x2), -_INF, x2).amax(dim=-1)
+    mh = torch.where(torch.isfinite(m), m, 0.0)
+    return m, torch.exp2(x2 - mh.unsqueeze(-1)).sum(dim=-1)
+
+
+def _lse_merge(a, b):
+    """The kernel's merge of two folds over disjoint cells
+    (``csrc/fused_tick.cu::lse_merge``): both sums rescaled to the larger
+    max; an empty sum stays 0, so 2^(-inf - -inf) never runs."""
+    (ma, sa), (mb, sb) = a, b
+    m = torch.maximum(ma, mb)
+    mh = torch.where(torch.isfinite(m), m, 0.0)
+
+    def scaled(mx, sx):
+        mxh = torch.where(torch.isfinite(mx), mx, 0.0)
+        return torch.where(sx == 0, 0.0, sx * torch.exp2(mxh - mh))
+
+    return m, scaled(ma, sa) + scaled(mb, sb)
+
+
+def split_logsumexp(x: torch.Tensor, bounds: list[int],
+                    order: list[int]) -> torch.Tensor:
+    """The plain form of the CUDA kernel's logsumexp over the last dim of
+    ``x``: the cells in base 2 (x * log2 e), cut at ``bounds`` into chunks,
+    each chunk folded (:func:`_lse_fold`) and the folds merged in ``order``
+    (:func:`_lse_merge`), then ln(s) + fin0(m) ln 2. It equals
+    :func:`_logsumexp` (JAX 0.9's) up to rounding in any cut and order,
+    JAX's hazards included: an all -inf row gives -inf, a NaN cell NaN."""
+    x2 = x * _LOG2E
+    edges = [0, *bounds, x.shape[-1]]
+    folds = [_lse_fold(x2[..., lo:hi]) for lo, hi in zip(edges, edges[1:])]
+    acc = (torch.full(x.shape[:-1], -_INF, dtype=x.dtype, device=x.device),
+           torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device))
+    for k in order:
+        acc = _lse_merge(acc, folds[k])
+    m, ssum = acc
+    return torch.log(ssum) + torch.where(torch.isfinite(m), m, 0.0) * _LN2
+
+
+def repair_compacted(
+    best_w: torch.Tensor,  # i32[T] argmax worker per task
+    best_p: torch.Tensor,  # f32[T] its plan mass
+    to_slack: torch.Tensor,  # bool[T] slack outweighed every worker
+    task_size: torch.Tensor,
+    task_valid: torch.Tensor,
+    worker_speed: torch.Tensor,
+    worker_free: torch.Tensor,
+    worker_live: torch.Tensor,
+    max_slots: int,
+) -> torch.Tensor:
+    """The CUDA kernel's close, in torch: :func:`_repair_candidates` over
+    compacted lists, with the same result. The candidates (valid and not
+    to_slack), taken in index order, are the only tasks sorted by (worker,
+    -best_p); each worker keeps its first cap. The spill takes the first
+    spilled tasks in index order, as many as there are valid slots left,
+    sorts only them by -size and pairs them with the valid slots left,
+    taken in index order and sorted by -speed. A valid slot whose speed or
+    an admitted task whose size is -inf or NaN would sort among the invalid
+    ones in rank placement's own sorts, so then the spill is rank placement
+    itself."""
+    T = task_valid.shape[0]
+    W = worker_speed.shape[0]
+    K = max_slots
+    dev = task_valid.device
+    cap_i = _capacity(worker_free, worker_live, max_slots).to(_I32)
+    cand = torch.nonzero(task_valid & ~to_slack).flatten()  # index order
+    order = cand[torch.argsort(-best_p[cand], stable=True)]
+    order = order[torch.argsort(best_w[order].long(), stable=True)]
+    sorted_w = best_w[order].long()
+    seg_first = torch.zeros(W, dtype=torch.long, device=dev)
+    pos = torch.arange(order.numel(), device=dev)
+    start = torch.ones_like(pos, dtype=torch.bool)
+    start[1:] = sorted_w[1:] != sorted_w[:-1]
+    seg_first[sorted_w[start]] = pos[start]
+    keep = (pos - seg_first[sorted_w]) < cap_i[sorted_w]
+    assignment = torch.full((T,), -1, dtype=_I32, device=dev)
+    assignment[order[keep]] = sorted_w[keep].to(_I32)
+    used = torch.bincount(sorted_w[keep], minlength=W).to(_I32)
+    remaining = (cap_i - used).clamp_min(0)
+    spilled = task_valid & (assignment < 0)
+    # the valid slots left, in index order: worker w's first remaining[w]
+    k = torch.arange(K, dtype=_I32, device=dev)
+    slot_ok = (k[None, :] < remaining[:, None]).reshape(W * K)
+    slots = torch.nonzero(slot_ok).flatten()
+    tasks = torch.nonzero(spilled).flatten()[: slots.numel()]
+    speed_s = worker_speed[slots // K]
+    size_t = task_size[tasks]
+    if bool((~(speed_s > -_INF)).any()) or bool((~(size_t > -_INF)).any()):
+        spill = rank_match_placement_impl(
+            task_size, spilled, worker_speed, remaining, worker_live,
+            max_slots=max_slots,
+        )
+        return torch.where(assignment >= 0, assignment, spill)
+    slots = slots[torch.argsort(-speed_s, stable=True)]
+    tasks = tasks[torch.argsort(-size_t, stable=True)]
+    n_pairs = min(tasks.numel(), T, W * K)
+    assignment[tasks[:n_pairs]] = (slots[:n_pairs] // K).to(_I32)
+    return assignment
 
 
 def _chunk_negc(size_c, valid_c, inv_speed, col_open, slack_cost, tau):
