@@ -9,12 +9,17 @@ over):
    versions; build the libraries from ``tpu_faas_torch/csrc`` with nvcc for
    sm_90a, one nvcc per build, started together: the fused tick (B1, rank,
    auction and Sinkhorn branches), its probe build (``-DTPU_FAAS_PROBE``:
-   the auction branch stamps block 0's clock at each phase and round) and
-   the top-2 bid (B2); print each kernel's registers and shared memory.
+   each branch stamps block 0's clock at its phases) and the top-2 bid
+   (B2); print each kernel's registers and shared memory.
 1. ``kernel`` — the fused tick's rank branch against its plain PyTorch
    version on the card, at 51,200 pending x 4,096 workers x 65,536
    in-flight slots, priority admission on and off, several seeds: every
-   output and every state leaf must be exactly equal.
+   output and every state leaf must be exactly equal. Then its edge
+   states (``edge_case``), exactly equal too: a cold tick with every slot
+   free, a priority threshold inside a tie of thousands, no valid slot,
+   and -inf and NaN speeds on a live row with free slots and sizes on an
+   admitted task, which alone must take the branch's full-length path (a
+   count in its scratch); the cold tick is timed.
 2. ``resident`` — the resident scheduler end to end at that shape: 4,096
    workers, 51,200 bulk-loaded tasks, then per tick 512 results, 128
    heartbeats and 512 arrivals with the clock advanced 5 ms, resolved in tick
@@ -24,6 +29,7 @@ over):
    state tensors that never move, no task over-booked, placed twice or lost,
    every in-flight slot of a purged worker redispatched, and every launch's
    outputs and state equal to the plain version's from the same state.
+   Logs how many of the loop's rank ticks took the full-length path.
 3. ``sim``    — ``SimFleet`` on the card: 4,096 workers x 4 processes, 5%
    churn per tick, 20,000 tasks; every task completes, none lost.
 4. ``bid``    — kernel B2 against its plain version on the card, exactly
@@ -89,9 +95,10 @@ over):
    across all 32 rows, the table's inflight counts kept as the dispatcher
    keeps them; every launch holds each tenant within its allowance. A rank
    and an auction tick with 4,096 tenant rows (past the 1,024 whose counts
-   block 0 keeps in shared memory) are exactly equal too. Last,
-   the rank branch with the lane on the rank loop's own states, beside its
-   plain version and its bound.
+   block 0 keeps in shared memory) are exactly equal too, and a rank tick
+   at 1,100 rows with priorities. Last, the rank branch with the lane on
+   the rank loop's own states, beside its plain version and its bound,
+   and its split by the probe build.
 9. ``resident_spec`` — B1's speculation lane (config 18's knobs: straggler
    multiplier 3, floor 0.02 s) in its three branches: against the plain
    version on synthetic headline states with the tenancy lane off and on
@@ -110,9 +117,13 @@ over):
    the newly flagged slots (at most KG) as hedges avoiding the original's
    row, as the dispatcher does; no hedge lands on its avoid row. Last, the
    rank branch with the lane on the rank loop's own states, beside its
-   plain version and its bound.
+   plain version and its bound, and its split by the probe build.
 10. ``time``  — CUDA-event medians of B1's rank branch (on the resident run's
-   own states and packets, and on a synthetic state) and of B2 (at both bid
+   own states and packets, and on a synthetic state), the probe build's
+   split of the rank branch on the same states (block 0's clock at the end
+   of each phase: packet, liveness, lists, tenancy, select, admission,
+   sorts, pairing, fixup, deficit, compaction; the valid slots, admitted
+   tasks, select passes and full-length ticks), and of B2 (at both bid
    shapes), and CUDA-event means of B1's auction branch over the resident
    auction run's own states (its warm and cold ticks differ forty-fold in
    bidders; each kind's medians are printed too), and of their plain
@@ -170,7 +181,8 @@ SPIN_CYCLES = 20_000_000
 NT_HEADLINE = 32
 TENANCY_KW = dict(use_tenancy=True, NT=NT_HEADLINE)
 #: tenant rows past the 1,024 whose counts block 0 keeps in shared memory
-NT_WIDE = 4096
+#: (ROADMAP C.2's cases)
+NT_MID, NT_WIDE = 1100, 4096
 #: the resident loops' arrival mix over the 32 rows: default, light, heavy,
 #: then the 29 other tenants evenly
 TENANT_MIX = np.array([0.05, 0.15, 0.6] + [0.2 / 29] * 29)
@@ -364,6 +376,111 @@ def phase_kernel(dev) -> dict:
                          f"{mismatches} mismatched fields")
     log(f"phase kernel: {cases} ticks + 2 flushes exactly equal")
     return {"mismatches": mismatches, "max_abs_err": max_err}
+
+
+#: the rank branch's edge states (``edge_case``); the fallback ones take
+#: its full-length path
+RANK_EDGES = ("cold", "tie", "no_slots", "inf_speed", "nan_speed",
+              "inf_size", "nan_size")
+RANK_FALLBACKS = ("inf_speed", "nan_speed", "inf_size", "nan_size")
+
+
+def edge_case(kind: str, use_priority: bool):
+    """``random_case``'s state and packet (seed 30) made into one of the
+    rank branch's edge states. ``cold``: every slot free (every row live
+    with free counts past K) under 95% valid tasks, more than the slots;
+    ``tie``: priorities 0 on nine tasks in ten and 5 on the rest, so the
+    admission's threshold falls inside a tie of thousands; ``no_slots``:
+    every row inactive; ``inf_speed``/``nan_speed``: a live row with free
+    slots whose speed is -inf/NaN; ``inf_size``/``nan_size``: task 0,
+    valid and first in the admission, of size -inf/NaN. Each but ``tie``
+    and ``no_slots`` drops the packet's heartbeat, free, speed and active
+    scatters, which would change the rows it set."""
+    leaves, pkt = random_case(np.random.default_rng(30), use_priority,
+                              now=100.0)
+    T, W = SHAPE["T"], SHAPE["W"]
+    leaves = {k: np.array(v) for k, v in leaves.items()}
+    rng = np.random.default_rng(31)
+    if kind not in ("tie", "no_slots"):
+        pkt[[2, 3, 5, 6]] = 0
+    if kind == "cold":
+        leaves["valid"] = rng.random(T) < 0.95
+        leaves["free"][:] = MAX_SLOTS + 2
+        leaves["active"][:] = True
+        leaves["last_hb"][:] = 100.0
+    elif kind == "tie":
+        leaves["valid"] = rng.random(T) < 0.95
+        leaves["prio"] = np.where(rng.random(T) < 0.1, 5, 0).astype(np.int32)
+    elif kind == "no_slots":
+        leaves["active"][:] = False
+        pkt[6] = 0
+    elif kind in ("inf_speed", "nan_speed"):
+        leaves["active"][0] = True
+        leaves["last_hb"][0] = 100.0
+        leaves["free"][0] = MAX_SLOTS
+        leaves["speed"][0] = -np.inf if kind == "inf_speed" else np.nan
+    elif kind in ("inf_size", "nan_size"):
+        leaves["valid"][0] = True
+        leaves["prio"][0] = 100
+        leaves["sizes"][0] = -np.inf if kind == "inf_size" else np.nan
+    return leaves, pkt
+
+
+def rank_edges(dev) -> dict:
+    """The rank branch on ``edge_case``'s states, priority lanes off and on
+    (``tie`` with priorities alone): every output and state leaf exactly
+    equal to the plain version's, and the fallback states, and they alone,
+    counted on the full-length path. Then the cold state timed, kernel and
+    plain version, with priority."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import (
+        _resident_tick_impl, state_from_numpy,
+    )
+
+    S = SHAPE
+    bad, err, cases = 0, 0.0, 0
+    for kind in RANK_EDGES:
+        for use_priority in ((True,) if kind == "tie" else (False, True)):
+            leaves, pkt = edge_case(kind, use_priority)
+            packet = torch.from_numpy(pkt).to(dev)
+            kw = dict(S, max_slots=MAX_SLOTS, use_priority=use_priority)
+            res_p, new_p = _resident_tick_impl(
+                packet, state_from_numpy(leaves, dev), **kw)
+            before = KERNEL.rank_fallbacks(dev, S["T"], S["W"], MAX_SLOTS)
+            res_k, new_k = KERNEL(packet, state_from_numpy(leaves, dev),
+                                  flush=False, **kw)
+            took = KERNEL.rank_fallbacks(dev, S["T"], S["W"],
+                                         MAX_SLOTS) - before
+            b1, e1 = compare(res_k, res_p, f"{kind} out")
+            b2, e2 = compare(new_k, new_p, f"{kind} state")
+            want = int(kind in RANK_FALLBACKS)
+            if took != want:
+                b1 += 1
+                log(f"  MISMATCH {kind}: full-length path taken {took} "
+                    f"times, expected {want}")
+            log(f"  {kind} prio={use_priority}: placed "
+                f"{int((res_k.placed_slots >= 0).sum())}/{S['KP']} (KP), "
+                f"n_pending {int(res_k.n_pending)}, full-length path "
+                f"{bool(took)}, mismatched fields {b1 + b2}")
+            bad += b1 + b2
+            err = max(err, e1, e2)
+            cases += 1
+    if bad:
+        raise SystemExit(f"rank edge states disagree with the plain version: "
+                         f"{bad} mismatched fields")
+    leaves, pkt = edge_case("cold", True)
+    base = state_from_numpy(leaves, dev)
+    packet = torch.from_numpy(pkt).to(dev)
+    kw = dict(S, max_slots=MAX_SLOTS, use_priority=True)
+    k_ms = event_ms(lambda st: KERNEL(packet, st, flush=False, **kw),
+                    N_TIMED, setup=lambda: clone_state(base))
+    p_ms = event_ms(lambda _: _resident_tick_impl(packet, base, **kw), 10)
+    cold = (statistics.median(k_ms), statistics.median(p_ms))
+    log(f"phase rank edges: {cases} ticks exactly equal; the cold tick "
+        f"(every slot free, priority): kernel {cold[0]:.4f} ms (min "
+        f"{min(k_ms):.4f}), plain version {cold[1]:.4f} ms, medians of "
+        f"{len(k_ms)} and {len(p_ms)}")
+    return {"mismatches": bad, "max_abs_err": err, "cold": cold}
 
 
 # -- phase 2: the resident path end to end ------------------------------------
@@ -2082,7 +2199,43 @@ def bound_ms(use_priority: bool, packet: torch.Tensor) -> float:
     return (pkt + reads + writes + outs) / HBM_BYTES_PER_S * 1e3
 
 
-def phase_time(dev, n: int, samples: list) -> dict:
+def rank_split_text(sp: dict) -> str:
+    from tpu_faas_torch.sched.fused_tick import RANK_COUNTS, RANK_PHASES
+
+    return (" + ".join(f"{k} {sp[k]:.4f}" for k in RANK_PHASES)
+            + f" = {sp['total']:.4f} ms; "
+            + ", ".join(f"{k} {sp[k]}" for k in RANK_COUNTS))
+
+
+def resident_rank_split(dev, probe, samples: list, kw: dict,
+                        label: str) -> dict:
+    """The rank branch's split on a resident loop's own states: one launch
+    of the probe build each, beside one of the kernel proper (every output
+    and state leaf equal); the phases' means over the states."""
+    from tpu_faas_torch.sched.fused_tick import (
+        KERNEL, RANK_COUNTS, RANK_PHASES,
+    )
+
+    splits, bad = [], 0
+    for packet, pre, _ in samples:
+        res_k, st_k = KERNEL(packet, clone_state(pre), flush=False, **kw)
+        res_p, st_p = probe(packet, clone_state(pre), flush=False, **kw)
+        splits.append(probe.rank_split(dev, SHAPE["T"], SHAPE["W"],
+                                       MAX_SLOTS))
+        b1, _ = compare(res_p, res_k, "probe build: out")
+        b2, _ = compare(st_p, st_k, "probe build: state")
+        bad += b1 + b2
+    mean = {k: statistics.mean(sp[k] for sp in splits)
+            for k in (*RANK_PHASES, "total", *RANK_COUNTS)}
+    log(f"  rank split, {label} (probe build, means over {len(splits)} "
+        f"states): {rank_split_text(mean)}")
+    if bad:
+        raise SystemExit(f"rank probe build differs from the kernel: {bad} "
+                         f"mismatched fields")
+    return mean
+
+
+def phase_time(dev, n: int, samples: list, probe) -> dict:
     """Kernel and plain-version times; ``samples`` are the resident run's
     own (packet, input state) pairs from its last steady ticks."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
@@ -2106,6 +2259,8 @@ def phase_time(dev, n: int, samples: list) -> dict:
     log(f"  kernel on the resident run's own states (prio=True): "
         f"{out['loop'][0]:.4f} ms (min {min(loop_ms):.4f}), bound "
         f"{loop_bound:.6f} ms, medians of {len(loop_ms)}")
+    out["split"] = resident_rank_split(dev, probe, samples, kw,
+                                       "the resident loop's states")
     for use_priority in (True, False):
         leaves, pkt = random_case(np.random.default_rng(3), use_priority,
                                   now=100.0)
@@ -2268,7 +2423,7 @@ def tenancy_bound_ms(packet: torch.Tensor) -> float:
     return (4 * T + T + 8 * n_arr + 8 * NT + 12 * NT) / HBM_BYTES_PER_S * 1e3
 
 
-def phase_resident_tenancy(dev, card: str) -> dict:
+def phase_resident_tenancy(dev, card: str, probe) -> dict:
     """B1's tenancy lane in its three branches: against the plain version on
     synthetic headline states (priority lanes off and on); its time with
     the lane on against the same states with it off; then a resident loop
@@ -2381,23 +2536,30 @@ def phase_resident_tenancy(dev, card: str) -> dict:
                 f"(+{lane[name][1] - lane[name][0]:.4f} ms), medians of "
                 f"{n} [{card}]")
     # tenant rows past the 1,024 block 0 counts in shared memory: their
-    # counts live in global scratch; rank and auction exactly equal
-    rng = np.random.default_rng(24)
-    base, bpkt = random_case(rng, False, now=100.0)
-    leaves, pkt = with_tenancy(base, bpkt, rng, False, NT=NT_WIDE)
-    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False,
-              use_tenancy=True, NT=NT_WIDE)
-    packet = torch.from_numpy(pkt).to(dev)
-    res_p, new_p = _resident_tick_impl(
-        packet, state_from_numpy(leaves, dev), **kw)
-    res_k, new_k = KERNEL(packet, state_from_numpy(leaves, dev),
-                          flush=False, **kw)
-    torch.cuda.synchronize()
-    b1, e1 = compare(res_k, res_p, f"tenancy NT={NT_WIDE} rank out")
-    b2, e2 = compare(new_k, new_p, f"tenancy NT={NT_WIDE} rank state")
-    over = tenancy_violations(res_k, new_k.tenant, pkt, NT_WIDE)
-    bad["rank"] += b1 + b2 + over
-    err["rank"] = max(err["rank"], e1, e2)
+    # counts live in global scratch; the rank grid's tiles count every row
+    # in global scratch; rank (NT = 1,100 and 4,096) and auction (4,096)
+    # exactly equal
+    for nt in (NT_MID, NT_WIDE):
+        rng = np.random.default_rng(24)
+        base, bpkt = random_case(rng, nt == NT_MID, now=100.0)
+        leaves, pkt = with_tenancy(base, bpkt, rng, nt == NT_MID, NT=nt)
+        kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=nt == NT_MID,
+                  use_tenancy=True, NT=nt)
+        packet = torch.from_numpy(pkt).to(dev)
+        res_p, new_p = _resident_tick_impl(
+            packet, state_from_numpy(leaves, dev), **kw)
+        res_k, new_k = KERNEL(packet, state_from_numpy(leaves, dev),
+                              flush=False, **kw)
+        torch.cuda.synchronize()
+        b1, e1 = compare(res_k, res_p, f"tenancy NT={nt} rank out")
+        b2, e2 = compare(new_k, new_p, f"tenancy NT={nt} rank state")
+        over = tenancy_violations(res_k, new_k.tenant, pkt, nt)
+        bad["rank"] += b1 + b2 + over
+        err["rank"] = max(err["rank"], e1, e2)
+        log(f"  NT={nt} tenant rows, prio={nt == NT_MID}: rank placed "
+            f"{int((res_k.placed_slots >= 0).sum())}, deficits "
+            f"{int((new_k.t_deficit > 0).sum())} of {nt} positive, "
+            f"mismatched fields and violations {b1 + b2 + over}")
     aleaves = dict(leaves,
                    price=(rng.integers(0, 64, SHAPE["W"] * MAX_SLOTS)
                           / 16).astype(np.float32),
@@ -2407,11 +2569,8 @@ def phase_resident_tenancy(dev, card: str) -> dict:
         plain_twin=False, tenancy=True, nt=NT_WIDE)
     bad["auction"] += b
     err["auction"] = max(err["auction"], e)
-    log(f"  NT={NT_WIDE} tenant rows: rank placed "
-        f"{int((res_k.placed_slots >= 0).sum())}, deficits "
-        f"{int((new_k.t_deficit > 0).sum())} of {NT_WIDE} positive, "
-        f"mismatched fields and violations {b1 + b2 + over}; auction rounds "
-        f"{rounds}, bidder rows {rows}, mismatched fields and violations {b}")
+    log(f"  NT={NT_WIDE} tenant rows: auction rounds {rounds}, bidder rows "
+        f"{rows}, mismatched fields and violations {b}")
     total = sum(bad.values())
     if total:
         raise SystemExit(f"the tenancy lane disagrees with its plain "
@@ -2467,6 +2626,8 @@ def phase_resident_tenancy(dev, card: str) -> dict:
         f"version {statistics.median(p_ms):.4f} ms, bound {bound + lane_b:.6f}"
         f" ms (bytes: the rank tick's {bound:.6f} ms plus the lane's own "
         f"{lane_b:.6f} ms), medians of {len(k_ms)} [{card}]")
+    resident_rank_split(dev, probe, samples, kw,
+                        "the tenancy rank loop's states")
     return {"mismatches": bad, "max_abs_err": err, "lane": lane,
             "loops": loops, "ms": statistics.median(k_ms),
             "plain_ms": statistics.median(p_ms), "bound_ms": bound + lane_b,
@@ -2543,7 +2704,7 @@ def spec_branch(name: str):
             "sinkhorn": lambda p, st, k: KERNEL.sinkhorn(p, st, **k)}[name]
 
 
-def phase_resident_spec(dev, card: str) -> dict:
+def phase_resident_spec(dev, card: str, probe) -> dict:
     """B1's speculation lane in its three branches: against the plain version
     on synthetic headline states (tenancy lane off and on); its time with
     the lane on against the same state with it off; then a resident loop
@@ -2739,6 +2900,8 @@ def phase_resident_spec(dev, card: str) -> dict:
         f"version {statistics.median(p_ms):.4f} ms, bound {bound + lane_b:.6f}"
         f" ms (bytes: the rank tick's {bound:.6f} ms plus the lane's own "
         f"{lane_b:.6f} ms), medians of {len(k_ms)} [{card}]")
+    resident_rank_split(dev, probe, samples, kw,
+                        "the speculation rank loop's states")
     return {"mismatches": bad, "max_abs_err": err, "lane": lane,
             "loops": loops, "ms": statistics.median(k_ms),
             "plain_ms": statistics.median(p_ms), "bound_ms": bound + lane_b,
@@ -2784,10 +2947,17 @@ def main() -> int:
     log_bid_loops()
 
     rk = phase_kernel(dev)
+    re = rank_edges(dev)
     fused_tick.KERNEL.launches = 0  # count the main path alone
+    fell = fused_tick.KERNEL.rank_fallbacks(dev, SHAPE["T"], SHAPE["W"],
+                                            MAX_SLOTS)
     rr = phase_resident(dev, N_TICKS, N_TIMED)
     launches = fused_tick.KERNEL.launches
     assert launches > 0, "the main path never launched"
+    fell = fused_tick.KERNEL.rank_fallbacks(dev, SHAPE["T"], SHAPE["W"],
+                                            MAX_SLOTS) - fell
+    log(f"  rank ticks of the loop that took the full-length path: {fell} "
+        f"of {launches} launches")
     log(f"  integrated tick_resident (diff, pack, upload, kernel; "
         f"synchronized): {statistics.median(rr['tick_ms']):.4f} ms, host "
         f"enqueue alone {statistics.median(rr['tick_enqueue_ms']):.4f} ms, "
@@ -2833,12 +3003,12 @@ def main() -> int:
         f"{len(rrs['tick_ms'])} ticks; Sinkhorn launches "
         f"{sinkhorn_launches} [{card}]")
     phase_sinkhorn_batch(dev)
-    rt = phase_resident_tenancy(dev, card)
+    rt = phase_resident_tenancy(dev, card, probe)
     t0 = time.perf_counter()
-    rsp = phase_resident_spec(dev, card)
+    rsp = phase_resident_spec(dev, card, probe)
     log(f"phase resident_spec: {time.perf_counter() - t0:.1f} s")
     log(f"phase time [{card}]:")
-    t = phase_time(dev, N_TIMED, rr["samples"])
+    t = phase_time(dev, N_TIMED, rr["samples"], probe)
     tb = time_bid(dev, N_TIMED // 3)
     time_auction(ra, 3)
     ta = time_resident_auction(dev, rra["samples"])
@@ -2846,9 +3016,10 @@ def main() -> int:
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,
-             "mismatches": (rk["mismatches"] + rr["mismatches"]
-                            + rt["mismatches"]["rank"]),
-             "max_abs_err": max(rk["max_abs_err"], rr["max_abs_err"],
+             "mismatches": (rk["mismatches"] + re["mismatches"]
+                            + rr["mismatches"] + rt["mismatches"]["rank"]),
+             "max_abs_err": max(rk["max_abs_err"], re["max_abs_err"],
+                                rr["max_abs_err"],
                                 rt["max_abs_err"]["rank"]),
              "ms": t["loop"][0], "plain_ms": t[True][1],
              "bound_ms": t["loop"][1], "bound_by": "bytes",

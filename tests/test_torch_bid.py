@@ -11,6 +11,8 @@ ulp, while the port rounds each op on its own so that its kernel and its
 plain version agree bit for bit on the card.
 """
 
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,7 +188,8 @@ def test_empty_shapes():
 
 def _split_case(kind, S, edge):
     """Inputs for the chunk-merge cases: 64 rows over S slots."""
-    rng = np.random.default_rng(hash(kind) % 2**32)
+    # a seed that does not change with the process's string hashing
+    rng = np.random.default_rng(zlib.crc32(kind.encode()))
     ts, inv, valid, price = _inputs(rng, 64, S)
     scale = f32(2.5e-4)
     if kind == "duplicate max at a chunk edge":
@@ -238,7 +241,7 @@ def test_chunk_merge_matches_jax_in_any_order(kind, C):
     if kind == "NaN sizes":
         assert np.isnan(got[0][nan_rows]).all()
         assert np.isnan(got[2][nan_rows]).all()
-        assert (got[1][nan_rows] == 0).all()
+        assert (got[1][nan_rows] == np.flatnonzero(valid)[0]).all()
     if kind == "duplicate max at a chunk edge":
         assert (got[1] == edge - 1).all() and np.array_equal(got[0], got[2])
 

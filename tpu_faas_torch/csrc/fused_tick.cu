@@ -10,7 +10,7 @@
 // Phases, shared by the three placements:
 //   1. apply the delta packet: masked scatters with sentinel-drop, ADDITIVE
 //      free counts (atomicAdd), arrivals into the first KA invalid pending
-//      slots found by a block-wide scan, capped at min(n_arr, n_invalid);
+//      slots of the pre-arrival state, capped at min(n_arr, n_invalid);
 //      with speculation, each arrival's avoid row, and for each in-flight
 //      scatter its predicted runtime and dispatch stamp (now, 0 on a clear);
 //   2. liveness (hb_age = now - last_hb <= tte, on the post-scatter state),
@@ -18,13 +18,11 @@
 //      with speculation, the first KG straggler slots (tpu_faas/spec/
 //      straggler.py: occupied on a live row, pred > 0, now - start past
 //      max(mult * pred, min_s) with NaN propagating);
-//      with tenancy, then the admission (tpu_faas/tenancy/fairshare.py) on
-//      block 0: the within-tenant FCFS rank from one stable radix sort on
-//      the tenant segment, the inflight-cap eligibility that every
-//      placement reads as its valid set (written to global memory before
-//      the cooperative branches' first grid barrier), the tenants with
-//      demand, and for rank the admission order (eligible tasks by -eff_prio,
-//      then v, then index) as two stable radix sorts;
+//      with tenancy, then the admission (tpu_faas/tenancy/fairshare.py):
+//      the within-tenant FCFS rank j, the inflight-cap eligibility that
+//      every placement reads as its valid set, the tenants with demand,
+//      and for rank the admitted set of the admission order (eligible
+//      tasks by -eff_prio, then v, then index);
 //   3. placement (below); with speculation, then the hedge fixup on block 0
 //      (straggler.py::hedge_fixup_impl): the veto of tasks placed on their
 //      avoid row, the free slots left after placement from the RAW free
@@ -41,11 +39,41 @@
 // The state tensors are updated in place: the counterpart of the Pallas
 // kernel's input_output_aliases is that their addresses never change.
 //
-// Rank placement (fused_tick_kernel): one launch of ONE 1024-thread block,
-// phases in order with __syncthreads() between them. Phase 3 is
-// tpu_faas/sched/greedy.py: expand slots, stable sort by -speed, admission
-// (FCFS scan, or stable sort of the priority key), stable sort of -task_key,
-// rank-for-rank pairing. The flush mode (phase 1 alone) also runs here.
+// Rank placement (fused_rank_kernel): one COOPERATIVE launch of one
+// 1024-thread block per SM, phases separated by grid barriers. Every index
+// range is cut into one contiguous tile per block, walked in chunks of 1024
+// consecutive indices; a block counts what it keeps, and after a barrier
+// takes its offset from the scan of the blocks' counts, so every list it
+// emits (arrival slots, redispatches, stragglers, valid slots, admitted
+// tasks, placements) is in index order. Phase 3 is tpu_faas/sched/
+// greedy.py without its full-length sorts: the valid slots (live, below
+// the free count) compacted in index order; the admission as a threshold
+// on the tasks' keys -- FCFS one key for every valid task, priority
+// greedy.py's (-prio, wrapping; INT32_MAX on an invalid task, which still
+// holds a rank), tenancy (int_key(-eff_prio), float_key(v)) on the
+// eligible tasks -- found by a radix select (below), and the admitted
+// tasks compacted in index order: every task below the threshold and the
+// first n_slots - below equal to it, exactly greedy.py's stable ranks
+// below n_slots. Block 0 then sorts the valid slots by -speed while block 1
+// sorts the admitted tasks by -size; both lists are in index order, so the
+// stable sorts give the full sorts' first n_slots and n_tasks positions,
+// and the grid pairs them rank for rank. A valid slot whose speed or an
+// admitted task whose size is -inf or NaN would sort among the invalid ones
+// in greedy.py's sorts: a flag raised before the sorts sends such a tick
+// to the full-length sorts on block 0 (rank_place), counted in the
+// scratch. The tenancy lane's j: each block stably sorts its tile by
+// segment, a warp scans each tenant row's tile counts over the blocks, and
+// j is that offset plus the position in the tile's run. The hedge fixup
+// and the deficit carry stay on block 0. The flush mode (phase 1 alone) is
+// one block (fused_flush_kernel).
+//
+// The radix select: the n_slots-th smallest 64-bit key, most significant
+// byte first. Each pass histograms the keys of the chosen bucket by the
+// first byte where its least and greatest key differ (so a byte every key
+// shares is skipped), with each digit's least and greatest key, in shared
+// memory and then by atomics in global memory; after a grid barrier every
+// block picks the same digit. It ends when a bucket holds one key: at most
+// 8 passes, 2 on the resident loop's priorities, none for FCFS.
 //
 // Auction placement (fused_auction_kernel): one COOPERATIVE launch of as many
 // 1024-thread blocks as the card holds at once, phases separated by grid
@@ -86,10 +114,11 @@
 // NaN to one positive quiet NaN before the key is built, so -0.0 ties with
 // 0.0 and NaN sorts last, as both frameworks sort them.
 //
-// What bounds them on this card. Rank: a few MB of state, packet and sort
-// traffic, a few microseconds of HBM time; the single-SM design runs at one
-// SM's share of the memory system and is latency-bound on its ~400
-// block-wide barriers per tick. Auction: the bids' instructions per
+// What bounds them on this card. Rank: under 1 MB of state and packet
+// traffic a tick, a fraction of a microsecond of HBM time; the grid design
+// is latency-bound on its 7-11 grid barriers (about 1 us each) and the
+// block-wide sorts of the compacted lists (hundreds of keys a tick on the
+// resident loop). Auction: the bids' instructions per
 // (bidder, slot) cell on the integer pipe (the Wang hash, the index and the
 // compares: 64 a clock per SM, against 128 for float32), the int->float
 // conversion on its 16-a-clock pipe besides; a round spreads its cells over
@@ -121,6 +150,7 @@ constexpr int kMaxItems = 8192;   // work items that keep a partial top-2
 constexpr unsigned long long kNoBid = ~0ull;
 constexpr int kSmemTenants = 1024;  // tenancy: rows counted in shared memory
 constexpr int kFixupK = 64;       // speculation: vetoed rows re-placed a tick
+constexpr int kMaxRankBlocks = 256;  // blocks of the rank grid, at most
 
 // The auction's phase stamps (a probe build, -DTPU_FAAS_PROBE, alone writes
 // them; the layout exists in every build): 0 start, 1 packet, liveness and
@@ -217,9 +247,13 @@ struct Tenancy {
   const float* ahead;      // [n] packet tail: inflight per tenant
   const float* cap;        // [n] packet tail: inflight ceilings, 0 = none
   uint8_t* elig;           // [T] output: the placement's valid set
-  int32_t* adm_rank;       // [T] scratch: j, then the admission position
   int32_t* cnt;            // [n] scratch: segment starts, then placed counts
   uint8_t* demand;         // [n] scratch: an eligible task this tick
+  int32_t* tile_cnt;       // [n kMaxRankBlocks] scratch (rank): per tenant
+                           //   row, its tasks in each block's tile, then
+                           //   their offsets over the blocks
+  int32_t* tile_first;     // [n kMaxRankBlocks] ... its first position in
+                           //   the tile's segment sort
   float starve_deficit, deficit_cap;
   int starve_boost;
 };
@@ -235,11 +269,16 @@ struct Spec {
 };
 
 struct Smem {
-  int cnt[NWARP][RADIX];     // per-warp digit counts, then offsets
+  union {
+    int cnt[NWARP][RADIX];   // per-warp digit counts, then offsets
+    unsigned long long sel_mm[2][RADIX];  // the rank select: each digit's
+                                          // least and greatest key
+  };
   int hist[4][RADIX];        // digit histogram of every pass
   int bucket[RADIX];         // running start of each digit's bucket
   int trivial[4];            // pass p has one digit for every key
   int scan[NWARP];           // block scan scratch
+  int bcast[2];              // a value one thread hands the block
   int ten_cnt[kSmemTenants];  // tenancy: Tenancy::cnt, for n <= kSmemTenants
   uint8_t ten_demand[kSmemTenants];  // ... and Tenancy::demand
   float ten_wsum;            // tenancy: the share sum
@@ -463,79 +502,111 @@ __device__ int block_radix_sort(uint32_t* const k[2], int32_t* const v[2],
 }
 
 // ---- phase 1: apply the delta packet (resident.py::_apply_deltas) --------
-// One block. Returns the packet's clock and time_to_expire.
+// The packet's counts and lanes.
+struct PacketLanes {
+  int n_arr, n_hb, n_free, n_infl, n_speed, n_active;
+  const float *arr_sizes, *arr_prio, *arr_tenant, *arr_avoid;
+  const float *hb_idx, *hb_val, *free_idx, *free_val, *infl_idx, *infl_val,
+      *pred_val, *sp_idx, *sp_val, *ac_idx, *ac_val;
+};
+
+// Parses the packet; *now and *tte get its clock and time_to_expire.
+__device__ PacketLanes packet_lanes(const float* packet, const Dims& D,
+                                    const Tenancy& tn, const Spec& sp,
+                                    float* now, float* tte) {
+  PacketLanes pk;
+  *now = packet[0];
+  pk.n_arr = f2i(packet[1]);
+  pk.n_hb = f2i(packet[2]);
+  pk.n_free = f2i(packet[3]);
+  pk.n_infl = f2i(packet[4]);
+  pk.n_speed = f2i(packet[5]);
+  pk.n_active = f2i(packet[6]);
+  *tte = packet[8];
+  int off = HEADER;
+  pk.arr_sizes = packet + off; off += D.KA;
+  pk.arr_prio = packet + off; if (D.use_priority) off += D.KA;
+  pk.arr_tenant = packet + off; if (tn.on) off += D.KA;
+  pk.arr_avoid = packet + off; if (sp.on) off += D.KA;
+  pk.hb_idx = packet + off; off += D.KH;
+  pk.hb_val = packet + off; off += D.KH;
+  pk.free_idx = packet + off; off += D.KF;
+  pk.free_val = packet + off; off += D.KF;
+  pk.infl_idx = packet + off; off += D.KI;
+  pk.infl_val = packet + off; off += D.KI;
+  pk.pred_val = packet + off; if (sp.on) off += D.KI;
+  pk.sp_idx = packet + off; off += D.KS;
+  pk.sp_val = packet + off; off += D.KS;
+  pk.ac_idx = packet + off; off += D.KB;
+  pk.ac_val = packet + off;
+  return pk;
+}
+
+// The masked scatters (sentinel-drop; free counts additive), lane j taken by
+// the threads first, first + stride, ...
+__device__ void scatter_lanes(const PacketLanes& pk, const Dims& D,
+                              const State& st, const Spec& sp, float now,
+                              int first, int stride) {
+  const int W = D.W, I = D.I;
+  for (int j = first; j < D.KH && j < pk.n_hb; j += stride) {
+    const int r = drop_index(f2i(pk.hb_idx[j]), W);
+    if (r >= 0) st.last_hb[r] = pk.hb_val[j];
+  }
+  for (int j = first; j < D.KF && j < pk.n_free; j += stride) {
+    const int r = drop_index(f2i(pk.free_idx[j]), W);
+    if (r >= 0) atomicAdd(&st.free_cnt[r], f2i(pk.free_val[j]));
+  }
+  for (int j = first; j < D.KI && j < pk.n_infl; j += stride) {
+    const int s = drop_index(f2i(pk.infl_idx[j]), I);
+    if (s < 0) continue;
+    const int v = f2i(pk.infl_val[j]);
+    st.inflight[s] = v;
+    if (sp.on) {
+      // a dispatch is stamped with the packet's clock; a clear zeroes both
+      sp.start[s] = v >= 0 ? now : 0.0f;
+      sp.pred[s] = v >= 0 ? pk.pred_val[j] : 0.0f;
+    }
+  }
+  for (int j = first; j < D.KS && j < pk.n_speed; j += stride) {
+    const int r = drop_index(f2i(pk.sp_idx[j]), W);
+    if (r >= 0) st.speed[r] = pk.sp_val[j];
+  }
+  for (int j = first; j < D.KB && j < pk.n_active; j += stride) {
+    const int r = drop_index(f2i(pk.ac_idx[j]), W);
+    if (r >= 0) st.active[r] = pk.ac_val[j] > 0.5f ? 1 : 0;
+  }
+}
+
+// Arrival j (below the accepted count) into pending slot s.
+__device__ __forceinline__ void put_arrival(const PacketLanes& pk,
+                                            const Dims& D, const State& st,
+                                            const Tenancy& tn,
+                                            const Spec& sp, int j, int s) {
+  st.sizes[s] = pk.arr_sizes[j];
+  st.valid[s] = 1;
+  if (D.use_priority) st.prio[s] = f2i(pk.arr_prio[j]);
+  if (tn.on) tn.tenant[s] = f2i(pk.arr_tenant[j]);
+  if (sp.on) sp.avoid[s] = f2i(pk.arr_avoid[j]);
+}
+
+// The whole phase on one block (the auction and Sinkhorn branches, and the
+// flush). Returns the packet's clock and time_to_expire.
 __device__ void apply_deltas(const float* packet, const Dims& D,
                              const State& st, const Tenancy& tn,
                              const Spec& sp, const Out& out, Smem& sm,
                              float* now, float* tte) {
   const int tid = threadIdx.x;
-  const int T = D.T, W = D.W, I = D.I;
-  *now = packet[0];
-  const int n_arr = f2i(packet[1]);
-  const int n_hb = f2i(packet[2]);
-  const int n_free = f2i(packet[3]);
-  const int n_infl = f2i(packet[4]);
-  const int n_speed = f2i(packet[5]);
-  const int n_active = f2i(packet[6]);
-  *tte = packet[8];
-  int off = HEADER;
-  const float* arr_sizes = packet + off; off += D.KA;
-  const float* arr_prio = packet + off; if (D.use_priority) off += D.KA;
-  const float* arr_tenant = packet + off; if (tn.on) off += D.KA;
-  const float* arr_avoid = packet + off; if (sp.on) off += D.KA;
-  const float* hb_idx = packet + off; off += D.KH;
-  const float* hb_val = packet + off; off += D.KH;
-  const float* free_idx = packet + off; off += D.KF;
-  const float* free_val = packet + off; off += D.KF;
-  const float* infl_idx = packet + off; off += D.KI;
-  const float* infl_val = packet + off; off += D.KI;
-  const float* pred_val = packet + off; if (sp.on) off += D.KI;
-  const float* sp_idx = packet + off; off += D.KS;
-  const float* sp_val = packet + off; off += D.KS;
-  const float* ac_idx = packet + off; off += D.KB;
-  const float* ac_val = packet + off;
-
-  for (int j = tid; j < D.KH && j < n_hb; j += NT) {
-    const int r = drop_index(f2i(hb_idx[j]), W);
-    if (r >= 0) st.last_hb[r] = hb_val[j];
-  }
-  for (int j = tid; j < D.KF && j < n_free; j += NT) {
-    const int r = drop_index(f2i(free_idx[j]), W);
-    if (r >= 0) atomicAdd(&st.free_cnt[r], f2i(free_val[j]));
-  }
-  for (int j = tid; j < D.KI && j < n_infl; j += NT) {
-    const int s = drop_index(f2i(infl_idx[j]), I);
-    if (s < 0) continue;
-    const int v = f2i(infl_val[j]);
-    st.inflight[s] = v;
-    if (sp.on) {
-      // a dispatch is stamped with the packet's clock; a clear zeroes both
-      sp.start[s] = v >= 0 ? *now : 0.0f;
-      sp.pred[s] = v >= 0 ? pred_val[j] : 0.0f;
-    }
-  }
-  for (int j = tid; j < D.KS && j < n_speed; j += NT) {
-    const int r = drop_index(f2i(sp_idx[j]), W);
-    if (r >= 0) st.speed[r] = sp_val[j];
-  }
-  for (int j = tid; j < D.KB && j < n_active; j += NT) {
-    const int r = drop_index(f2i(ac_idx[j]), W);
-    if (r >= 0) st.active[r] = ac_val[j] > 0.5f ? 1 : 0;
-  }
+  const PacketLanes pk = packet_lanes(packet, D, tn, sp, now, tte);
+  scatter_lanes(pk, D, st, sp, *now, tid, NT);
   // arrivals: the first KA invalid pending slots, in index order
   const int n_invalid = first_k(
-      T, D.KA, out.arrival_slots, [&](int i) { return st.valid[i] == 0; },
+      D.T, D.KA, out.arrival_slots, [&](int i) { return st.valid[i] == 0; },
       [](int, int) {}, sm);
   __syncthreads();
-  const int accept = min(n_arr, n_invalid);
+  const int accept = min(pk.n_arr, n_invalid);
   for (int j = tid; j < D.KA; j += NT) {
     if (j < accept) {
-      const int s = out.arrival_slots[j];
-      st.sizes[s] = arr_sizes[j];
-      st.valid[s] = 1;
-      if (D.use_priority) st.prio[s] = f2i(arr_prio[j]);
-      if (tn.on) tn.tenant[s] = f2i(arr_tenant[j]);
-      if (sp.on) sp.avoid[s] = f2i(arr_avoid[j]);
+      put_arrival(pk, D, st, tn, sp, j, out.arrival_slots[j]);
     } else {
       out.arrival_slots[j] = -1;
     }
@@ -548,40 +619,53 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+// liveness: hb_age = now - last_hb <= tte, on the post-scatter state
+__device__ __forceinline__ bool row_live(const State& st, int w, float now,
+                                         float tte) {
+  const float age = now - st.last_hb[w];
+  return st.active[w] && age <= tte;
+}
+
+// An in-flight slot of a dead row (redispatched), from out.live.
+__device__ __forceinline__ bool dead_slot(const State& st, const Out& out,
+                                          int W, int i) {
+  const int iw = st.inflight[i];
+  return iw >= 0 && !out.live[min(iw, W - 1)];
+}
+
+// A straggler (tpu_faas/spec/straggler.py): occupied on a live row, pred >
+// 0, now - start past max(mult * pred, min_s) with NaN propagating.
+__device__ __forceinline__ bool straggling(const State& st, const Out& out,
+                                           const Spec& sp, int W, int i,
+                                           float now) {
+  const int iw = st.inflight[i];
+  if (iw < 0 || !out.live[min(iw, W - 1)]) return false;
+  const float pred = sp.pred[i];
+  const float thr = max_nan(__fmul_rn(sp.tail[0], pred), sp.tail[1]);
+  return pred > 0.0f && __fsub_rn(now, sp.start[i]) > thr;
+}
+
 __device__ void liveness(const Dims& D, const State& st, const Spec& sp,
                          const Out& out, float now, float tte, Smem& sm) {
   const int tid = threadIdx.x;
   const int W = D.W;
   for (int w = tid; w < W; w += NT) {
-    const float age = now - st.last_hb[w];
-    const uint8_t l = (st.active[w] && age <= tte) ? 1 : 0;
+    const uint8_t l = row_live(st, w, now, tte) ? 1 : 0;
     out.purged[w] = (st.prev_live[w] && !l) ? 1 : 0;
     out.live[w] = l;
     st.prev_live[w] = l;
   }
   __syncthreads();
-  first_k(
-      D.I, D.KR, out.redispatch,
-      [&](int i) {
-        const int iw = st.inflight[i];
-        return iw >= 0 && !out.live[min(iw, W - 1)];
-      },
-      [](int, int) {}, sm);
+  first_k(D.I, D.KR, out.redispatch,
+          [&](int i) { return dead_slot(st, out, W, i); }, [](int, int) {},
+          sm);
   if (!sp.on) {
     for (int j = tid; j < D.KG; j += NT) out.straggler[j] = -1;
     return;
   }
-  const float mult = sp.tail[0], min_s = sp.tail[1];
-  first_k(
-      D.I, D.KG, out.straggler,
-      [&](int i) {
-        const int iw = st.inflight[i];
-        if (iw < 0 || !out.live[min(iw, W - 1)]) return false;
-        const float pred = sp.pred[i];
-        const float thr = max_nan(__fmul_rn(mult, pred), min_s);
-        return pred > 0.0f && __fsub_rn(now, sp.start[i]) > thr;
-      },
-      [](int, int) {}, sm);
+  first_k(D.I, D.KG, out.straggler,
+          [&](int i) { return straggling(st, out, sp, W, i, now); },
+          [](int, int) {}, sm);
 }
 
 // Slot expansion (greedy.py's layout: slot s is process s % K of worker
@@ -632,14 +716,22 @@ __device__ __forceinline__ TenantWords tenant_words(const Tenancy& tn,
   return TenantWords{tn.cnt, tn.demand};
 }
 
-// tenant_fair_admission_impl on one block: tn.elig (the placement's valid
-// set), the demand words and, with `order` (rank placement), tn.adm_rank: the
-// position of each eligible task in the admission order (eligible first,
-// -eff_prio ascending, v ascending, index ascending); the ineligible tasks'
-// positions are never read. Ends with a barrier.
+// The inflight-cap allowance of tenant row g: a task is eligible when its
+// FCFS rank j within the tenant's valid backlog is below it.
+__device__ __forceinline__ int tenant_allowance(const Dims& D,
+                                                const Tenancy& tn, int g) {
+  const int cap = f2i(tn.cap[g]);
+  return cap > 0 ? max(wrap_sub(cap, f2i(tn.ahead[g])), 0) : D.T;
+}
+
+// tenant_fair_admission_impl's eligibility on one block (the auction and
+// Sinkhorn branches): tn.elig (the placement's valid set) and the demand
+// words, from the FCFS rank j within each tenant's valid backlog (one stable
+// radix sort on the tenant segment). The rank branch computes the same over
+// the grid (rank_tenancy). Ends with a barrier.
 __device__ void tenancy_admit(const Dims& D, const State& st,
                               const Tenancy& tn, const Scratch& sc,
-                              bool order, Smem& sm) {
+                              Smem& sm) {
   const int tid = threadIdx.x;
   const int T = D.T, N = tn.n;
   const TenantWords tw = tenant_words(tn, sm);
@@ -667,52 +759,11 @@ __device__ void tenancy_admit(const Dims& D, const State& st,
     const int t = by_seg[i];
     bool e = false;
     if (g < static_cast<uint32_t>(N)) {
-      const int j = i - tw.cnt[g];
-      const int cap = f2i(tn.cap[g]);
-      const int allow = cap > 0 ? max(wrap_sub(cap, f2i(tn.ahead[g])), 0) : T;
-      e = j < allow;
+      e = i - tw.cnt[g] < tenant_allowance(D, tn, g);
       if (e) tw.demand[g] = 1;
-      tn.adm_rank[t] = j;
     }
     tn.elig[t] = e ? 1 : 0;
   }
-  __syncthreads();
-  if (!order) return;
-  // the eligible tasks in index order, keyed by v = (j + 1 - d) / share
-  int lo, hi;
-  chunk_of(T, &lo, &hi);
-  int c = 0;
-  for (int t = lo; t < hi; ++t) c += tn.elig[t];
-  int n_elig;
-  int p = block_exclusive_scan(c, &n_elig, sm);
-  for (int t = lo; t < hi; ++t) {
-    if (!tn.elig[t]) continue;
-    const int g = tenant_row(tn, t);
-    const float v = __fdiv_rn(
-        __fsub_rn(__fadd_rn(static_cast<float>(tn.adm_rank[t]), 1.0f),
-                  tn.deficit[g]),
-        clamp_min(tn.share[g], 1e-6f));
-    sc.tk[0][p] = float_key(v);
-    sc.tv[0][p] = t;
-    ++p;
-  }
-  __syncthreads();
-  const int b1 = block_radix_sort(sc.tk, sc.tv, n_elig, sm);
-  // then by -eff_prio, a stable pass (eff_prio = prio + the starvation
-  // boost, int32 arithmetic as XLA's)
-  uint32_t* const k2[2] = {sc.tk[b1 ^ 1], sc.tk[b1]};
-  int32_t* const v2[2] = {sc.tv[b1 ^ 1], sc.tv[b1]};
-  for (int i = tid; i < n_elig; i += NT) {
-    const int t = sc.tv[b1][i];
-    const int g = tenant_row(tn, t);
-    const int prio = D.use_priority ? st.prio[t] : 0;
-    const int boost = tn.deficit[g] >= tn.starve_deficit ? tn.starve_boost : 0;
-    k2[0][i] = int_key(wrap_sub(0, wrap_add(prio, boost)));
-    v2[0][i] = t;
-  }
-  __syncthreads();
-  const int b2 = block_radix_sort(k2, v2, n_elig, sm);
-  for (int i = tid; i < n_elig; i += NT) tn.adm_rank[v2[b2][i]] = i;
   __syncthreads();
 }
 
@@ -758,18 +809,17 @@ __device__ void tenancy_deficit(const Dims& D, const Tenancy& tn,
   __syncthreads();
 }
 
-// ---- phase 3, rank (greedy.py::rank_match_placement_impl) ----------------
+// ---- phase 3, rank over every slot and task (greedy.py) ------------------
 // Places the tasks with task_ok[t] set onto the live workers' free_cnt
-// slots, admitting FCFS, by priority, or by the tenancy lane's admission
-// positions (adm_rank). Fills sc.assign (worker per task, -1 queued). The
-// rank tick passes the placement's valid set and the free counts;
-// Sinkhorn's spill its spilled tasks and remaining capacity.
-enum Admit { kFcfs, kPriority, kRanked };
-
+// slots, admitting FCFS, with greedy.py's full-length stable sorts on one
+// block. Fills sc.assign (worker per task, -1 queued). Sinkhorn's spill
+// passes its spilled tasks and remaining capacity; the rank branch passes
+// its admitted set on a tick that a -inf or NaN speed or size sends down
+// the full-length path (the set is no larger than the valid slots, so FCFS
+// admits all of it).
 template <class TaskOk>
 __device__ void rank_place(const Dims& D, const State& st, const Out& out,
                            TaskOk task_ok, const int32_t* free_cnt,
-                           Admit admit, const int32_t* adm_rank,
                            const Scratch& sc, Smem& sm,
                            unsigned long long* stamp = nullptr) {
   const int tid = threadIdx.x;
@@ -780,36 +830,17 @@ __device__ void rank_place(const Dims& D, const State& st, const Out& out,
   const int32_t* slot_order = sc.sv[slot_buf];
   PROBE(if (stamp && tid == 0) *stamp = global_ns();)
 
-  // admission
-  if (admit == kRanked) {
-    for (int t = tid; t < T; t += NT)
-      sc.admitted[t] = (task_ok(t) && adm_rank[t] < n_slots_total) ? 1 : 0;
-  } else if (admit == kPriority) {
-    for (int t = tid; t < T; t += NT) {
-      const int32_t key = task_ok(t)
-          ? static_cast<int32_t>(0u - static_cast<uint32_t>(st.prio[t]))
-          : INT32_MAX;
-      sc.tk[0][t] = int_key(key);
-      sc.tv[0][t] = t;
-    }
-    __syncthreads();
-    const int b = block_radix_sort(sc.tk, sc.tv, T, sm);
-    for (int r = tid; r < T; r += NT) {
-      const int t = sc.tv[b][r];
-      sc.admitted[t] = (r < n_slots_total && task_ok(t)) ? 1 : 0;
-    }
-  } else {
-    int lo, hi;
-    chunk_of(T, &lo, &hi);
-    int c = 0;
-    for (int t = lo; t < hi; ++t) c += task_ok(t) ? 1 : 0;
-    int total;
-    int rank = block_exclusive_scan(c, &total, sm);
-    for (int t = lo; t < hi; ++t) {
-      const bool v = task_ok(t);
-      sc.admitted[t] = (v && rank < n_slots_total) ? 1 : 0;
-      rank += v ? 1 : 0;
-    }
+  // FCFS admission
+  int lo, hi;
+  chunk_of(T, &lo, &hi);
+  int c = 0;
+  for (int t = lo; t < hi; ++t) c += task_ok(t) ? 1 : 0;
+  int total;
+  int rank = block_exclusive_scan(c, &total, sm);
+  for (int t = lo; t < hi; ++t) {
+    const bool v = task_ok(t);
+    sc.admitted[t] = (v && rank < n_slots_total) ? 1 : 0;
+    rank += v ? 1 : 0;
   }
   __syncthreads();
   int my_tasks = 0;
@@ -922,25 +953,696 @@ __device__ void compact(const Dims& D, const State& st, const Out& out,
   if (tid == 0) out.n_pending[0] = n_pending;
 }
 
+// ---- rank placement over the grid (fused_rank_kernel) ---------------------
+// One cooperative launch of one 1024-thread block per SM. Each index range
+// (tasks, workers, in-flight slots) is cut into one contiguous tile per
+// block; a block walks its tile in chunks of NT consecutive indices (one
+// per thread, so a warp's loads coalesce), counts what it keeps, and after a
+// grid barrier takes its offset from the scan of the blocks' counts: every
+// list it emits stays in index order, as greedy.py's stable sorts need.
+// per-block counts, one row of kMaxRankBlocks each
+enum RankCount {
+  kCntInvalid,     // invalid pending slots (arrivals)
+  kCntRedispatch,  // in-flight slots of dead rows
+  kCntStraggler,   // straggler slots (speculation)
+  kCntSlots,       // valid slots
+  kCntMembers,     // tasks the admission ranks (key != kNoKey)
+  kCntLt,          // members whose key is below the threshold
+  kCntEq,          // members whose key equals it
+  kCntPlaced,      // tasks with a worker
+  kCntValid,       // valid pending slots
+  kRankCounts
+};
+// The rank branch's words: 0 a valid slot or an admitted task sorts among
+// the invalid ones (take the full-length path), 1 admitted tasks, 2 the
+// sorted slot buffer, 3 the sorted task buffer, 4 ticks that took the
+// full-length path (kept across launches: the wrapper zeroes it once), 5
+// padding (an even count keeps the stamps after them aligned).
+enum RankWord { kWordBad, kWordTasks, kWordSlotBuf, kWordTaskBuf,
+                kWordFallbacks, kWordPad, kRankWords };
+constexpr int kSelPasses = 8;  // one byte of the 64-bit key a pass, at most
+constexpr unsigned long long kNoKey = ~0ull;  // not ranked by the admission
+// The rank branch's phase stamps (a probe build alone writes them): 0
+// start, then block 0's clock at the end of 1 the packet's scatters, 2 the
+// arrivals and liveness, 3 the lists (the valid slots, the admission keys
+// or, with tenancy, the tiles' segment sorts), 4 the tenancy lane's j,
+// eligibility and keys, 5 the select, 6 the admission with the redispatch
+// and straggler lists, 7 the sorts, 8 the pairing, 9 the hedge fixup, 10
+// the counts for compaction with the deficit carry, 11 the compaction; then
+// the counts 12 valid slots, 13 admitted tasks, 14 select passes, 15 1 on
+// the full-length path. Each grid phase ends at its barrier.
+constexpr int kRkStamps = 16;
+
+__device__ __forceinline__ unsigned long long min64(unsigned long long a,
+                                                    unsigned long long b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ unsigned long long max64(unsigned long long a,
+                                                    unsigned long long b) {
+  return a > b ? a : b;
+}
+
+struct Rank {
+  int32_t* cnt;                // [kRankCounts kMaxRankBlocks]
+  unsigned long long* key;     // [T] admission keys
+  int32_t* sel_cnt;            // [kSelPasses RADIX] a pass's digit counts
+  unsigned long long* sel_min; // [kSelPasses RADIX] ... each digit's least key
+  unsigned long long* sel_max; // [kSelPasses RADIX] ... and greatest
+  unsigned long long* key_mm;  // [2] the members' least and greatest key
+  int32_t* word;               // [kRankWords]
+  unsigned long long* stamps;  // [kRkStamps]
+};
+
+// This block's contiguous tile of [0, n).
+__device__ __forceinline__ void tile_of(int n, int* lo, int* hi) {
+  const int c = (n + gridDim.x - 1) / gridDim.x;
+  *lo = min(static_cast<int>(blockIdx.x) * c, n);
+  *hi = min(*lo + c, n);
+}
+
+// One block's count into row r of the counts (every thread calls it).
+__device__ __forceinline__ void put_count(const Rank& rk, int r, int mine,
+                                          Smem& sm) {
+  int total;
+  block_exclusive_scan(mine, &total, sm);
+  if (threadIdx.x == 0) rk.cnt[r * kMaxRankBlocks + blockIdx.x] = total;
+}
+
+// This block's offset in the scan of count row r over the blocks; *total
+// gets the grid's sum. Every thread calls it, after a grid barrier.
+__device__ int grid_offset(const Rank& rk, int r, int* total, Smem& sm) {
+  const int tid = threadIdx.x;
+  const int v =
+      tid < static_cast<int>(gridDim.x) ? rk.cnt[r * kMaxRankBlocks + tid] : 0;
+  const int excl = block_exclusive_scan(v, total, sm);
+  if (tid == static_cast<int>(blockIdx.x)) sm.bcast[0] = excl;
+  __syncthreads();
+  const int off = sm.bcast[0];
+  __syncthreads();
+  return off;
+}
+
+// The i in [lo, hi) with mask(i), in index order, at base + their rank:
+// emit(i, position). Every thread calls it (the loop is block-uniform).
+template <class Mask, class Emit>
+__device__ void tile_emit(int lo, int hi, int base, Mask mask, Emit emit,
+                          Smem& sm) {
+  for (int c = lo; c < hi; c += NT) {
+    const int i = c + threadIdx.x;
+    const bool m = i < hi && mask(i);
+    int total;
+    const int at = block_exclusive_scan(m ? 1 : 0, &total, sm);
+    if (m) emit(i, base + at);
+    base += total;
+  }
+}
+
+// The first K indices of mask over [0, n) into out[K], -1 padded, from the
+// blocks' counts in row r (rank_count put them there before the barrier).
+template <class Mask>
+__device__ void grid_first_k(const Rank& rk, int r, int n, int K,
+                             int32_t* out, Mask mask, Smem& sm) {
+  int total;
+  const int off = grid_offset(rk, r, &total, sm);
+  int lo, hi;
+  tile_of(n, &lo, &hi);
+  if (off < K)
+    tile_emit(lo, hi, off, mask, [&](int i, int p) { if (p < K) out[p] = i; },
+              sm);
+  const int gthread = blockIdx.x * NT + threadIdx.x;
+  for (int j = total + gthread; j < K; j += gridDim.x * NT) out[j] = -1;
+}
+
+// The count of mask over this block's tile of [0, n) into row r.
+template <class Mask>
+__device__ void rank_count(const Rank& rk, int r, int n, Mask mask,
+                           Smem& sm) {
+  int lo, hi;
+  tile_of(n, &lo, &hi);
+  int mine = 0;
+  for (int i = lo + threadIdx.x; i < hi; i += NT) mine += mask(i) ? 1 : 0;
+  put_count(rk, r, mine, sm);
+}
+
+// The valid slots of row w: min(free, K) on a live row (free may be
+// negative or past K).
+__device__ __forceinline__ int row_slots(const Dims& D, const State& st,
+                                         const Out& out, int w) {
+  return out.live[w] ? min(max(st.free_cnt[w], 0), D.K) : 0;
+}
+
+// The tenancy lane's admission over the grid, part 1 (after the arrivals):
+// each block stably sorts its tile of tasks by segment (the tenant row, N
+// for an invalid task) in place in the task scratch, and writes per tenant
+// row g its count in the tile (tile_cnt[g * kMaxRankBlocks + b], 0 when
+// absent) and the first sorted position (tile_first, when present).
+// Returns the sort's buffer.
+__device__ int rank_tenancy_tiles(const Dims& D, const State& st,
+                                  const Tenancy& tn, const Scratch& sc,
+                                  Smem& sm) {
+  const int tid = threadIdx.x, N = tn.n, b = blockIdx.x;
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  const int n = hi - lo;
+  for (int i = tid; i < n; i += NT) {
+    const int t = lo + i;
+    sc.tk[0][t] = st.valid[t] ? static_cast<uint32_t>(tenant_row(tn, t))
+                              : static_cast<uint32_t>(N);
+    sc.tv[0][t] = t;
+  }
+  for (int g = tid; g < N; g += NT) tn.tile_cnt[g * kMaxRankBlocks + b] = 0;
+  __syncthreads();
+  uint32_t* const k[2] = {sc.tk[0] + lo, sc.tk[1] + lo};
+  int32_t* const v[2] = {sc.tv[0] + lo, sc.tv[1] + lo};
+  const int buf = block_radix_sort(k, v, n, sm);
+  const uint32_t* seg = k[buf];
+  for (int i = tid; i < n; i += NT) {
+    const uint32_t g = seg[i];
+    if (g >= static_cast<uint32_t>(N)) continue;
+    const int at = static_cast<int>(g) * kMaxRankBlocks + b;
+    if (i == 0 || seg[i - 1] != g) {
+      tn.tile_first[at] = i;
+      atomicSub(&tn.tile_cnt[at], i);
+    }
+    if (i == n - 1 || seg[i + 1] != g) atomicAdd(&tn.tile_cnt[at], i + 1);
+  }
+  return buf;
+}
+
+// Part 2: each tenant row's tile counts become exclusive offsets over the
+// blocks, one warp a row.
+__device__ void rank_tenancy_scan(const Tenancy& tn) {
+  const int lane = threadIdx.x & 31;
+  const int G = gridDim.x;
+  const int per = (G + 31) / 32;
+  for (int g = blockIdx.x * NWARP + (threadIdx.x >> 5); g < tn.n;
+       g += gridDim.x * NWARP) {
+    int32_t* row = tn.tile_cnt + g * kMaxRankBlocks;
+    int mine = 0;
+    for (int i = lane * per; i < min(G, lane * per + per); ++i) mine += row[i];
+    int x = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, o);
+      if (lane >= o) x += y;
+    }
+    int run = x - mine;
+    for (int i = lane * per; i < min(G, lane * per + per); ++i) {
+      const int c = row[i];
+      row[i] = run;
+      run += c;
+    }
+  }
+}
+
+// Part 3: j (the FCFS rank within the tenant's valid backlog), the
+// eligibility, the demand words and each task's admission key: eligible
+// tasks by int_key(-eff_prio), then float_key(v), with v = (j + 1 - d) /
+// share as the plain version rounds it and eff_prio in XLA's int32
+// arithmetic; kNoKey on the others. Returns this block's members.
+__device__ int rank_tenancy_keys(const Dims& D, const State& st,
+                                 const Tenancy& tn, const Scratch& sc,
+                                 const Rank& rk, int buf,
+                                 unsigned long long* kmin,
+                                 unsigned long long* kmax) {
+  const int N = tn.n, b = blockIdx.x;
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  const uint32_t* seg = sc.tk[buf] + lo;
+  const int32_t* by_seg = sc.tv[buf] + lo;
+  int mine = 0;
+  for (int i = threadIdx.x; i < hi - lo; i += NT) {
+    const uint32_t g = seg[i];
+    const int t = by_seg[i];
+    unsigned long long key = kNoKey;
+    if (g < static_cast<uint32_t>(N)) {
+      const int at = static_cast<int>(g) * kMaxRankBlocks + b;
+      const int j = tn.tile_cnt[at] + i - tn.tile_first[at];
+      if (j < tenant_allowance(D, tn, g)) {
+        tn.demand[g] = 1;
+        const float v = __fdiv_rn(
+            __fsub_rn(__fadd_rn(static_cast<float>(j), 1.0f), tn.deficit[g]),
+            clamp_min(tn.share[g], 1e-6f));
+        const int prio = D.use_priority ? st.prio[t] : 0;
+        const int boost =
+            tn.deficit[g] >= tn.starve_deficit ? tn.starve_boost : 0;
+        key = (static_cast<unsigned long long>(
+                   int_key(wrap_sub(0, wrap_add(prio, boost))))
+               << 32) |
+              float_key(v);
+        ++mine;
+        *kmin = min64(*kmin, key);
+        *kmax = max64(*kmax, key);
+      }
+    }
+    tn.elig[t] = key != kNoKey ? 1 : 0;
+    rk.key[t] = key;
+  }
+  return mine;
+}
+
+// The members' least and greatest key, from each thread's, into rk.key_mm.
+__device__ void put_key_range(const Rank& rk, unsigned long long kmin,
+                              unsigned long long kmax) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    kmin = min64(kmin, __shfl_xor_sync(FULL, kmin, o));
+    kmax = max64(kmax, __shfl_xor_sync(FULL, kmax, o));
+  }
+  if ((threadIdx.x & 31) == 0 && kmin <= kmax) {
+    atomicMin(rk.key_mm, kmin);
+    atomicMax(rk.key_mm + 1, kmax);
+  }
+}
+
+// The admission's threshold: the key at position k - 1 of the members'
+// stable order (the n_slots-th smallest), found by a radix select, most
+// significant byte first. Each pass histograms the members that share the
+// chosen bucket's prefix by the first byte where its least and greatest
+// key differ, with each digit's least and greatest key; a grid barrier;
+// then every block picks the same digit. It ends when a bucket holds one
+// key. *below gets the members below the threshold; returns the threshold
+// and *passes the passes run. Every block calls it, after a barrier.
+__device__ unsigned long long radix_select(const Dims& D, const Rank& rk,
+                                          int k, int* below, int* passes,
+                                          Smem& sm, cg::grid_group& grid) {
+  const int tid = threadIdx.x;
+  unsigned long long bmin = rk.key_mm[0], bmax = rk.key_mm[1];
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  int p = 0;
+  *below = 0;
+  while (bmin != bmax) {
+    const int top = 63 - __clzll(static_cast<long long>(bmin ^ bmax));
+    const int shift = top & ~7;
+    unsigned long long* mn = sm.sel_mm[0];
+    unsigned long long* mx = sm.sel_mm[1];
+    if (tid < RADIX) {
+      sm.hist[0][tid] = 0;
+      mn[tid] = kNoKey;
+      mx[tid] = 0;
+    }
+    __syncthreads();
+    for (int t = lo + tid; t < hi; t += NT) {
+      const unsigned long long key = rk.key[t];
+      if (key == kNoKey) continue;
+      if (shift < 56 && ((key ^ bmin) >> (shift + 8)) != 0) continue;
+      const int d = static_cast<int>((key >> shift) & 0xff);
+      atomicAdd(&sm.hist[0][d], 1);
+      atomicMin(mn + d, key);
+      atomicMax(mx + d, key);
+    }
+    __syncthreads();
+    if (tid < RADIX && sm.hist[0][tid]) {
+      atomicAdd(rk.sel_cnt + p * RADIX + tid, sm.hist[0][tid]);
+      atomicMin(rk.sel_min + p * RADIX + tid, mn[tid]);
+      atomicMax(rk.sel_max + p * RADIX + tid, mx[tid]);
+    }
+    grid.sync();
+    // the digit whose keys hold position k - 1 - below
+    const int c = tid < RADIX ? rk.sel_cnt[p * RADIX + tid] : 0;
+    int n_in;
+    const int at = block_exclusive_scan(c, &n_in, sm);
+    const int r = k - 1 - *below;
+    if (tid < RADIX && at <= r && r < at + c) {
+      sm.bcast[0] = tid;
+      sm.bcast[1] = at;
+    }
+    __syncthreads();
+    const int d = sm.bcast[0];
+    *below += sm.bcast[1];
+    bmin = rk.sel_min[p * RADIX + d];
+    bmax = rk.sel_max[p * RADIX + d];
+    __syncthreads();
+    ++p;
+  }
+  *passes = p;
+  return bmin;
+}
+
 __global__ void __launch_bounds__(NT, 1)
-fused_tick_kernel(const float* __restrict__ packet, Dims D, State st, Out out,
-                  Scratch sc, Tenancy tn, Spec sp) {
+fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
+                  Out out, Scratch sc, Rank rk, Tenancy tn, Spec sp) {
+  __shared__ Smem sm;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, b = blockIdx.x, G = gridDim.x;
+  const int gthread = b * NT + tid, n_gthread = G * NT;
+  const int T = D.T, W = D.W, I = D.I, K = D.K, S = W * K;
+  PROBE(const bool stamp = b == 0 && tid == 0;
+        if (stamp) rk.stamps[0] = global_ns();)
+
+  // -- 1: the packet's scatters; the invalid pending slots counted --------
+  float now, tte;
+  PacketLanes pk = packet_lanes(packet, D, tn, sp, &now, &tte);
+  scatter_lanes(pk, D, st, sp, now, gthread, n_gthread);
+  rank_count(rk, kCntInvalid, T, [&](int i) { return st.valid[i] == 0; },
+             sm);
+  // scratch the later phases accumulate into
+  for (int i = gthread; i < kSelPasses * RADIX; i += n_gthread) {
+    rk.sel_cnt[i] = 0;
+    rk.sel_min[i] = kNoKey;
+    rk.sel_max[i] = 0;
+  }
+  if (tn.on)
+    for (int g = gthread; g < tn.n; g += n_gthread) tn.demand[g] = 0;
+  if (gthread == 0) {
+    rk.key_mm[0] = kNoKey;
+    rk.key_mm[1] = 0;
+    rk.word[kWordBad] = 0;
+    rk.word[kWordTasks] = 0;
+    out.n_pending[0] = 0;  // the compaction's blocks add into it
+  }
+  grid.sync();
+  PROBE(if (stamp) rk.stamps[1] = global_ns();)
+
+  // -- 2: arrivals into the first invalid pending slots; liveness; the
+  // valid slots counted ---------------------------------------------------
+  {
+    int n_invalid;
+    const int off = grid_offset(rk, kCntInvalid, &n_invalid, sm);
+    const int accept = max(min(min(pk.n_arr, n_invalid), D.KA), 0);
+    int lo, hi;
+    tile_of(T, &lo, &hi);
+    if (off < accept)
+      tile_emit(lo, hi, off, [&](int i) { return st.valid[i] == 0; },
+                [&](int s, int j) {
+                  if (j >= accept) return;
+                  out.arrival_slots[j] = s;
+                  put_arrival(pk, D, st, tn, sp, j, s);
+                },
+                sm);
+    for (int j = accept + gthread; j < D.KA; j += n_gthread)
+      out.arrival_slots[j] = -1;
+  }
+  {
+    int lo, hi;
+    tile_of(W, &lo, &hi);
+    int slots = 0;
+    bool bad = false;
+    for (int w = lo + tid; w < hi; w += NT) {
+      const uint8_t l = row_live(st, w, now, tte) ? 1 : 0;
+      out.purged[w] = (st.prev_live[w] && !l) ? 1 : 0;
+      out.live[w] = l;
+      st.prev_live[w] = l;
+      const int n = l ? min(max(st.free_cnt[w], 0), K) : 0;
+      slots += n;
+      // a valid slot whose -speed sorts among the invalid slots' +inf
+      bad |= n > 0 && !(st.speed[w] > neg_inf());
+    }
+    put_count(rk, kCntSlots, slots, sm);
+    if (__syncthreads_or(bad) && tid == 0) rk.word[kWordBad] = 1;
+  }
+  grid.sync();
+  PROBE(if (stamp) rk.stamps[2] = global_ns();)
+
+  // -- 3: redispatches and stragglers counted; the valid slots with their
+  // sort keys; the admission keys (with tenancy: the tiles' segment sorts)
+  rank_count(rk, kCntRedispatch, I,
+             [&](int i) { return dead_slot(st, out, W, i); }, sm);
+  if (sp.on)
+    rank_count(rk, kCntStraggler, I,
+               [&](int i) { return straggling(st, out, sp, W, i, now); },
+               sm);
+  int n_slots;
+  {
+    const int off = grid_offset(rk, kCntSlots, &n_slots, sm);
+    int lo, hi;
+    tile_of(W, &lo, &hi);
+    int base = off;
+    for (int c = lo; c < hi; c += NT) {
+      const int w = c + tid;
+      const int n = w < hi ? row_slots(D, st, out, w) : 0;
+      int total;
+      const int p = base + block_exclusive_scan(n, &total, sm);
+      if (n) {
+        const uint32_t key = float_key(-st.speed[w]);
+        for (int k = 0; k < n; ++k) {
+          sc.sk[0][p + k] = key;
+          sc.sv[0][p + k] = w * K + k;
+        }
+      }
+      base += total;
+    }
+  }
+  int lo_t, hi_t;
+  tile_of(T, &lo_t, &hi_t);
+  for (int t = lo_t + tid; t < hi_t; t += NT) sc.assign[t] = -1;
+  int tile_buf = 0;
+  if (tn.on) {
+    tile_buf = rank_tenancy_tiles(D, st, tn, sc, sm);
+  } else {
+    // priority: greedy.py's key, -prio (wrapping) on a valid task and
+    // INT32_MAX on the others, every task ranked; FCFS: the valid tasks,
+    // all one key
+    unsigned long long kmin = kNoKey, kmax = 0;
+    int mine = 0;
+    for (int t = lo_t + tid; t < hi_t; t += NT) {
+      const bool v = st.valid[t] != 0;
+      unsigned long long key;
+      if (D.use_priority) {
+        const int32_t k32 =
+            v ? static_cast<int32_t>(0u - static_cast<uint32_t>(st.prio[t]))
+              : INT32_MAX;
+        key = static_cast<unsigned long long>(int_key(k32)) << 32;
+      } else {
+        key = v ? 0ull : kNoKey;
+      }
+      rk.key[t] = key;
+      if (key != kNoKey) {
+        ++mine;
+        kmin = min64(kmin, key);
+        kmax = max64(kmax, key);
+      }
+    }
+    put_count(rk, kCntMembers, mine, sm);
+    put_key_range(rk, kmin, kmax);
+  }
+  grid.sync();
+  PROBE(if (stamp) rk.stamps[3] = global_ns();)
+
+  // -- 4: tenancy: j, the eligibility and the keys ------------------------
+  if (tn.on) {
+    rank_tenancy_scan(tn);
+    grid.sync();
+    unsigned long long kmin = kNoKey, kmax = 0;
+    const int mine =
+        rank_tenancy_keys(D, st, tn, sc, rk, tile_buf, &kmin, &kmax);
+    put_count(rk, kCntMembers, mine, sm);
+    put_key_range(rk, kmin, kmax);
+    grid.sync();
+  }
+  PROBE(if (stamp) rk.stamps[4] = global_ns();)
+
+  // -- 5: the select: the threshold key and how many members equal to it
+  // are admitted (the first `need` in index order) ------------------------
+  int n_members;
+  grid_offset(rk, kCntMembers, &n_members, sm);
+  unsigned long long thr;
+  int need = 0, passes = 0;
+  bool counted = false;  // the kCntLt/kCntEq rows hold this tick's counts
+  if (n_slots == 0) {
+    thr = 0;  // nothing below it, and no equal one admitted
+  } else if (n_slots >= n_members) {
+    thr = kNoKey;  // every member below it
+  } else {
+    int below;
+    thr = radix_select(D, rk, n_slots, &below, &passes, sm, grid);
+    need = n_slots - below;
+    if (passes) {
+      int lt = 0, eq = 0;
+      for (int t = lo_t + tid; t < hi_t; t += NT) {
+        const unsigned long long key = rk.key[t];
+        if (key == kNoKey) continue;
+        lt += key < thr;
+        eq += key == thr;
+      }
+      put_count(rk, kCntLt, lt, sm);
+      put_count(rk, kCntEq, eq, sm);
+      grid.sync();
+      counted = true;
+    }
+  }
+  PROBE(if (stamp) rk.stamps[5] = global_ns();)
+
+  // -- 6: the redispatches and stragglers; the admission: the admitted
+  // tasks in index order, keyed by -size for the task sort (a priority rank
+  // held by an invalid task, only at the INT32_MAX key, leaves a hole keyed
+  // past every size) --------------------------------------------------------
+  grid_first_k(rk, kCntRedispatch, I, D.KR, out.redispatch,
+               [&](int i) { return dead_slot(st, out, W, i); }, sm);
+  if (sp.on) {
+    grid_first_k(rk, kCntStraggler, I, D.KG, out.straggler,
+                 [&](int i) { return straggling(st, out, sp, W, i, now); },
+                 sm);
+  } else {
+    for (int j = gthread; j < D.KG; j += n_gthread) out.straggler[j] = -1;
+  }
+  int n_list;
+  {
+    int off_lt, off_eq, n_lt, n_eq;
+    if (counted) {
+      off_lt = grid_offset(rk, kCntLt, &n_lt, sm);
+      off_eq = grid_offset(rk, kCntEq, &n_eq, sm);
+    } else {
+      // one key for every member (FCFS), all below the threshold, or none
+      // admitted: the members' counts are the counts
+      int n_m;
+      const int off = grid_offset(rk, kCntMembers, &n_m, sm);
+      const bool all_eq = thr != kNoKey;
+      off_lt = all_eq ? 0 : off;
+      n_lt = all_eq ? 0 : n_m;
+      off_eq = all_eq ? off : 0;
+      n_eq = all_eq ? n_m : 0;
+    }
+    n_list = n_lt + min(n_eq, need);
+    int my_tasks = 0;
+    bool bad = false;
+    for (int c = lo_t; c < hi_t; c += NT) {
+      const int t = c + tid;
+      const unsigned long long key = t < hi_t ? rk.key[t] : kNoKey;
+      const bool lt = key != kNoKey && key < thr;
+      const bool eq = key != kNoKey && key == thr;
+      int total;
+      // lt and eq counts packed in one scan (each below 2^16 in a chunk)
+      const int at = block_exclusive_scan((lt ? 1 << 16 : 0) | (eq ? 1 : 0),
+                                          &total, sm);
+      const int lt_before = off_lt + (at >> 16);
+      const int eq_before = off_eq + (at & 0xffff);
+      const bool cand = lt || (eq && eq_before < need);
+      bool adm = false;
+      if (cand) {
+        const int p = lt_before + min(eq_before, need);
+        adm = st.place_valid[t] != 0;
+        const float size = st.sizes[t];
+        sc.tk[0][p] = adm ? float_key(-size) : 0xffffffffu;
+        sc.tv[0][p] = t;
+        bad |= adm && !(size > neg_inf());
+        my_tasks += adm;
+      }
+      if (t < hi_t) sc.admitted[t] = adm ? 1 : 0;
+      off_lt += total >> 16;
+      off_eq += total & 0xffff;
+    }
+    int total;
+    block_exclusive_scan(my_tasks, &total, sm);
+    if (tid == 0 && total) atomicAdd(rk.word + kWordTasks, total);
+    if (__syncthreads_or(bad) && tid == 0) rk.word[kWordBad] = 1;
+  }
+  grid.sync();
+  PROBE(if (stamp) rk.stamps[6] = global_ns();)
+
+  // -- 7: the sorts: the valid slots by -speed on block 0, the admitted
+  // tasks by -size on block 1, each list in index order, so the stable
+  // sorts give greedy.py's first n_slots and n_tasks positions; a -inf or
+  // NaN speed or size would sort among the invalid ones there, and such a
+  // tick takes greedy.py's full-length sorts on block 0 ---------------------
+  const bool bad = rk.word[kWordBad] != 0;
+  const int n_tasks = rk.word[kWordTasks];
+  if (bad) {
+    if (b == 0) {
+      rank_place(
+          D, st, out, [&](int t) { return sc.admitted[t] != 0; },
+          st.free_cnt, sc, sm);
+      if (tid == 0) rk.word[kWordFallbacks] += 1;
+    }
+  } else {
+    if (b == 0) {
+      const int sb = block_radix_sort(sc.sk, sc.sv, n_slots, sm);
+      if (tid == 0) rk.word[kWordSlotBuf] = sb;
+    }
+    if (b == (G > 1 ? 1 : 0)) {
+      const int tb = block_radix_sort(sc.tk, sc.tv, n_list, sm);
+      if (tid == 0) rk.word[kWordTaskBuf] = tb;
+    }
+  }
+  grid.sync();
+  PROBE(if (stamp) rk.stamps[7] = global_ns();)
+
+  // -- 8: rank-for-rank pairs -------------------------------------------
+  if (!bad) {
+    const int32_t* slot_order = sc.sv[rk.word[kWordSlotBuf]];
+    const int32_t* task_order = sc.tv[rk.word[kWordTaskBuf]];
+    const int n_pairs = min(min(n_slots, n_tasks), min(T, S));
+    for (int i = gthread; i < n_pairs; i += n_gthread)
+      sc.assign[task_order[i]] = slot_order[i] / K;
+    grid.sync();
+  }
+  PROBE(if (stamp) rk.stamps[8] = global_ns();)
+
+  // -- 9: the hedge fixup on block 0 --------------------------------------
+  if (sp.on) {
+    if (b == 0) hedge_fixup(D, st, out, sp, sc.assign, sm);
+    grid.sync();
+  }
+  PROBE(if (stamp) rk.stamps[9] = global_ns();)
+
+  // -- 10: the placements and the valid tasks counted; the deficit carry
+  // on block 0 --------------------------------------------------------------
+  {
+    int placed = 0, valid = 0;
+    for (int t = lo_t + tid; t < hi_t; t += NT) {
+      placed += sc.assign[t] >= 0;
+      valid += st.valid[t];
+    }
+    put_count(rk, kCntPlaced, placed, sm);
+    put_count(rk, kCntValid, valid, sm);
+  }
+  if (tn.on && b == 0) {
+    if (tn.n <= kSmemTenants) {
+      for (int g = tid; g < tn.n; g += NT) sm.ten_demand[g] = tn.demand[g];
+      __syncthreads();
+    }
+    tenancy_deficit(D, tn, sc.assign, sm);
+  }
+  PROBE(if (stamp) rk.stamps[10] = global_ns();)
+  grid.sync();
+
+  // -- 11: the first KP placements (each clears its valid bit and takes
+  // its slot on the device), and n_pending: the valid tasks less those
+  // the reported placements cleared (the full-length path can place an
+  // invalid task, as greedy.py's sorts do when a -inf or NaN size ties
+  // them) ---------------------------------------------------------------
+  {
+    int n_placed, n_valid;
+    const int off = grid_offset(rk, kCntPlaced, &n_placed, sm);
+    grid_offset(rk, kCntValid, &n_valid, sm);
+    int cleared = 0;
+    if (off < D.KP)
+      tile_emit(lo_t, hi_t, off, [&](int t) { return sc.assign[t] >= 0; },
+                [&](int t, int p) {
+                  if (p >= D.KP) return;
+                  const int row = sc.assign[t];
+                  out.placed_slots[p] = t;
+                  out.placed_rows[p] = row;
+                  cleared += st.valid[t];
+                  st.valid[t] = 0;  // clear ONLY reported placements
+                  atomicAdd(&st.free_cnt[row], -1);
+                },
+                sm);
+    for (int j = n_placed + gthread; j < D.KP; j += n_gthread) {
+      out.placed_slots[j] = -1;
+      out.placed_rows[j] = -1;
+    }
+    int total;
+    block_exclusive_scan(cleared, &total, sm);
+    if (tid == 0) atomicAdd(out.n_pending, (b == 0 ? n_valid : 0) - total);
+  }
+  PROBE(if (stamp) {
+    rk.stamps[11] = global_ns();
+    rk.stamps[12] = n_slots;
+    rk.stamps[13] = n_tasks;
+    rk.stamps[14] = passes;
+    rk.stamps[15] = bad;
+  })
+}
+
+// The flush mode: the delta packet alone, on one block.
+__global__ void __launch_bounds__(NT, 1)
+fused_flush_kernel(const float* __restrict__ packet, Dims D, State st,
+                   Out out, Tenancy tn, Spec sp) {
   __shared__ Smem sm;
   float now, tte;
   apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
-  if (D.flush) return;
-  __syncthreads();
-  liveness(D, st, sp, out, now, tte, sm);
-  if (tn.on) tenancy_admit(D, st, tn, sc, true, sm);
-  // with tenancy, rank admits by the fair order and never by the priority
-  // sort: priorities enter through eff_prio
-  const Admit admit = tn.on ? kRanked : (D.use_priority ? kPriority : kFcfs);
-  rank_place(
-      D, st, out, [&](int t) { return st.place_valid[t] != 0; }, st.free_cnt,
-      admit, tn.adm_rank, sc, sm);
-  if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
-  if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
-  compact(D, st, out, sc.assign, sm);
 }
 
 // ---- the auction: opening (block 0) --------------------------------------
@@ -1282,7 +1984,7 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
     __syncthreads();
     liveness(D, st, sp, out, now, tte, sm);
     // the auction sees the eligibility mask alone (FCFS admission)
-    if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
+    if (tn.on) tenancy_admit(D, st, tn, sc, sm);
     PROBE(if (stamp) au.stamps[1] = global_ns();)
     n_match = auction_open(D, st, out, sc, au, sm);
     PROBE(__syncthreads(); if (stamp) au.stamps[2] = global_ns();)
@@ -2103,7 +2805,7 @@ __device__ void sinkhorn_close(const Dims& D, const State& st,
     PROBE(slot_stamp = cs + 4; if (tid == 0) sk.stamps[kSkCount + 3] = 1;)
     rank_place(
         D, st, out, [&](int t) { return sk.spilled[t] != 0; }, sk.remaining,
-        kFcfs, nullptr, sc, sm, slot_stamp);
+        sc, sm, slot_stamp);
     for (int t = tid; t < T; t += NT) {
       PROBE(if (sk.a0[t] < 0 && sc.assign[t] >= 0)
               atomicAdd(sk.stamps + kSkCount + 2, 1ull);)
@@ -2147,7 +2849,7 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
     __syncthreads();
     liveness(D, st, sp, out, now, tte, sm);
     // the eligibility every block's placement reads, before the barrier
-    if (tn.on) tenancy_admit(D, st, tn, sc, false, sm);
+    if (tn.on) tenancy_admit(D, st, tn, sc, sm);
     if (threadIdx.x < kRed) sk.red[threadIdx.x] = red_identity(threadIdx.x);
     if (sk.bucketed)
       for (int k = threadIdx.x; k < sk.nb; k += NT) sk.counts[k] = 0;
@@ -2254,9 +2956,25 @@ long lanes_len(const Dims& d, int tenancy, int spec) {
 }
 
 // The tenancy lane's arguments; off, every pointer is null.
+// The tenancy scratch, in int32 words: cnt [n] ++ demand [ceil(n / 4)] ++
+// tile_cnt tile_first [n kMaxRankBlocks each]. With p null it only counts.
+long long tenancy_layout(int32_t* p, long long n, Tenancy* tn) {
+  long long off = 0;
+  auto take = [&](long long k) {
+    int32_t* q = p ? p + off : nullptr;
+    off += k;
+    return q;
+  };
+  tn->cnt = take(n);
+  tn->demand = reinterpret_cast<uint8_t*>(take((n + 3) / 4));
+  tn->tile_cnt = take(n * kMaxRankBlocks);
+  tn->tile_first = take(n * kMaxRankBlocks);
+  return off;
+}
+
 Tenancy tenancy_args(const float* packet, const Dims& d, int on, int n,
                      int32_t* tenant, float* deficit, uint8_t* elig,
-                     int32_t* adm_rank, float starve_deficit,
+                     int32_t* scratch, float starve_deficit,
                      int starve_boost, float deficit_cap, int spec) {
   Tenancy tn{};
   tn.on = on;
@@ -2269,9 +2987,7 @@ Tenancy tenancy_args(const float* packet, const Dims& d, int on, int n,
   tn.ahead = tail + n;
   tn.cap = tail + 2 * n;
   tn.elig = elig;
-  tn.adm_rank = adm_rank;
-  tn.cnt = adm_rank + d.T;
-  tn.demand = reinterpret_cast<uint8_t*>(adm_rank + d.T + n);
+  tenancy_layout(scratch, n, &tn);
   tn.starve_deficit = starve_deficit;
   tn.starve_boost = starve_boost;
   tn.deficit_cap = deficit_cap;
@@ -2324,24 +3040,57 @@ int cooperative_launch(const void* kernel, void** args, void* stream,
 
 // Every entry takes the tenancy lane's arguments, then the speculation
 // lane's, last before the stream: the tenant and t_deficit leaves, the
-// eligibility output [T], the tenancy scratch (adm_rank [T] ++ the per-tenant
-// counts [NT] ++ the demand bytes [NT], in int32 words T + NT + ceil(NT/4)),
+// eligibility output [T], the tenancy scratch
+// (tpu_faas_fused_tenancy_scratch_words(NT) words, tenancy_layout),
 // use_tenancy, NT, starve_deficit, starve_boost, deficit_cap; the infl_start,
 // infl_pred and avoid leaves, the fixup's scratch free_rem [W], use_spec.
 // With a lane off its pointers may be null.
 #define LANE_PARAMS                                                         \
-  int32_t *tenant, float *t_deficit, uint8_t *elig, int32_t *adm_rank,    \
+  int32_t *tenant, float *t_deficit, uint8_t *elig, int32_t *ten_scratch, \
       int use_tenancy, int n_tenants, float starve_deficit,               \
       int starve_boost, float deficit_cap, float *infl_start,             \
       float *infl_pred, int32_t *avoid, int32_t *free_rem, int use_spec
 #define TENANCY_ARGS(packet, d)                                             \
   tenancy_args(packet, d, use_tenancy, n_tenants, tenant, t_deficit, elig, \
-               adm_rank, starve_deficit, starve_boost, deficit_cap,        \
+               ten_scratch, starve_deficit, starve_boost, deficit_cap,     \
                use_spec)
 #define SPEC_ARGS(packet, d)                                                \
   spec_args(packet, d, use_spec, use_tenancy, infl_start, infl_pred, avoid, \
             free_rem)
 
+// Scratch of the rank branch, in int32 words: the rank layout [4S + 6T] ++
+// cnt [kRankCounts kMaxRankBlocks] ++ sel_cnt [kSelPasses RADIX] ++ key
+// [2T] ++ sel_min sel_max [2 kSelPasses RADIX each] ++ key_mm [4] ++ word
+// [kRankWords] ++ stamps [2 kRkStamps]; every count is even, so the 64-bit
+// words stay aligned. With p null it only counts; returns the words.
+long long rank_layout(int32_t* p, long long T, long long S, Scratch* sc,
+                      Rank* rk) {
+  long long off = 0;
+  auto take = [&](long long n) {
+    int32_t* q = p ? p + off : nullptr;
+    off += n;
+    return q;
+  };
+  auto take64 = [&](long long n) {
+    return reinterpret_cast<unsigned long long*>(take(2 * n));
+  };
+  int32_t* rank = take(4 * S + 6 * T);
+  if (p) *sc = sort_scratch(rank, S, T);
+  rk->cnt = take(kRankCounts * kMaxRankBlocks);
+  rk->sel_cnt = take(kSelPasses * RADIX);
+  rk->key = take64(T);
+  rk->sel_min = take64(kSelPasses * RADIX);
+  rk->sel_max = take64(kSelPasses * RADIX);
+  rk->key_mm = take64(2);
+  rk->word = take(kRankWords);
+  rk->stamps = take64(kRkStamps);
+  return off;
+}
+
+// The rank tick, or (flush) the delta packet alone. The rank tick is one
+// cooperative launch and returns as the auction entry does; scratch holds
+// tpu_faas_fused_rank_scratch_words() words, zeroed once before the first
+// launch (it keeps the count of ticks that took the full-length path).
 extern "C" int tpu_faas_fused_resident_tick(
     const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
     float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
@@ -2351,16 +3100,50 @@ extern "C" int tpu_faas_fused_resident_tick(
     int flush, LANE_PARAMS, void* stream) {
   Dims d{T, W, I, KA, KH, KF, KI, KS, KB, KP, KR, KG, max_slots, use_priority,
          flush};
-  const Tenancy tn = TENANCY_ARGS(packet, d);
-  const Spec sp = SPEC_ARGS(packet, d);
+  Tenancy tn = TENANCY_ARGS(packet, d);
+  Spec sp = SPEC_ARGS(packet, d);
   State st{sizes, valid, use_tenancy ? elig : valid, prio, last_hb, free_cnt,
            inflight, prev_live, speed, active};
-  const Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
-  const Scratch sc =
-      sort_scratch(scratch, static_cast<long>(W) * max_slots, T);
-  fused_tick_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      packet, d, st, o, sc, tn, sp);
-  return static_cast<int>(cudaGetLastError());
+  Out o = outputs(out_i32, out_b8, W, KA, KP, KR, KG);
+  if (flush) {
+    fused_flush_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+        packet, d, st, o, tn, sp);
+    return static_cast<int>(cudaGetLastError());
+  }
+  Scratch sc;
+  Rank rk;
+  rank_layout(scratch, T, static_cast<long long>(W) * max_slots, &sc, &rk);
+  void* args[] = {&packet, &d, &st, &o, &sc, &rk, &tn, &sp};
+  return cooperative_launch(reinterpret_cast<const void*>(fused_rank_kernel),
+                            args, stream, 0, kMaxRankBlocks);
+}
+
+extern "C" long long tpu_faas_fused_rank_scratch_words(int T, int W,
+                                                       int max_slots) {
+  Rank rk;
+  return rank_layout(nullptr, T, static_cast<long long>(W) * max_slots,
+                     nullptr, &rk);
+}
+
+// The int32 offsets in the rank scratch of its phase stamps (kRkStamps
+// uint64 words, written by a probe build alone) and of the count of ticks
+// that took the full-length path (every build).
+extern "C" long long tpu_faas_fused_rank_stamps_offset(int T, int W,
+                                                       int max_slots) {
+  return tpu_faas_fused_rank_scratch_words(T, W, max_slots) - 2 * kRkStamps;
+}
+
+extern "C" long long tpu_faas_fused_rank_fallbacks_offset(int T, int W,
+                                                          int max_slots) {
+  return tpu_faas_fused_rank_stamps_offset(T, W, max_slots) - kRankWords +
+         kWordFallbacks;
+}
+
+extern "C" int tpu_faas_fused_rank_stamp_count() { return kRkStamps; }
+
+extern "C" long long tpu_faas_fused_tenancy_scratch_words(int n_tenants) {
+  Tenancy tn;
+  return tenancy_layout(nullptr, n_tenants, &tn);
 }
 
 // Scratch of the auction branch, in int32 words: slot_bid [2S] ++ the rank

@@ -6,10 +6,11 @@ Counterpart of ``tpu_faas/sched/pallas_fused.py``: the TPU kernel
 apply the delta packet, liveness, purge, redispatch, placement and output
 compaction in one launch, with the state tensors updated in place (the
 counterpart of the Pallas kernel's ``input_output_aliases``: their
-``data_ptr()`` never changes across ticks). Rank placement (and the flush
-mode) runs on one thread block; the auction is one cooperative launch over
-the whole card, its bidding rounds looping on the device, and also updates
-the carried ``price`` and ``refresh`` leaves in place.
+``data_ptr()`` never changes across ticks). Rank placement is one
+cooperative launch over the card that sorts only the valid slots and the
+admitted tasks (the flush mode is one thread block); the auction is one
+cooperative launch too, its bidding rounds looping on the device, and also
+updates the carried ``price`` and ``refresh`` leaves in place.
 
 :func:`fused_resident_tick` is the entry. On CPU tensors it runs the plain
 PyTorch version, ``resident._resident_tick_impl`` (the CPU has no kernel);
@@ -107,6 +108,14 @@ SK_ITER = SK_PHASES
 SK_CLOSE = SK_ITER + 4 * SK_ITERS
 SK_COUNT = SK_CLOSE + 6
 SK_STAMPS = SK_COUNT + 4
+#: the rank branch's stamps (``csrc/fused_tick.cu``: kRkStamps words at the
+#: end of its scratch): 0 start, then block 0's clock at the end of each of
+#: RANK_PHASES, then the counts RANK_COUNTS
+RANK_STAMPS = 16
+RANK_PHASES = ("packet", "liveness", "lists", "tenancy", "select",
+               "admission", "sorts", "pairing", "fixup", "deficit",
+               "compaction")
+RANK_COUNTS = ("n_slots", "n_admitted", "passes", "fallback")
 _COOP_ERRORS = {
     -1: "the device has no cooperative launch",
     -2: "no block of the kernel fits on an SM",
@@ -117,9 +126,10 @@ class FusedTickKernel:
     """The built library, its per-shape scratch and its launch counts: one
     for the rank tick and the flush, one for the auction branch, one for
     the Sinkhorn branch. ``probe=True`` builds the library with
-    ``-DTPU_FAAS_PROBE``: its auction launches also stamp block 0's clock at
-    each phase and round (:meth:`auction_split`), and its Sinkhorn launches
-    at each iteration's updates and barriers and in the close
+    ``-DTPU_FAAS_PROBE``: its rank launches also stamp block 0's clock at
+    each phase (:meth:`rank_split`), its auction launches at each phase and
+    round (:meth:`auction_split`), and its Sinkhorn launches at each
+    iteration's updates and barriers and in the close
     (:meth:`sinkhorn_split`)."""
 
     name = "fused_tick"
@@ -146,6 +156,8 @@ class FusedTickKernel:
         self._fn_math = self._stamps_at = self._fn_barrier = None
         self._auction_words = self._auction_stamps_at = None
         self._n_auction_stamps = 0
+        self._rank_words = self._rank_stamps_at = None
+        self._rank_fallbacks_at = self._tenancy_words = None
         self._scratch: dict[tuple, torch.Tensor] = {}
 
     def load(self) -> None:
@@ -195,6 +207,22 @@ class FusedTickKernel:
             f.restype = ctypes.c_longlong
         self._auction_words, self._auction_stamps_at = awords, astamps
         self._n_auction_stamps = lib.tpu_faas_fused_auction_stamp_count()
+        rwords = lib.tpu_faas_fused_rank_scratch_words
+        rstamps = lib.tpu_faas_fused_rank_stamps_offset
+        rfall = lib.tpu_faas_fused_rank_fallbacks_offset
+        for f in (rwords, rstamps, rfall):
+            f.argtypes = [ctypes.c_int] * 3
+            f.restype = ctypes.c_longlong
+        self._rank_words, self._rank_stamps_at = rwords, rstamps
+        self._rank_fallbacks_at = rfall
+        n_rk = lib.tpu_faas_fused_rank_stamp_count()
+        if n_rk != RANK_STAMPS:
+            raise RuntimeError(f"the library keeps {n_rk} rank stamps, the "
+                               f"wrapper reads {RANK_STAMPS}")
+        twords = lib.tpu_faas_fused_tenancy_scratch_words
+        twords.argtypes = [ctypes.c_int]
+        twords.restype = ctypes.c_longlong
+        self._tenancy_words = twords
         n_sk = lib.tpu_faas_fused_sinkhorn_stamp_count()
         if n_sk != SK_STAMPS:
             raise RuntimeError(f"the library keeps {n_sk} Sinkhorn stamps, "
@@ -204,10 +232,11 @@ class FusedTickKernel:
     def _scratch_for(self, dev: torch.device, key: tuple,
                      words: int) -> torch.Tensor:
         # one buffer per (device, shape, branch); launches on one stream
-        # run in order, so reusing it across ticks is safe
+        # run in order, so reusing it across ticks is safe. Zeroed once:
+        # the rank branch keeps a count across launches in it
         buf = self._scratch.get((dev, *key))
         if buf is None:
-            buf = torch.empty(words, dtype=torch.int32, device=dev)
+            buf = torch.zeros(words, dtype=torch.int32, device=dev)
             self._scratch[(dev, *key)] = buf
         return buf
 
@@ -257,11 +286,12 @@ class FusedTickKernel:
                           DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
                           DEFAULT_DEFICIT_CAP)
         elig = torch.empty(T, dtype=torch.bool, device=dev)
-        # adm_rank [T], then per tenant a count word and a demand byte
-        adm_rank = self._scratch_for(dev, ("tenancy", T, NT),
-                                     T + NT + (NT + 3) // 4)
+        # per tenant a count word and a demand byte, then the rank grid's
+        # per-tile counts and first positions
+        scratch = self._scratch_for(dev, ("tenancy", NT),
+                                    self._tenancy_words(NT))
         return elig, (st.tenant.data_ptr(), st.t_deficit.data_ptr(),
-                      elig.data_ptr(), adm_rank.data_ptr(), 1, NT,
+                      elig.data_ptr(), scratch.data_ptr(), 1, NT,
                       DEFAULT_STARVE_DEFICIT, DEFAULT_STARVE_BOOST,
                       DEFAULT_DEFICIT_CAP)
 
@@ -298,7 +328,8 @@ class FusedTickKernel:
     def __call__(self, packet, st, *, T, W, I, KA, KH, KF, KI, KS, KB, KP,
                  KR, max_slots, use_priority, flush, use_tenancy=False,
                  NT=1, use_spec=False, KG=1):
-        """A rank tick, or (``flush=True``) the delta packet alone."""
+        """A rank tick (one cooperative launch), or (``flush=True``) the
+        delta packet alone (one block)."""
         dev = self._check(packet, st, T, W, I, KA, KH, KF, KI, KS, KB,
                           use_priority, use_tenancy, NT, use_spec, KG)
         self.load()
@@ -307,8 +338,8 @@ class FusedTickKernel:
         out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG, dtype=torch.int32,
                               device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
-        S = W * max_slots
-        scratch = self._scratch_for(dev, ("rank", T, S), 4 * S + 6 * T)
+        scratch = self._scratch_for(dev, ("rank", T, W, max_slots),
+                                    self._rank_words(T, W, max_slots))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = self._fn(
@@ -323,7 +354,8 @@ class FusedTickKernel:
                 stream,
             )
         if err != 0:
-            raise RuntimeError(f"fused_tick launch failed: CUDA error {err}")
+            why = _COOP_ERRORS.get(err, f"CUDA error {err}")
+            raise RuntimeError(f"fused_tick launch failed: {why}")
         self.launches += 1
         self._count(use_tenancy, use_spec)
         res = self._outputs(out_i32, out_b8, W, KA, KP, KR, KG, elig=elig)
@@ -419,13 +451,18 @@ class FusedTickKernel:
         return res._replace(sinkhorn_f=f, sinkhorn_g=g,
                             sinkhorn_tau=tau[0]), st
 
+    def _buffer(self, dev: torch.device, key: tuple) -> torch.Tensor | None:
+        """The scratch kept for ``key`` on ``dev``, if a launch made it."""
+        return next((b for k, b in self._scratch.items()
+                     if k[0].type == dev.type
+                     and dev.index in (None, k[0].index) and k[1:] == key),
+                    None)
+
     def _clocks(self, dev: torch.device, key: tuple, at: int,
                 n: int) -> list[int]:
         """The n uint64 words at int32 offset ``at`` of the scratch kept
         for ``key`` on ``dev`` (a launch's stamps; reads the card)."""
-        (buf,) = [b for k, b in self._scratch.items()
-                  if k[0].type == dev.type and dev.index in (None, k[0].index)
-                  and k[1:] == key]
+        buf = self._buffer(dev, key)
         return buf[at : at + 2 * n].cpu().view(torch.int64).tolist()
 
     def sinkhorn_phase_ms(self, dev: torch.device, T: int, W: int,
@@ -479,6 +516,34 @@ class FusedTickKernel:
         return {"iters": iters, "close": close, "candidates": cand,
                 "spilled": spilled, "pairs": pairs,
                 "rank_spill": bool(rank_spill)}
+
+    def rank_split(self, dev: torch.device, T: int, W: int,
+                   max_slots: int) -> dict:
+        """The last rank launch's phases at this shape, in ms, from block
+        0's clock (a probe build's stamps; reads the card, a sync): one
+        entry per name of ``RANK_PHASES`` (0 for a lane that is off),
+        ``total``, and the counts of ``RANK_COUNTS``."""
+        if not self.probe:
+            raise RuntimeError("rank_split needs a probe build: "
+                               "FusedTickKernel(probe=True)")
+        ns = self._clocks(dev, ("rank", T, W, max_slots),
+                          self._rank_stamps_at(T, W, max_slots), RANK_STAMPS)
+        n = len(RANK_PHASES)
+        out = {name: (b - a) / 1e6
+               for name, a, b in zip(RANK_PHASES, ns, ns[1 : n + 1])}
+        out["total"] = (ns[n] - ns[0]) / 1e6
+        out.update(zip(RANK_COUNTS, ns[n + 1 : n + 1 + len(RANK_COUNTS)]))
+        return out
+
+    def rank_fallbacks(self, dev: torch.device, T: int, W: int,
+                       max_slots: int) -> int:
+        """Rank ticks at this shape on ``dev`` so far that took the
+        full-length path (a valid slot's speed or an admitted task's size
+        -inf or NaN). Reads the card (a sync)."""
+        buf = self._buffer(dev, ("rank", T, W, max_slots))
+        if buf is None:
+            return 0
+        return int(buf[self._rank_fallbacks_at(T, W, max_slots)])
 
     def auction_split(self, dev: torch.device, T: int, W: int,
                       max_slots: int) -> dict:

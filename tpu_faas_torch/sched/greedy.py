@@ -12,8 +12,11 @@ the same key (``argsort(-x)``, never ``descending=True``, so ``-0.0`` and
 ``0.0`` tie and break by index exactly as ``jnp.argsort`` does), and every
 integer is int32 where JAX has i32.
 
-Also here: copies of the NumPy host baselines ``host_greedy_reference``,
-``host_greedy_vectorized`` and ``makespan``.
+Also here: :func:`rank_match_compacted`, a plain model of how the CUDA
+kernel decomposes the same placement (the valid slots and the admitted tasks
+compacted in index order and sorted alone, the priority cut found by a radix
+select), for the tests; and copies of the NumPy host baselines
+``host_greedy_reference``, ``host_greedy_vectorized`` and ``makespan``.
 """
 
 from __future__ import annotations
@@ -94,6 +97,150 @@ def rank_match_placement_impl(
     assignment = torch.full((T,), -1, dtype=_I32, device=dev)
     assignment[paired_tasks] = paired_workers
     return assignment
+
+
+#: the admission key of a task the select does not rank
+NO_KEY = 2**64 - 1
+
+
+def float_key(x: np.ndarray) -> np.ndarray:
+    """The kernel's order-preserving uint32 key of float32 values: -0.0
+    ties 0.0 and every NaN sorts last, as both frameworks sort them."""
+    b = np.asarray(x, np.float32).view(np.uint32).copy()
+    b[np.asarray(x) == 0] = 0
+    b[np.isnan(x)] = 0x7FC00000
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def int_key(x: np.ndarray) -> np.ndarray:
+    """The kernel's order-preserving uint32 key of int32 values."""
+    return (np.asarray(x, np.int32).view(np.uint32)
+            ^ np.uint32(0x80000000)).astype(np.uint32)
+
+
+def radix_select(keys: np.ndarray, k: int) -> tuple[int, int, int]:
+    """The kernel's admission threshold over the members' uint64 keys
+    (``NO_KEY`` on the others): the key at position ``k - 1`` of their
+    stable order, found most significant byte first. Each pass keeps the
+    members that share the chosen bucket's prefix, buckets them by the
+    first byte where the bucket's least and greatest key differ, and picks
+    the digit that holds the position; it ends when a bucket holds one key.
+    Returns ``(threshold, need, passes)``: the first ``need`` members equal
+    to the threshold in index order are admitted with every member below
+    it. ``k == 0`` admits none, ``k`` at or past the members all."""
+    m = keys[keys != np.uint64(NO_KEY)]
+    if k == 0:
+        return 0, 0, 0
+    if k >= m.size:
+        return NO_KEY, 0, 0
+    bmin, bmax = int(m.min()), int(m.max())
+    below = passes = 0
+    while bmin != bmax:
+        shift = ((bmin ^ bmax).bit_length() - 1) & ~7
+        if shift < 56:
+            m = m[(m >> np.uint64(shift + 8)) == np.uint64(bmin >> (shift + 8))]
+        digit = ((m >> np.uint64(shift)) & np.uint64(0xFF)).astype(np.int64)
+        count = np.bincount(digit, minlength=256)
+        start = np.cumsum(count) - count
+        d = int(np.searchsorted(start + count, k - 1 - below, side="right"))
+        below += int(start[d])
+        m = m[digit == d]
+        bmin, bmax = int(m.min()), int(m.max())
+        passes += 1
+    return bmin, k - below, passes
+
+
+def _tile_prefix(mask: np.ndarray, tile: int) -> np.ndarray:
+    """Exclusive prefix counts of ``mask`` as the kernel takes them: each
+    tile's count, their scan over the tiles, then the scan inside a tile."""
+    n_tiles = -(-mask.size // tile)
+    counts = np.add.reduceat(mask.astype(np.int64), np.arange(n_tiles) * tile)
+    tile_off = np.cumsum(counts) - counts
+    inside = np.concatenate([np.cumsum(c) - c for c in
+                             np.array_split(mask.astype(np.int64),
+                                            np.arange(1, n_tiles) * tile)])
+    return np.repeat(tile_off, tile)[: mask.size] + inside
+
+
+def admit_select(keys: np.ndarray, ok: np.ndarray, k: int, tile: int):
+    """The kernel's admission from the select: ``(admitted bool[T], list,
+    passes)``. ``list`` holds the candidates in index order at the
+    positions the kernel writes them (below-threshold count before a task,
+    plus its rank among the equal ones, capped at ``need``), a candidate
+    that is not ``ok`` (an invalid task holding a priority rank) as -1."""
+    thr, need, passes = radix_select(keys, k)
+    member = keys != np.uint64(NO_KEY)
+    lt = member & (keys < np.uint64(thr))
+    eq = member & (keys == np.uint64(thr))
+    lt_before = _tile_prefix(lt, tile)
+    eq_before = _tile_prefix(eq, tile)
+    cand = lt | (eq & (eq_before < need))
+    pos = lt_before + np.minimum(eq_before, need)
+    lst = np.full(int(lt.sum()) + min(int(eq.sum()), need), -2, np.int64)
+    lst[pos[cand]] = np.where(ok[cand], np.flatnonzero(cand), -1)
+    assert (lst >= -1).all(), "a list position was left unwritten"
+    return cand & ok, lst, passes
+
+
+def rank_match_compacted(
+    task_size: torch.Tensor,  # f32[T]
+    task_valid: torch.Tensor,  # bool[T]
+    worker_speed: torch.Tensor,  # f32[W]
+    worker_free: torch.Tensor,  # i32[W]
+    worker_live: torch.Tensor,  # bool[W]
+    max_slots: int = 8,
+    task_priority: torch.Tensor | None = None,  # i32[T], higher first
+    adm_key: np.ndarray | None = None,  # u64[T] the tenancy lane's keys
+    tile: int = 1024,
+) -> tuple[torch.Tensor, bool, int]:
+    """:func:`rank_match_placement_impl` as the CUDA kernel decomposes it,
+    with the same result: ``(assignment, full_length, passes)``. The valid
+    slots, taken in index order, are the only slots sorted by -speed. The
+    admission is a select (:func:`admit_select`): FCFS ranks the valid
+    tasks on one key; priority ranks every task on ``-prio`` (wrapping),
+    ``INT32_MAX`` on an invalid one, as greedy.py's sort does; with
+    ``adm_key`` (the tenancy lane's keys,
+    ``fairshare.tenant_admission_tiled``) the eligible tasks. The admitted
+    tasks, in index order, are the only tasks sorted by -size. A valid slot
+    whose speed or an admitted task whose size is -inf or NaN would sort
+    among the invalid ones in the full-length sorts; then the placement
+    takes them (``full_length``)."""
+    T = task_size.shape[0]
+    W = worker_speed.shape[0]
+    K = max_slots
+    valid = task_valid.numpy()
+    free = torch.where(worker_live, worker_free, 0).clamp(0, K)
+    k = torch.arange(K, dtype=_I32)
+    slots = torch.nonzero((k[None, :] < free[:, None]).reshape(W * K))
+    slots = slots.flatten()
+    if adm_key is not None:
+        keys, ok = adm_key, adm_key != np.uint64(NO_KEY)
+    elif task_priority is None:
+        keys = np.where(valid, np.uint64(0), np.uint64(NO_KEY))
+        ok = valid
+    else:
+        neg = (np.uint32(0) - task_priority.numpy().view(np.uint32)
+               ).view(np.int32)
+        k32 = np.where(valid, neg, np.int32(_I32_MAX))
+        keys = int_key(k32).astype(np.uint64) << np.uint64(32)
+        ok = valid
+    admitted, lst, passes = admit_select(keys, ok, slots.numel(), tile)
+    tasks = torch.from_numpy(lst[lst >= 0])
+    speed_s = worker_speed[slots // K]
+    size_t = task_size[tasks]
+    if bool((~(speed_s > -torch.inf)).any()) or bool(
+            (~(size_t > -torch.inf)).any()):
+        full = rank_match_placement_impl(
+            task_size, torch.from_numpy(admitted), worker_speed, worker_free,
+            worker_live, max_slots=max_slots,
+        )
+        return full, True, passes
+    slots = slots[torch.argsort(-speed_s, stable=True)]
+    tasks = tasks[torch.argsort(-size_t, stable=True)]
+    n_pairs = min(tasks.numel(), slots.numel(), T, W * K)
+    assignment = torch.full((T,), -1, dtype=_I32)
+    assignment[tasks[:n_pairs]] = (slots[:n_pairs] // K).to(_I32)
+    return assignment, False, passes
 
 
 def host_greedy_reference(

@@ -18,6 +18,11 @@ moves by its share-weighted entitlement of what was placed minus what it
 got, clamped to ``[0, deficit_cap]``, and past ``starve_deficit`` it boosts
 the tenant's tasks by ``starve_boost`` priority classes.
 
+Also here: :func:`tenant_admission_tiled`, a plain model of how the CUDA
+kernel's rank branch computes the same admission over its grid (a tiled
+within-tenant rank, and per task the key its admission select ranks), for
+the tests.
+
 Parity rules with the JAX twin: the sorts are stable ``argsort``s on
 literally JAX's keys (``jnp.lexsort`` becomes one stable sort per key, the
 last key first; ``-0.0`` ties ``0.0`` and NaN sorts last in both), and the
@@ -32,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_faas_torch.sched.greedy import NO_KEY, float_key, int_key
 from tpu_faas_torch.sched.scatter import scatter_add, scatter_set
 
 _I32 = torch.int32
@@ -123,6 +129,70 @@ def tenant_fair_admission_impl(
     adm_rank = torch.zeros(T, dtype=_I32, device=dev)
     adm_rank[adm_order] = idx
     return eligible, adm_rank, demand
+
+
+def tenant_admission_tiled(
+    task_valid: np.ndarray,  # bool[T]
+    task_tenant: np.ndarray,  # i32[T]
+    task_priority: np.ndarray | None,  # i32[T] (None = all 0)
+    tenant_share: np.ndarray,  # f32[N]
+    tenant_deficit: np.ndarray,  # f32[N]
+    tenant_ahead: np.ndarray,  # i32[N]
+    tenant_cap: np.ndarray,  # i32[N]
+    tile: int,
+    starve_deficit: float = DEFAULT_STARVE_DEFICIT,
+    starve_boost: int = DEFAULT_STARVE_BOOST,
+):
+    """:func:`tenant_fair_admission_impl` as the CUDA kernel's rank branch
+    computes it: ``(eligible bool[T], keys u64[T], demand bool[N])``. The
+    FCFS rank ``j`` within a tenant comes without a sort of all T: each
+    tile of ``tile`` tasks is stably sorted by segment (the tenant row, N
+    for an invalid task) on its own, each tenant's counts are scanned over
+    the tiles, and ``j`` is the tenant's offset plus the position in the
+    tile's run. Each eligible task's key is ``int_key(-eff_prio)`` in the
+    high word and ``float_key(v)`` in the low one, with ``v`` rounded as
+    the plain version rounds it; ``NO_KEY`` on the others. The admission
+    order is those keys with the index as the stable tie, so the first
+    ``n_slots`` of it are ``greedy.admit_select(keys, eligible, n_slots,
+    ...)``."""
+    T = task_valid.shape[0]
+    N = tenant_share.shape[0]
+    g = np.clip(task_tenant, 0, N - 1)
+    seg = np.where(task_valid, g, N)
+    j = np.zeros(T, np.int64)
+    n_tiles = -(-T // tile)
+    count = np.zeros((N + 1, n_tiles), np.int64)
+    first = np.zeros((N + 1, n_tiles), np.int64)
+    runs = []
+    for b in range(n_tiles):
+        lo = b * tile
+        order = lo + np.argsort(seg[lo : lo + tile], kind="stable")
+        s = seg[order]
+        start = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+        count[s[start], b] = np.diff(np.r_[start, s.size])
+        first[s[start], b] = start
+        runs.append((order, s))
+    offset = np.cumsum(count, axis=1) - count
+    for b, (order, s) in enumerate(runs):
+        pos = np.arange(s.size)
+        j[order] = offset[s, b] + pos - first[s, b]
+    ahead = tenant_ahead.astype(np.int64)
+    cap = tenant_cap.astype(np.int64)
+    wrapped = (cap - ahead + 2**31) % 2**32 - 2**31  # int32 arithmetic
+    allowance = np.where(cap > 0, np.maximum(wrapped, 0), T)
+    eligible = task_valid & (j < allowance[g])
+    demand = np.zeros(N, bool)
+    demand[g[eligible]] = True
+    share = np.maximum(tenant_share, np.float32(1e-6))
+    v = ((j.astype(np.float32) + np.float32(1.0)) - tenant_deficit[g]) / share[g]
+    prio = (np.zeros(T, np.int64) if task_priority is None
+            else task_priority.astype(np.int64))
+    boost = np.where(tenant_deficit[g] >= np.float32(starve_deficit),
+                     starve_boost, 0)
+    neg = (-(prio + boost) + 2**31) % 2**32 - 2**31  # int32 arithmetic
+    keys = ((int_key(neg.astype(np.int32)).astype(np.uint64) << np.uint64(32))
+            | float_key(v.astype(np.float32)).astype(np.uint64))
+    return eligible, np.where(eligible, keys, np.uint64(NO_KEY)), demand
 
 
 def share_sum(w: torch.Tensor) -> torch.Tensor:
