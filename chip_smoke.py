@@ -143,6 +143,37 @@ over):
    the auction tick cold and warm, all printed beside the card's name and
    power limit. Each timed launch is queued behind a spin kernel, so its
    events measure device time and not the host's launch gap.
+11. ``graph`` — the graph frontier on the batch tick (run after phase 9)
+   at the headline shape: 51,200 pending rows as 5,120 of config 13's
+   diamonds (one root, 8 middles, one sink; 81,920 edges padded to
+   131,072) held in the port's ``GraphFrontier``, about half the parents
+   confirmed with the worker row that ran them and a result digest two
+   rows hold; 4,096 workers of 1-8 slots in four equal-speed classes, 64
+   of them silent with tasks in flight. ``SchedulerArrays.tick`` with
+   ``dep_edges``, ``task_pref`` and ``pref_edges``: rank exactly equal to
+   the port's CPU run of the same inputs on every output; auction (B2
+   launched, counted from 0) and Sinkhorn with no row with an unconfirmed
+   parent placed, no worker past min(free, K), and against the same tick
+   without preferences every changed task one of a swap between
+   equal-speed workers (that tick also equal to the exchange's input).
+   Prints each placement's batch tick time with the lanes on and off (CUDA
+   events).
+12. ``host`` — imports every module of the port (none of JAX or the JAX
+   package may load), starts the port's store server in process, writes
+   and reads back 300 task records through the port's ``RespStore`` and
+   300 through its ``MemoryStore``, and encodes and decodes a TASK message
+   in both framings; prints the counts.
+13. ``profile`` — last: the headline rank loop (phase 2's, 24 checked
+   ticks) with its 20 timed ticks captured by the port's ``TickProfiler``
+   on ``torch.profiler`` into ``tick_profile/`` (git-ignored);
+   prints B1's mean kernel time, the mean device idle between one tick's
+   last device operation and the next tick's first, its split inside a
+   tick (host work before the packet copy, the device's wait from the
+   copy to B1, host work after B1), and the card's busy share of the
+   captured window. Then phase 11's batch ticks again, lanes off and on,
+   each captured: a tick's card time as the union of the device
+   operations it issued (the auction's and Sinkhorn's host syncs drop out
+   of it).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
@@ -156,6 +187,7 @@ CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -559,7 +591,7 @@ def replay_plain(rs, pre0) -> tuple[int, float]:
 
 def phase_resident(dev, n_ticks: int, timed_ticks: int,
                    placement: str = "rank", tenancy: bool = False,
-                   spec: bool = False) -> dict:
+                   spec: bool = False, profiler=None) -> dict:
     """The resident loop (see the module docstring); ``tenancy`` runs it with
     the tenancy lane on: ``tenant_table``'s shares and caps, arrivals
     tagged across its tenants, the table's inflight counts kept with
@@ -568,7 +600,11 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
     with the speculation lane on: every dispatch stamped with SPEC_PRED,
     N_STUCK live workers that never return a result, each resolved tick's
     newly flagged slots re-submitted as hedges that avoid the original's
-    row, and every launch's placements held off their avoid rows."""
+    row, and every launch's placements held off their avoid rows.
+    ``profiler`` (a TickProfiler) wraps each timed tick, as the dispatcher
+    wraps its device tick."""
+    from contextlib import nullcontext
+
     from tpu_faas_torch.sched.fused_tick import KERNEL
 
     def n_launches():  # rank ticks and flushes, auction and Sinkhorn ticks
@@ -756,13 +792,21 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
             }
             tick_of_purge = k
         before = n_launches()
-        torch.cuda.set_sync_debug_mode("error")
-        t0 = time.perf_counter()
-        try:
-            rs.tick_resident()
-            t1 = time.perf_counter()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        capture = nullcontext()
+        if profiler is not None and timed:
+            profiler.observe_shape(tasks=T, workers=W, slots=MAX_SLOTS,
+                                   signature=(placement, T, W, MAX_SLOTS))
+            capture = profiler.tick_capture()
+        with capture:
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                rs.tick_resident()
+                t1 = time.perf_counter()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if profiler is not None and timed:
+            profiler.note_device_dispatches(rs.device_dispatches_last_tick)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         n_launch = n_launches() - before
@@ -2909,6 +2953,406 @@ def phase_resident_spec(dev, card: str, probe) -> dict:
             "launches": loops["rank"]["spec_launches"]}
 
 
+# -- phase 11: the graph frontier on the batch tick ---------------------------
+#: config 13's diamonds (tpu_faas/bench/configs.py:1662): one root, 8
+#: middles, one sink; 5,120 of them fill the headline batch
+GRAPH_WIDTH = 8
+GRAPH_SPEEDS = np.array([0.5, 1.0, 2.0, 4.0], np.float32)  # equal classes
+GRAPH_TIMED = 5
+
+
+class _Node:
+    def __init__(self, task_id: str) -> None:
+        self.task_id = task_id
+
+
+def graph_batch():
+    """The headline batch as 5,120 diamonds held in a GraphFrontier: about
+    half of the parents confirmed (a few failed), each confirmed-ok parent
+    with the worker row that ran it and a result digest held by that row
+    and one other. Returns the frontier's padded lanes."""
+    from tpu_faas_torch.graph.frontier import GraphFrontier
+
+    T, W = SHAPE["T"], SHAPE["W"]
+    n_graphs = T // (GRAPH_WIDTH + 2)
+    rng = np.random.default_rng(13)
+    g = GraphFrontier(cap=T)
+    ids, holder_rows = [], {}
+    for d in range(n_graphs):
+        root, sink = f"r{d}", f"s{d}"
+        mids = [f"m{d}-{j}" for j in range(GRAPH_WIDTH)]
+        for m in mids:
+            g.add(_Node(m), [root])
+        g.add(_Node(sink), mids)
+        ids += [root, *mids, sink]
+        for p in (root, *mids):
+            if rng.random() < 0.5:
+                row = int(rng.integers(0, W))
+                digest = f"{p}-result"
+                g.note_parent(p, rng.random() < 0.95, row=row, digest=digest,
+                              size=int(rng.integers(1, 1 << 20)))
+                holder_rows[digest] = {row, int(rng.integers(0, W))}
+    sizes = rng.lognormal(0.0, 1.0, T).astype(np.float32)
+    rows = {r: tid for r, tid in enumerate(ids) if tid in g.waiting}
+    child, undone, pref = g.edge_arrays(rows, T)
+    lanes = dict(dep_edges=(child, undone), task_pref=pref,
+                 pref_edges=g.pref_arrays(rows, T, holder_rows))
+    return sizes, lanes, len(rows)
+
+
+def graph_arrays(dev, placement: str):
+    """The headline fleet for the batch tick: 4,096 workers of 1-8 slots
+    in four equal-speed classes, 2,000 tasks in flight, and after one
+    empty tick 64 rows silent past time_to_expire, so the tick purges and
+    redispatches too."""
+    from tpu_faas_torch.sched.state import SchedulerArrays
+
+    W = SHAPE["W"]
+    rng = np.random.default_rng(14)
+    clock = [1000.0]
+    sa = SchedulerArrays(max_workers=W, max_pending=SHAPE["T"],
+                         max_inflight=SHAPE["I"], max_slots=MAX_SLOTS,
+                         clock=lambda: clock[0], placement=placement,
+                         device=dev)
+    procs = rng.integers(1, MAX_SLOTS + 1, W)
+    speeds = rng.choice(GRAPH_SPEEDS, W)
+    for i in range(W):
+        sa.register(b"w%d" % i, int(procs[i]), speed=float(speeds[i]))
+    sa.tick(np.zeros(0, np.float32))  # every row live last tick
+    silent = rng.choice(W, 64, replace=False)
+    for k, row in enumerate(rng.integers(0, W, 2_000)):
+        sa.inflight_add(f"run{k}", int(row))
+    sa.last_heartbeat[silent] -= 20.0
+    return sa
+
+
+def graph_violations(a: np.ndarray, base: np.ndarray, lanes: dict,
+                     pref: np.ndarray, sa) -> dict:
+    """The graph lanes' invariants on one tick's assignment ``a``: no row
+    with an unconfirmed parent placed, no worker past min(free, K), and
+    against ``base`` (the same tick without preferences) every changed
+    task one of a swap between equal-speed workers: the wanter on its
+    preferred row, the holder on the row the wanter left."""
+    T = SHAPE["T"]
+    child, undone = lanes["dep_edges"]
+    blocked = np.bincount(child[child < T], weights=undone[child < T],
+                          minlength=T) > 0
+    cap = np.minimum(sa.worker_free, MAX_SLOTS)
+    used = np.bincount(a[a >= 0], minlength=len(cap))
+    speed = sa.worker_speed
+    moved = np.flatnonzero(a != base)
+    wanters = {int(t) for t in moved if base[t] >= 0 and a[t] == pref[t]}
+    left = {int(base[t]): int(t) for t in wanters}
+    bad_swaps = 0
+    for t in moved:
+        t = int(t)
+        if base[t] < 0 or a[t] < 0 or speed[a[t]] != speed[base[t]]:
+            bad_swaps += 1
+        elif t not in wanters and left.get(int(a[t])) is None:
+            bad_swaps += 1
+    return dict(blocked_placed=int((a[blocked] >= 0).sum()),
+                over_booked=int((used > cap).sum()),
+                bad_swaps=bad_swaps, moved=len(moved),
+                wanters=len(wanters), blocked=int(blocked.sum()))
+
+
+def graph_tick_ms(arr, sizes, kw: dict) -> list[float]:
+    """The batch tick's time by CUDA events, each call queued behind a spin
+    kernel after a synchronize (so the previous call's pinned staging
+    buffers are free again, as in a dispatcher's loop), two warm-ups."""
+    times = []
+    for i in range(GRAPH_TIMED + 2):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        arr.tick(sizes, **kw)
+        b.record()
+        if i >= 2:
+            times.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in times]
+
+
+def phase_graph(dev, card: str) -> dict:
+    """The graph frontier on the batch tick at the headline shape (see the
+    module docstring): rank exactly equal to the port's CPU run of the
+    same inputs; auction (B2 launched) and Sinkhorn held to the
+    invariants; the tick's card time with the lanes on and off."""
+    from tpu_faas_torch.graph.frontier import parent_pref_impl
+    from tpu_faas_torch.sched import bid, state
+
+    sizes, lanes, n_waiting = graph_batch()
+    T = SHAPE["T"]
+    pc, pr, pb = lanes["pref_edges"]
+    byte_pref = parent_pref_impl(*(torch.from_numpy(x) for x in (pc, pr, pb)),
+                                 T=T).numpy()
+    pref = np.where(byte_pref >= 0, byte_pref, lanes["task_pref"])
+    child = lanes["dep_edges"][0]
+    log(f"  batch: {T // (GRAPH_WIDTH + 2)} diamonds of width {GRAPH_WIDTH}, "
+        f"{n_waiting} waiting nodes, {int((child < T).sum())} edges padded "
+        f"to {len(child)}, {int((pc < T).sum())} pref lanes padded to "
+        f"{len(pc)}, {int((pref >= 0).sum())} rows with a preference")
+    # the pre-exchange assignment of each tick: what the exchange was given
+    seen = []
+    real = state.locality_exchange
+
+    def spy(assignment, task_pref, worker_speed):
+        seen.append(assignment.cpu().numpy())
+        return real(assignment, task_pref, worker_speed)
+
+    stats = {"mismatches": 0, "ms": {}, "b2_launches": 0}
+    fields = ("assignment", "live", "purged", "redispatch")
+    for placement in ("rank", "auction", "sinkhorn"):
+        sa = graph_arrays(dev, placement)
+        bid.KERNEL.launches = 0  # count this path alone
+        state.locality_exchange = spy
+        try:
+            out = sa.tick(sizes, **lanes)
+            torch.cuda.synchronize()
+        finally:
+            state.locality_exchange = real
+        b2 = bid.KERNEL.launches
+        a = out.assignment.cpu().numpy()
+        base = graph_arrays(dev, placement).tick(
+            sizes, dep_edges=lanes["dep_edges"]).assignment.cpu().numpy()
+        assert np.array_equal(seen.pop(), base), (
+            f"{placement}: the tick without preferences placed otherwise "
+            f"than the exchange's input")
+        v = graph_violations(a, base, lanes, pref, sa)
+        placed = int((a >= 0).sum())
+        if placement == "rank":
+            # the lanes add no host sync to the rank tick
+            arr = graph_arrays(dev, placement)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                arr.tick(sizes, **lanes)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            cpu = graph_arrays("cpu", placement).tick(sizes, **lanes)
+            bad = [f for f in fields if not np.array_equal(
+                getattr(out, f).cpu().numpy(), getattr(cpu, f).numpy())]
+            stats["mismatches"] += len(bad)
+            assert not bad, f"rank graph tick: card != CPU on {bad}"
+        else:
+            assert placement != "auction" or b2 > 0, "B2 never launched"
+        assert not (v["blocked_placed"] or v["over_booked"]
+                    or v["bad_swaps"]), f"{placement}: {v}"
+        assert v["moved"] > 0 and placed > 0, f"{placement}: {v}"
+        if placement == "auction":
+            stats["b2_launches"] = b2
+        log(f"  {placement}: placed {placed}, purged "
+            f"{int(out.purged.sum())}, redispatched "
+            f"{int(out.redispatch.sum())}; {v['blocked']} rows blocked, "
+            f"{v['blocked_placed']} of them placed; over-booked rows "
+            f"{v['over_booked']}; the exchange moved {v['moved']} tasks "
+            f"({v['wanters']} onto their preferred row), every move a swap "
+            f"between equal-speed workers"
+            + (", equal to the CPU run on every output"
+               if placement == "rank" else f"; B2 launches {b2}"
+               if placement == "auction" else ""))
+        # the tick's card time, lanes on and off (CUDA events, medians)
+        for on in (False, True):
+            arr = graph_arrays(dev, placement)
+            stats["ms"][placement, on] = statistics.median(
+                graph_tick_ms(arr, sizes, lanes if on else {}))
+        log(f"  {placement} batch tick, CUDA events, median of {GRAPH_TIMED}"
+            f"{'' if placement == 'rank' else ' (its host syncs included)'}: "
+            f"graph lanes off {stats['ms'][placement, False]:.4f} ms, on "
+            f"{stats['ms'][placement, True]:.4f} ms [{card}]")
+    log("phase graph: rank exactly equal to its CPU run, auction and "
+        "Sinkhorn with zero invariant violations")
+    return stats
+
+
+# -- phase 12: the host layers the dispatcher imports -------------------------
+N_HOST_RECORDS = 300
+
+
+def phase_host() -> dict:
+    """Import every module of the port; run the port's store server in
+    process and write and read back task records through the port's
+    RespStore and MemoryStore; encode and decode a worker message in both
+    framings. Nothing of JAX or the JAX package may be loaded."""
+    import importlib
+    import pkgutil
+
+    import tpu_faas_torch
+    from tpu_faas_torch.core.task import FIELD_STATUS, TaskStatus
+    from tpu_faas_torch.store.client import RespStore
+    from tpu_faas_torch.store.launch import start_store_thread
+    from tpu_faas_torch.store.memory import MemoryStore
+    from tpu_faas_torch.worker import messages
+
+    names = [m.name for m in pkgutil.walk_packages(tpu_faas_torch.__path__,
+                                                   "tpu_faas_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "tpu_faas"))
+    assert not loaded, f"the port loaded {loaded[:5]}"
+    handle = start_store_thread()
+    counts = {}
+    try:
+        for label, store in (("RespStore", RespStore(port=handle.port)),
+                             ("MemoryStore", MemoryStore())):
+            ids = [f"host-{k}" for k in range(N_HOST_RECORDS)]
+            store.create_tasks([(t, f"F{t}", f"P{t}") for t in ids])
+            for t in ids[::2]:
+                store.finish_task(t, TaskStatus.COMPLETED, f"R{t}")
+            recs = store.hgetall_many(ids)
+            for k, (t, rec) in enumerate(zip(ids, recs)):
+                want = "COMPLETED" if k % 2 == 0 else "QUEUED"
+                assert rec["fn_payload"] == f"F{t}", (label, t)
+                assert rec[FIELD_STATUS] == want, (label, t, rec)
+            assert store.get_result(ids[0]) == ("COMPLETED", f"R{ids[0]}")
+            counts[label] = len(recs)
+            store.close()
+    finally:
+        handle.stop()
+    data = dict(task_id="t1", fn_payload="RjE=", param_payload="UDE=",
+                timeout=2.5, trace_id="0" * 32)
+    for enc in (messages.encode, messages.encode_bin):
+        assert messages.decode(enc(messages.TASK, **data)) == (
+            messages.TASK, data)
+    log(f"phase host: imported {len(names)} modules of the port, none of "
+        f"JAX or the JAX package loaded; {counts['RespStore']} task records "
+        f"written and read back through RespStore on the port's store "
+        f"server, {counts['MemoryStore']} through MemoryStore; a TASK "
+        f"message encoded and decoded in both framings")
+    return dict(modules=len(names), **counts)
+
+
+# -- phase 13: the resident tick under the port's TickProfiler ----------------
+PROFILE_TICKS = 20
+PROFILE_DIR = "tick_profile"
+
+
+def busy_us(ops: list[dict]) -> float:
+    """Microseconds the card was busy with these Chrome-trace device
+    operations: the length of the union of their intervals."""
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in ops):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def graph_card_ms(dev, card: str) -> dict:
+    """The graph phase's batch ticks again, each captured by the port's
+    TickProfiler: the card time of a tick is the union of the device
+    operations it issued, so the auction's and Sinkhorn's host syncs, which
+    CUDA events between a tick's ends include, drop out."""
+    from tpu_faas_torch.obs import MetricsRegistry
+    from tpu_faas_torch.obs import profile as prof
+
+    os.environ[prof.PROFILE_DIR_ENV] = PROFILE_DIR
+    os.environ[prof.PROFILE_TICKS_ENV] = str(GRAPH_TIMED)
+    sizes, lanes, _ = graph_batch()
+    out = {}
+    for placement in ("rank", "auction", "sinkhorn"):
+        for on in (False, True):
+            kw = lanes if on else {}
+            arr = graph_arrays(dev, placement)
+            arr.tick(sizes, **kw)  # warm-up
+            profiler = prof.TickProfiler(MetricsRegistry())
+            for _ in range(GRAPH_TIMED):
+                torch.cuda.synchronize()
+                with profiler.tick_capture():
+                    arr.tick(sizes, **kw)
+            ticks = prof.device_ops_by_tick(profiler.trace_path)
+            assert len(ticks) == GRAPH_TIMED and all(ticks), placement
+            out[placement, on] = (
+                statistics.median(busy_us(t) for t in ticks) / 1e3,
+                statistics.mean(len(t) for t in ticks))
+        (off, n_off), (on_, n_on) = out[placement, False], out[placement, True]
+        log(f"  {placement} batch tick, card busy by the capture (the union "
+            f"of its device operations), median of {GRAPH_TIMED}: graph "
+            f"lanes off {off:.4f} ms ({n_off:.0f} operations), on "
+            f"{on_:.4f} ms ({n_on:.0f}) [{card}]")
+    return out
+
+
+def phase_profile(dev, card: str) -> dict:
+    """The headline rank loop (phase 2's loop and checks, shortened) with
+    its timed ticks captured by the port's TickProfiler on
+    torch.profiler: B1's mean kernel time, the mean device idle between
+    one tick's last device operation and the next tick's first, and the
+    card's busy share of the window from the first tick's first operation
+    to the last tick's last."""
+    from tpu_faas_torch.obs import MetricsRegistry, render
+    from tpu_faas_torch.obs import profile as prof
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+
+    os.environ[prof.PROFILE_DIR_ENV] = PROFILE_DIR
+    os.environ[prof.PROFILE_TICKS_ENV] = str(PROFILE_TICKS)
+    reg = MetricsRegistry()
+    profiler = prof.TickProfiler(reg)
+    KERNEL.launches = 0  # count this path alone
+    rr = phase_resident(dev, 24, PROFILE_TICKS, profiler=profiler)
+    launches = KERNEL.launches
+    assert launches > 0, "the profiled loop never launched B1"
+    assert profiler.trace_path is not None, "no capture was written"
+    ticks = prof.device_ops_by_tick(profiler.trace_path)
+    assert len(ticks) == PROFILE_TICKS, len(ticks)
+    b1 = [e["dur"] for ops in ticks for e in ops
+          if "fused_rank_kernel" in e["name"]]
+    assert len(b1) >= PROFILE_TICKS, f"{len(b1)} B1 kernels in the capture"
+    assert all(ticks), "a captured tick with no device operation"
+    gaps = [nxt[0]["ts"] - max(e["ts"] + e["dur"] for e in cur)
+            for cur, nxt in zip(ticks, ticks[1:])]
+    # inside a tick: the host's work before its first device operation, the
+    # device's wait between the operation before B1 and B1, and the span's
+    # host work after B1 ends (the steady ticks: the first pays the
+    # capture's start)
+    spans = prof.tick_spans(profiler.trace_path)
+    inside = []
+    for (s0, s1), ops in list(zip(spans, ticks))[1:]:
+        k = next(i for i, e in enumerate(ops)
+                 if "fused_rank_kernel" in e["name"])
+        before = (max(e["ts"] + e["dur"] for e in ops[:k]) if k
+                  else ops[k]["ts"])
+        inside.append((ops[0]["ts"] - s0, ops[k]["ts"] - before,
+                       s1 - (ops[k]["ts"] + ops[k]["dur"]), s1 - s0))
+    lead, wait, tail, span = (statistics.mean(c) / 1e3
+                              for c in zip(*inside))
+    host_gap = statistics.mean(b[0] - a[1] for a, b in zip(spans, spans[1:]))
+    with open(profiler.trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    lo = ticks[0][0]["ts"]
+    hi = max(e["ts"] + e["dur"] for e in ticks[-1])
+    busy = busy_us([e for e in events
+                    if e.get("cat") in prof.DEVICE_CATEGORIES
+                    and lo <= e["ts"] < hi])
+    text = render([reg])
+    assert f"tpu_faas_device_ticks_total {PROFILE_TICKS}" in text
+    out = dict(b1_ms=statistics.mean(b1) / 1e3,
+               gap_ms=statistics.mean(gaps) / 1e3,
+               busy=busy / (hi - lo), window_ms=(hi - lo) / 1e3,
+               ops=statistics.mean(len(t) for t in ticks),
+               tick_ms=statistics.median(rr["tick_ms"]), launches=launches,
+               lead_ms=lead, wait_ms=wait, tail_ms=tail, span_ms=span,
+               host_gap_ms=host_gap / 1e3)
+    log(f"phase profile: TickProfiler captured {PROFILE_TICKS} resident rank "
+        f"ticks ({profiler.trace_path}, {out['ops']:.1f} device operations "
+        f"a tick); B1 (fused_rank_kernel) mean {out['b1_ms']:.4f} ms over "
+        f"{len(b1)} launches; mean device idle between one tick's last "
+        f"operation and the next tick's first {out['gap_ms']:.4f} ms; the "
+        f"card busy {100 * out['busy']:.2f}% of the {out['window_ms']:.3f} ms "
+        f"window; integrated tick under capture {out['tick_ms']:.4f} ms "
+        f"(median); B1 launches in the loop {launches} [{card}]")
+    log(f"  inside a steady tick's span ({out['span_ms']:.4f} ms, means of "
+        f"{len(inside)}): host work before its first device operation "
+        f"{out['lead_ms']:.4f} ms, the device waiting between the packet "
+        f"upload's end and B1's start {out['wait_ms']:.4f} ms, host work "
+        f"after B1 ends {out['tail_ms']:.4f} ms; between spans (the loop's "
+        f"results, heartbeats, arrivals and resolves) "
+        f"{out['host_gap_ms']:.4f} ms [{card}]")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (no arguments: every phase "
@@ -3007,12 +3451,21 @@ def main() -> int:
     t0 = time.perf_counter()
     rsp = phase_resident_spec(dev, card, probe)
     log(f"phase resident_spec: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_graph(dev, card)
+    log(f"phase graph: {time.perf_counter() - t0:.1f} s")
+    phase_host()
     log(f"phase time [{card}]:")
     t = phase_time(dev, N_TIMED, rr["samples"], probe)
     tb = time_bid(dev, N_TIMED // 3)
     time_auction(ra, 3)
     ta = time_resident_auction(dev, rra["samples"])
     ts = time_resident_sinkhorn(dev, rrs["samples"], probe)
+    t0 = time.perf_counter()
+    # last: the capture's tracing stays loaded
+    phase_profile(dev, card)
+    graph_card_ms(dev, card)
+    log(f"phase profile: {time.perf_counter() - t0:.1f} s")
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,

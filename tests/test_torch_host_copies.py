@@ -1,0 +1,265 @@
+"""Drift guard for the host layers the port copies from the JAX package.
+
+The port imports nothing of ``tpu_faas``, so every host module the
+tpu-push dispatcher reaches (its import closure, ``dispatch/`` aside) has
+a copy under ``tpu_faas_torch/`` at the same relative path. A copy equals
+its original after one rename, ``tpu_faas`` to ``tpu_faas_torch`` in
+import statements; a module changed on purpose is listed with its reason.
+The JAX sources are read as text only.
+"""
+
+import ast
+import os
+import re
+
+import pytest
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JAX = os.path.join(_REPO, "tpu_faas")
+_PORT = os.path.join(_REPO, "tpu_faas_torch")
+
+#: the import rename, the only edit a copy carries
+_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)tpu_faas(?=[.\s])", re.M)
+
+#: modules copied as they stand (paths relative to each package)
+COPIES = """
+utils/__init__.py utils/logging.py utils/backoff.py utils/config.py
+version.py
+obs/attribution.py obs/metrics.py obs/expofmt.py obs/slo.py obs/trace.py
+obs/tracectx.py obs/flightrec.py
+core/serialize.py core/payload.py core/task.py core/columns.py
+core/executor.py core/__init__.py
+worker/messages.py
+store/resp.py store/base.py store/memory.py store/snapshot.py
+store/replication.py store/client.py store/sharding.py store/server.py
+store/launch.py store/native.py store/__init__.py
+admission/signal.py admission/breaker.py admission/controller.py
+admission/__init__.py
+chaos/plan.py chaos/__init__.py
+sched/estimator.py sched/health.py
+graph/validate.py graph/__init__.py
+""".split()
+
+#: copies changed on purpose, each with its reason
+CHANGED = {
+    "obs/profile.py": "the capture runs on torch.profiler (CUDA activity "
+    "on the card), its env vars drop 'JAX', and the jit cache cross-check "
+    "has no counterpart",
+    "obs/__init__.py": "its docstring names the torch.profiler capture and "
+    "its env var",
+    "worker/__init__.py": "exports the message module only: the workers "
+    "stay the JAX package's processes, so TaskPool is not copied",
+    "graph/frontier.py": "the device ops are torch ops; the host part "
+    "(pad_pref, pad_edges, GraphFrontier) is checked statement for "
+    "statement below",
+}
+
+#: closure modules the port does not copy: ported under its own name by an
+#: earlier slice, or not needed, each with its reason
+NOT_COPIED = {
+    "tpu_faas": "the port's package docstring and exports are its own",
+    "tpu_faas.sched": "the port's scheduler package is its own",
+    "tpu_faas.sched.state": "ported: sched/state.py",
+    "tpu_faas.sched.greedy": "ported: sched/greedy.py",
+    "tpu_faas.sched.auction": "ported: sched/auction.py",
+    "tpu_faas.sched.sinkhorn": "ported: sched/sinkhorn.py",
+    "tpu_faas.sched.resident": "ported: sched/resident.py",
+    "tpu_faas.sched.pallas_fused": "ported as the CUDA kernel B1: "
+    "sched/fused_tick.py, csrc/fused_tick.cu",
+    "tpu_faas.sched.pallas_kernels": "ported as the CUDA kernel B2: "
+    "sched/bid.py, csrc/bid_top2.cu",
+    "tpu_faas.sched.problem": "reached only through tpu_faas/sched/"
+    "__init__.py; the dispatcher uses none of it",
+    "tpu_faas.spec": "ported: spec/",
+    "tpu_faas.spec.policy": "ported: spec/policy.py",
+    "tpu_faas.spec.straggler": "ported: spec/straggler.py",
+    "tpu_faas.tenancy": "ported: tenancy/",
+    "tpu_faas.tenancy.config": "ported: tenancy/config.py",
+    "tpu_faas.tenancy.fairshare": "ported: tenancy/fairshare.py",
+    "tpu_faas.worker.pool": "the workers stay the JAX package's processes",
+    "tpu_faas.parallel": "multi-device, ROADMAP A.11",
+    "tpu_faas.parallel.distributed": "multi-device, ROADMAP A.11",
+    "tpu_faas.parallel.mesh": "multi-device, ROADMAP A.11",
+    "tpu_faas.parallel.multihost_resident": "multi-device, ROADMAP A.11",
+    "tpu_faas.parallel.multihost_tick": "multi-device, ROADMAP A.11",
+}
+
+
+def renamed(src: str) -> str:
+    """A JAX module's source as its copy must read."""
+    return _IMPORT.sub(r"\1tpu_faas_torch", src)
+
+
+def _read(*parts: str) -> str:
+    with open(os.path.join(*parts), encoding="utf-8") as fh:
+        return fh.read()
+
+
+def _module_file(root: str, mod: str) -> str | None:
+    p = os.path.join(root, *mod.split(".")[1:])
+    for cand in (os.path.join(p, "__init__.py"), p + ".py"):
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def _imports(mod: str) -> set[str]:
+    """Every ``tpu_faas`` module a JAX module imports, at module level or
+    inside a function, with the packages on the way."""
+    path = _module_file(_JAX, mod)
+    pkg = mod if path.endswith("__init__.py") else mod.rsplit(".", 1)[0]
+    found = set()
+    for node in ast.walk(ast.parse(_read(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                up = pkg.split(".")[: len(pkg.split(".")) - node.level + 1]
+                base = ".".join(up + ([base] if base else []))
+            names = [base] + [f"{base}.{a.name}" for a in node.names]
+        else:
+            continue
+        for name in names:
+            if name.split(".")[0] != "tpu_faas":
+                continue
+            parts = name.split(".")
+            for i in range(1, len(parts) + 1):
+                sub = ".".join(parts[:i])
+                if _module_file(_JAX, sub):
+                    found.add(sub)
+    return found
+
+
+def dispatcher_closure() -> set[str]:
+    """The tpu-push dispatcher's import closure, ``dispatch/`` aside."""
+    todo = ["tpu_faas.dispatch.tpu_push", "tpu_faas.dispatch.__main__"]
+    seen: set[str] = set()
+    while todo:
+        mod = todo.pop()
+        if mod in seen:
+            continue
+        seen.add(mod)
+        todo.extend(_imports(mod) - seen)
+    return {m for m in seen
+            if m != "tpu_faas.dispatch"
+            and not m.startswith("tpu_faas.dispatch.")}
+
+
+def _rel(mod: str) -> str:
+    return os.path.relpath(_module_file(_JAX, mod), _JAX)
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_equals_its_original(rel):
+    want = renamed(_read(_JAX, rel))
+    got = _read(_PORT, rel)
+    assert got == want, f"tpu_faas_torch/{rel} drifted from tpu_faas/{rel}"
+
+
+@pytest.mark.parametrize("rel", sorted(CHANGED))
+def test_changed_copies_differ_on_purpose(rel):
+    """A listed module exists in the port, is not a plain copy (else it
+    belongs in COPIES), and imports nothing of the JAX package."""
+    got = _read(_PORT, rel)
+    assert got != renamed(_read(_JAX, rel))
+    assert not re.search(r"^\s*(from|import)\s+(jax|tpu_faas)\b(?!_torch)",
+                         got, re.M)
+
+
+def test_every_closure_module_is_copied_or_accounted_for():
+    closure = dispatcher_closure()
+    assert len(closure) >= 60, sorted(closure)
+    listed = set(COPIES) | set(CHANGED)
+    for mod in sorted(closure):
+        if mod in NOT_COPIED:
+            continue
+        rel = _rel(mod)
+        assert rel in listed, f"{mod} is neither copied nor accounted for"
+        assert os.path.exists(os.path.join(_PORT, rel)), rel
+    # nothing listed that the closure does not reach, but the parser the
+    # metrics tests share
+    reached = {_rel(m) for m in closure} | {"obs/expofmt.py"}
+    assert listed <= reached, sorted(listed - reached)
+    assert set(NOT_COPIED) <= closure, sorted(set(NOT_COPIED) - closure)
+
+
+def test_frontier_host_part_is_a_copy():
+    """graph/frontier.py: the host bookkeeping is the JAX module's,
+    statement for statement."""
+    def defs(src):
+        return {n.name: ast.dump(n) for n in ast.parse(src).body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+    want = defs(_read(_JAX, "graph", "frontier.py"))
+    got = defs(_read(_PORT, "graph", "frontier.py"))
+    for name in ("pad_pref", "pad_edges", "GraphFrontier"):
+        assert got[name] == want[name], name
+
+
+# ---------------------------------------------------------------------------
+# the twins of the JAX unit tests (tests/test_torch_twin_*.py) load through
+# this: a JAX test module's source with its imports of modules the port has
+# renamed, so the same tests run against the copies
+# ---------------------------------------------------------------------------
+_TEST_IMPORT = re.compile(
+    r"^(\s*(?:from|import)\s+)tpu_faas((?:\.\w+)*)(?=(\s+import\s+(\w+))?)",
+    re.M,
+)
+
+
+def _port_has(mod: str) -> bool:
+    return _module_file(_PORT, "tpu_faas_torch" + mod) is not None
+
+
+def twin_source(src: str, keep: tuple[str, ...] = ()) -> str:
+    """A JAX test module's source with every import of a module the port
+    has pointed at the port (``from tpu_faas import chaos`` included);
+    imports of modules the port lacks, and of the modules in ``keep``,
+    stay as they are."""
+    def sub(m):
+        mod = m.group(2) or (f".{m.group(4)}" if m.group(4) else "")
+        if mod and _port_has(mod) and "tpu_faas" + mod not in keep:
+            return f"{m.group(1)}tpu_faas_torch{m.group(2)}"
+        return m.group(0)
+
+    return _TEST_IMPORT.sub(sub, src)
+
+
+def load_twins(test_file: str, exclude: dict[str, str],
+               keep: tuple[str, ...] = (), overrides: dict | None = None
+               ) -> dict:
+    """Run ``tests/<test_file>``'s source, with :func:`twin_source`'s
+    renames, as a module namespace, and return its tests, fixtures and
+    helpers minus ``exclude`` (each name with its reason: a test that
+    starts a gateway, a dispatcher, a worker or a process, or sleeps for
+    seconds). Every excluded name must exist, so the list cannot go
+    stale. ``keep`` names JAX modules a twin still reads from the
+    reference (the placement a host-layer test feeds, say);
+    ``overrides`` replaces module-level names in the namespace (the
+    port's entry points on the CPU)."""
+    path = os.path.join(_REPO, "tests", test_file)
+    ns = {"__name__": "twin_" + test_file[:-3], "__file__": path}
+    src = twin_source(_read(path), keep)
+    assert src != _read(path), f"{test_file} imports nothing the port has"
+    exec(compile(src, path, "exec"), ns)
+    missing = sorted(set(exclude) - set(ns))
+    assert not missing, missing
+    ns.update(overrides or {})
+    return {k: v for k, v in ns.items()
+            if k not in exclude and not k.startswith("__")}
+
+
+def only_params(fn, argname: str, values: list):
+    """A twin of a parametrized test, run over ``values`` alone (the
+    in-process cases of a test that also starts a native store process)."""
+    import types
+
+    twin = types.FunctionType(fn.__code__, fn.__globals__, fn.__name__,
+                              fn.__defaults__, fn.__closure__)
+    twin.__dict__.update(fn.__dict__)
+    twin.pytestmark = [
+        m for m in getattr(fn, "pytestmark", [])
+        if not (m.name == "parametrize" and m.args[0] == argname)
+    ]
+    return pytest.mark.parametrize(argname, values)(twin)

@@ -24,7 +24,9 @@ bad = sorted(m for m in sys.modules
              or m == "tpu_faas" or m.startswith("tpu_faas."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 8, names
+assert len(names) >= 64, names
+for pkg in ("graph", "store", "obs", "core", "admission"):
+    assert "tpu_faas_torch." + pkg in names, pkg
 """
 
 

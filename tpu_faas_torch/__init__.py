@@ -22,7 +22,26 @@ reader can find each module's twin:
   and the spec parsers (``config``), the weighted-fair admission and the
   deficit carry as torch ops (``fairshare``); the resident tick runs the
   same lane inside ``csrc/fused_tick.cu``
+- :mod:`tpu_faas_torch.spec`             the speculation plane: straggler
+  flags, the anti-affinity veto and the hedge fixup as torch ops, and the
+  host's hedge book (``policy``)
+- :mod:`tpu_faas_torch.graph`            task graphs: the ready frontier's
+  device ops (the dependency mask, the byte preference, the locality
+  exchange) as torch ops on the batch tick, the host ``GraphFrontier``,
+  and DAG validation
 - :mod:`tpu_faas_torch.sim.fleet`        the simulated churn fleet
+
+The host layers the tpu-push dispatcher imports are copies of the JAX
+package's modules at the same paths, changed only in their imports:
+:mod:`~tpu_faas_torch.core` (tasks, payloads, serialization, the columnar
+arena), :mod:`~tpu_faas_torch.store` (the store client, the in-process
+and asyncio servers, sharding, replication, snapshots, the native store's
+launcher), :mod:`~tpu_faas_torch.obs` (metrics, traces, SLOs, the flight
+recorder; ``obs.profile`` captures ticks with ``torch.profiler``),
+:mod:`~tpu_faas_torch.admission`, :mod:`~tpu_faas_torch.chaos`,
+:mod:`~tpu_faas_torch.utils`, :mod:`tpu_faas_torch.worker.messages` (the
+worker wire; the workers stay the JAX package's processes),
+:mod:`tpu_faas_torch.sched.estimator` and :mod:`tpu_faas_torch.sched.health`.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a GPU they
 raise unless the caller asks for ``"cpu"``. Nothing here imports ``jax`` or

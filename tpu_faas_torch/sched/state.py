@@ -15,8 +15,10 @@ the card) and Sinkhorn (plain torch ops on both devices: the JAX batch tick
 reaches no Pallas kernel for it), and so are the tenancy plane
 (``tpu_faas_torch/tenancy``: plain torch ops here too) and the speculation
 plane (``tpu_faas_torch/spec``: the straggler flags, the anti-affinity veto
-and the hedge fixup, plain torch ops too). The mesh and multihost layouts
-and the graph lanes raise ``NotImplementedError`` naming the ROADMAP item
+and the hedge fixup, plain torch ops too), and the graph lanes
+(``tpu_faas_torch/graph/frontier.py``: the dependency mask, the byte
+preference and the locality exchange, plain torch ops as in JAX). The mesh
+and multihost layouts raise ``NotImplementedError`` naming the ROADMAP item
 that brings them.
 """
 
@@ -31,6 +33,11 @@ import numpy as np
 import torch
 
 from tpu_faas_torch.device import resolve_device, to_host, upload
+from tpu_faas_torch.graph.frontier import (
+    dep_ready_mask,
+    locality_exchange,
+    parent_pref_impl,
+)
 from tpu_faas_torch.sched.auction import auction_placement_impl
 from tpu_faas_torch.sched.greedy import rank_match_placement_impl
 from tpu_faas_torch.sched.sinkhorn import (
@@ -52,7 +59,6 @@ _I32 = torch.int32
 
 #: what each unported feature waits for, by ROADMAP item
 _UNPORTED = {
-    "graph": "ROADMAP A.7 (in-tick planes: graph frontier)",
     "mesh": "ROADMAP A.11 (multi-device)",
     "multihost": "ROADMAP A.11 (multi-device)",
 }
@@ -274,6 +280,12 @@ def packed_tick(
     W: int,
     max_slots: int,
     placement: str = "rank",
+    dep_edge_child: torch.Tensor | None = None,  # i32[E] batch row (pad = T)
+    dep_edge_undone: torch.Tensor | None = None,  # i32[E] 1 while unconfirmed
+    task_pref: torch.Tensor | None = None,  # i32[T] preferred row, -1 none
+    pref_child: torch.Tensor | None = None,  # i32[P] batch row per lane
+    pref_row: torch.Tensor | None = None,  # i32[P] row holding parent bytes
+    pref_bytes: torch.Tensor | None = None,  # f32[P] bytes that row holds
     **plane_kw,
 ) -> TickOutput:
     """scheduler_tick behind a transfer-minimal calling convention:
@@ -281,18 +293,41 @@ def packed_tick(
     rides ONE packed upload, and the valid mask is built on the device from
     a host integer. The rest is device-resident between ticks.
     ``plane_kw`` are the tenancy and speculation planes' arguments of
-    :func:`scheduler_tick_impl`."""
+    :func:`scheduler_tick_impl`.
+
+    The graph lanes compose as in JAX's ``_packed_tick``: the dependency
+    mask narrows the valid tasks before placement, the byte preference
+    overrides the function preference wherever it is >= 0, and the
+    locality exchange runs on the final assignment, after the tenancy and
+    speculation planes."""
     task_size = packed[:T]
     hb_age = packed[T : T + W]
     worker_free = packed[T + W :].to(_I32)
     task_valid = torch.arange(T, device=packed.device) < n_valid
-    return scheduler_tick_impl(
+    if dep_edge_child is not None:
+        task_valid = task_valid & dep_ready_mask(
+            dep_edge_child, dep_edge_undone, T=T
+        )
+    if pref_child is not None:
+        byte_pref = parent_pref_impl(pref_child, pref_row, pref_bytes, T=T)
+        task_pref = (
+            byte_pref
+            if task_pref is None
+            else torch.where(byte_pref >= 0, byte_pref, task_pref)
+        )
+    out = scheduler_tick_impl(
         task_size, task_valid, worker_speed, worker_free, worker_active,
         hb_age, prev_live, inflight_worker, time_to_expire,
         max_slots=max_slots, task_priority=task_priority,
         placement=placement, worker_place_cap=worker_place_cap,
         auction_price=auction_price, **plane_kw,
     )
+    if task_pref is not None:
+        out = out._replace(
+            assignment=locality_exchange(out.assignment, task_pref,
+                                         worker_speed)
+        )
+    return out
 
 
 @dataclass
@@ -640,9 +675,9 @@ class SchedulerArrays:
         task_sizes: np.ndarray,
         now: float | None = None,
         task_priorities: np.ndarray | None = None,
-        dep_edges=None,
-        task_pref=None,
-        pref_edges=None,
+        dep_edges: tuple[np.ndarray, np.ndarray] | None = None,
+        task_pref: np.ndarray | None = None,
+        pref_edges: tuple[np.ndarray, np.ndarray, np.ndarray] | None = None,
         task_tenants=None,
         task_avoid=None,
         worker_place_cap: np.ndarray | None = None,
@@ -662,12 +697,15 @@ class SchedulerArrays:
         from the host's dispatch stamps and predictions, and scales speeds
         by the recovered ``worker_health``; ``task_avoid`` (optional, the
         forbidden worker row of each task, -1 none) runs the hedge fixup.
-        The graph arguments raise ``NotImplementedError``.
+        ``dep_edges`` (optional) is the graph frontier's padded
+        (edge_child, edge_undone) pair: the tick masks rows with
+        unconfirmed parents. ``task_pref`` (optional, i32[max_pending]) is
+        the graph locality preference the post-placement exchange applies;
+        ``pref_edges`` (optional) is the result data plane's padded
+        (pref_child, pref_row, pref_bytes) triplet, overriding
+        ``task_pref`` where it applies (``graph/frontier.py``). The mesh
+        and multihost layouts that JAX refuses them on are not ported.
         """
-        if dep_edges is not None or task_pref is not None or (
-            pref_edges is not None
-        ):
-            raise unported("graph")
         n = len(task_sizes)
         if n > self.max_pending:
             raise ValueError(f"{n} pending > max_pending={self.max_pending}")
@@ -735,6 +773,20 @@ class SchedulerArrays:
             av = np.full(T, -1, dtype=np.int32)
             av[:n] = task_avoid
             spec_kw["task_avoid_worker"] = upload(av, self.device)
+        graph: dict = {}
+        if dep_edges is not None:
+            graph.update(dep_edge_child=dep_edges[0],
+                         dep_edge_undone=dep_edges[1])
+        if task_pref is not None:
+            graph["task_pref"] = task_pref
+        if pref_edges is not None:
+            graph.update(zip(("pref_child", "pref_row", "pref_bytes"),
+                             pref_edges))
+        graph_kw = {
+            k: upload(np.asarray(v, np.float32 if k == "pref_bytes"
+                                 else np.int32), self.device)
+            for k, v in graph.items()
+        }
         out = packed_tick(
             upload(packed, self.device),
             n,
@@ -752,6 +804,7 @@ class SchedulerArrays:
             W=W,
             max_slots=self.max_slots,
             placement=self.placement,
+            **graph_kw,
             **tenant_kw,
             **spec_kw,
         )
