@@ -158,14 +158,10 @@ over):
    equal-speed workers (that tick also equal to the exchange's input).
    Prints each placement's batch tick time with the lanes on and off (CUDA
    events).
-12. ``host`` — imports every module of the port (none of JAX or the JAX
-   package may load), starts the port's store server in process, writes
-   and reads back 300 task records through the port's ``RespStore`` and
-   300 through its ``MemoryStore``, and encodes and decodes a TASK message
-   in both framings; prints the counts.
-13. ``profile`` — last: the headline rank loop (phase 2's, 24 checked
+12. ``profile`` — the headline rank loop (phase 2's, 24 checked
    ticks) with its 20 timed ticks captured by the port's ``TickProfiler``
-   on ``torch.profiler`` into ``tick_profile/`` (git-ignored);
+   on ``torch.profiler`` into ``tick_profile/`` (git-ignored), each
+   captured tick holding the B1 launches the wrapper counted in it;
    prints B1's mean kernel time, the mean device idle between one tick's
    last device operation and the next tick's first, its split inside a
    tick (host work before the packet copy, the device's wait from the
@@ -174,13 +170,46 @@ over):
    each captured: a tick's card time as the union of the device
    operations it issued (the auction's and Sinkhorn's host syncs drop out
    of it).
+13. ``dispatcher`` — the port's tpu-push dispatcher
+   (``tpu_faas_torch.dispatch.tpu_push.TpuPushDispatcher``, resident rank
+   placement, B1 on every tick), run before the profile phase. Leg 1, serve:
+   the dispatcher at its default shape (4,096 workers, 8,192 pending,
+   65,536 in flight, 8 slots) on its own thread, its store the port's
+   in-process store server wrapped in the port's ``RaceCheckStore``; 16
+   wire workers in threads of this script (DEALER sockets speaking the
+   port's ``worker.messages``: REGISTER with 8 processes, HEARTBEAT,
+   RESULT; payloads run through the port's executor); 512 requests of a
+   small function written and announced as the gateway writes them, one
+   worker silenced halfway so that B1's liveness, purge and redispatch act.
+   Every request comes back COMPLETED with its value, the race monitor
+   finds no violation, B1 was launched; prints the throughput, the median
+   and p99 submit-to-result latency (to the announce of the terminal
+   record on the results channel), B1 launches per tick and the
+   dispatcher's own split of a request by its trace stages. Leg 2, host
+   dispatch: config_9_host_dispatch's recipe at its default shape (20,000
+   tasks, 4,096 workers registered as ROUTER mirrors x 8 processes, every
+   announce drained off the bus into the dispatcher's backlog before the
+   clock starts, in batches of 1,000) on the resident rank path:
+   ``tasks_per_s`` from one pass whose every B1 launch is then replayed
+   through the plain version (outputs and state, exactly) and no row holds
+   more tasks than its processes; then a pass on fresh tasks captured by
+   the port's ``TickProfiler``, each tick holding the B1 launches the
+   wrapper counted: B1's time a launch, the card's busy share, the device
+   idle inside a tick and between ticks.
+14. ``host`` — imports every module of the port (none of JAX or the JAX
+   package may load), starts the port's store server in process, writes
+   and reads back 300 task records through the port's ``RespStore`` and
+   300 through its ``MemoryStore``, and encodes and decodes a TASK message
+   in both framings; prints the counts.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
 rank branch, the auction ticks for B2, the resident auction run for B1's
 auction branch, the resident Sinkhorn run for its Sinkhorn branch, and the
 resident tenancy rank run for its tenancy lane, and the resident
-speculation rank run for its speculation lane), errors and times. Without a
+speculation rank run for its speculation lane), errors and times; B1's
+rank entry also carries ``dispatcher_launches``, its launches in the
+dispatcher phase's serve leg and host-dispatch pass, each counted from 0. Without a
 CUDA device the script exits non-zero and prints no result.
 """
 
@@ -516,14 +545,13 @@ def rank_edges(dev) -> dict:
 
 
 # -- phase 2: the resident path end to end ------------------------------------
-def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
-                           tenancy=None, spec: bool = False):
-    """A ResidentScheduler that records, for each kernel launch, the packet
-    and a copy of the state before it, so the run can replay every launch
-    through the plain version and compare. Recording makes only device
-    copies inside the tick (no host sync). ``tenancy`` is its TenantTable
-    (None: the lane off); ``spec`` turns the speculation lane on with
-    config 18's knobs."""
+def checked_class():
+    """A ResidentScheduler subclass that records, for each kernel launch,
+    the packet and a copy of the state before it, so a run can replay every
+    launch through the plain version and compare. Recording makes only
+    device copies inside the tick (no host sync). With ``kept`` a list,
+    each tick's launch log and a copy of the state after it are appended
+    there, for replaying after the run."""
     from tpu_faas_torch.sched.resident import ResidentScheduler
 
     class Checked(ResidentScheduler):
@@ -531,6 +559,7 @@ def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
         #: CUDA events around each launch (packet upload + kernel), kept
         #: while recording is off
         launch_events: list = []
+        kept = None
 
         def _launch(self, packet, flush):
             if not self.record:
@@ -548,8 +577,20 @@ def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
 
         def tick_resident(self, now=None):
             self.launch_log = []
-            return super().tick_resident(now)
+            out = super().tick_resident(now)
+            if self.kept is not None:
+                self.kept.append((self.launch_log, clone_state(self._r_state)))
+            return out
 
+    return Checked
+
+
+def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
+                           tenancy=None, spec: bool = False):
+    """A ``checked_class`` scheduler at SHAPE. ``tenancy`` is its
+    TenantTable (None: the lane off); ``spec`` turns the speculation lane
+    on with config 18's knobs."""
+    Checked = checked_class()
     return Checked(
         max_workers=SHAPE["W"], max_pending=SHAPE["T"],
         max_inflight=SHAPE["I"], max_slots=MAX_SLOTS, time_to_expire=10.0,
@@ -562,10 +603,11 @@ def make_checked_scheduler(dev, clock, use_priority: bool, placement: str,
     )
 
 
-def replay_plain(rs, pre0) -> tuple[int, float]:
-    """Replay the last tick's launches through the plain version, starting
-    from the state copied before the first; compare every launch's outputs
-    and the final state with the kernel's."""
+def replay_plain(rs, pre0, launch_log=None, final=None) -> tuple[int, float]:
+    """Replay a tick's launches (by default the last tick's) through the
+    plain version, starting from the state copied before the first; compare
+    every launch's outputs and the final state (by default the scheduler's
+    own) with the kernel's."""
     from tpu_faas_torch.sched.resident import (
         _flush_kernel_impl, _resident_tick_impl,
     )
@@ -573,7 +615,8 @@ def replay_plain(rs, pre0) -> tuple[int, float]:
     kw = dict(rs._statics(), KP=rs.KP, KR=rs.KR, max_slots=rs.max_slots)
     fkw = rs._statics()
     st, bad, err = pre0, 0, 0.0
-    for pkt, flush, _, out in rs.launch_log:
+    for pkt, flush, _, out in (rs.launch_log if launch_log is None
+                               else launch_log):
         packet = torch.from_numpy(pkt).to(rs.device)
         if flush:
             st, arr = _flush_kernel_impl(packet, st, **fkw)
@@ -585,7 +628,7 @@ def replay_plain(rs, pre0) -> tuple[int, float]:
                                           **kw)
             b, e = compare(out[0], res, "out")
             bad, err = bad + b, max(err, e)
-    b, e = compare(rs._r_state, st, "state")
+    b, e = compare(rs._r_state if final is None else final, st, "state")
     return bad + b, max(err, e)
 
 
@@ -741,6 +784,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
         return r
 
     tick_ms, tick_enqueue_ms, samples = [], [], []
+    timed_launches: list[int] = []  # each timed tick's kernel launches
     for k in range(n_ticks + timed_ticks):
         timed = k >= n_ticks
         rs.record = not timed
@@ -825,6 +869,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
         if timed:
             tick_enqueue_ms.append((t1 - t0) * 1e3)
             tick_ms.append((t2 - t0) * 1e3)
+            timed_launches.append(n_launch)
         else:
             if sinkhorn:
                 c = replay_sinkhorn(rs)
@@ -909,6 +954,7 @@ def phase_resident(dev, n_ticks: int, timed_ticks: int,
         f"{stats['redispatched']}, completed {len(completed)}, in flight "
         f"{len(inflight)}, pending {len(pending)}, lost 0")
     stats.update(launches=launches, tick_ms=tick_ms,
+                 timed_launches=timed_launches,
                  tick_enqueue_ms=tick_enqueue_ms, samples=samples,
                  launch_ms=[a.elapsed_time(b) for a, b in rs.launch_events])
     return stats
@@ -3166,7 +3212,428 @@ def phase_graph(dev, card: str) -> dict:
     return stats
 
 
-# -- phase 12: the host layers the dispatcher imports -------------------------
+# -- phase 13: the tpu-push dispatcher ----------------------------------------
+#: leg 1: wire workers in this process, each REGISTERed with 8 processes
+N_WIRE_WORKERS, WIRE_PROCS = 16, 8
+N_REQUESTS = 512
+#: requests written per store batch, and the pause between batches
+REQUEST_CHUNK, REQUEST_GAP_S = 16, 0.03
+#: the workers' heartbeat period and the dispatcher's time_to_expire
+#: (seconds; its default is 10 s): the silenced worker's purge and the
+#: redispatch of its tasks land within the phase
+WIRE_HB_S, WIRE_TTE_S = 0.3, 2.0
+#: leg 2: tasks, workers and processes each, config_9_host_dispatch's
+#: default shape (tpu_faas/bench/configs.py:683)
+HOST_SHAPE = (20_000, 4_096, 8)
+#: leg 2: announces written per store batch and drained before the next.
+#: The recipe writes 2,000 at once and drains after; on the card machine a
+#: burst past about 64 KiB to one subscriber stalls the bus (ROADMAP C.5)
+HOST_FEED_CHUNK = 1_000
+
+
+def smoke_fn(x: int) -> int:
+    """What the serve leg's requests run: small and deterministic."""
+    return 3 * x + 1
+
+
+class WireWorker:
+    """A push worker on the dispatcher's wire, in a thread of this process:
+    a DEALER socket that sends REGISTER (``num_processes``), a HEARTBEAT
+    every ``WIRE_HB_S`` and a RESULT for each TASK, whose payload it runs
+    through the port's executor (the framing of
+    tpu_faas/worker/push_worker.py; nothing of it is imported). After
+    ``silent`` is set it sends nothing and answers nothing."""
+
+    def __init__(self, url: str, name: str) -> None:
+        import threading
+
+        self.url, self.ident = url, name.encode()
+        self.silent = threading.Event()
+        self.stopping = threading.Event()
+        self.ran = 0
+        self.thread = threading.Thread(target=self._run, name=name,
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        import zmq
+
+        from tpu_faas_torch.core.executor import execute_fn
+        from tpu_faas_torch.worker import messages as m
+
+        sock = zmq.Context.instance().socket(zmq.DEALER)
+        sock.setsockopt(zmq.IDENTITY, self.ident)
+        sock.setsockopt(zmq.LINGER, 0)
+        sock.connect(self.url)
+        try:
+            sock.send(m.encode(m.REGISTER, num_processes=WIRE_PROCS))
+            beat = time.monotonic()
+            while not self.stopping.is_set():
+                if self.silent.is_set():
+                    time.sleep(0.01)
+                    continue
+                if time.monotonic() - beat >= WIRE_HB_S:
+                    sock.send(m.encode(m.HEARTBEAT))
+                    beat = time.monotonic()
+                # woken by a frame, else in time for the next heartbeat:
+                # a short poll would take the interpreter lock from the
+                # dispatcher's thread hundreds of times a second
+                if not sock.poll(50):
+                    continue
+                kind, data = m.decode(sock.recv())
+                if kind == m.TASK:
+                    res = execute_fn(data["task_id"], data["fn_payload"],
+                                     data["param_payload"],
+                                     data.get("timeout"))
+                    sock.send(m.encode(m.RESULT, task_id=res.task_id,
+                                       status=res.status, result=res.result,
+                                       elapsed=res.elapsed,
+                                       started_at=res.started_at))
+                    self.ran += 1
+                elif kind == m.RECONNECT:
+                    sock.send(m.encode(m.RECONNECT,
+                                       free_processes=WIRE_PROCS))
+        finally:
+            sock.close()
+
+    def stop(self) -> None:
+        self.stopping.set()
+        self.thread.join(timeout=10)
+        assert not self.thread.is_alive(), f"{self.ident!r} did not stop"
+
+
+def dispatcher_serve(dev, card: str, n_requests: int = N_REQUESTS) -> dict:
+    """Leg 1: the port's TpuPushDispatcher, resident rank placement on
+    ``dev`` at its default shape, serving on its own thread: its store is
+    the port's in-process store server, wrapped in the port's
+    RaceCheckStore; 16 wire workers; ``n_requests`` requests written and
+    announced as the gateway writes them (``create_tasks`` on the channel,
+    tpu_faas/gateway/app.py:1995-2015), one worker silenced halfway. A
+    request's latency runs from its write to the announce of its terminal
+    record on the results channel, which is what wakes the gateway's
+    /result. Every request must come back COMPLETED with its value,
+    exactly once (no race violation), and B1 must have served the ticks."""
+    import threading
+
+    from tpu_faas_torch.core.executor import pack_params
+    from tpu_faas_torch.core.serialize import deserialize, serialize
+    from tpu_faas_torch.core.task import (
+        FIELD_RESULT,
+        FIELD_STATUS,
+        FIELD_SUBMITTED_AT,
+        new_task_id,
+    )
+    from tpu_faas_torch.dispatch.tpu_push import TpuPushDispatcher
+    from tpu_faas_torch.obs import render
+    from tpu_faas_torch.obs.expofmt import parse_exposition
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.store.base import RESULTS_CHANNEL
+    from tpu_faas_torch.store.launch import make_store, start_store_thread
+    from tpu_faas_torch.store.racecheck import RaceCheckStore, RaceMonitor
+
+    monitor = RaceMonitor()
+    handle = start_store_thread()
+    gateway = RaceCheckStore(make_store(handle.url), monitor, "gateway")
+    watcher = make_store(handle.url)
+    results = watcher.subscribe(RESULTS_CHANNEL)
+    disp = TpuPushDispatcher(
+        ip="127.0.0.1", port=0, resident=True, placement="rank", device=dev,
+        time_to_expire=WIRE_TTE_S,
+        store=RaceCheckStore(make_store(handle.url), monitor, "dispatcher"))
+    KERNEL.launches = 0  # count this leg alone
+    serve = threading.Thread(target=disp.start, name="dispatcher",
+                             daemon=True)
+    serve.start()
+    url = f"tcp://127.0.0.1:{disp.port}"
+    workers = [WireWorker(url, f"smoke-w{i}") for i in range(N_WIRE_WORKERS)]
+    try:
+        deadline = time.monotonic() + 60
+        while len(disp.arrays.worker_ids) < N_WIRE_WORKERS:
+            assert time.monotonic() < deadline, "workers did not register"
+            time.sleep(0.01)
+        fn = serialize(smoke_fn)
+        value, sent, done = {}, {}, {}
+        t_first = next_at = time.perf_counter()
+        deadline = time.monotonic() + 120
+        lo = 0
+        while len(done) < n_requests:
+            assert time.monotonic() < deadline, (
+                f"{n_requests - len(done)} requests unanswered")
+            if lo < n_requests and time.perf_counter() >= next_at:
+                next_at += REQUEST_GAP_S
+                if lo == n_requests // 2:
+                    workers[0].silent.set()
+                batch = [(new_task_id(), i)
+                         for i in range(lo, min(lo + REQUEST_CHUNK,
+                                                n_requests))]
+                now = time.perf_counter()
+                stamp = {FIELD_SUBMITTED_AT: repr(time.time())}
+                gateway.create_tasks([(t, fn, pack_params(i), stamp)
+                                      for t, i in batch], disp.channel)
+                for t, i in batch:
+                    value[t], sent[t] = i, now
+                lo += len(batch)
+            wait = (next_at - time.perf_counter() if lo < n_requests
+                    else 0.05)
+            tid = results.get_message(timeout=min(max(wait, 0.001), 0.05))
+            while tid is not None:
+                done.setdefault(tid, time.perf_counter())
+                tid = results.get_message()
+        t_last = max(done.values())
+        ids = list(value)
+        assert set(done) == set(ids), "a result announce for no request"
+        recs = watcher.hgetall_many(ids)
+        wrong = [t for t, rec in zip(ids, recs)
+                 if rec.get(FIELD_STATUS) != "COMPLETED"
+                 or deserialize(rec[FIELD_RESULT]) != smoke_fn(value[t])]
+        assert not wrong, f"{len(wrong)} requests wrong, e.g. {wrong[:3]}"
+        monitor.assert_clean()
+        assert monitor.unfinished() == [], monitor.unfinished()[:5]
+        assert disp.n_purged >= 1, "the silenced worker was never purged"
+        assert disp.n_dispatched > n_requests, "nothing was redispatched"
+        a = disp.arrays
+        ticks = int(disp.tracer.summary()["device_tick"]["count"])
+        launches = KERNEL.launches
+        assert a.device_dispatches_total > 0 and ticks > 0
+        if dev.type == "cuda":
+            assert launches > 0, "the dispatcher never launched B1"
+    finally:
+        disp.stop()
+        serve.join(timeout=30)
+        for w in workers:
+            w.stop()
+        results.close()
+        for s in (gateway, watcher):
+            s.close()
+        handle.stop()
+    assert not serve.is_alive(), "the dispatcher thread did not stop"
+    lat = sorted(1e3 * (done[t] - sent[t]) for t in ids)
+    # the dispatcher's own split of each request's life (obs/trace.py's
+    # stages): the mean, and the histogram bucket that holds the median
+    fam = parse_exposition(render([disp.metrics]))[
+        "tpu_faas_task_stage_seconds"]
+    stage: dict[str, dict] = {}
+    for s in fam.samples:
+        if s.labels.get("terminal") != "COMPLETED":
+            continue
+        st = stage.setdefault(s.labels["stage"], {"buckets": []})
+        kind = s.name.rsplit("_", 1)[-1]
+        if kind == "bucket":
+            st["buckets"].append((float(s.labels["le"]), s.value))
+        else:
+            st[kind] = s.value
+    split = {k: (1e3 * v["sum"] / v["count"],
+                 1e3 * next(le for le, c in v["buckets"]
+                            if c >= v["count"] / 2))
+             for k, v in stage.items() if v.get("count")}
+    out = dict(requests=n_requests, wall_s=t_last - t_first,
+               per_s=n_requests / (t_last - t_first),
+               p50_ms=lat[len(lat) // 2],
+               p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+               max_ms=lat[-1], ticks=ticks, launches=launches,
+               dispatches=a.device_dispatches_total,
+               dispatched=disp.n_dispatched, purged=disp.n_purged,
+               silenced_ran=workers[0].ran, stages_ms=split)
+    log(f"phase dispatcher, serve: {n_requests} of {n_requests} requests "
+        f"COMPLETED with their values, none lost or completed twice (race "
+        f"monitor clean), through TpuPushDispatcher(resident=True, rank) on "
+        f"its own thread and {N_WIRE_WORKERS} wire workers x {WIRE_PROCS}; "
+        f"one silenced halfway, purged ({disp.n_purged}), "
+        f"{disp.n_dispatched - n_requests} dispatches redone")
+    log(f"  throughput {out['per_s']:.1f} requests/s over "
+        f"{out['wall_s']:.3f} s; submit-to-result latency median "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms, max "
+        f"{out['max_ms']:.3f} ms; {ticks} device ticks, "
+        f"{out['dispatches']} B1 launches ({out['dispatches'] / ticks:.3f} "
+        f"a tick; the kernel's own count {launches}) [{card}]")
+    log("  the dispatcher's split of a request (obs/trace.py stages; mean, "
+        "then the histogram bucket holding the median): " + ", ".join(
+            f"{k} {mean:.3f} ms (median <= {med:g} ms)"
+            for k, (mean, med) in split.items()) + f" [{card}]")
+    return out
+
+
+def dispatcher_host(dev, card: str, shape: tuple = HOST_SHAPE) -> dict:
+    """Leg 2: config_9_host_dispatch's recipe (tpu_faas/bench/
+    configs.py:632-760) on the resident rank path: ``shape`` = (tasks,
+    workers, processes) registered as ROUTER mirrors that never connect
+    (sends to them drop); each pass's records written and announced on the
+    dispatcher's channel and every announce drained off the bus into its
+    backlog before the clock starts, as the recipe's prebuffer does, but
+    in batches of HOST_FEED_CHUNK. The timed pass (``tasks_per_s``) runs on
+    a recording scheduler: every launch is replayed through the plain
+    version afterwards, outputs and state, and no row may hold more tasks
+    than its processes. A second pass on fresh tasks runs under the port's
+    TickProfiler, each captured tick held to the wrapper's launches."""
+    from tpu_faas_torch.dispatch.tpu_push import TpuPushDispatcher
+    from tpu_faas_torch.obs import profile as prof
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import ResidentScheduler
+    from tpu_faas_torch.store.launch import make_store, start_store_thread
+    from tpu_faas_torch.worker import messages as m
+
+    n_tasks, n_workers, n_procs = shape
+    os.environ.pop(prof.PROFILE_DIR_ENV, None)
+    handle = start_store_thread()
+    store, feeder = make_store(handle.url), make_store(handle.url)
+    disp = TpuPushDispatcher(
+        ip="127.0.0.1", port=0, store=store, max_workers=n_workers,
+        max_pending=min(8192, max(n_tasks, 64)),
+        max_inflight=2 * n_tasks + 1024, max_slots=n_procs,
+        recover_queued=False, time_to_expire=1e9, resident=True,
+        placement="rank", device=dev)
+    rs = disp.arrays
+    assert type(rs) is ResidentScheduler, type(rs)
+
+    def feed(prefix: str) -> float:
+        t0 = time.perf_counter()
+        buffered: list[str] = []
+        for lo in range(0, n_tasks, HOST_FEED_CHUNK):
+            ids = [f"{prefix}{i}"
+                   for i in range(lo, min(lo + HOST_FEED_CHUNK, n_tasks))]
+            feeder.create_tasks([(t, "F", "P") for t in ids], disp.channel)
+            got: list[str] = []
+            deadline = time.perf_counter() + 30
+            while len(got) < len(ids):
+                assert time.perf_counter() < deadline, (
+                    f"the bus delivered {lo + len(got)} of {n_tasks} "
+                    f"announces")
+                more = disp.drain_announces(len(ids) - len(got))
+                if not more:
+                    time.sleep(0.005)
+                got.extend(more)
+            assert got == ids, "announces out of order or foreign"
+            buffered.extend(got)
+        disp._announce_backlog.extend(buffered)
+        return time.perf_counter() - t0
+
+    def run_pass(prefix: str, per_tick: list | None = None) -> tuple[
+            float, int, float]:
+        fed = feed(prefix)
+        goal = disp.n_dispatched + n_tasks
+        ticks = 0
+        t0 = time.perf_counter()
+        while disp.n_dispatched < goal:
+            assert time.perf_counter() - t0 < 300, "the pass stalled"
+            n0 = KERNEL.launches
+            disp.tick()
+            if per_tick is not None and KERNEL.launches > n0:
+                per_tick.append(KERNEL.launches - n0)
+            ticks += 1
+        assert disp.n_dispatched == goal, "a task dispatched twice"
+        return time.perf_counter() - t0, ticks, fed
+
+    try:
+        for i in range(n_workers):
+            disp._handle(f"bench-w{i}".encode(), m.REGISTER,
+                         {"num_processes": n_procs})
+        disp.tick()  # builds nothing: the kernel was loaded at construction
+        # the timed pass on a recording scheduler: each launch's packet and
+        # input state, each tick's state after, replayed once it is done
+        rs.__class__ = checked_class()
+        rs.kept = []
+        KERNEL.launches = 0  # count the timed pass alone
+        d0 = rs.device_dispatches_total
+        elapsed, ticks, fed = run_pass("host-t")
+        launches = KERNEL.launches
+        dispatches = rs.device_dispatches_total - d0
+        kept, rs.kept = rs.kept, None
+        rs.__class__ = ResidentScheduler
+        bad, err = 0, 0.0
+        for launch_log, after in kept:
+            b, e = replay_plain(rs, launch_log[0][2], launch_log, after)
+            bad, err = bad + b, max(err, e)
+        replayed = sum(len(lg) for lg, _ in kept)
+        assert replayed == dispatches, (replayed, dispatches)
+        assert bad == 0, f"{bad} mismatches against the plain version"
+        # no row over-booked: the workers never answer, so every task of
+        # the pass is in flight
+        rows = rs.inflight_worker[rs.inflight_worker >= 0]
+        per_row = np.bincount(rows, minlength=n_workers)
+        assert len(rows) == n_tasks and per_row.max() <= n_procs, (
+            len(rows), int(per_row.max()))
+        assert (rs.worker_free >= 0).all()
+        # pass 2 on fresh tasks, every tick captured; the recipe's reset of
+        # the free lanes (no results flow back)
+        rs.worker_free[:] = n_procs
+        os.environ[prof.PROFILE_DIR_ENV] = PROFILE_DIR
+        os.environ[prof.PROFILE_TICKS_ENV] = str(10 * ticks + 100)
+        disp.profiler = prof.TickProfiler(disp.metrics, log=disp.log)
+        KERNEL.launches = 0  # count the captured pass alone
+        per_tick: list[int] = []
+        _, ticks2, _ = run_pass("host2-t", per_tick)
+        disp.profiler.close()
+        launches2 = KERNEL.launches
+        trace = disp.profiler.trace_path
+    finally:
+        for var in (prof.PROFILE_DIR_ENV, prof.PROFILE_TICKS_ENV):
+            os.environ.pop(var, None)
+        disp.stop()
+        disp.socket.close(linger=0)
+        for s in (store, feeder):
+            s.close()
+        handle.stop()
+    out = dict(tasks_per_s=n_tasks / elapsed, elapsed_s=elapsed,
+               fed_s=fed, ticks=ticks, launches=launches,
+               dispatches=dispatches, replayed=replayed, mismatches=bad,
+               max_abs_err=err, trace=trace, ticks2=ticks2,
+               launches2=launches2)
+    log(f"phase dispatcher, host dispatch (config 9's recipe, resident "
+        f"rank, {n_tasks:,} tasks x {n_workers:,} workers x {n_procs}): "
+        f"announces written and drained off the bus in batches of "
+        f"{HOST_FEED_CHUNK:,} in {fed:.3f} s before the clock; "
+        f"tasks_per_s {out['tasks_per_s']:.1f} ({elapsed:.3f} s, {ticks} "
+        f"ticks, {dispatches} B1 launches, the kernel's own count "
+        f"{launches}); all {replayed} launches replayed through the plain "
+        f"version, {bad} mismatches (max abs err {err:g}); at most "
+        f"{int(per_row.max())} tasks a row of {n_procs} processes [{card}]")
+    if dev.type == "cuda":
+        assert launches == dispatches > 0, (launches, dispatches)
+        assert sum(per_tick) == launches2, (per_tick, launches2)
+        out["margin_us"] = capture_launches(trace, per_tick)
+        out.update(capture_split(trace, "fused_rank_kernel"))
+        by_name: dict[str, list[float]] = {}
+        for ops in prof.device_ops_by_tick(trace):
+            for e in ops:
+                if "fused_" in e["name"]:
+                    name = e["name"].split("::", 1)[-1].split("(", 1)[0]
+                    by_name.setdefault(name, []).append(e["dur"] / 1e3)
+        out["b1_by_kernel"] = {k: (len(v), statistics.mean(v))
+                               for k, v in by_name.items()}
+        log(f"  captured pass ({ticks2} ticks, {trace}; every tick holds the "
+            f"B1 launches the wrapper counted, {launches2} in all, the "
+            f"closest launch call {out['margin_us']:.3f} us before its "
+            f"span's end; "
+            + ", ".join(f"{k} {n} x {ms:.4f} ms"
+                        for k, (n, ms) in out["b1_by_kernel"].items())
+            + f"); the card busy {100 * out['busy']:.2f}% of the "
+            f"{out['window_ms']:.3f} ms window; device idle between one "
+            f"tick's last operation and the next tick's first "
+            f"{out['gap_ms']:.4f} ms (mean); inside a tick's span "
+            f"({out['span_ms']:.4f} ms): host work before its first device "
+            f"operation {out['lead_ms']:.4f} ms, the device waiting before "
+            f"fused_rank_kernel {out['wait_ms']:.4f} ms, host work after it "
+            f"{out['tail_ms']:.4f} ms; between spans {out['host_gap_ms']:.4f}"
+            f" ms [{card}]")
+    return out
+
+
+def phase_dispatcher(dev, card: str) -> dict:
+    """Both legs; the dispatcher imports only the port. Its per-worker
+    registration lines are held back (4,096 in leg 2)."""
+    import logging
+
+    from tpu_faas_torch.utils.logging import get_logger
+
+    t0 = time.perf_counter()
+    get_logger("dispatch").parent.setLevel(logging.WARNING)
+    serve = dispatcher_serve(dev, card)
+    host = dispatcher_host(dev, card)
+    log(f"phase dispatcher: {time.perf_counter() - t0:.1f} s")
+    return dict(serve=serve, host=host)
+
+
+# -- phase 14: the host layers the dispatcher imports -------------------------
 N_HOST_RECORDS = 300
 
 
@@ -3224,7 +3691,7 @@ def phase_host() -> dict:
     return dict(modules=len(names), **counts)
 
 
-# -- phase 13: the resident tick under the port's TickProfiler ----------------
+# -- phase 12: the resident tick under the port's TickProfiler ----------------
 PROFILE_TICKS = 20
 PROFILE_DIR = "tick_profile"
 
@@ -3275,6 +3742,95 @@ def graph_card_ms(dev, card: str) -> dict:
     return out
 
 
+def capture_launches(trace_path: str, launches: list[int]) -> float:
+    """Hold a TickProfiler capture to the wrapper's counts: each captured
+    tick must hold as many B1 kernels (``fused_*``) as the wrapper launched
+    in it (``launches``, one entry a tick). A kernel belongs to the tick
+    whose span holds its launch call's start, so the result is the least
+    time (us) from a B1 launch call to the end of its span. On a
+    difference, log every B1 kernel that no tick claims, with its launch
+    call's place against the nearest span, then fail."""
+    from tpu_faas_torch.obs import profile as prof
+
+    ticks = prof.device_ops_by_tick(trace_path)
+    spans = prof.tick_spans(trace_path)
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    calls = {e["args"].get("correlation"): e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    got = [sum("fused_" in e["name"] for e in ops) for ops in ticks]
+    if got == launches:
+        return min(end - calls[e["args"]["correlation"]]["ts"]
+                   for (_, end), ops in zip(spans, ticks) for e in ops
+                   if "fused_" in e["name"])
+    # the External id torch.profiler gives a span and the calls under it
+    span_ext = {e["ts"]: e["args"].get("External id") for e in events
+                if e.get("name") == prof.TICK_SPAN}
+    claimed = {(e["ts"], e["name"]) for ops in ticks for e in ops}
+    for e in events:
+        if (e.get("cat") != "kernel" or "fused_" not in e["name"]
+                or (e["ts"], e["name"]) in claimed):
+            continue
+        call = calls.get(e["args"].get("correlation"))
+        where = "no launch call in the capture"
+        if call is not None:
+            k = min(range(len(spans)), key=lambda i: min(
+                abs(call["ts"] - spans[i][0]), abs(call["ts"] - spans[i][1])))
+            where = (f"{call['name']} at {call['ts'] - spans[k][0]:.3f} us "
+                     f"from tick {k}'s start, {call['ts'] - spans[k][1]:.3f}"
+                     f" us from its end (span {spans[k][1] - spans[k][0]:.3f}"
+                     f" us; External id {call['args'].get('External id')},"
+                     f" the span's {span_ext.get(spans[k][0])})")
+        log(f"  UNCLAIMED {e['name'].split('(', 1)[0]} at {e['ts']}: {where}")
+    raise AssertionError(f"capture {trace_path}: B1 kernels a tick {got}, "
+                         f"the wrapper launched {launches}")
+
+
+def capture_split(trace_path: str, kernel: str) -> dict:
+    """One TickProfiler capture read back (times in ms), every tick of it
+    holding a launch of the kernel whose name holds ``kernel``: those
+    launches and their mean time; the mean device idle between one tick's
+    last device operation and the next tick's first; inside each steady
+    tick's span (every tick but the first, which pays the capture's start)
+    the host's work before its first device operation, the device's wait
+    between the operation before the first such launch and that launch,
+    and the host's work after that launch ends; the host's time between
+    spans; and the card's busy share of the window from the first tick's
+    first operation to the last tick's last."""
+    from tpu_faas_torch.obs import profile as prof
+
+    ticks = prof.device_ops_by_tick(trace_path)
+    spans = prof.tick_spans(trace_path)
+    b1 = [e["dur"] for ops in ticks for e in ops if kernel in e["name"]]
+    gaps = [nxt[0]["ts"] - max(e["ts"] + e["dur"] for e in cur)
+            for cur, nxt in zip(ticks, ticks[1:])]
+    inside = []
+    for (s0, s1), ops in list(zip(spans, ticks))[1:]:
+        k = next((i for i, e in enumerate(ops) if kernel in e["name"]), None)
+        assert k is not None, f"a captured tick without {kernel}"
+        before = (max(e["ts"] + e["dur"] for e in ops[:k]) if k
+                  else ops[k]["ts"])
+        inside.append((ops[0]["ts"] - s0, ops[k]["ts"] - before,
+                       s1 - (ops[k]["ts"] + ops[k]["dur"]), s1 - s0))
+    lead, wait, tail, span = (statistics.mean(c) / 1e3
+                              for c in zip(*inside))
+    host_gap = statistics.mean(b[0] - a[1] for a, b in zip(spans, spans[1:]))
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    lo = ticks[0][0]["ts"]
+    hi = max(e["ts"] + e["dur"] for e in ticks[-1])
+    busy = busy_us([e for e in events
+                    if e.get("cat") in prof.DEVICE_CATEGORIES
+                    and lo <= e["ts"] < hi])
+    return dict(ticks=len(ticks), steady=len(inside), b1=len(b1),
+                b1_ms=statistics.mean(b1) / 1e3,
+                gap_ms=statistics.mean(gaps) / 1e3, busy=busy / (hi - lo),
+                window_ms=(hi - lo) / 1e3,
+                ops=statistics.mean(len(t) for t in ticks), lead_ms=lead,
+                wait_ms=wait, tail_ms=tail, span_ms=span,
+                host_gap_ms=host_gap / 1e3)
+
+
 def phase_profile(dev, card: str) -> dict:
     """The headline rank loop (phase 2's loop and checks, shortened) with
     its timed ticks captured by the port's TickProfiler on
@@ -3295,56 +3851,28 @@ def phase_profile(dev, card: str) -> dict:
     launches = KERNEL.launches
     assert launches > 0, "the profiled loop never launched B1"
     assert profiler.trace_path is not None, "no capture was written"
-    ticks = prof.device_ops_by_tick(profiler.trace_path)
-    assert len(ticks) == PROFILE_TICKS, len(ticks)
-    b1 = [e["dur"] for ops in ticks for e in ops
-          if "fused_rank_kernel" in e["name"]]
-    assert len(b1) >= PROFILE_TICKS, f"{len(b1)} B1 kernels in the capture"
-    assert all(ticks), "a captured tick with no device operation"
-    gaps = [nxt[0]["ts"] - max(e["ts"] + e["dur"] for e in cur)
-            for cur, nxt in zip(ticks, ticks[1:])]
-    # inside a tick: the host's work before its first device operation, the
-    # device's wait between the operation before B1 and B1, and the span's
-    # host work after B1 ends (the steady ticks: the first pays the
-    # capture's start)
-    spans = prof.tick_spans(profiler.trace_path)
-    inside = []
-    for (s0, s1), ops in list(zip(spans, ticks))[1:]:
-        k = next(i for i, e in enumerate(ops)
-                 if "fused_rank_kernel" in e["name"])
-        before = (max(e["ts"] + e["dur"] for e in ops[:k]) if k
-                  else ops[k]["ts"])
-        inside.append((ops[0]["ts"] - s0, ops[k]["ts"] - before,
-                       s1 - (ops[k]["ts"] + ops[k]["dur"]), s1 - s0))
-    lead, wait, tail, span = (statistics.mean(c) / 1e3
-                              for c in zip(*inside))
-    host_gap = statistics.mean(b[0] - a[1] for a, b in zip(spans, spans[1:]))
-    with open(profiler.trace_path) as fh:
-        events = json.load(fh)["traceEvents"]
-    lo = ticks[0][0]["ts"]
-    hi = max(e["ts"] + e["dur"] for e in ticks[-1])
-    busy = busy_us([e for e in events
-                    if e.get("cat") in prof.DEVICE_CATEGORIES
-                    and lo <= e["ts"] < hi])
+    margin = capture_launches(profiler.trace_path, rr["timed_launches"])
+    cap = capture_split(profiler.trace_path, "fused_rank_kernel")
+    assert cap["ticks"] == PROFILE_TICKS, cap["ticks"]
+    assert cap["steady"] == PROFILE_TICKS - 1, cap["steady"]
     text = render([reg])
     assert f"tpu_faas_device_ticks_total {PROFILE_TICKS}" in text
-    out = dict(b1_ms=statistics.mean(b1) / 1e3,
-               gap_ms=statistics.mean(gaps) / 1e3,
-               busy=busy / (hi - lo), window_ms=(hi - lo) / 1e3,
-               ops=statistics.mean(len(t) for t in ticks),
-               tick_ms=statistics.median(rr["tick_ms"]), launches=launches,
-               lead_ms=lead, wait_ms=wait, tail_ms=tail, span_ms=span,
-               host_gap_ms=host_gap / 1e3)
+    out = dict(tick_ms=statistics.median(rr["tick_ms"]), launches=launches,
+               **{k: cap[k] for k in (
+                   "b1_ms", "gap_ms", "busy", "window_ms", "ops", "lead_ms",
+                   "wait_ms", "tail_ms", "span_ms", "host_gap_ms")})
     log(f"phase profile: TickProfiler captured {PROFILE_TICKS} resident rank "
         f"ticks ({profiler.trace_path}, {out['ops']:.1f} device operations "
         f"a tick); B1 (fused_rank_kernel) mean {out['b1_ms']:.4f} ms over "
-        f"{len(b1)} launches; mean device idle between one tick's last "
+        f"{cap['b1']} launches; mean device idle between one tick's last "
         f"operation and the next tick's first {out['gap_ms']:.4f} ms; the "
         f"card busy {100 * out['busy']:.2f}% of the {out['window_ms']:.3f} ms "
         f"window; integrated tick under capture {out['tick_ms']:.4f} ms "
-        f"(median); B1 launches in the loop {launches} [{card}]")
+        f"(median); B1 launches in the loop {launches}, every captured tick "
+        f"holding the one the wrapper counted, the closest launch call "
+        f"{margin:.3f} us before its span's end [{card}]")
     log(f"  inside a steady tick's span ({out['span_ms']:.4f} ms, means of "
-        f"{len(inside)}): host work before its first device operation "
+        f"{cap['steady']}): host work before its first device operation "
         f"{out['lead_ms']:.4f} ms, the device waiting between the packet "
         f"upload's end and B1's start {out['wait_ms']:.4f} ms, host work "
         f"after B1 ends {out['tail_ms']:.4f} ms; between spans (the loop's "
@@ -3454,29 +3982,37 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_graph(dev, card)
     log(f"phase graph: {time.perf_counter() - t0:.1f} s")
-    phase_host()
     log(f"phase time [{card}]:")
     t = phase_time(dev, N_TIMED, rr["samples"], probe)
     tb = time_bid(dev, N_TIMED // 3)
     time_auction(ra, 3)
     ta = time_resident_auction(dev, rra["samples"])
     ts = time_resident_sinkhorn(dev, rrs["samples"], probe)
+    rd = phase_dispatcher(dev, card)
     t0 = time.perf_counter()
-    # last: the capture's tracing stays loaded
     phase_profile(dev, card)
     graph_card_ms(dev, card)
     log(f"phase profile: {time.perf_counter() - t0:.1f} s")
+    # after the dispatcher phase: the walk then finds no JAX module loaded
+    # with the dispatcher's imports in place
+    phase_host()
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
              "launches": launches,
              "mismatches": (rk["mismatches"] + re["mismatches"]
-                            + rr["mismatches"] + rt["mismatches"]["rank"]),
+                            + rr["mismatches"] + rt["mismatches"]["rank"]
+                            + rd["host"]["mismatches"]),
              "max_abs_err": max(rk["max_abs_err"], re["max_abs_err"],
                                 rr["max_abs_err"],
-                                rt["max_abs_err"]["rank"]),
+                                rt["max_abs_err"]["rank"],
+                                rd["host"]["max_abs_err"]),
              "ms": t["loop"][0], "plain_ms": t[True][1],
              "bound_ms": t["loop"][1], "bound_by": "bytes",
-             "library_ms": None}
+             "library_ms": None,
+             # the dispatcher phase's paths, each counted from 0: the serve
+             # leg and the host-dispatch leg's timed pass
+             "dispatcher_launches": [rd["serve"]["launches"],
+                                     rd["host"]["launches"]]}
     k_ms, p_ms, b_ms, by = tb["headline"]
     # no single PyTorch call computes the hashed top-2 bid
     entry_b2 = {"name": "bid_top2", "route": "cuda", "source": bid.SOURCE,

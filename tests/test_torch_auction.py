@@ -602,3 +602,49 @@ def test_resident_auction_matches_batch_auction_across_ticks():
     assert dict(res2.placed) == {f"u{i}": int(w) for i, w in enumerate(ref2)
                                  if w >= 0}
     assert not bool(r._r_state.refresh)
+
+
+# -- ROADMAP C.4: a live row of zero or tiny speed, pinned ---------------------
+#: C.4's smallest auction input (T = 32, W = 16, max_slots = 4): rows 0-3
+#: live with one free slot each, every other row not live
+_C4_SIZES = [2.0, 2.0, 1.0, 2.0]
+_C4_SPEEDS = [2.0, 0.25248754, 0.50497508]
+
+
+def _c4_auction(last_speed):
+    W = 16
+    speeds = np.zeros(W, f32)
+    speeds[:4] = _C4_SPEEDS + [last_speed]
+    free = np.zeros(W, i32)
+    free[:4] = 1
+    live = np.zeros(W, bool)
+    live[:4] = True
+    pp = PlacementProblem.build(np.asarray(_C4_SIZES, f32), speeds, free,
+                                live, T=32, W=W)
+    p = {f: np.array(getattr(pp, f)) for f in _FIELDS}
+    want, got = _solve(p, max_slots=4)
+    return p, np.asarray(want.assignment)[:4], _np(got.assignment)[:4]
+
+
+@pytest.mark.parametrize("speed", [0.0, -0.0, 1e-6])
+def test_c4_zero_speed_row_splits_the_auction_at_equal_cost(speed):
+    """Both solvers floor speed at 1e-6, so a zero-speed row costs about
+    1e6 times the others and the seed's prices reach 1.5e6. There one ulp
+    (0.125) of the seed's reversed cumsum, which XLA sums in another order
+    than torch (the pinned rtol 1e-6 of ``_rank_dual_seed``), outweighs
+    ε = 1e-3 and decides the bidding; the bids themselves are equal bit
+    for bit. The two tasks of size 2 swap rows, so the placements cost the
+    same. The dispatcher cannot make such a speed: learned speeds are
+    clamped to [0.05, 20] and health has a floor of 0.25."""
+    p, want, got = _c4_auction(speed)
+    np.testing.assert_array_equal(want, [1, 0, 3, 2])
+    np.testing.assert_array_equal(got, [2, 0, 3, 1])
+    inv = 1.0 / np.maximum(p["worker_speed"].astype(np.float64), 1e-6)
+    sizes = np.asarray(_C4_SIZES, np.float64)
+    assert float(np.sum(sizes * inv[want])) == float(np.sum(sizes * inv[got]))
+
+
+@pytest.mark.parametrize("speed", [1e-3, 1e-2, 0.05])
+def test_c4_auction_agrees_once_every_live_speed_is_at_least_1e3(speed):
+    _, want, got = _c4_auction(speed)
+    np.testing.assert_array_equal(got, want)

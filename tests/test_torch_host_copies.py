@@ -1,8 +1,8 @@
 """Drift guard for the host layers the port copies from the JAX package.
 
 The port imports nothing of ``tpu_faas``, so every host module the
-tpu-push dispatcher reaches (its import closure, ``dispatch/`` aside) has
-a copy under ``tpu_faas_torch/`` at the same relative path. A copy equals
+tpu-push dispatcher reaches (its import closure, the dispatcher included)
+has a copy under ``tpu_faas_torch/`` at the same relative path. A copy equals
 its original after one rename, ``tpu_faas`` to ``tpu_faas_torch`` in
 import statements; a module changed on purpose is listed with its reason.
 The JAX sources are read as text only.
@@ -32,12 +32,13 @@ core/executor.py core/__init__.py
 worker/messages.py
 store/resp.py store/base.py store/memory.py store/snapshot.py
 store/replication.py store/client.py store/sharding.py store/server.py
-store/launch.py store/native.py store/__init__.py
+store/launch.py store/native.py store/__init__.py store/racecheck.py
 admission/signal.py admission/breaker.py admission/controller.py
 admission/__init__.py
 chaos/plan.py chaos/__init__.py
 sched/estimator.py sched/health.py
 graph/validate.py graph/__init__.py
+dispatch/__init__.py dispatch/base.py
 """.split()
 
 #: copies changed on purpose, each with its reason
@@ -52,6 +53,24 @@ CHANGED = {
     "graph/frontier.py": "the device ops are torch ops; the host part "
     "(pad_pref, pad_edges, GraphFrontier) is checked statement for "
     "statement below",
+    "dispatch/tpu_push.py": "a device argument (default 'cuda', resolved "
+    "before the store and socket, so no card means no dispatcher) passed "
+    "to the scheduler; tick_backend accepted and not passed on (the "
+    "port's ResidentScheduler has no such field: B1 serves every resident "
+    "tick on CUDA), so the status blocks report None; multihost raises "
+    "A.11's NotImplementedError where JAX imports tpu_faas.parallel "
+    "(mesh_devices raises inside SchedulerArrays); the kernels are built "
+    "in the constructor on CUDA (B1 when resident, B2 under the batch "
+    "auction), so no nvcc run stalls the first tick; the profiler's "
+    "shape signature names the device type where JAX wrote the backend "
+    "label 'xla'; comments and the module docstring name the port. Only "
+    "__init__ and _tick_resident differ, checked below",
+    "dispatch/__main__.py": "tpu-push only: local, pull and push exit "
+    "with ROADMAP A.12, --mesh and --multihost with A.11's "
+    "NotImplementedError text, both before anything starts; --device "
+    "cuda|cpu added; the XLA compile cache and the jax_platforms pin "
+    "dropped; --tick-backend accepted and unused. Only main differs, "
+    "checked below",
 }
 
 #: closure modules the port does not copy: ported under its own name by an
@@ -77,6 +96,9 @@ NOT_COPIED = {
     "tpu_faas.tenancy.config": "ported: tenancy/config.py",
     "tpu_faas.tenancy.fairshare": "ported: tenancy/fairshare.py",
     "tpu_faas.worker.pool": "the workers stay the JAX package's processes",
+    "tpu_faas.dispatch.local": "the other dispatcher modes, ROADMAP A.12",
+    "tpu_faas.dispatch.pull": "the other dispatcher modes, ROADMAP A.12",
+    "tpu_faas.dispatch.push": "the other dispatcher modes, ROADMAP A.12",
     "tpu_faas.parallel": "multi-device, ROADMAP A.11",
     "tpu_faas.parallel.distributed": "multi-device, ROADMAP A.11",
     "tpu_faas.parallel.mesh": "multi-device, ROADMAP A.11",
@@ -132,7 +154,7 @@ def _imports(mod: str) -> set[str]:
 
 
 def dispatcher_closure() -> set[str]:
-    """The tpu-push dispatcher's import closure, ``dispatch/`` aside."""
+    """The tpu-push dispatcher's import closure, itself included."""
     todo = ["tpu_faas.dispatch.tpu_push", "tpu_faas.dispatch.__main__"]
     seen: set[str] = set()
     while todo:
@@ -141,9 +163,7 @@ def dispatcher_closure() -> set[str]:
             continue
         seen.add(mod)
         todo.extend(_imports(mod) - seen)
-    return {m for m in seen
-            if m != "tpu_faas.dispatch"
-            and not m.startswith("tpu_faas.dispatch.")}
+    return seen
 
 
 def _rel(mod: str) -> str:
@@ -178,10 +198,50 @@ def test_every_closure_module_is_copied_or_accounted_for():
         assert rel in listed, f"{mod} is neither copied nor accounted for"
         assert os.path.exists(os.path.join(_PORT, rel)), rel
     # nothing listed that the closure does not reach, but the parser the
-    # metrics tests share
-    reached = {_rel(m) for m in closure} | {"obs/expofmt.py"}
+    # metrics tests share and the race monitor the dispatcher's e2e twins
+    # wrap its stores in
+    reached = {_rel(m) for m in closure} | {"obs/expofmt.py",
+                                            "store/racecheck.py"}
     assert listed <= reached, sorted(listed - reached)
     assert set(NOT_COPIED) <= closure, sorted(set(NOT_COPIED) - closure)
+
+
+def _defs(src: str) -> dict[str, str]:
+    """Every function and method of a module by qualified name, and every
+    other top-level statement but the imports and the docstring, as
+    ``ast.dump`` (comments do not count)."""
+    out: dict[str, str] = {}
+
+    def walk(body, prefix):
+        rest = [n for n in body
+                if not isinstance(n, (ast.Import, ast.ImportFrom))]
+        for i, n in enumerate(rest):
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out[prefix + n.name] = ast.dump(n)
+            elif isinstance(n, ast.ClassDef):
+                walk(n.body, f"{prefix}{n.name}.")
+            elif not (i == 0 and isinstance(n, ast.Expr)):
+                out[f"{prefix}<statement {i}>"] = ast.dump(n)
+
+    walk(ast.parse(src).body, "")
+    return out
+
+
+#: the only functions a changed dispatcher module may change (CHANGED says
+#: why)
+DISPATCH_CHANGED = {
+    "dispatch/tpu_push.py": {"TpuPushDispatcher.__init__",
+                             "TpuPushDispatcher._tick_resident"},
+    "dispatch/__main__.py": {"main"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(DISPATCH_CHANGED))
+def test_dispatcher_changes_only_the_listed_functions(rel):
+    want = _defs(renamed(_read(_JAX, rel)))
+    got = _defs(_read(_PORT, rel))
+    differ = {k for k in want.keys() | got.keys() if want.get(k) != got.get(k)}
+    assert differ == DISPATCH_CHANGED[rel]
 
 
 def test_frontier_host_part_is_a_copy():
@@ -263,3 +323,68 @@ def only_params(fn, argname: str, values: list):
         if not (m.name == "parametrize" and m.args[0] == argname)
     ]
     return pytest.mark.parametrize(argname, values)(twin)
+
+
+# ---------------------------------------------------------------------------
+# the dispatcher's twins: the port's TpuPushDispatcher on the CPU wherever a
+# JAX test builds it, through a module-level name or an import inside a
+# test's body
+# ---------------------------------------------------------------------------
+def cpu_dispatcher():
+    """The port's dispatcher class with ``device="cpu"`` bound."""
+    from functools import partial
+
+    from tpu_faas_torch.dispatch import tpu_push
+
+    return partial(tpu_push.TpuPushDispatcher, device="cpu")
+
+
+@pytest.fixture
+def dispatcher_on_cpu(monkeypatch):
+    """Imports of ``tpu_faas_torch.dispatch.tpu_push.TpuPushDispatcher``
+    inside a twin's body get :func:`cpu_dispatcher` for the test."""
+    from tpu_faas_torch.dispatch import tpu_push
+
+    monkeypatch.setattr(tpu_push, "TpuPushDispatcher", cpu_dispatcher())
+
+
+def check_ports_dispatcher(d) -> None:
+    """Assert that ``d`` is the port's dispatcher on the CPU, then close
+    its socket."""
+    try:
+        assert (type(d).__module__, type(d).__qualname__) == (
+            "tpu_faas_torch.dispatch.tpu_push", "TpuPushDispatcher")
+        assert d.arrays.device.type == "cpu"
+    finally:
+        d.stop()
+        d.socket.close(linger=0)
+
+
+def dispatcher_twins(test_file: str, cases: list[str], factory: tuple,
+                     keep: tuple[str, ...] = ()) -> dict:
+    """The dispatcher cases ``cases`` of ``tests/<test_file>`` as twins,
+    with every helper and fixture of the file, and the fixture
+    :func:`dispatcher_on_cpu` on each (the file's other tests are held
+    against JAX elsewhere; ``keep`` as in :func:`load_twins`, for the
+    scheduler names only those tests read). ``factory`` is the file's own
+    dispatcher factory and its arguments: one more test,
+    ``test_twin_builds_the_ports_dispatcher``, checks what it builds."""
+    ns = load_twins(test_file, {}, keep,
+                    overrides={"TpuPushDispatcher": cpu_dispatcher()})
+    missing = sorted(set(cases) - set(ns))
+    assert not missing, missing
+    out = {k: v for k, v in ns.items()
+           if not k.startswith("test") or k in cases}
+    on_cpu = pytest.mark.usefixtures("dispatcher_on_cpu")
+    for name in cases:
+        out[name] = on_cpu(out[name])
+
+    @on_cpu
+    def test_twin_builds_the_ports_dispatcher():
+        name, *args = factory
+        check_ports_dispatcher(ns[name](*args))
+
+    out["test_twin_builds_the_ports_dispatcher"] = (
+        test_twin_builds_the_ports_dispatcher)
+    out["dispatcher_on_cpu"] = dispatcher_on_cpu
+    return out

@@ -25,7 +25,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 64, names
-for pkg in ("graph", "store", "obs", "core", "admission"):
+for pkg in ("graph", "store", "obs", "core", "admission", "dispatch",
+            "dispatch.tpu_push", "dispatch.base", "store.racecheck"):
     assert "tpu_faas_torch." + pkg in names, pkg
 """
 

@@ -492,3 +492,50 @@ def test_scheduler_arrays_sinkhorn_matches_jax():
         for field in w:
             np.testing.assert_array_equal(g[field], w[field],
                                           err_msg=f"tick {k} {field}")
+
+
+# -- ROADMAP C.4: a live row of zero or tiny speed, pinned ---------------------
+def _c4_sinkhorn(slow):
+    """C.4's smallest Sinkhorn input (T = 32, W = 16): rows 0-7 live with
+    speeds [2, 1, 0.25, 0.25, slow, 0.25, 0.5, slow] (the last one -0.0
+    where ``slow`` is 0) and free counts [1, 2, 2, 2, 3, 3, 3, 3]."""
+    W = 16
+    speeds = np.zeros(W, f32)
+    speeds[:8] = [2, 1, 0.25, 0.25, slow, 0.25, 0.5, -slow if slow == 0
+                  else slow]
+    free = np.zeros(W, i32)
+    free[:8] = [1, 2, 2, 2, 3, 3, 3, 3]
+    live = np.zeros(W, bool)
+    live[:8] = True
+    p = PlacementProblem.build(np.asarray([3, 0.5, 3], f32), speeds, free,
+                               live, T=32, W=W)
+    args = [np.asarray(x) for x in (p.task_size, p.task_valid, p.worker_speed,
+                                    p.worker_free, p.worker_live)]
+    jargs, targs = _both(args)
+    want = np.asarray(J.sinkhorn_placement(*jargs).assignment)
+    got = P.sinkhorn_placement_impl(*targs).assignment.numpy()
+    return args, want, got
+
+
+@pytest.mark.parametrize("slow", [0.0, 1e-6])
+def test_c4_zero_speed_row_splits_the_dense_solve(slow):
+    """Both solvers floor speed at 1e-6, so τ = 0.05 × cmax = 1.5e5 and the
+    finite rows' costs differ by a few ulps of cost/τ. The first
+    difference is the first g-update's column logsumexp (XLA's exp and
+    log against torch's, PLAN_ATOL's ulps); -cost/τ and the first
+    f-update are equal. JAX then moves the size-0.5 task to row 5 (speed
+    0.25), the port keeps it on row 6 (speed 0.5), one unit of cost
+    cheaper. The dispatcher cannot make such a speed: learned speeds are
+    clamped to [0.05, 20] and health has a floor of 0.25."""
+    args, want, got = _c4_sinkhorn(slow)
+    np.testing.assert_array_equal(want[:3], [6, 5, 6])
+    np.testing.assert_array_equal(got[:3], [6, 6, 6])
+    assert (got >= 0).sum() == (want >= 0).sum() == 3
+    sizes, speeds = args[0], args[2]
+    assert _cost(got, sizes, speeds) == _cost(want, sizes, speeds) - 1.0
+
+
+@pytest.mark.parametrize("slow", [1e-3, 1e-2, 0.05])
+def test_c4_dense_solve_agrees_once_every_live_speed_is_at_least_1e3(slow):
+    args, want, got = _c4_sinkhorn(slow)
+    _assert_same_solve(got, want, args[0], args[2])

@@ -1,16 +1,14 @@
-"""Twins of the unit part of tests/test_admission.py against
-``tpu_faas_torch/admission`` (``test_torch_host_copies.load_twins``); the
-cases that drive a dispatcher, a gateway or the SDKs come with the
-dispatcher."""
+"""Twins of tests/test_admission.py against ``tpu_faas_torch/admission``
+and the port's dispatcher on the CPU (``test_torch_host_copies.
+load_twins``, with ``dispatcher_on_cpu``); the cases that start a gateway
+or drive the SDKs are left out: both stay the JAX package's."""
 
-from test_torch_host_copies import load_twins
+import pytest
 
-_DISPATCHER = "drives a dispatcher"
+from test_torch_host_copies import dispatcher_on_cpu, load_twins
+
 _GATEWAY = "starts a gateway"
 globals().update(load_twins("test_admission.py", {
-    "test_dispatcher_sheds_lapsed_deadline_and_spares_fresh": _DISPATCHER,
-    "test_tpu_push_tick_sheds_expired_before_dispatch": _DISPATCHER,
-    "test_dispatcher_publishes_capacity_snapshot": _DISPATCHER,
     "test_gateway_admission_429_with_retry_after_and_priority_override":
         _GATEWAY,
     "test_gateway_oversized_batch_is_400_not_retry_loop": _GATEWAY,
@@ -22,3 +20,4 @@ globals().update(load_twins("test_admission.py", {
     "test_expired_surfaces_as_task_expired_error": _GATEWAY,
     "test_async_client_retries_and_deadline": _GATEWAY,
 }))
+pytestmark = pytest.mark.usefixtures("dispatcher_on_cpu")
