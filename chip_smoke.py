@@ -201,6 +201,40 @@ over):
    and reads back 300 task records through the port's ``RespStore`` and
    300 through its ``MemoryStore``, and encodes and decodes a TASK message
    in both framings; prints the counts.
+15. ``mesh`` — multi-device scheduling (``tpu_faas_torch/parallel``), run
+   after the profile phase, at the headline shape. (a) One process, 4
+   positions named explicitly on the one card (``make_mesh(devices=...)``;
+   positions, not cards): ``sharded_scheduler_tick`` under rank (with
+   priorities), the auction through both winner routes (``gspmd``: the
+   single-device solver on the gathered tasks; ``permute``: each position
+   bids its shard with B2, the ring resolves the winners) and Sinkhorn
+   (the sharded dense iterations), each against the single-device tick on
+   the same inputs: rank and both auction routes equal on every output,
+   prices and rounds included, B2 launched once a round (gspmd) or once a
+   position a round (permute); Sinkhorn the same count placed at a cost
+   within 5% (JAX's pin), no row over-booked. (b) ``mesh_devices=1`` on
+   cuda: ``SchedulerArrays`` and ``ResidentScheduler`` through 40 ticks of
+   a churn loop (256 results and arrivals a tick, 64 workers silenced at
+   tick 25) in lockstep with the same loop without a mesh: every output
+   and resolved tick equal, the resident states equal, one B1 launch a
+   steady tick. At N=1 the resident leg runs the same code as without a
+   mesh: it checks the construction only. (c) Two processes on the one
+   card, gloo through host memory (two processes sharing one card, not a
+   number for two cards): 20 ticks of ``MultihostTick`` (rank) and 20 of
+   ``MultihostResidentScheduler`` (rank), each a lead with its follower,
+   at an odd ``max_pending`` that the 2-position mesh pads by one; both
+   ranks bit for bit, the lead equal to the single-process tick and
+   scheduler at the padded shape, the broadcast's bytes and milliseconds
+   a tick logged. (d)
+   ``python -m tpu_faas_torch.dispatch -m tpu-push`` in each layout with
+   a store server of the port's each, all started at once and served in
+   turn: ``--resident --multihost`` and ``--multihost`` as a lead and a
+   follower on the card (``--dist-backend gloo``), ``--mesh 1`` and
+   ``--mesh 1 --resident``; 64 requests of ``smoke_fn``
+   (16 in the other layouts) in bursts of 16 (ROADMAP C.5) through 4 wire
+   workers, each answered once; the lead's SIGTERM releases the follower
+   and every process exits 0. Last, ``--mesh 4`` on a machine with fewer
+   than 4 cards exits at startup with the device-count message.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
@@ -209,8 +243,11 @@ auction branch, the resident Sinkhorn run for its Sinkhorn branch, and the
 resident tenancy rank run for its tenancy lane, and the resident
 speculation rank run for its speculation lane), errors and times; B1's
 rank entry also carries ``dispatcher_launches``, its launches in the
-dispatcher phase's serve leg and host-dispatch pass, each counted from 0. Without a
-CUDA device the script exits non-zero and prints no result.
+dispatcher phase's serve leg and host-dispatch pass, each counted from 0,
+and ``mesh_launches``, its launches in the mesh phase's (b) resident loop
+(``mesh_devices=1``) and in (c)'s lead and follower (the padded shape); B2's entry carries
+``mesh_launches`` too, its launches in (a)'s gspmd and permute auctions.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -3881,6 +3918,714 @@ def phase_profile(dev, card: str) -> dict:
     return out
 
 
+# -- phase 15: multi-device scheduling (tpu_faas_torch/parallel) --------------
+MESH_POSITIONS = 4
+#: (a)'s single tick per placement and route
+MESH_CASES = (("rank", "gspmd"), ("auction", "gspmd"), ("auction", "permute"),
+              ("sinkhorn", "gspmd"))
+#: Sinkhorn's sharded dense plan against the single-device tick's: JAX's own
+#: pin (tests/test_parallel_mesh.py:64-86)
+MESH_COST_RTOL = 0.05
+#: (b)'s lockstep churn: ticks, arrivals and results a tick, the tick that
+#: silences MESH_SILENT workers (the clock then jumps past time_to_expire)
+MESH_CHURN_TICKS, MESH_CHURN, MESH_SILENCE_AT, MESH_SILENT = 40, 256, 25, 64
+#: (c)'s ticks of each leg and (d)'s requests, in bursts of at most 16
+#: (ROADMAP C.5)
+MH_TICKS = 20
+#: (c)'s max_pending: odd, so the 2-position mesh pads it to SHAPE["T"]
+MH_PENDING = SHAPE["T"] - 1
+MH_REQUESTS, MH_BURST, MH_WORKERS = 64, 16, 4
+MH_TIMEOUT_S = 240
+
+
+def mesh_tick_inputs(seed: int, n_valid: int | None = None):
+    """One headline tick's host inputs: sizes, valid, priorities [T];
+    speed, free, active, heartbeat ages (some past time_to_expire),
+    prev_live [W]; the in-flight table [I]."""
+    T, W, I = SHAPE["T"], SHAPE["W"], SHAPE["I"]
+    rng = np.random.default_rng(seed)
+    sizes = rng.uniform(0.1, 10.0, T).astype(np.float32)
+    if n_valid is None:
+        valid = rng.random(T) < 0.9
+    else:
+        valid = np.arange(T) < n_valid
+    prio = rng.integers(0, 4, T).astype(np.int32)
+    speed = rng.uniform(0.5, 4.0, W).astype(np.float32)
+    free = rng.integers(0, MAX_SLOTS + 1, W).astype(np.int32)
+    active = rng.random(W) > 0.02
+    hb_age = rng.uniform(0.0, 10.5, W).astype(np.float32)
+    prev_live = rng.random(W) > 0.01
+    inflight = rng.integers(-1, W, I).astype(np.int32)
+    return dict(sizes=sizes, valid=valid, prio=prio, speed=speed, free=free,
+                active=active, hb_age=hb_age, prev_live=prev_live,
+                inflight=inflight)
+
+
+def digest(*arrays) -> int:
+    import zlib
+
+    crc = 0
+    for a in arrays:
+        a = a if isinstance(a, np.ndarray) else a.detach().cpu().numpy()
+        crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+    return crc
+
+
+def mesh_one_card(dev, card: str) -> dict:
+    """(a) sharded_scheduler_tick over MESH_POSITIONS positions named on
+    the one card against the single-device tick on the same inputs."""
+    from tpu_faas_torch.parallel import mesh as tm
+    from tpu_faas_torch.sched import bid
+    from tpu_faas_torch.sched.state import scheduler_tick_impl
+
+    mesh = tm.make_mesh(devices=[dev] * MESH_POSITIONS)
+    log(f"phase mesh (a): one process, {mesh.size} positions named on the "
+        f"one card, an explicit device list {[str(d) for d in mesh.devices]}"
+        f" (positions, not cards)")
+    x = mesh_tick_inputs(51)
+    ts, tv, tp = tm.shard_task_arrays(mesh, x["sizes"], x["valid"],
+                                      x["prio"])
+    full = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+    fleet = [full[k] for k in ("speed", "free", "active", "hb_age",
+                               "prev_live", "inflight")]
+    out = dict(b2=[])
+    for placement, route in MESH_CASES:
+        prio_kw = placement == "rank"
+
+        def sharded():
+            return tm.sharded_scheduler_tick(
+                mesh, ts, tv, *fleet, 10.0, max_slots=MAX_SLOTS,
+                placement=placement, task_priority=tp if prio_kw else None,
+                winner_resolve=route)
+
+        def single():
+            return scheduler_tick_impl(
+                full["sizes"], full["valid"], *fleet, 10.0,
+                max_slots=MAX_SLOTS,
+                task_priority=full["prio"] if prio_kw else None,
+                placement=placement)
+
+        sharded(), single()  # warm-up: the first call of each op pays more
+        torch.cuda.synchronize()
+        bid.KERNEL.launches = 0  # count the sharded tick alone
+        t0 = time.perf_counter()
+        got = sharded()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        b2 = bid.KERNEL.launches
+        t0 = time.perf_counter()
+        want = single()
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0)
+        a = got.assignment.cpu().numpy()
+        for f in ("live", "purged", "redispatch"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (
+                placement, route, f)
+        if placement == "sinkhorn":
+            b = want.assignment.cpu().numpy()
+            assert (a >= 0).sum() == (b >= 0).sum(), (a >= 0).sum()
+            cap = np.where(x["active"] & (x["hb_age"] <= 10.0),
+                           np.minimum(x["free"], MAX_SLOTS), 0)
+            use = np.bincount(a[a >= 0], minlength=SHAPE["W"])
+            assert (use <= cap).all(), "a row over-booked"
+            assert not ((a >= 0) & ~x["valid"]).any(), "an invalid row placed"
+            cost = float((x["sizes"][a >= 0] / x["speed"][a[a >= 0]]).sum())
+            ref = float((x["sizes"][b >= 0] / x["speed"][b[b >= 0]]).sum())
+            assert abs(cost - ref) <= MESH_COST_RTOL * ref, (cost, ref)
+            detail = (f"{int((a >= 0).sum())} placed by both, cost "
+                      f"{cost:.3f} against the single tick's {ref:.3f} "
+                      f"({100 * (cost / ref - 1):+.3f}%), no row over-booked")
+        else:
+            assert torch.equal(got.assignment, want.assignment), (
+                placement, route)
+            detail = f"{int((a >= 0).sum())} placed, every output equal"
+            if placement == "auction":
+                assert got.auction_rounds == want.auction_rounds
+                assert torch.equal(got.auction_price, want.auction_price)
+                assert bool(got.auction_refresh) == bool(want.auction_refresh)
+                per = MESH_POSITIONS if route == "permute" else 1
+                assert b2 == per * got.auction_rounds, (b2, got.auction_rounds)
+                out["b2"].append(b2)
+                detail += (f", prices and {got.auction_rounds} rounds equal; "
+                           f"B2 launches {b2} = {per} position"
+                           f"{'s' if per > 1 else ''} x "
+                           f"{got.auction_rounds} rounds")
+        out[placement, route] = ms
+        log(f"  {placement} ({route}): sharded tick {ms:.3f} ms, the "
+            f"single-device tick {one_ms:.3f} ms (host clock, synchronized; "
+            f"one call each after one untimed); {detail} [{card}]")
+    return out
+
+
+def mesh_batch_churn(dev) -> dict:
+    """(b) SchedulerArrays(mesh_devices=1) and SchedulerArrays() in
+    lockstep through MESH_CHURN_TICKS headline ticks: every output equal."""
+    from tpu_faas_torch.sched.state import SchedulerArrays
+
+    W, T = SHAPE["W"], SHAPE["T"]
+    rng = np.random.default_rng(61)
+    clock = [1000.0]
+    procs = rng.integers(1, MAX_SLOTS + 1, W)
+    speeds = rng.uniform(0.5, 4.0, W)
+    kw = dict(max_workers=W, max_pending=T, max_inflight=SHAPE["I"],
+              max_slots=MAX_SLOTS, time_to_expire=10.0,
+              clock=lambda: clock[0], device=dev)
+    both = (SchedulerArrays(**kw), SchedulerArrays(mesh_devices=1, **kw))
+    assert both[1].mesh.size == 1
+    for a in both:
+        for i in range(W):
+            a.register(b"w%d" % i, int(procs[i]), speed=float(speeds[i]))
+    pending = [(f"b{i}", float(s), int(p)) for i, (s, p) in enumerate(zip(
+        rng.uniform(0.1, 10.0, T // 2), rng.integers(0, 4, T // 2)))]
+    inflight: dict[str, int] = {}
+    silent: set[int] = set()
+    n_new, placed = 0, 0
+    for tick in range(MESH_CHURN_TICKS):
+        clock[0] += 0.005
+        if tick == MESH_SILENCE_AT:
+            silent = set(int(r) for r in rng.choice(W, MESH_SILENT, False))
+            clock[0] += 11.0
+            for a in both:
+                for r in range(W):
+                    if r not in silent and a.worker_active[r]:
+                        a.heartbeat(a.row_ids[r])
+        done = rng.permutation(sorted(inflight))[:MESH_CHURN]
+        for tid in done:
+            row = inflight.pop(tid)
+            for a in both:
+                a.release_slot(a.inflight_done(tid))
+        for s, p in zip(rng.uniform(0.1, 10.0, MESH_CHURN),
+                        rng.integers(0, 4, MESH_CHURN)):
+            if len(pending) < T:
+                pending.append((f"n{n_new}", float(s), int(p)))
+                n_new += 1
+        sizes = np.array([p[1] for p in pending], np.float32)
+        prios = np.array([p[2] for p in pending], np.int32)
+        outs = [a.tick(sizes, task_priorities=prios) for a in both]
+        for f in ("assignment", "live", "purged", "redispatch"):
+            assert torch.equal(getattr(outs[0], f), getattr(outs[1], f)), (
+                tick, f)
+        a0 = both[0]
+        redo = np.flatnonzero(outs[0].redispatch.cpu().numpy())
+        for slot in redo:
+            tid = a0.inflight_task[int(slot)]
+            for a in both:
+                a.inflight_clear_slot(int(slot))
+            inflight.pop(tid, None)
+        for row in np.flatnonzero(outs[0].purged.cpu().numpy()):
+            for a in both:
+                a.deactivate(int(row))
+        asg = outs[0].assignment.cpu().numpy()[:len(pending)]
+        keep = []
+        for (tid, s, p), row in zip(pending, asg):
+            if row >= 0 and a0.worker_active[row]:
+                for a in both:
+                    a.inflight_add(tid, int(row))
+                    a.worker_free[row] -= 1
+                inflight[tid] = int(row)
+                placed += 1
+            else:
+                keep.append((tid, s, p))
+        pending = keep
+        assert (a0.worker_free >= 0).all(), "a row over-booked"
+    return dict(ticks=MESH_CHURN_TICKS, placed=placed,
+                purged=MESH_SILENT)
+
+
+def mesh_resident_churn(dev) -> dict:
+    """(b) ResidentScheduler(mesh_devices=1) and ResidentScheduler() in
+    lockstep through MESH_CHURN_TICKS headline ticks: every resolved tick
+    equal; B1's launches under the mesh counted by the wrapper."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import ResidentScheduler
+
+    W, T = SHAPE["W"], SHAPE["T"]
+    rng = np.random.default_rng(71)
+    clock = [1000.0]
+    procs = rng.integers(1, MAX_SLOTS + 1, W)
+    speeds = rng.uniform(0.5, 4.0, W)
+    kw = dict(max_workers=W, max_pending=T, max_inflight=SHAPE["I"],
+              max_slots=MAX_SLOTS, time_to_expire=10.0,
+              clock=lambda: clock[0], device=dev, use_priority=True)
+    both = (ResidentScheduler(**kw), ResidentScheduler(mesh_devices=1, **kw))
+    for a in both:
+        for i in range(W):
+            a.register(b"w%d" % i, int(procs[i]), speed=float(speeds[i]))
+    ids = [f"bulk-{i}" for i in range(T)]
+    bulk = rng.uniform(0.1, 10.0, T).astype(np.float32)
+    bprio = rng.integers(0, 4, T).astype(np.int32)
+    for a in both:
+        a.pending_bulk_load(ids, bulk, bprio)
+    inflight: dict[str, int] = {}
+    n_new, placed, mesh_launches, steady = 0, 0, 0, []
+    for tick in range(MESH_CHURN_TICKS):
+        clock[0] += 0.005
+        if tick == MESH_SILENCE_AT:
+            silent = set(int(r) for r in rng.choice(W, MESH_SILENT, False))
+            clock[0] += 11.0
+            for a in both:
+                for r in range(W):
+                    if r not in silent and a.worker_active[r]:
+                        a.heartbeat(a.row_ids[r])
+        for tid in rng.permutation(sorted(inflight))[:MESH_CHURN]:
+            inflight.pop(tid)
+            for a in both:
+                a.release_slot(a.inflight_done(tid))
+        for s, p in zip(rng.uniform(0.1, 10.0, MESH_CHURN),
+                        rng.integers(0, 4, MESH_CHURN)):
+            for a in both:
+                a.pending_add(f"n{n_new}", float(s), priority=int(p))
+            n_new += 1
+        both[0].tick_resident()
+        KERNEL.launches = 0  # count the tick under the mesh alone
+        both[1].tick_resident()
+        assert KERNEL.launches == both[1].device_dispatches_last_tick
+        mesh_launches += both[1].device_dispatches_last_tick
+        steady.append(both[1].device_dispatches_last_tick)
+        r0, r1 = both[0].resolve_next(), both[1].resolve_next()
+        assert (r0.placed, r0.redispatch_slots, list(r0.purged_rows),
+                r0.n_pending, r0.rejected) == (
+            r1.placed, r1.redispatch_slots, list(r1.purged_rows),
+            r1.n_pending, r1.rejected), f"tick {tick} differs"
+        for slot in r0.redispatch_slots:
+            tid = both[0].inflight_task[slot]
+            for a in both:
+                a.inflight_clear_slot(slot)
+            inflight.pop(tid, None)
+        for row in r0.purged_rows:
+            for a in both:
+                a.deactivate(int(row))
+        for tid, row in r0.placed:
+            for a in both:
+                a.inflight_add(tid, row)
+            inflight[tid] = row
+            placed += 1
+    last = steady[-(MESH_CHURN_TICKS - MESH_SILENCE_AT - 2):]
+    assert last and all(n == 1 for n in last), steady
+    for x, y in zip(both[0]._r_state, both[1]._r_state):
+        assert torch.equal(x, y), "the states differ"
+    return dict(ticks=MESH_CHURN_TICKS, placed=placed,
+                launches=mesh_launches, per_tick=steady)
+
+
+def mesh_child(rank: int, port: int, device: str = "cuda") -> None:
+    """(c)'s child: one of two processes on the one card, gloo through host
+    memory; runs MH_TICKS ticks of MultihostTick (rank) and then
+    MH_TICKS of MultihostResidentScheduler (rank), lead or follower; prints
+    one MESHCHILD JSON line."""
+    from tpu_faas_torch.parallel import distributed
+    from tpu_faas_torch.parallel.multihost_resident import (
+        MultihostResidentScheduler,
+    )
+    from tpu_faas_torch.parallel.multihost_tick import MultihostTick
+    from tpu_faas_torch.sched import fused_tick
+
+    assert distributed.initialize_multihost(
+        coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+        process_id=rank, backend="gloo", timeout=MH_TIMEOUT_S)
+    dev = distributed.process_device(device)
+    out: dict = dict(rank=rank)
+    mt = MultihostTick(max_pending=MH_PENDING, max_workers=SHAPE["W"],
+                       max_slots=MAX_SLOTS, placement="rank", device=dev)
+    out["positions"] = [f"{r}:{d}" for r, d in mt.mesh.positions]
+    out["tick_T"] = mt.T
+    times: list = []
+    real = mt._broadcast
+
+    def timed(buf):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(buf)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    mt._broadcast = timed
+    digests, tick_ms = [], []
+    for k in range(MH_TICKS):
+        if rank == 0:
+            x = mesh_tick_inputs(500 + k, n_valid=40_000 + 500 * k)
+            n = 40_000 + 500 * k
+            t0 = time.perf_counter()
+            res = mt.lead_tick(x["sizes"][:n], x["speed"], x["free"],
+                               x["active"], x["hb_age"], x["inflight"], 10.0,
+                               task_priorities=x["prio"][:n])
+            tick_ms.append(1e3 * (time.perf_counter() - t0))
+            out.setdefault("redispatch", []).append(digest(res.redispatch))
+        else:
+            res = mt._run(mt._broadcast(np.zeros(mt.buflen, np.float32)))
+        digests.append(digest(res.assignment, res.live, res.purged))
+    if rank == 0:
+        mt.lead_stop()
+    else:
+        assert mt._run(mt._broadcast(np.zeros(mt.buflen, np.float32))) is None
+    out.update(tick_digests=digests, tick_bytes=4 * mt.buflen,
+               tick_bcast_ms=statistics.median(times[:MH_TICKS]),
+               tick_ms=statistics.median(tick_ms) if tick_ms else None)
+
+    if dev.type == "cuda":
+        fused_tick.KERNEL.load()
+    box = [1000.0]
+    r = MultihostResidentScheduler.from_shape(
+        max_workers=SHAPE["W"], max_pending=MH_PENDING,
+        max_inflight=SHAPE["I"], max_slots=MAX_SLOTS, time_to_expire=10.0,
+        placement="rank", clock=lambda: box[0], device=dev)
+    r._clock_box = box
+    out["resident_T"] = r.max_pending
+    times.clear()
+    real_r = r._broadcast
+
+    def timed_r(buf):
+        t0 = time.perf_counter()
+        res = real_r(buf)
+        times.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    r._broadcast = timed_r
+    fused_tick.KERNEL.launches = 0
+    if rank == 0:
+        out["resolved"] = mh_resident_scenario(r)
+        r.lead_stop()
+    else:
+        r.follow_loop(watchdog_timeout=MH_TIMEOUT_S)
+    out.update(state=digest(*r._r_state), b1_launches=fused_tick.KERNEL.launches,
+               packet_bytes=4 * r.packet_len(),
+               packet_bcast_ms=statistics.median(times),
+               packets=len(times))
+    print("MESHCHILD " + json.dumps(out), flush=True)
+
+
+def mh_resident_scenario(r) -> list[int]:
+    """The resident leg's scenario, the same for the lead and the
+    single-process reference: 4,096 workers registered, then MH_TICKS
+    ticks of 512 arrivals, 256 results and 128 heartbeats, +5 ms each;
+    returns each resolved tick's digest."""
+    W = SHAPE["W"]
+    rng = np.random.default_rng(81)
+    procs = rng.integers(1, MAX_SLOTS + 1, W)
+    speeds = rng.uniform(0.5, 4.0, W)
+    for i in range(W):
+        r.register(b"w%d" % i, int(procs[i]), speed=float(speeds[i]))
+    inflight: dict[str, int] = {}
+    out, n = [], 0
+    for _ in range(MH_TICKS):
+        r._clock_box[0] += 0.005
+        for i in rng.choice(W, SHAPE["KH"] // 4, replace=False):
+            r.heartbeat(b"w%d" % i)
+        for tid in rng.permutation(sorted(inflight))[:MESH_CHURN]:
+            inflight.pop(tid)
+            r.release_slot(r.inflight_done(tid))
+        for s, p in zip(rng.uniform(0.1, 10.0, SHAPE["KA"]),
+                        rng.integers(0, 4, SHAPE["KA"])):
+            r.pending_add(f"m{n}", float(s), priority=int(p))
+            n += 1
+        r.tick_resident()
+        while (res := r.resolve_next()) is not None:
+            for tid, row in res.placed:
+                r.inflight_add(tid, row)
+                inflight[tid] = row
+            out.append(digest(np.array([row for _, row in res.placed]),
+                              np.array(res.redispatch_slots, np.int64),
+                              np.asarray(res.purged_rows),
+                              np.array([res.n_pending, res.rejected])))
+    return out
+
+
+def spawn(args: list[str], cwd: str):
+    return subprocess.Popen([sys.executable, *args], cwd=cwd,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def finish(procs, timeout: float = MH_TIMEOUT_S) -> list[str]:
+    """Each child's output once it exits 0; every child killed in the end."""
+    outs = []
+    try:
+        for p in procs:
+            o, _ = p.communicate(timeout=timeout)
+            outs.append(o)
+            assert p.returncode == 0, o[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def mesh_two_processes(dev, card: str) -> dict:
+    """(c) two processes on the one card (gloo through host memory, not a
+    number for two cards): both ranks agree bit for bit, and the lead
+    equals the single-process tick and scheduler."""
+    from tpu_faas_torch.sched.resident import ResidentScheduler
+    from tpu_faas_torch.sched.state import scheduler_tick_impl
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs = [spawn(["-c", f"import chip_smoke; chip_smoke.mesh_child({r}, "
+                    f"{port}, {dev.type!r})"], root) for r in (0, 1)]
+    outs = finish(procs)
+    lead, follower = (json.loads(next(
+        line.split(" ", 1)[1] for line in o.splitlines()
+        if line.startswith("MESHCHILD "))) for o in outs)
+    assert lead["tick_digests"] == follower["tick_digests"]
+    assert lead["state"] == follower["state"], "the resident replicas differ"
+    assert lead["b1_launches"] == follower["b1_launches"] > 0
+    # both layouts padded the odd max_pending to the 2-position mesh
+    assert lead["tick_T"] == lead["resident_T"] == SHAPE["T"], lead
+    # the single process on the same inputs, at the padded shape
+    prev = torch.zeros(SHAPE["W"], dtype=torch.bool, device=dev)
+    for k in range(MH_TICKS):
+        n = 40_000 + 500 * k
+        x = mesh_tick_inputs(500 + k, n_valid=n)
+        f = {key: torch.from_numpy(v).to(dev) for key, v in x.items()}
+        sizes = f["sizes"].clone()
+        sizes[n:] = 0.0
+        prio = f["prio"].clone()
+        prio[n:] = 0
+        want = scheduler_tick_impl(
+            sizes, f["valid"], f["speed"], f["free"], f["active"],
+            f["hb_age"], prev, f["inflight"], 10.0, max_slots=MAX_SLOTS,
+            task_priority=prio)
+        prev = want.live
+        assert digest(want.assignment, want.live, want.purged) == \
+            lead["tick_digests"][k], f"tick {k} differs from one process"
+        assert digest(want.redispatch) == lead["redispatch"][k]
+    box = [1000.0]
+    one = ResidentScheduler(
+        max_workers=SHAPE["W"], max_pending=SHAPE["T"],
+        max_inflight=SHAPE["I"], max_slots=MAX_SLOTS, time_to_expire=10.0,
+        use_priority=True, device=dev, clock=lambda: box[0])
+    one._clock_box = box
+    one._ensure_state()  # before the registrations, as every replica does
+    assert mh_resident_scenario(one) == lead["resolved"]
+    assert digest(*one._r_state) == lead["state"]
+    log(f"phase mesh (c): two processes on the one card, gloo through host "
+        f"memory (two processes sharing one card: not a number for two "
+        f"cards); positions {lead['positions']}; max_pending {MH_PENDING} "
+        f"padded to {lead['resident_T']} by the mesh, held against one "
+        f"process at {SHAPE['T']}. MultihostTick, rank, "
+        f"{MH_TICKS} ticks: both ranks bit for bit, the lead equal to the "
+        f"single-process tick on every output; broadcast {lead['tick_bytes']}"
+        f" bytes a tick in {lead['tick_bcast_ms']:.3f} ms (median), the "
+        f"lead's tick {lead['tick_ms']:.3f} ms. MultihostResidentScheduler, "
+        f"rank, {MH_TICKS} ticks: {lead['packets']} packets of "
+        f"{lead['packet_bytes']} bytes, broadcast in "
+        f"{lead['packet_bcast_ms']:.3f} ms (median; a follower's wait "
+        f"includes the lead's host work: "
+        f"{follower['packet_bcast_ms']:.3f} ms), B1 launched "
+        f"{lead['b1_launches']} times in each process, both replicas and "
+        f"the single process's state bit for bit, every resolved tick equal "
+        f"[{card}]")
+    return dict(lead=lead, follower=follower)
+
+
+#: (d)'s layouts through the entry point: flags, requests, processes
+MH_LAYOUTS = ((("--resident", "--multihost"), MH_REQUESTS, 2),
+              (("--multihost",), MH_BURST, 2),
+              (("--mesh", "1"), MH_BURST, 1),
+              (("--mesh", "1", "--resident"), MH_BURST, 1))
+
+
+def mesh_start(dev, flags: tuple, n_procs: int) -> dict:
+    """Start one layout of ``python -m tpu_faas_torch.dispatch -m
+    tpu-push`` with the port's store server in this process: a lead and a
+    follower on the one card (gloo) when ``n_procs`` is 2, else one
+    process; the lead serves its stats on a port of its own."""
+    from tpu_faas_torch.store.launch import start_store_thread
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    handle = start_store_thread()
+    coord, zmq_port, stats = free_port(), free_port(), free_port()
+    common = ["-m", "tpu_faas_torch.dispatch", "-m", "tpu-push", *flags,
+              "--device", dev.type, "-i", "127.0.0.1", "-p", str(zmq_port),
+              "--store", handle.url, "--max-fleet", "64", "--tte", "5"]
+    if n_procs == 2:
+        common += ["--dist-backend", "gloo", "--coordinator",
+                   f"127.0.0.1:{coord}", "--num-processes", "2",
+                   "--follower-watchdog", str(MH_TIMEOUT_S)]
+        procs = [spawn(common + ["--process-id", "0", "--stats-port",
+                                 str(stats)], root),
+                 spawn(common + ["--process-id", "1"], root)]
+    else:
+        procs = [spawn(common + ["--stats-port", str(stats)], root)]
+    return dict(flags=flags, handle=handle, procs=procs, stats=stats,
+                url=f"tcp://127.0.0.1:{zmq_port}",
+                t_start=time.perf_counter())
+
+
+def mesh_serve(layout: dict, n_requests: int) -> dict:
+    """Serve ``n_requests`` requests of ``smoke_fn`` through a started
+    layout's lead and MH_WORKERS wire workers, in bursts of MH_BURST; each
+    answered once; then SIGTERM to the lead, which releases the follower,
+    and every process exits 0."""
+    import signal
+    import urllib.request
+
+    from tpu_faas_torch.core.executor import pack_params
+    from tpu_faas_torch.core.serialize import deserialize, serialize
+    from tpu_faas_torch.core.task import FIELD_RESULT, FIELD_STATUS, new_task_id
+    from tpu_faas_torch.store.base import RESULTS_CHANNEL
+    from tpu_faas_torch.store.launch import make_store
+    from tpu_faas_torch.utils.config import Config
+
+    procs, flags = layout["procs"], layout["flags"]
+    store = make_store(layout["handle"].url)
+    results = store.subscribe(RESULTS_CHANNEL)
+    workers = []
+    try:
+        deadline = time.monotonic() + MH_TIMEOUT_S
+        workers = [WireWorker(layout["url"], f"mesh-w{i}")
+                   for i in range(MH_WORKERS)]
+        while True:
+            assert time.monotonic() < deadline, "the lead never served"
+            assert all(p.poll() is None for p in procs), "a process exited"
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{layout['stats']}/stats",
+                        timeout=2) as f:
+                    if json.loads(f.read())["workers_registered"] \
+                            >= MH_WORKERS:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        t_ready = time.perf_counter()
+        fn = serialize(smoke_fn)
+        channel = Config.load().tasks_channel
+        value, seen = {}, {}
+        for lo in range(0, n_requests, MH_BURST):
+            batch = [(new_task_id(), i) for i in range(
+                lo, min(lo + MH_BURST, n_requests))]
+            store.create_tasks([(t, fn, pack_params(i)) for t, i in batch],
+                               channel)
+            value.update(batch)
+            time.sleep(0.03)
+        while len(seen) < n_requests:
+            assert time.monotonic() < deadline, (
+                f"{n_requests - len(seen)} requests unanswered")
+            tid = results.get_message(timeout=0.05)
+            if tid is not None:
+                seen[tid] = seen.get(tid, 0) + 1
+        t_done = time.perf_counter()
+        time.sleep(0.5)  # a duplicate announce would land by now
+        while (tid := results.get_message(timeout=0.05)) is not None:
+            seen[tid] = seen.get(tid, 0) + 1
+        assert set(seen) == set(value) and set(seen.values()) == {1}, seen
+        recs = store.hgetall_many(list(value))
+        assert all(r.get(FIELD_STATUS) == "COMPLETED"
+                   and deserialize(r[FIELD_RESULT]) == smoke_fn(value[t])
+                   for t, r in zip(value, recs)), "a wrong result"
+        os.killpg(procs[0].pid, signal.SIGTERM)
+        outs = finish(procs, timeout=60)
+    finally:
+        for w in workers:
+            w.stop()
+        results.close()
+        store.close()
+    if len(procs) == 2:
+        stop = ("multihost resident stop broadcast sent"
+                if "--resident" in flags else "multihost stop broadcast sent")
+        assert stop in outs[0], outs[0][-2000:]
+        assert "stop after" in outs[1], outs[1][-2000:]
+        assert all("backend gloo" in o for o in outs)
+    return dict(requests=n_requests, serve_s=t_done - t_ready,
+                start_s=t_ready - layout["t_start"])
+
+
+def mesh_entry_point(dev, card: str) -> dict:
+    """(d) every layout of MH_LAYOUTS through the entry point, all started
+    at once and then served in turn; and, on a machine with fewer than 4
+    cards, ``--mesh 4`` exits at startup with the device-count message."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    n_cards = torch.cuda.device_count()
+    layouts, out = [], {}
+    too_many = None
+    try:
+        if n_cards < 4:
+            too_many = spawn(["-m", "tpu_faas_torch.dispatch", "-m",
+                              "tpu-push", "--mesh", "4", "--store",
+                              "memory://", "-p", "0"], root)
+        for flags, _, n_procs in MH_LAYOUTS:
+            layouts.append(mesh_start(dev, flags, n_procs))
+        for layout, (flags, n, n_procs) in zip(layouts, MH_LAYOUTS):
+            r = out[" ".join(flags)] = mesh_serve(layout, n)
+            who = ("a lead and a follower on the one card, gloo"
+                   if n_procs == 2 else "one process")
+            log(f"phase mesh (d): python -m tpu_faas_torch.dispatch -m "
+                f"tpu-push {' '.join(flags)}, {who}: {n} of {n} requests "
+                f"answered once with their values through {MH_WORKERS} wire "
+                f"workers, written in bursts of {MH_BURST}; "
+                + ("the lead's SIGTERM released the follower and both "
+                   "exited 0" if n_procs == 2
+                   else "it exited 0 on SIGTERM")
+                + f"; serving {r['serve_s']:.3f} s, ready "
+                f"{r['start_s']:.3f} s after its start (the layouts start "
+                f"together) [{card}]")
+        if too_many is not None:
+            o = finish_failing(too_many)
+            want = (f"mesh_devices=4 but only {n_cards} CUDA devices are "
+                    "available")
+            assert want in o, o[-2000:]
+            log(f"  --mesh 4 with {n_cards} card(s): exited "
+                f"{too_many.returncode} at startup with '{want}'")
+    finally:
+        for p in [too_many] + [p for lay in layouts for p in lay["procs"]]:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        for lay in layouts:
+            lay["handle"].stop()
+    return out
+
+
+def finish_failing(p) -> str:
+    """The output of a child that must exit non-zero; killed if it does
+    not exit."""
+    try:
+        o, _ = p.communicate(timeout=MH_TIMEOUT_S)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    assert p.returncode != 0, o[-2000:]
+    return o
+
+
+def phase_mesh(dev, card: str) -> dict:
+    """(a)-(d); the B1 and B2 launches on the mesh paths, each counted from
+    0 just before its path."""
+    t0 = time.perf_counter()
+    a = mesh_one_card(dev, card)
+    assert all(n > 0 for n in a["b2"]), a["b2"]
+    bb = mesh_batch_churn(dev)
+    br = mesh_resident_churn(dev)
+    log(f"phase mesh (b): mesh_devices=1 on cuda, {bb['ticks']} headline "
+        f"ticks each: SchedulerArrays equal to the loop without a mesh on "
+        f"every output ({bb['placed']} placed, {bb['purged']} rows purged); "
+        f"ResidentScheduler equal on every resolved tick and the final state "
+        f"({br['placed']} placed), B1 launched {br['launches']} times "
+        f"(a tick: {br['per_tick']}), one a steady tick. At N=1 the "
+        f"resident leg checks the construction only: no padding, the same "
+        f"code as without a mesh; (c) runs the padded shape")
+    c = mesh_two_processes(dev, card)
+    d = mesh_entry_point(dev, card)
+    log(f"phase mesh: {time.perf_counter() - t0:.1f} s")
+    return dict(a=a, b2_launches=a["b2"], b1_launches=[
+        br["launches"], c["lead"]["b1_launches"],
+        c["follower"]["b1_launches"]], c=c, d=d)
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(f"usage: python3 {sys.argv[0]}  (no arguments: every phase "
@@ -3995,6 +4740,7 @@ def main() -> int:
     log(f"phase profile: {time.perf_counter() - t0:.1f} s")
     # after the dispatcher phase: the walk then finds no JAX module loaded
     # with the dispatcher's imports in place
+    rm = phase_mesh(dev, card)
     phase_host()
     entry = {"name": "fused_resident_tick", "route": "cuda",
              "source": fused_tick.SOURCE, "replaces": fused_tick.REPLACES,
@@ -4012,7 +4758,10 @@ def main() -> int:
              # the dispatcher phase's paths, each counted from 0: the serve
              # leg and the host-dispatch leg's timed pass
              "dispatcher_launches": [rd["serve"]["launches"],
-                                     rd["host"]["launches"]]}
+                                     rd["host"]["launches"]],
+             # the mesh phase's paths, each counted from 0: (b)'s resident
+             # loop under mesh_devices=1, and (c)'s lead and follower
+             "mesh_launches": rm["b1_launches"]}
     k_ms, p_ms, b_ms, by = tb["headline"]
     # no single PyTorch call computes the hashed top-2 bid
     entry_b2 = {"name": "bid_top2", "route": "cuda", "source": bid.SOURCE,
@@ -4020,7 +4769,11 @@ def main() -> int:
                 "mismatches": rb["mismatches"] + ra["mismatches"],
                 "max_abs_err": rb["max_abs_err"], "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-                "library_ms": None}
+                "library_ms": None,
+                # the mesh phase's (a), counted from 0: the gspmd auction
+                # (one launch a round) and the permute one (one a position
+                # a round)
+                "mesh_launches": rm["b2_launches"]}
     # no single PyTorch call computes a resident auction tick
     entry_b1a = {"name": "fused_resident_tick_auction", "route": "cuda",
                  "source": fused_tick.SOURCE,

@@ -36,6 +36,11 @@ from tpu_faas_torch.sched import resident as tres
 from tpu_faas_torch.sched import state as tstate
 from tpu_faas_torch.sched.state import SchedulerArrays as TArrays
 
+# the suite runs as several worker processes sharing the machine's cores:
+# torch's intra-op pool on every core makes their parallel regions wait on
+# each other (a test of seconds took minutes), so each takes one thread
+torch.set_num_threads(1)
+
 f32, i32 = np.float32, np.int32
 _FIELDS = ("task_size", "task_valid", "worker_speed", "worker_free",
            "worker_live")

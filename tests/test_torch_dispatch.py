@@ -1,21 +1,28 @@
 """The port's tpu-push dispatcher (``tpu_faas_torch/dispatch/``) as an
 entry point: every attribute it reads on its scheduler exists there, the
 tick runs on the card unless the caller asks for the CPU, a failed kernel
-build stops it, and the modes and layouts that are not ported yet fail at
-startup with the ROADMAP item they wait for. Its service against the JAX
-gateway and workers is held by the twins
-(tests/test_torch_twin_tpu_push_e2e.py, test_torch_twin_resident_e2e.py)."""
+build stops it, the multi-device layouts build what they name, and the
+modes that are not ported yet fail at startup with the ROADMAP item they
+wait for. Its service against the JAX gateway and workers is held by the
+twins (tests/test_torch_twin_tpu_push_e2e.py,
+test_torch_twin_resident_e2e.py, test_torch_twin_multihost_dispatch_e2e.py)."""
 
 import ast
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
 
 from tpu_faas_torch.dispatch import __main__ as cli
 from tpu_faas_torch.dispatch import tpu_push
+from tpu_faas_torch.parallel import distributed
+from tpu_faas_torch.parallel.multihost_resident import (
+    MultihostResidentScheduler,
+)
+from tpu_faas_torch.parallel.multihost_tick import MultihostTick
 from tpu_faas_torch.sched import bid, fused_tick
 from tpu_faas_torch.sched.resident import ResidentScheduler
 from tpu_faas_torch.sched.state import SchedulerArrays
@@ -27,8 +34,6 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the guard that keeps it from raising
 ABSENT = {
     "tick_backend": "read through getattr(..., None); the port reports None",
-    "lead_stop": "read only where hasattr(self.arrays, 'lead_stop') holds: "
-    "the multihost lead's, ROADMAP A.11",
 }
 
 
@@ -70,11 +75,14 @@ def test_every_scheduler_read_exists_on_the_ports_scheduler():
     for name in ("tick_resident", "resolve_next", "note_misfire",
                  "recall_health", "_inflight_slot", "tenant_deficits",
                  "inflight_owner", "worker_speed",
-                 "device_dispatches_last_tick", "tick", "pending_add"):
+                 "device_dispatches_last_tick", "tick", "pending_add",
+                 "lead_stop", "multihost"):
         assert name in reads, name
     kw = dict(max_workers=8, max_pending=16, max_inflight=32, max_slots=4,
               device="cpu")
-    scheds = (SchedulerArrays(**kw), ResidentScheduler(**kw))
+    scheds = (SchedulerArrays(**kw), ResidentScheduler(**kw),
+              MultihostResidentScheduler.from_shape(
+                  time_to_expire=10.0, placement="rank", **kw))
     missing = sorted(n for n in reads - set(ABSENT)
                      if not any(hasattr(s, n) for s in scheds))
     assert not missing, missing
@@ -148,20 +156,44 @@ def test_tick_backend_is_accepted_and_reported_none(resident):
         d.socket.close(linger=0)
 
 
+@pytest.fixture
+def alone(monkeypatch):
+    """A process that has joined no group: initialize_multihost may run
+    (and latch) inside the test without leaking into the next."""
+    monkeypatch.setattr(distributed, "_state", {
+        "initialized": False, "cpu_positions": None, "local_rank": 0})
+
+
 @pytest.mark.parametrize("kw", [{"multihost": True},
                                 {"multihost": True, "resident": True},
                                 {"mesh_devices": 2},
                                 {"mesh_devices": 2, "resident": True}])
-def test_multi_device_layouts_raise_until_ported(kw):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.11"):
-        _dispatcher(device="cpu", **kw)
+def test_multi_device_layouts_raise_until_ported(alone, kw):
+    """Each multi-device layout builds what it names and ticks (the name
+    dates from when the port refused them). A multihost lead in a process
+    that joined no group is a fleet of one."""
+    d = _dispatcher(device="cpu", **kw)
+    try:
+        a = d.arrays
+        assert isinstance(a, ResidentScheduler) == bool(kw.get("resident"))
+        if kw.get("multihost") and kw.get("resident"):
+            assert isinstance(a, MultihostResidentScheduler)
+            assert a.multihost is None  # the packet protocol is its own
+        elif kw.get("multihost"):
+            assert isinstance(a.multihost, MultihostTick)
+        else:
+            assert a.mesh.size == 2 and a.max_pending == 8
+            assert a.mesh.devices == [torch.device("cpu")] * 2
+        d.tick()
+        if kw.get("resident"):
+            assert a.device_dispatches_last_tick == 1
+    finally:
+        d.socket.close(linger=0)
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-m", "tpu-push", "--mesh", "2"], "mesh is not ported .* A.11"),
-    (["-m", "tpu-push", "--multihost"], "multihost is not ported .* A.11"),
-    (["-m", "tpu-push", "--resident", "--multihost", "--process-id", "1"],
-     "multihost is not ported .* A.11"),
+    (["-m", "tpu-push", "--multihost", "--mesh", "2"],
+     "--multihost owns the global mesh; drop --mesh"),
     (["-m", "pull"], "'pull' is not ported yet: ROADMAP A.12"),
     (["-m", "push", "--hb"], "'push' is not ported yet: ROADMAP A.12"),
     (["-m", "local", "-w", "2"], "'local' is not ported yet: ROADMAP A.12"),
@@ -171,11 +203,46 @@ def test_cli_refuses_what_is_not_ported(argv, item):
         cli.main(argv)
 
 
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "2"],
+    ["--mesh", "2", "--resident"],
+    ["--multihost"],
+    ["--multihost", "--resident"],
+])
+def test_cli_builds_the_multi_device_layouts(alone, monkeypatch, argv):
+    """``main`` builds each layout (a multihost lead whose discovery found
+    no group runs as a fleet of one, on gloo) and reaches the serve loop,
+    which is stubbed to return."""
+    built = []
+
+    def serve(self, max_results=None):
+        built.append(self)
+        self.stop()
+        return 0
+
+    monkeypatch.setattr(tpu_push.TpuPushDispatcher, "start", serve)
+    monkeypatch.setattr(cli, "_install_stop_signals", lambda d: None)
+    cli.main(["-m", "tpu-push", "--device", "cpu", "-p", "0",
+              "--store", "memory://", *argv])
+    (d,) = built
+    try:
+        a = d.arrays
+        assert isinstance(a, ResidentScheduler) == ("--resident" in argv)
+        if "--mesh" in argv:
+            assert a.mesh.size == 2
+        elif "--resident" in argv:
+            assert isinstance(a, MultihostResidentScheduler)
+        else:
+            assert isinstance(a.multihost, MultihostTick)
+    finally:
+        d.socket.close(linger=0)
+
+
 @pytest.mark.parametrize("argv,message", [
     (["-m", "tpu-push", "--mesh", "2"],
-     "mesh is not ported to tpu_faas_torch yet: ROADMAP A.11"),
-    (["-m", "tpu-push", "--multihost"],
-     "multihost is not ported to tpu_faas_torch yet: ROADMAP A.11"),
+     "no CUDA device is available"),
+    (["-m", "tpu-push", "--multihost", "--mesh", "2"],
+     "--multihost owns the global mesh; drop --mesh"),
     (["-m", "pull"], "'pull' is not ported yet: ROADMAP A.12"),
 ])
 def test_module_entry_point_refuses_what_is_not_ported(argv, message):
@@ -200,3 +267,82 @@ def test_busprobe_counts_every_announce(late):
         handle.stop()
     assert line.startswith("300 of 300 announces"), line
     assert ("after the last" if late else "after each") in line
+
+
+@pytest.mark.parametrize("variant", ["raw", "raw-rcvbuf", "sndbuf",
+                                     "concurrent", "drain"])
+def test_busprobe_variants_count_every_announce(variant):
+    """Each side of the bus the probe can change (ROADMAP C.5's split)
+    still delivers every announce on the CPU."""
+    from tpu_faas_torch.store import busprobe
+
+    line = busprobe.run_in_thread(600, 200, False, 30.0, variant)
+    assert line.startswith("600 of 600 announces"), line
+
+
+def test_subscription_sets_its_receive_buffer_before_it_connects(
+        monkeypatch):
+    """ROADMAP C.5, outcome (a): the port's subscriber asks for an 8 MiB
+    SO_RCVBUF on its socket BEFORE connect (the TCP window scale is fixed
+    on the SYN), so an undrained burst of thousands of announces sits in
+    the socket's buffer; a command connection keeps the defaults. A burst
+    of 5,000 written before the first read then arrives whole."""
+    import socket
+
+    from tpu_faas_torch.store import client, launch
+
+    handle = launch.start_store_thread()
+    events: list = []
+    real = socket.socket
+
+    class Spy(real):
+        def setsockopt(self, level, opt, value):
+            if (level, opt) == (socket.SOL_SOCKET, socket.SO_RCVBUF):
+                events.append((id(self), "rcvbuf", value))
+            return super().setsockopt(level, opt, value)
+
+        def connect(self, addr):
+            events.append((id(self), "connect", addr[1]))
+            return super().connect(addr)
+
+    try:
+        store = launch.make_store(handle.url)
+        monkeypatch.setattr(client.socket, "socket", Spy)
+        sub = store.subscribe("c5")
+        monkeypatch.setattr(client.socket, "socket", real)
+        mine = [e[1:] for e in events if e[0] == id(sub._conn.sock)]
+        assert mine == [("rcvbuf", 8 << 20), ("connect", handle.port)]
+        store.create_tasks([(f"c5-{i}", "F", "P") for i in range(5_000)],
+                           "c5")
+        got, deadline = 0, time.monotonic() + 30.0
+        while got < 5_000 and time.monotonic() < deadline:
+            got += sub.get_message(timeout=0.05) is not None
+        assert got == 5_000
+        sub.close()
+        store.close()
+    finally:
+        handle.stop()
+
+
+def _cli_flags(path: str) -> set[str]:
+    """Every option string a CLI module's ``add_argument`` calls name."""
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    return {a.value for n in ast.walk(tree)
+            if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and n.func.attr == "add_argument"
+            for a in n.args if isinstance(a, ast.Constant)
+            and str(a.value).startswith("-")}
+
+
+def test_cli_flags_are_jaxs_plus_device_and_dist_backend():
+    """The port's dispatcher CLI takes every flag of JAX's, the
+    multi-device ones included (--mesh, --multihost, --coordinator,
+    --process-id, --num-processes, --cpu-pod-devices, --follower-watchdog),
+    and two of its own."""
+    want = _cli_flags(os.path.join(_REPO, "tpu_faas", "dispatch",
+                                   "__main__.py"))
+    got = _cli_flags(cli.__file__)
+    assert {"--mesh", "--multihost", "--coordinator", "--process-id",
+            "--num-processes", "--cpu-pod-devices",
+            "--follower-watchdog"} <= want
+    assert got == want | {"--device", "--dist-backend"}

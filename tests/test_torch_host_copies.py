@@ -31,7 +31,7 @@ core/serialize.py core/payload.py core/task.py core/columns.py
 core/executor.py core/__init__.py
 worker/messages.py
 store/resp.py store/base.py store/memory.py store/snapshot.py
-store/replication.py store/client.py store/sharding.py store/server.py
+store/replication.py store/sharding.py store/server.py
 store/launch.py store/native.py store/__init__.py store/racecheck.py
 admission/signal.py admission/breaker.py admission/controller.py
 admission/__init__.py
@@ -55,22 +55,44 @@ CHANGED = {
     "statement below",
     "dispatch/tpu_push.py": "a device argument (default 'cuda', resolved "
     "before the store and socket, so no card means no dispatcher) passed "
-    "to the scheduler; tick_backend accepted and not passed on (the "
-    "port's ResidentScheduler has no such field: B1 serves every resident "
-    "tick on CUDA), so the status blocks report None; multihost raises "
-    "A.11's NotImplementedError where JAX imports tpu_faas.parallel "
-    "(mesh_devices raises inside SchedulerArrays); the kernels are built "
+    "to the scheduler and to the multihost tick or resident scheduler; "
+    "tick_backend accepted and not passed on (the port's "
+    "ResidentScheduler has no such field: B1 serves every resident tick "
+    "on CUDA), so the status blocks report None; the kernels are built "
     "in the constructor on CUDA (B1 when resident, B2 under the batch "
-    "auction), so no nvcc run stalls the first tick; the profiler's "
-    "shape signature names the device type where JAX wrote the backend "
-    "label 'xla'; comments and the module docstring name the port. Only "
-    "__init__ and _tick_resident differ, checked below",
+    "auction), so no nvcc run stalls the first tick; the batch tick's "
+    "outputs are read with to_host (a CUDA tensor has no numpy view); "
+    "the profiler's shape signature names the device type where JAX "
+    "wrote the backend label 'xla'; comments and the module docstring "
+    "name the port. Only __init__, _tick_inner and _tick_resident "
+    "differ, checked below",
     "dispatch/__main__.py": "tpu-push only: local, pull and push exit "
-    "with ROADMAP A.12, --mesh and --multihost with A.11's "
-    "NotImplementedError text, both before anything starts; --device "
-    "cuda|cpu added; the XLA compile cache and the jax_platforms pin "
-    "dropped; --tick-backend accepted and unused. Only main differs, "
-    "checked below",
+    "with ROADMAP A.12 before anything starts; --device cuda|cpu and "
+    "--dist-backend nccl|gloo added; --multihost joins a "
+    "torch.distributed group (its timeout from --follower-watchdog; "
+    "--device cpu gives the process one CPU position); the XLA compile "
+    "cache and the jax_platforms pin dropped; --tick-backend accepted "
+    "and unused. Only main differs, checked below",
+    "store/client.py": "the subscription's socket sets an 8 MiB "
+    "SO_RCVBUF (SUBSCRIBER_RCVBUF) before it connects, so _Conn connects "
+    "through its own getaddrinfo loop (ROADMAP C.5: on a gVisor-style "
+    "network stack a burst of more than ~1,500 unread announces stalled "
+    "the bus for seconds with the default window). Only the constant, "
+    "_Conn.__init__ and _RespSubscription._connect differ, checked below",
+    "parallel/__init__.py": "the port's package: exports the torch "
+    "mesh's names",
+    "parallel/distributed.py": "the process group on torch.distributed "
+    "(tcp:// or env://, NCCL or gloo) in place of jax.distributed",
+    "parallel/mesh.py": "a mesh is a list of (rank, device) positions; "
+    "the shard_map bodies are loops over a process's positions with "
+    "psum/pmax/ppermute/all_gather on lists and torch.distributed; the "
+    "GSPMD paths are all_gather plus the single-device function",
+    "parallel/multihost_tick.py": "dist.broadcast of the packed buffer "
+    "for broadcast_one_to_all; the assignment comes back whole from the "
+    "sharded functions' all_gather",
+    "parallel/multihost_resident.py": "every process holds a full replica "
+    "of the resident state and runs B1 on it, where JAX shards the task "
+    "leaves under GSPMD; dist.barrier for sync_global_devices",
 }
 
 #: closure modules the port does not copy: ported under its own name by an
@@ -99,11 +121,6 @@ NOT_COPIED = {
     "tpu_faas.dispatch.local": "the other dispatcher modes, ROADMAP A.12",
     "tpu_faas.dispatch.pull": "the other dispatcher modes, ROADMAP A.12",
     "tpu_faas.dispatch.push": "the other dispatcher modes, ROADMAP A.12",
-    "tpu_faas.parallel": "multi-device, ROADMAP A.11",
-    "tpu_faas.parallel.distributed": "multi-device, ROADMAP A.11",
-    "tpu_faas.parallel.mesh": "multi-device, ROADMAP A.11",
-    "tpu_faas.parallel.multihost_resident": "multi-device, ROADMAP A.11",
-    "tpu_faas.parallel.multihost_tick": "multi-device, ROADMAP A.11",
 }
 
 
@@ -227,12 +244,16 @@ def _defs(src: str) -> dict[str, str]:
     return out
 
 
-#: the only functions a changed dispatcher module may change (CHANGED says
-#: why)
+#: the only functions a changed dispatcher or store module may change
+#: (CHANGED says why)
 DISPATCH_CHANGED = {
     "dispatch/tpu_push.py": {"TpuPushDispatcher.__init__",
+                             "TpuPushDispatcher._tick_inner",
                              "TpuPushDispatcher._tick_resident"},
     "dispatch/__main__.py": {"main"},
+    # <statement 5>: the new constant SUBSCRIBER_RCVBUF
+    "store/client.py": {"<statement 5>", "_Conn.__init__",
+                        "_RespSubscription._connect"},
 }
 
 

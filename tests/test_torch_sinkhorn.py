@@ -38,6 +38,11 @@ from tpu_faas_torch.sched.greedy import makespan
 from tpu_faas_torch.sched.state import SchedulerArrays as TArrays
 from tpu_faas_torch.sched.state import scheduler_tick_impl as t_tick
 
+# the suite runs as several worker processes sharing the machine's cores:
+# torch's intra-op pool on every core makes their parallel regions wait on
+# each other (a test of seconds took minutes), so each takes one thread
+torch.set_num_threads(1)
+
 f32, i32 = np.float32, np.int32
 #: potentials, |df|/tau and |dg|/tau: a few ulps of |f/tau| <= 2^5 (3.8e-6
 #: each); measured up to 2.4e-6 over 60 iterations

@@ -2,8 +2,9 @@
 
 ``scheduler_tick_impl`` and ``SchedulerArrays.tick`` get the same seeded
 numpy inputs in both packages (on the CPU); every output is an integer or
-bool vector and must be exactly equal. The mesh and multihost layouts, still
-unported, raise ``NotImplementedError``.
+bool vector and must be exactly equal. The mesh and multihost layouts are
+held against JAX in tests/test_torch_parallel_mesh.py and
+tests/test_torch_multihost.py; here, that they build and tick.
 """
 
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from tpu_faas.sched.state import SchedulerArrays as JArrays
 from tpu_faas.sched.state import scheduler_tick_impl as j_tick
 from tpu_faas_torch.sched.resident import ResidentScheduler
 from tpu_faas_torch.sched.state import SchedulerArrays as TArrays
+from tpu_faas_torch.sched.state import TickOutput
 from tpu_faas_torch.sched.state import scheduler_tick_impl as t_tick
 
 f32, i32 = np.float32, np.int32
@@ -135,11 +137,44 @@ def test_unported_placements_raise(placement, exc):
     assert res.placed == [("t0", 0)] and res.straggler_slots == []
 
 
+class _LeadStub:
+    """A MultihostTick's lead side: records the tick it is handed."""
+
+    def __init__(self):
+        self.calls = []
+
+    def lead_tick(self, sizes, speed, free, active, hb_age, inflight, tte,
+                  task_priorities=None):
+        self.calls.append((sizes, hb_age, task_priorities))
+        live = active & (hb_age <= tte)
+        return TickOutput(np.full(len(sizes), -1, np.int32), live,
+                                 np.zeros_like(live), None)
+
+
 @pytest.mark.parametrize("kw", [dict(mesh_devices=2),
-                                dict(multihost=object())])
+                                dict(multihost=_LeadStub())])
 def test_multi_device_layouts_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        TArrays(device="cpu", **kw)
+    """The name dates from when the port refused these layouts. A mesh
+    pads the task axis and ticks over its positions like the single-device
+    tick; a multihost tick hands the host inputs to the lead and keeps its
+    live vector."""
+    a = TArrays(device="cpu", max_pending=7, clock=lambda: 100.0, **kw)
+    one = TArrays(device="cpu", max_pending=8, clock=lambda: 100.0)
+    for arr in (a, one):
+        arr.register(b"w0", 2, speed=2.0)
+        arr.register(b"w1", 1, speed=1.0)
+    sizes = np.array([3.0, 1.0, 2.0], np.float32)
+    out = a.tick(sizes, task_priorities=np.array([0, 1, 0], np.int32))
+    if "mesh_devices" in kw:
+        assert a.max_pending == 8 and a.mesh.size == 2
+        want = one.tick(sizes, task_priorities=np.array([0, 1, 0], np.int32))
+        np.testing.assert_array_equal(out.assignment.numpy(),
+                                      want.assignment.numpy())
+    else:
+        (got_sizes, hb_age, prio), = kw["multihost"].calls
+        np.testing.assert_array_equal(got_sizes, sizes)
+        assert list(prio) == [0, 1, 0] and hb_age[0] == 0.0
+        assert list(a.prev_live[:2]) == [True, True]
 
 
 @pytest.mark.parametrize("arg,want", [

@@ -20,8 +20,6 @@ _TICK = "JAX's fused tick against its impl (the port's lane: " \
     "tests/test_torch_state.py)"
 globals().update(load_twins("test_quarantine.py", {
     "test_place_cap_parity_fused_vs_impl": _TICK,
-    "test_place_cap_refused_on_sharded_fleets":
-        "mesh layouts are not ported (ROADMAP A.11)",
 }, overrides=dict(SchedulerArrays=partial(SchedulerArrays, device="cpu"))))
 
 _on_cpu = pytest.mark.usefixtures("dispatcher_on_cpu")

@@ -3,13 +3,8 @@
 serving the JAX package's gateway, client SDK and push worker processes,
 unmodified, through the port's in-process store server and store client
 (``test_torch_host_copies.load_twins``). One case also runs against the
-JAX package's own store server and the gateway's own store client.
-
-The mesh case is left out: multi-device layouts are not ported (ROADMAP
-A.11); ``test_mesh_dispatcher_raises_until_ported`` pins what the port
-does instead."""
-
-import pytest
+JAX package's own store server and the gateway's own store client. The
+mesh case serves over 8 CPU positions (``mesh_devices=8``)."""
 
 from test_torch_host_copies import (
     check_ports_dispatcher,
@@ -17,10 +12,8 @@ from test_torch_host_copies import (
     load_twins,
 )
 
-globals().update(load_twins("test_tpu_push_e2e.py", {
-    "test_tpu_push_mesh_dispatcher_e2e":
-        "mesh layouts are not ported (ROADMAP A.11)",
-}, overrides={"TpuPushDispatcher": cpu_dispatcher()}))
+globals().update(load_twins("test_tpu_push_e2e.py", {},
+                            overrides={"TpuPushDispatcher": cpu_dispatcher()}))
 
 # the end-to-end case again, with the JAX package's store server and the
 # gateway's own store client; the dispatcher keeps the port's client
@@ -37,5 +30,9 @@ def test_twin_builds_the_ports_dispatcher():
 
 
 def test_mesh_dispatcher_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        _make_dispatcher("memory://", mesh_devices=8, recover_queued=False)
+    """The mesh dispatcher builds its 8 CPU positions (the name dates from
+    when the port refused the layout)."""
+    d = _make_dispatcher("memory://", mesh_devices=8, recover_queued=False)
+    assert d.arrays.mesh.size == 8
+    assert d.arrays.max_pending % 8 == 0
+    check_ports_dispatcher(d)

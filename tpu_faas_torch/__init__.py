@@ -30,6 +30,9 @@ reader can find each module's twin:
   exchange) as torch ops on the batch tick, the host ``GraphFrontier``,
   and DAG validation
 - :mod:`tpu_faas_torch.sim.fleet`        the simulated churn fleet
+- :mod:`tpu_faas_torch.parallel`         multi-device scheduling on
+  ``torch.distributed``: meshes of (process, device) positions, the
+  sharded tick, and the multi-process lead/follower ticks
 
 The host layers the tpu-push dispatcher imports are copies of the JAX
 package's modules at the same paths, changed only in their imports:

@@ -32,6 +32,9 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """Read a tensor back as numpy (a sync when it lies on the card)."""
+def to_host(t: torch.Tensor | np.ndarray) -> np.ndarray:
+    """Read a tensor back as numpy (a sync when it lies on the card); a
+    numpy array (the multihost tick's outputs) passes through."""
+    if isinstance(t, np.ndarray):
+        return t
     return t.detach().cpu().numpy()

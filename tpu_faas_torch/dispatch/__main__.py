@@ -3,10 +3,18 @@
     python -m tpu_faas_torch.dispatch -m tpu-push -p 5555 [--resident]
     python -m tpu_faas_torch.dispatch -m tpu-push --device cpu
 
+    python -m tpu_faas_torch.dispatch -m tpu-push --mesh N [--resident]
+    python -m tpu_faas_torch.dispatch -m tpu-push --multihost [--resident] \
+        --coordinator HOST:PORT --process-id R --num-processes P
+
 The tick runs on ``--device`` (``cuda`` by default; without a GPU that
-raises). Modes local, pull and push, and the multi-device flags ``--mesh``
-and ``--multihost``, are not ported yet: the CLI exits at startup with the
-ROADMAP item each waits for rather than silently doing nothing.
+raises). ``--multihost`` joins a ``torch.distributed`` process group
+before anything else starts: process 0 serves, the others follow its ticks
+and exit when it stops; ``--dist-backend`` picks the group's backend
+(NCCL on cards, gloo on the CPU by default; gloo on cards stages every
+collective through host memory, the route for two processes on one card).
+Modes local, pull and push are not ported yet: the CLI exits at startup
+with ROADMAP A.12 rather than silently doing nothing.
 """
 
 from __future__ import annotations
@@ -142,10 +150,16 @@ def main(argv: list[str] | None = None) -> None:
         "without a GPU, cpu runs the plain PyTorch path",
     )
     ap.add_argument(
+        "--dist-backend", default=None, choices=("nccl", "gloo"),
+        help="--multihost: the process group's backend (default: nccl on "
+        "cuda, gloo on cpu); gloo on cuda stages each collective through "
+        "host memory, the only route for two processes on one card",
+    )
+    ap.add_argument(
         "--mesh", type=int, default=0, metavar="N",
-        help="tpu-push: shard the pending-task axis over N devices "
-        "(jax.sharding.Mesh; all placements — rank, sinkhorn, auction — "
-        "run sharded); 0 = single device",
+        help="tpu-push: shard the pending-task axis over N positions (N "
+        "cards on cuda, N host positions on cpu; all placements — rank, "
+        "sinkhorn, auction — run sharded); 0 = single device",
     )
     mh = ap.add_argument_group(
         "multihost",
@@ -169,7 +183,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     mh.add_argument(
         "--coordinator", default=None, metavar="HOST:PORT",
-        help="jax.distributed coordinator address (default: auto-discover)",
+        help="the process group's rendezvous address, tcp://HOST:PORT "
+        "(default: env:// discovery)",
     )
     mh.add_argument(
         "--process-id", type=int, default=None,
@@ -181,9 +196,9 @@ def main(argv: list[str] | None = None) -> None:
     )
     mh.add_argument(
         "--cpu-pod-devices", type=int, default=0, metavar="N",
-        help="simulate a pod on CPUs: contribute N virtual CPU devices "
-        "from this process, collectives over gloo (for testing/dev; "
-        "0 = real accelerator devices)",
+        help="simulate a pod on CPUs: contribute N CPU positions from "
+        "this process, collectives over gloo (for testing/dev; 0 = this "
+        "process's --device)",
     )
     ap.add_argument(
         "--lease-timeout", type=float, default=30.0,
@@ -381,10 +396,6 @@ def main(argv: list[str] | None = None) -> None:
     if ns.mode != "tpu-push":
         sys.exit(f"dispatcher mode {ns.mode!r} is not ported yet: "
                  "ROADMAP A.12")
-    if ns.multihost or ns.mesh:
-        from tpu_faas_torch.sched.state import unported
-
-        sys.exit(str(unported("multihost" if ns.multihost else "mesh")))
     if ns.delay:
         time.sleep(ns.delay)
 
@@ -400,6 +411,69 @@ def main(argv: list[str] | None = None) -> None:
             owned_shards=[int(x) for x in ns.shards.split(",") if x != ""],
             binbatch=ns.store_binbatch,
         )
+
+    if ns.multihost:
+        # Validate flag combinations HERE, before any process joins the
+        # group: the lead's constructor also rejects these, but by then the
+        # followers are blocked in a collective and a lead that exits
+        # without serving never sends the stop broadcast
+        if ns.mesh:
+            sys.exit("--multihost owns the global mesh; drop --mesh")
+        # join the group BEFORE any other device use; followers never
+        # reach the dispatcher construction below
+        from tpu_faas_torch.parallel import distributed
+
+        cpu_positions = ns.cpu_pod_devices or (
+            1 if ns.device == "cpu" else None)
+        distributed.initialize_multihost(
+            coordinator_address=ns.coordinator,
+            num_processes=ns.num_processes,
+            process_id=ns.process_id,
+            cpu_devices_per_process=cpu_positions,
+            backend=ns.dist_backend,
+            timeout=ns.follower_watchdog or None,
+        )
+        if distributed.process_index() != 0:
+            log.info(
+                "multihost follower %d/%d: positions %s",
+                distributed.process_index(), distributed.process_count(),
+                [str(d) for d in distributed.local_devices(ns.device)],
+            )
+            # shape args mirror the lead's dispatcher kwargs below: the
+            # broadcast layout must agree in every process, which is why
+            # max-slots is a CLI flag rather than a buried default
+            if ns.resident:
+                from tpu_faas_torch.parallel.multihost_resident import (
+                    MultihostResidentScheduler,
+                )
+
+                follower = MultihostResidentScheduler.from_shape(
+                    max_workers=ns.max_fleet,
+                    max_pending=ns.max_pending,
+                    max_inflight=ns.max_inflight,
+                    max_slots=ns.max_slots,
+                    time_to_expire=ns.tte,
+                    placement=ns.placement,
+                    device=ns.device,
+                )
+                if follower.device.type == "cuda":
+                    # build B1 before the first packet, as the lead does
+                    from tpu_faas_torch.sched import fused_tick
+
+                    fused_tick.KERNEL.load()
+                follower.follow_loop(
+                    watchdog_timeout=ns.follower_watchdog or None)
+                return
+            from tpu_faas_torch.parallel.multihost_tick import MultihostTick
+
+            MultihostTick(
+                max_pending=ns.max_pending,
+                max_workers=ns.max_fleet,
+                max_slots=ns.max_slots,
+                placement=ns.placement,
+                device=ns.device,
+            ).follow_loop(watchdog_timeout=ns.follower_watchdog or None)
+            return
 
     from tpu_faas_torch.dispatch.tpu_push import TpuPushDispatcher
 
@@ -417,7 +491,9 @@ def main(argv: list[str] | None = None) -> None:
         max_inflight=ns.max_inflight,
         max_slots=ns.max_slots,
         placement=ns.placement,
+        mesh_devices=ns.mesh or None,
         lease_timeout=ns.lease_timeout,
+        multihost=ns.multihost,
         resident=ns.resident,
         tick_backend=ns.tick_backend,
         estimate_runtimes=not ns.no_runtime_learning,
@@ -447,6 +523,65 @@ def main(argv: list[str] | None = None) -> None:
     )
     if owned_store is not None:
         kwargs["store"] = owned_store
+    if ns.multihost:
+        # Lead-side failure containment: once the followers joined they
+        # sit in a blocking collective, and ONLY the serve loop's finally
+        # releases them (lead_stop inside start()). Any failure before
+        # start() — a busy ZMQ port, a store refusal, a busy stats port —
+        # would otherwise exit the lead and strand every follower
+        d = None
+        serving = False
+        try:
+            d = TpuPushDispatcher(**kwargs)
+            log.info("%s dispatcher on %s:%d", ns.mode, ns.ip, ns.port)
+            if ns.stats_port:
+                d.serve_stats(ns.stats_port)
+            _install_stop_signals(d)
+            serving = True
+            d.start()  # its finally broadcasts the follower stop
+        except BaseException:
+            if not serving:
+                try:
+                    arrays = getattr(d, "arrays", None)
+                    mt = getattr(arrays, "multihost", None)
+                    if mt is None and hasattr(arrays, "lead_stop"):
+                        mt = arrays  # resident+multihost: arrays is the lead
+                    if mt is None and ns.resident:
+                        from tpu_faas_torch.parallel.multihost_resident import (
+                            MultihostResidentScheduler,
+                        )
+
+                        mt = MultihostResidentScheduler.from_shape(
+                            max_workers=ns.max_fleet,
+                            max_pending=ns.max_pending,
+                            max_inflight=ns.max_inflight,
+                            max_slots=ns.max_slots,
+                            time_to_expire=ns.tte,
+                            placement=ns.placement,
+                            device=ns.device,
+                        )
+                    if mt is None:
+                        from tpu_faas_torch.parallel.multihost_tick import (
+                            MultihostTick,
+                        )
+
+                        mt = MultihostTick(
+                            max_pending=ns.max_pending,
+                            max_workers=ns.max_fleet,
+                            max_slots=ns.max_slots,
+                            placement=ns.placement,
+                            device=ns.device,
+                        )
+                    mt.lead_stop()
+                    log.info("released multihost followers before exiting")
+                except Exception:
+                    log.exception(
+                        "could not release multihost followers — they must "
+                        "be killed manually"
+                    )
+            raise
+        return
+
     d = TpuPushDispatcher(**kwargs)
     log.info("%s dispatcher on %s:%d", ns.mode, ns.ip, ns.port)
     if ns.stats_port:

@@ -25,8 +25,11 @@ In this package the tick runs on ``device`` (``"cuda"`` by default; a CUDA
 device without a GPU raises, and the CPU runs only when the caller asks
 for ``device="cpu"``). With ``resident=True`` every tick on the card is
 one launch of the hand-written kernel B1 (``csrc/fused_tick.cu``), built
-in the constructor. Multi-device fleets (``mesh_devices``, ``multihost``)
-are not ported yet and raise ``NotImplementedError``.
+in the constructor. Multi-device fleets run as in JAX: ``mesh_devices``
+shards the batch tick's task axis over N positions (on ``cuda`` N cards;
+under ``resident`` B1 runs on the whole state on the first), and
+``multihost`` makes this process the lead of a fleet over
+``torch.distributed`` (``tpu_faas_torch/parallel``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import numpy as np
 import zmq
 
 from tpu_faas_torch.core.payload import RESULT_BLOB_MIN_BYTES
-from tpu_faas_torch.device import resolve_device
+from tpu_faas_torch.device import resolve_device, to_host
 
 from tpu_faas_torch.core.task import (
     FIELD_DEPS,
@@ -60,7 +63,7 @@ from tpu_faas_torch.dispatch.base import (
 )
 from tpu_faas_torch.obs.profile import TickProfiler
 from tpu_faas_torch.sched.estimator import RuntimeEstimator, fn_digest
-from tpu_faas_torch.sched.state import SchedulerArrays, unported
+from tpu_faas_torch.sched.state import SchedulerArrays
 from tpu_faas_torch.store.base import LIVE_INDEX_KEY, blobreq_key
 from tpu_faas_torch.utils.logging import TickTracer, log_ctx
 from tpu_faas_torch.worker import messages as m
@@ -315,9 +318,25 @@ class TpuPushDispatcher(TaskDispatcher):
             )
         self.resident = resident
         if resident and multihost:
-            # the unified fast+multihost path (the resident delta packet as
-            # the per-tick broadcast over a global mesh) is not ported
-            raise unported("multihost")
+            # the unified fast+multihost path: the resident delta packet IS
+            # the per-tick broadcast, every process holds a replica of the
+            # resident state (parallel/multihost_resident.py). This process
+            # is the lead; followers run its follow_loop.
+            from tpu_faas_torch.parallel.multihost_resident import (
+                MultihostResidentScheduler,
+            )
+
+            self.arrays = MultihostResidentScheduler.from_shape(
+                max_workers=max_workers,
+                max_pending=max_pending,
+                max_inflight=max_inflight,
+                max_slots=max_slots,
+                time_to_expire=time_to_expire,
+                placement=placement,
+                clock=clock,
+                device=device,
+            )
+            self._resident_tasks = {}
         elif resident:
             from tpu_faas_torch.sched.resident import ResidentScheduler
 
@@ -380,8 +399,24 @@ class TpuPushDispatcher(TaskDispatcher):
                 self.arrays.spec_min_s = self.spec.min_runtime_s
             self._resident_tasks = {}
         if multihost and not resident:
-            # the lead of a multi-process dispatcher fleet is not ported
-            raise unported("multihost")
+            # this process is the LEAD of a multi-process dispatcher fleet:
+            # followers (started with the same --multihost flags, nonzero
+            # process id) sit in MultihostTick.follow_loop and join every
+            # tick's collectives. The resident+multihost combination does
+            # NOT attach this object: its packet protocol lives on the
+            # arrays themselves (MultihostResidentScheduler), and a second
+            # tick object here would broadcast a DIFFERENT buffer shape at
+            # shutdown — a collective mismatch at the one moment the fleet
+            # should be draining cleanly
+            from tpu_faas_torch.parallel.multihost_tick import MultihostTick
+
+            self.arrays.multihost = MultihostTick(
+                max_pending=max_pending,
+                max_workers=max_workers,
+                max_slots=max_slots,
+                placement=placement,
+                device=device,
+            )
         #: host-side staging queue; id-indexed so intake dedup and the
         #: rescan's known-set are O(1) probes, not per-tick O(pending) walks
         self.pending: PendingQueue = PendingQueue()
@@ -2495,15 +2530,15 @@ class TpuPushDispatcher(TaskDispatcher):
             # and deactivate the purged rows; an outage raise propagates
             # with no bookkeeping mutated (the whole tick aborts)
             self._reap_dead_workers(
-                np.flatnonzero(np.asarray(out.redispatch)),
-                np.flatnonzero(np.asarray(out.purged)),
+                np.flatnonzero(to_host(out.redispatch)),
+                np.flatnonzero(to_host(out.purged)),
                 requeued.append,
             )
             # speculation: straggler flags acted on AFTER the tick's
             # try/finally (the queue is a placeholder inside it — a hedge
             # appended here would be lost to the reassembly)
             if self.spec is not None and out.straggler is not None:
-                straggler_idx = np.flatnonzero(np.asarray(out.straggler))
+                straggler_idx = np.flatnonzero(to_host(out.straggler))
 
             # zombie-finished pre-pass: ONE pipelined status read over the
             # retry-carrying slice of the batch replaces the per-retry
@@ -2517,7 +2552,7 @@ class TpuPushDispatcher(TaskDispatcher):
 
             # act: send assignments
             with self.tracer.span("act"):
-                assignment = np.asarray(out.assignment)[: len(batch)]
+                assignment = to_host(out.assignment)[: len(batch)]
                 for idx, (task, row) in enumerate(zip(batch, assignment)):
                     restore_from = idx
                     row = int(row)

@@ -34,6 +34,16 @@ in-flight scatter and a 2-float threshold tail; the state carries real
 ``infl_start``/``infl_pred``/``avoid`` leaves; the tick flags stragglers
 (the first KG, compacted) and runs the hedge fixup after placement, and on
 the card the kernel runs this lane in all three placements too.
+
+With ``mesh_devices=N`` the task axis is padded to a multiple of N and the
+task leaves stay one contiguous [T] tensor on the first position's device,
+the dispatcher's card: B1 runs on the whole state
+unchanged, under the mesh as without it. Where the positions are distinct
+cards, the others hold no resident state (B1 is a single-device kernel:
+this is the price of one process). Multi-card resident work is
+``parallel/multihost_resident.py``: one process per card, each with a
+full replica, the lead broadcasting every packet. Either way a layout's
+placements are those of one ``ResidentScheduler`` at the padded shape.
 """
 
 from __future__ import annotations
@@ -149,8 +159,8 @@ def state_to_numpy(st: _ResidentState) -> dict[str, np.ndarray]:
 
 # header: now (epoch-relative seconds), then the counts of arrivals, hb,
 # free, inflight, speed and active deltas, one opcode word (0 = tick,
-# 1 = flush) and time_to_expire
-_OP_TICK, _OP_FLUSH = 0.0, 1.0
+# 1 = flush, 2 = stop: the multihost followers' exit) and time_to_expire
+_OP_TICK, _OP_FLUSH, _OP_STOP = 0.0, 1.0, 2.0
 _HEADER = 9
 
 
@@ -435,6 +445,10 @@ class ResidentScheduler(SchedulerArrays):
     tick's NT on every device and placement: the only limit is the int32
     segment key, ``(max_tenants + 1) * max_pending < 2**31``
     (``check_segment_key``, raised at construction).
+
+    With ``mesh_devices=N`` (JAX refuses its fused backend there; the port
+    has no other) B1 serves every tick under the mesh too, on the whole
+    state: see the module docstring.
     """
 
     # delta-packet capacities

@@ -109,6 +109,10 @@ def sinkhorn_placement_impl(
     return SinkhornResult(assignment, plan, marginal_err, f, g, tau_eff)
 
 
+#: the public name: PyTorch runs eagerly, so the solver is its own entry
+sinkhorn_placement = sinkhorn_placement_impl
+
+
 def _dense_problem(task_size, task_valid, worker_speed, worker_free,
                    worker_live, tau, max_slots):
     """The dense solver's balanced [T+1, W+1] problem: (loga, logb,

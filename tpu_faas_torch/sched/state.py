@@ -17,9 +17,15 @@ reaches no Pallas kernel for it), and so are the tenancy plane
 plane (``tpu_faas_torch/spec``: the straggler flags, the anti-affinity veto
 and the hedge fixup, plain torch ops too), and the graph lanes
 (``tpu_faas_torch/graph/frontier.py``: the dependency mask, the byte
-preference and the locality exchange, plain torch ops as in JAX). The mesh
-and multihost layouts raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+preference and the locality exchange, plain torch ops as in JAX).
+
+``mesh_devices=N`` shards the pending-task axis over a mesh of N positions
+(``tpu_faas_torch/parallel/mesh.py``: N cards on ``cuda``, N host positions
+on ``cpu``) and ticks through ``sharded_scheduler_tick``; ``multihost`` (a
+``parallel.multihost_tick.MultihostTick``) routes the tick through its
+``lead_tick`` over every process's positions. Both refuse the tenancy,
+speculation, quarantine and graph lanes with JAX's ``ValueError``s: those
+lanes are single-device, in JAX and here.
 """
 
 from __future__ import annotations
@@ -56,18 +62,6 @@ from tpu_faas_torch.tenancy.fairshare import (
 )
 
 _I32 = torch.int32
-
-#: what each unported feature waits for, by ROADMAP item
-_UNPORTED = {
-    "mesh": "ROADMAP A.11 (multi-device)",
-    "multihost": "ROADMAP A.11 (multi-device)",
-}
-
-
-def unported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to tpu_faas_torch yet: {_UNPORTED[feature]}"
-    )
 
 
 def check_placement(placement: str) -> None:
@@ -347,7 +341,13 @@ class SchedulerArrays:
     clock: "callable" = time.monotonic
     #: placement kernel for the tick: rank, auction or sinkhorn
     placement: str = "rank"
+    #: multi-process collective tick (parallel.multihost_tick.MultihostTick)
+    #: — when set, tick() routes through its lead_tick over the GLOBAL mesh
+    #: instead of the local device path; mutually exclusive with
+    #: mesh_devices (the MultihostTick owns the mesh)
     multihost: "object | None" = None
+    #: shard the pending-task axis over this many positions (0/None = one
+    #: device); the tick then runs parallel.mesh.sharded_scheduler_tick
     mesh_devices: int | None = None
     device: "str | torch.device" = "cuda"
 
@@ -360,12 +360,20 @@ class SchedulerArrays:
 
     def __post_init__(self) -> None:
         check_placement(self.placement)
-        if self.mesh_devices:
-            raise unported("mesh")
-        if self.multihost is not None:
-            raise unported("multihost")
         self.device = resolve_device(self.device)
         self.mesh = None
+        if self.mesh_devices:
+            from tpu_faas_torch.parallel.mesh import make_mesh
+
+            # N distinct cards on cuda (fewer present raises), N host
+            # positions on cpu
+            self.mesh = make_mesh(self.mesh_devices, device=self.device)
+            if self.max_pending % self.mesh_devices:
+                # the task axis must split evenly; round up rather than
+                # reject — max_pending is a padding size anyway
+                self.max_pending += self.mesh_devices - (
+                    self.max_pending % self.mesh_devices
+                )
         W = self.max_workers
         self.worker_speed = np.zeros(W, dtype=np.float32)
         #: tail-health multiplier on effective placement speed (1.0 =
@@ -703,14 +711,57 @@ class SchedulerArrays:
         the graph locality preference the post-placement exchange applies;
         ``pref_edges`` (optional) is the result data plane's padded
         (pref_child, pref_row, pref_bytes) triplet, overriding
-        ``task_pref`` where it applies (``graph/frontier.py``). The mesh
-        and multihost layouts that JAX refuses them on are not ported.
+        ``task_pref`` where it applies (``graph/frontier.py``). A mesh or
+        multihost tick refuses every one of these lanes, as JAX's does.
         """
         n = len(task_sizes)
+        sharded = self.multihost is not None or self.mesh is not None
+        if sharded and (dep_edges is not None or task_pref is not None
+                        or pref_edges is not None):
+            raise ValueError(
+                "graph frontier args are single-device only; mesh/"
+                "multihost dispatchers must rely on promotion announces"
+            )
+        tenancy_on = self.tenancy is not None and task_tenants is not None
+        if tenancy_on and sharded:
+            raise ValueError(
+                "the tenancy plane is single-device only in the one-shot "
+                "tick; mesh/multihost fleets run without in-tick fairness"
+            )
+        if sharded and (self.spec_mult is not None
+                        or task_avoid is not None):
+            raise ValueError(
+                "the speculation plane is single-device only; mesh/"
+                "multihost fleets run without straggler hedging"
+            )
+        if worker_place_cap is not None and sharded:
+            raise ValueError(
+                "the quarantine plane is single-device only; mesh/"
+                "multihost fleets run without placement ceilings"
+            )
         if n > self.max_pending:
             raise ValueError(f"{n} pending > max_pending={self.max_pending}")
         T, W = self.max_pending, self.max_workers
         now_f = now if now is not None else self.clock()
+        if self.multihost is not None:
+            # the collective tick over every process's positions; returns
+            # host arrays (the whole assignment), priorities on the
+            # broadcast
+            out = self.multihost.lead_tick(
+                np.asarray(task_sizes, dtype=np.float32),
+                self.worker_speed,
+                self.worker_free,
+                self.worker_active,
+                (now_f - self.last_heartbeat).astype(np.float32),
+                self.inflight_worker,
+                self.time_to_expire,
+                task_priorities=(
+                    None if task_priorities is None
+                    else np.asarray(task_priorities, dtype=np.int32)
+                ),
+            )
+            self.prev_live = out.live
+            return out
         if self._d_auction_refresh is not None and bool(
             self._d_auction_refresh
         ):
@@ -718,6 +769,20 @@ class SchedulerArrays:
             # read is of a value computed a whole tick ago)
             self._d_auction_price = None
         self._d_auction_refresh = None
+        if self.mesh is not None:
+            ts = np.zeros(T, dtype=np.float32)
+            ts[:n] = task_sizes
+            prio = None
+            if task_priorities is not None:
+                prio = np.zeros(T, dtype=np.int32)
+                prio[:n] = task_priorities
+            out = self._tick_sharded(
+                ts, n, (now_f - self.last_heartbeat).astype(np.float32), prio)
+            if self.placement == "auction":
+                self._d_auction_price = out.auction_price
+                self._d_auction_refresh = out.auction_refresh
+            self.prev_live = out.live
+            return out
         # one packed upload carries everything that changes every tick
         packed = np.zeros(T + 2 * W, dtype=np.float32)
         packed[:n] = task_sizes
@@ -733,7 +798,6 @@ class SchedulerArrays:
             cap = self._cached_dev(
                 "place_cap", np.asarray(worker_place_cap, dtype=np.int32)
             )
-        tenancy_on = self.tenancy is not None and task_tenants is not None
         tenant_kw: dict = {}
         if tenancy_on:
             ten = self.tenancy
@@ -817,3 +881,70 @@ class SchedulerArrays:
         # reading it back here would put a sync inside every tick
         self.prev_live = out.live
         return out
+
+    def _tick_sharded(
+        self,
+        ts: np.ndarray,
+        n_valid: int,
+        hb_age: np.ndarray,
+        prio: np.ndarray | None,
+    ) -> TickOutput:
+        """The mesh tick: the sizes (and priorities) sharded over the task
+        axis, the fleet replicated, the semantics of the single-device tick.
+
+        The transfer discipline of the single-device path: the sizes are
+        the one big upload (sharded); the valid mask is built on each
+        position from a scalar; speed, active and the in-flight table are
+        cached per position behind host compares (the in-flight table
+        through its delta-maintained device mirror, re-replicated only
+        when that mirror changed); heartbeat ages and free counts are sent
+        every tick."""
+        from tpu_faas_torch.parallel.mesh import (
+            replicate,
+            shard_task_arrays,
+            sharded_scheduler_tick,
+        )
+
+        mesh = self.mesh
+        (ts_d,) = shard_task_arrays(mesh, ts)
+        prio_d = None if prio is None else shard_task_arrays(mesh, prio)[0]
+        # .copy(): the act loop mutates worker_free the moment tick()
+        # returns
+        hb, wf = replicate(mesh, hb_age, self.worker_free.copy())
+        ws = self._cached_mesh("speed@mesh", self.worker_speed)
+        wa = self._cached_mesh("active@mesh", self.worker_active)
+        src = self._device_inflight()
+        entry = self._dev_cache.get("inflight@mesh")
+        if entry is None or entry[0] is not src:
+            self._dev_cache["inflight@mesh"] = (
+                src, [src.to(d) for d in mesh.devices])
+        iw = self._dev_cache["inflight@mesh"][1]
+        return sharded_scheduler_tick(
+            mesh,
+            ts_d,
+            None,  # valid mask built on each position from n_valid
+            ws,
+            wf,
+            wa,
+            hb,
+            self._prev_live_dev(),
+            iw,
+            float(np.float32(self.time_to_expire)),
+            max_slots=self.max_slots,
+            placement=self.placement,
+            task_priority=prio_d,
+            n_valid=n_valid,
+            auction_price=self._d_auction_price,
+        )
+
+    def _cached_mesh(self, name: str, host: np.ndarray) -> list:
+        """:meth:`_cached_dev` for the mesh: one copy per position."""
+        from tpu_faas_torch.parallel.mesh import replicate
+
+        entry = self._dev_cache.get(name)
+        if entry is not None and np.array_equal(entry[0], host):
+            return entry[1]
+        snap = host.copy()
+        (dev,) = replicate(self.mesh, snap)
+        self._dev_cache[name] = (snap, dev)
+        return dev

@@ -80,11 +80,39 @@ _FAILOVERS_TOTAL = REGISTRY.counter(
 _NON_IDEMPOTENT = frozenset({"PUBLISH", "SHUTDOWN"})
 
 
+#: The receive buffer a subscription asks for (ROADMAP C.5): a burst the
+#: reader has not drained yet (thousands of announces, ~45 B each) must fit
+#: in the socket's buffer. With the default window, a gVisor-style network
+#: stack stalls such a burst for seconds once ~64 KiB are unread.
+SUBSCRIBER_RCVBUF = 8 << 20
+
+
 class _Conn:
     """One blocking RESP connection."""
 
-    def __init__(self, host: str, port: int, timeout: float = 10.0) -> None:
-        self.sock = socket.create_connection((host, port), timeout=timeout)
+    def __init__(self, host: str, port: int, timeout: float = 10.0,
+                 subscriber: bool = False) -> None:
+        err: OSError = ConnectionError(f"no address for {host}:{port}")
+        for family, kind, proto, _, addr in socket.getaddrinfo(
+            host, port, type=socket.SOCK_STREAM
+        ):
+            sock = socket.socket(family, kind, proto)
+            try:
+                if subscriber:
+                    # before connect: the TCP window scale is fixed on the
+                    # SYN, so a buffer set after connect cannot widen it
+                    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                    SUBSCRIBER_RCVBUF)
+                sock.settimeout(timeout)
+                sock.connect(addr)
+            except OSError as exc:
+                sock.close()
+                err = exc
+                continue
+            break
+        else:
+            raise err
+        self.sock = sock
         self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self.parser = resp.RespParser()
         #: True once THIS connection negotiated the binary-batch command
@@ -167,7 +195,7 @@ class _RespSubscription(Subscription):
 
     def _connect(self) -> None:
         host, port, gen = self._endpoint()
-        self._conn = _Conn(host, port)
+        self._conn = _Conn(host, port, subscriber=True)
         self._gen = gen
         reply = self._conn.command("SUBSCRIBE", self._channel)
         if not (isinstance(reply, list) and reply[0] == "subscribe"):
