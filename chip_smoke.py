@@ -235,6 +235,25 @@ over):
    workers, each answered once; the lead's SIGTERM releases the follower
    and every process exits 0. Last, ``--mesh 4`` on a machine with fewer
    than 4 cards exits at startup with the device-count message.
+16. ``stack`` — the system as separate processes through the port's entry
+   points, run after the dispatcher phase: ``python -m
+   tpu_faas_torch.store.server``, ``python -m tpu_faas_torch.gateway``,
+   then in turn each dispatcher ``python -m tpu_faas_torch.dispatch``
+   with its workers: ``-m tpu-push --resident --device cuda`` (the CLI's
+   default shape) with 4 ``push_worker 4 --hb`` serving 1,000 calls made
+   with the port's ``FaaSClient.map`` over REST, one worker SIGKILLed
+   (with its pool) once half the results are announced; ``-m local -w
+   4``, ``-m pull`` with 2 ``pull_worker 4`` and ``-m push --hb`` with 4
+   ``push_worker 4 --hb`` (one killed halfway), 256 calls each. Every
+   call comes back COMPLETED with its value, each task announced on the
+   results channel once, no child but the killed one exits, and every
+   child is reaped. From the tpu-push dispatcher's ``/stats`` its
+   ``tick_backend`` (``fused_cuda``: B1 on the card) and from its
+   ``/metrics`` its resident ticks and B1 launches. Prints each leg's
+   calls served a second, the median and p99 submit-to-result latency
+   (the gateway's submit stamp to the terminal write's), beside the
+   card's name and power limit; the children's logs go to
+   ``chiprun_out/stack/``.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
@@ -247,6 +266,8 @@ dispatcher phase's serve leg and host-dispatch pass, each counted from 0,
 and ``mesh_launches``, its launches in the mesh phase's (b) resident loop
 (``mesh_devices=1``) and in (c)'s lead and follower (the padded shape); B2's entry carries
 ``mesh_launches`` too, its launches in (a)'s gspmd and permute auctions.
+B1's rank entry also carries ``stack_launches`` and ``stack_ticks``, the
+stack phase's tpu-push dispatcher's B1 launches and resident ticks.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -3670,6 +3691,361 @@ def phase_dispatcher(dev, card: str) -> dict:
     return dict(serve=serve, host=host)
 
 
+# -- phase 16: the system as separate processes through the port's entry
+# points --------------------------------------------------------------------
+#: the tpu-push --resident leg's calls: one map, so one burst of at most
+#: 1,000 announces (ROADMAP C.5)
+STACK_CALLS = 1_000
+#: each of the local, pull and push --hb legs' calls
+STACK_OTHER_CALLS = 256
+#: each push or pull worker's processes
+STACK_PROCS = 4
+#: the push workers' heartbeat period and the dispatchers' time_to_expire
+#: (seconds): a killed worker is purged and its tasks redispatched within
+#: the leg
+STACK_HB_S, STACK_TTE_S = 0.3, 2.0
+#: no leg may take longer (seconds)
+STACK_TIMEOUT_S = 180.0
+#: the legs: mode, dispatcher flags, worker module, workers, calls, and
+#: whether one worker is SIGKILLed halfway
+STACK_LEGS = (
+    ("tpu-push", ("--resident",), "push_worker", 4, STACK_CALLS, True),
+    ("local", ("-w", "4"), None, 0, STACK_OTHER_CALLS, False),
+    ("pull", (), "pull_worker", 2, STACK_OTHER_CALLS, False),
+    ("push", ("--hb",), "push_worker", 4, STACK_OTHER_CALLS, True),
+)
+
+
+class StackProcesses:
+    """The stack's children: each ``python -m <module>`` in a session of
+    its own (one killpg reaps a worker's pool children too), its output in
+    ``<logdir>/<name>.log``. ``killed`` holds the ones killed on purpose;
+    any other child that exits fails :meth:`check`."""
+
+    def __init__(self, root: str, logdir: str) -> None:
+        self.root, self.logdir = root, logdir
+        self.procs: dict[str, subprocess.Popen] = {}
+        self.killed: set[str] = set()
+        os.makedirs(logdir, exist_ok=True)
+        # host processes need no intra-op threads; the dispatcher's tick
+        # runs on the card
+        self.env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+
+    def start(self, name: str, module: str, *args: str) -> subprocess.Popen:
+        with open(os.path.join(self.logdir, f"{name}.log"), "w") as out:
+            p = subprocess.Popen(
+                [sys.executable, "-m", module, *args], cwd=self.root,
+                env=self.env, stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        self.procs[name] = p
+        return p
+
+    def tail(self, name: str, n: int = 2000) -> str:
+        with open(os.path.join(self.logdir, f"{name}.log")) as fh:
+            return fh.read()[-n:]
+
+    def check(self) -> None:
+        for name, p in self.procs.items():
+            if name not in self.killed and p.poll() is not None:
+                raise AssertionError(f"{name} exited with {p.returncode}:\n"
+                                     + self.tail(name))
+
+    def kill(self, name: str) -> None:
+        """SIGKILL on purpose: the worker and its pool children."""
+        import signal
+
+        self.killed.add(name)
+        os.killpg(self.procs[name].pid, signal.SIGKILL)
+        self.procs[name].wait()
+
+    def stop(self, names=None, grace: float = 10.0) -> None:
+        """SIGTERM, then SIGKILL after ``grace``; every group reaped."""
+        import signal
+
+        names = list(self.procs) if names is None else list(names)
+        for name in names:
+            p = self.procs[name]
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGTERM)
+                except ProcessLookupError:
+                    pass
+        deadline = time.monotonic() + grace
+        for name in names:
+            p = self.procs.pop(name)
+            try:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+            try:  # the pool children and helpers too
+                os.killpg(p.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+            p.wait()
+
+
+def wait_until(what: str, ready, procs: StackProcesses,
+               timeout: float = STACK_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while True:
+        procs.check()
+        try:
+            got = ready()
+            if got:
+                return got
+        except OSError:
+            pass
+        assert time.monotonic() < deadline, f"{what}: not ready"
+        time.sleep(0.1)
+
+
+def http_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=5) as f:
+        return json.loads(f.read())
+
+
+def http_metric(url: str, name: str) -> float:
+    """One sample of a Prometheus text exposition."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=5) as f:
+        for line in f.read().decode().splitlines():
+            if line.startswith(name + " ") or line.startswith(name + "{"):
+                return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"{name} not in {url}")
+
+
+def registered(stats: str) -> int:
+    """The workers a dispatcher holds registered: its ``/stats`` where it
+    reports them, else the gauge on its ``/metrics``."""
+    st = http_json(stats + "/stats")
+    if "workers_registered" in st:
+        return int(st["workers_registered"])
+    return int(http_metric(stats + "/metrics",
+                           "tpu_faas_dispatcher_workers_registered"))
+
+
+def stack_leg(procs: StackProcesses, store_url: str, store, client,
+              leg: tuple, device: str, zmq_port: int,
+              stats_port: int) -> dict:
+    """One leg: the dispatcher of ``mode`` and its workers started through
+    their entry points, the calls made with the port's ``FaaSClient.map``,
+    one worker SIGKILLed once half the results are announced when the leg
+    says so. Every call must come back COMPLETED with its value, each task
+    announced on the results channel exactly once; no child but the killed
+    one may exit. Returns the leg's numbers; stops the leg's children."""
+    import threading
+
+    from tpu_faas_torch.core.serialize import deserialize
+    from tpu_faas_torch.core.task import (
+        FIELD_FINISHED_AT,
+        FIELD_RESULT,
+        FIELD_STATUS,
+        FIELD_SUBMITTED_AT,
+    )
+    from tpu_faas_torch.store.base import (
+        RESULTS_CHANNEL,
+        decode_result_announce,
+    )
+
+    mode, flags, worker, n_workers, n_calls, kill = leg
+    url = f"tcp://127.0.0.1:{zmq_port}"
+    args = ["-m", mode, *flags, "-i", "127.0.0.1", "-p", str(zmq_port),
+            "--store", store_url, "--stats-port", str(stats_port),
+            "--tte", str(STACK_TTE_S)]
+    if mode == "tpu-push":
+        args += ["--device", device]
+    names = [f"{mode}-dispatcher"]
+    t_start = time.perf_counter()
+    procs.start(names[0], "tpu_faas_torch.dispatch", *args)
+    for i in range(n_workers):
+        names.append(f"{mode}-{worker}-{i}")
+        # every push worker heartbeats: tpu-push and push --hb purge on
+        # silence
+        extra = (["--hb", "--hb-period", str(STACK_HB_S)]
+                 if worker == "push_worker" else [])
+        procs.start(names[-1], f"tpu_faas_torch.worker.{worker}",
+                    str(STACK_PROCS), url, *extra)
+    stats = f"http://127.0.0.1:{stats_port}"
+    sub = store.subscribe(RESULTS_CHANNEL)
+    announced: dict[str, int] = {}
+    stop = threading.Event()
+
+    def listen() -> None:
+        while not stop.is_set():
+            msg = sub.get_message(timeout=0.05)
+            if msg is not None:
+                tid = decode_result_announce(msg)[0]
+                announced[tid] = announced.get(tid, 0) + 1
+
+    listener = threading.Thread(target=listen, daemon=True)
+    listener.start()
+    try:
+        # its stats answer once it is built, and so subscribed: an announce
+        # made before that is lost by design
+        wait_until(f"{mode}: the dispatcher's stats",
+                   lambda: http_json(stats + "/stats"), procs)
+        if n_workers:
+            wait_until(f"{mode}: {n_workers} workers registered",
+                       lambda: registered(stats) >= n_workers, procs)
+        # one call through the whole path before the clock starts (a pull
+        # worker registers nowhere)
+        fn = (lambda x: (x * 7919 + 13) % 1_000_003)  # noqa: E731
+        assert client.run(fn, -1, timeout=STACK_TIMEOUT_S) == fn(-1)
+        t_ready = time.perf_counter()
+        handles: list = []
+        real_submit = client.submit
+
+        def submit(fid, *a, **kw):
+            h = real_submit(fid, *a, **kw)
+            handles.append(h)
+            return h
+
+        client.submit = submit  # map submits through this: keep the ids
+        box: dict = {}
+
+        def run_map() -> None:
+            try:
+                box["values"] = client.map(fn, range(n_calls),
+                                           timeout=STACK_TIMEOUT_S)
+            except BaseException as exc:  # re-raised below
+                box["error"] = exc
+
+        runner = threading.Thread(target=run_map, daemon=True)
+        t0 = time.perf_counter()
+        runner.start()
+        victim = None
+        deadline = time.monotonic() + STACK_TIMEOUT_S + 30
+        while runner.is_alive():
+            procs.check()
+            ids = {h.task_id for h in handles}
+            if kill and victim is None and sum(
+                    1 for t in announced if t in ids) >= n_calls // 2:
+                victim = names[1]
+                procs.kill(victim)
+            assert time.monotonic() < deadline, f"{mode}: map never returned"
+            runner.join(0.02)
+        t1 = time.perf_counter()
+        client.submit = real_submit
+        if "error" in box:
+            raise box["error"]
+        assert not kill or victim is not None, f"{mode}: nobody was killed"
+        values = box["values"]
+        assert values == [fn(i) for i in range(n_calls)], f"{mode}: values"
+        ids = [h.task_id for h in handles]
+        assert len(set(ids)) == n_calls, f"{mode}: {len(set(ids))} task ids"
+        time.sleep(0.5)  # a duplicate announce would land by now
+        procs.check()
+        recs = store.hgetall_many(ids)
+        for i, (tid, r) in enumerate(zip(ids, recs)):
+            assert r.get(FIELD_STATUS) == "COMPLETED", (mode, tid, r)
+            assert deserialize(r[FIELD_RESULT]) == fn(i), (mode, tid)
+        twice = {t: n for t, n in announced.items() if n != 1}
+        assert not twice and set(ids) <= set(announced), (
+            f"{mode}: announces {twice or set(ids) - set(announced)}")
+        lat = sorted(1e3 * (float(r[FIELD_FINISHED_AT])
+                            - float(r[FIELD_SUBMITTED_AT])) for r in recs)
+        out = dict(mode=mode, calls=n_calls, workers=n_workers,
+                   killed=victim, served_per_s=n_calls / (t1 - t0),
+                   p50_ms=lat[len(lat) // 2],
+                   p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                   max_ms=lat[-1],
+                   start_s=t_ready - t_start)
+        if mode == "tpu-push":
+            st = http_json(stats + "/stats")
+            m = stats + "/metrics"
+            out.update(
+                tick_backend=st["tick_backend"],
+                launches_last_tick=st["device_dispatches_last_tick"],
+                ticks=http_metric(m, "tpu_faas_device_ticks_total"),
+                launches=http_metric(
+                    m, "tpu_faas_tick_device_dispatches_total"))
+            want = "fused_cuda" if device == "cuda" else None
+            assert out["tick_backend"] == want, out
+            assert out["launches"] >= out["ticks"] > 0, out
+        if kill:  # the dispatcher purges the killed worker
+            wait_until(f"{mode}: the killed worker purged",
+                       lambda: registered(stats) == n_workers - 1, procs,
+                       timeout=STACK_TTE_S + 10)
+        return out
+    finally:
+        stop.set()
+        listener.join(timeout=5)
+        sub.close()
+        procs.stop(names)
+
+
+def stack_run(device: str, logdir: str, legs=STACK_LEGS,
+              card: str = "") -> list[dict]:
+    """Start the store server and the gateway, then each leg of ``legs`` in
+    turn through the same two, all through the port's entry points, driven
+    by the port's ``FaaSClient`` over REST; every child is reaped."""
+    from tpu_faas_torch.client import FaaSClient
+    from tpu_faas_torch.store.launch import make_store
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = StackProcesses(root, logdir)
+    store = None
+    out = []
+    try:
+        store_port, gw_port = free_port(), free_port()
+        procs.start("store", "tpu_faas_torch.store.server", "--port",
+                    str(store_port))
+        store_url = f"resp://127.0.0.1:{store_port}"
+        import socket
+
+        def store_up() -> bool:
+            with socket.create_connection(("127.0.0.1", store_port), 1):
+                return True
+
+        wait_until("store server", store_up, procs)
+        procs.start("gateway", "tpu_faas_torch.gateway", "--host",
+                    "127.0.0.1", "--port", str(gw_port), "--store",
+                    store_url)
+        base = f"http://127.0.0.1:{gw_port}"
+        wait_until("gateway", lambda: http_json(base + "/healthz"), procs)
+        store = make_store(store_url)
+        client = FaaSClient(base)
+        for leg in legs:
+            r = stack_leg(procs, store_url, store, client, leg, device,
+                          free_port(), free_port())
+            out.append(r)
+            b1 = (f", B1 launched {r['launches']:.0f} times in "
+                  f"{r['ticks']:.0f} resident ticks (tick_backend "
+                  f"{r['tick_backend']}, {r['launches_last_tick']} on the "
+                  f"last)" if r["mode"] == "tpu-push" else "")
+            log(f"phase stack, -m {r['mode']}: {r['calls']} calls through "
+                f"the gateway, {r['workers']} workers"
+                + (f" ({r['killed']} SIGKILLed halfway)" if r["killed"]
+                   else "")
+                + f": every call COMPLETED once with its value; "
+                f"{r['served_per_s']:.1f} served/s, submit-to-result median "
+                f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, max "
+                f"{r['max_ms']:.2f} ms (store stamps); started in {r['start_s']:.1f} s{b1} [{card}]")
+        procs.check()
+    finally:
+        if store is not None:
+            store.close()
+        procs.stop()
+    return out
+
+
+def phase_stack(card: str) -> dict:
+    """The whole stack as separate processes on the card machine: the
+    port's store server, gateway, dispatcher (tpu-push --resident on cuda,
+    then local, pull and push --hb) and worker processes, driven over REST
+    by the port's client. Logs under chiprun_out/stack/."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    legs = stack_run("cuda", os.path.join(root, "chiprun_out", "stack"),
+                     card=card)
+    log(f"phase stack: {time.perf_counter() - t0:.1f} s")
+    return dict(legs=legs, launches=int(legs[0]["launches"]),
+                ticks=int(legs[0]["ticks"]))
+
+
 # -- phase 14: the host layers the dispatcher imports -------------------------
 N_HOST_RECORDS = 300
 
@@ -3819,8 +4195,13 @@ def capture_launches(trace_path: str, launches: list[int]) -> float:
                      f" us; External id {call['args'].get('External id')},"
                      f" the span's {span_ext.get(spans[k][0])})")
         log(f"  UNCLAIMED {e['name'].split('(', 1)[0]} at {e['ts']}: {where}")
-    raise AssertionError(f"capture {trace_path}: B1 kernels a tick {got}, "
-                         f"the wrapper launched {launches}")
+    # keep the capture beside the run's other outputs (git-ignored)
+    import shutil
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    kept = shutil.copy(trace_path, "chiprun_out")
+    raise AssertionError(f"capture {trace_path} (kept as {kept}): B1 kernels "
+                         f"a tick {got}, the wrapper launched {launches}")
 
 
 def capture_split(trace_path: str, kernel: str) -> dict:
@@ -4293,6 +4674,7 @@ def mesh_child(rank: int, port: int, device: str = "cuda") -> None:
                packet_bcast_ms=statistics.median(times),
                packets=len(times))
     print("MESHCHILD " + json.dumps(out), flush=True)
+    distributed.shutdown()
 
 
 def mh_resident_scenario(r) -> list[int]:
@@ -4338,13 +4720,29 @@ def spawn(args: list[str], cwd: str):
 
 
 def free_port() -> int:
+    """A free TCP port below the kernel's ephemeral range, for a server a
+    child binds later: a port from bind(0) lies in that range, and the
+    kernel may hand it to the next process that binds port 0 or connects
+    out before the child binds it (ROADMAP C.7); one below the range is
+    taken only by a process that asks for it by number."""
+    import random
     import socket
 
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+            hi = int(fh.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        hi = 32768
+    rng = random.SystemRandom()
+    for _ in range(200):
+        port = rng.randrange(max(1024, hi - 12000), hi)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 def finish(procs, timeout: float = MH_TIMEOUT_S) -> list[str]:
@@ -4734,6 +5132,7 @@ def main() -> int:
     ta = time_resident_auction(dev, rra["samples"])
     ts = time_resident_sinkhorn(dev, rrs["samples"], probe)
     rd = phase_dispatcher(dev, card)
+    rst = phase_stack(card)
     t0 = time.perf_counter()
     phase_profile(dev, card)
     graph_card_ms(dev, card)
@@ -4761,7 +5160,10 @@ def main() -> int:
                                      rd["host"]["launches"]],
              # the mesh phase's paths, each counted from 0: (b)'s resident
              # loop under mesh_devices=1, and (c)'s lead and follower
-             "mesh_launches": rm["b1_launches"]}
+             "mesh_launches": rm["b1_launches"],
+             # the stack phase's tpu-push --resident leg: the dispatcher
+             # process's launches and resident ticks, from its /metrics
+             "stack_launches": rst["launches"], "stack_ticks": rst["ticks"]}
     k_ms, p_ms, b_ms, by = tb["headline"]
     # no single PyTorch call computes the hashed top-2 bid
     entry_b2 = {"name": "bid_top2", "route": "cuda", "source": bid.SOURCE,

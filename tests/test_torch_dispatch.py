@@ -1,11 +1,13 @@
 """The port's tpu-push dispatcher (``tpu_faas_torch/dispatch/``) as an
 entry point: every attribute it reads on its scheduler exists there, the
 tick runs on the card unless the caller asks for the CPU, a failed kernel
-build stops it, the multi-device layouts build what they name, and the
-modes that are not ported yet fail at startup with the ROADMAP item they
-wait for. Its service against the JAX gateway and workers is held by the
+build stops it, the multi-device layouts build what they name, the
+host-only modes (local, pull, push) start from the same CLI, and a flag
+combination the CLI refuses fails at startup. Its service is held by the
 twins (tests/test_torch_twin_tpu_push_e2e.py,
-test_torch_twin_resident_e2e.py, test_torch_twin_multihost_dispatch_e2e.py)."""
+test_torch_twin_resident_e2e.py, test_torch_twin_multihost_dispatch_e2e.py:
+the port's gateway and SDK, the JAX package's push workers) and by
+tests/test_torch_host_processes.py (the port's own processes)."""
 
 import ast
 import os
@@ -31,10 +33,9 @@ from tpu_faas_torch.store import MemoryStore
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: reads on the scheduler that the port's classes do not carry, each with
-#: the guard that keeps it from raising
-ABSENT = {
-    "tick_backend": "read through getattr(..., None); the port reports None",
-}
+#: the guard that keeps it from raising (none since the resident scheduler
+#: reports its tick_backend)
+ABSENT: dict[str, str] = {}
 
 
 def _arrays_reads() -> set[str]:
@@ -91,6 +92,19 @@ def test_every_scheduler_read_exists_on_the_ports_scheduler():
         assert not any(hasattr(s, name) for s in scheds), name
 
 
+def test_resident_tick_backend_names_b1_on_the_card():
+    """The status block's tick_backend: ``fused_cuda`` where B1 serves the
+    resident tick (a CUDA device), None on the CPU and for the batch
+    tick."""
+    kw = dict(max_workers=8, max_pending=16, max_inflight=32, max_slots=4,
+              device="cpu")
+    r = ResidentScheduler(**kw)
+    assert r.tick_backend is None
+    r.device = torch.device("cuda")  # what a card run holds; nothing runs
+    assert r.tick_backend == "fused_cuda"
+    assert not hasattr(SchedulerArrays(**kw), "tick_backend")
+
+
 def _dispatcher(**kw):
     return tpu_push.TpuPushDispatcher(
         ip="127.0.0.1", port=0, store=MemoryStore(), max_workers=4,
@@ -142,8 +156,8 @@ def test_cpu_dispatcher_builds_no_kernel(monkeypatch):
 @pytest.mark.parametrize("resident", [False, True])
 def test_tick_backend_is_accepted_and_reported_none(resident):
     """JAX's keyword binds; the port's scheduler has no backend to pick, so
-    the flight record and the stats report None, and a resident tick
-    counts its launches."""
+    on the CPU (the plain version) the flight record and the stats report
+    None, and a resident tick counts its launches."""
     d = _dispatcher(device="cpu", resident=resident, tick_backend="fused")
     try:
         d.tick()
@@ -194,13 +208,42 @@ def test_multi_device_layouts_raise_until_ported(alone, kw):
 @pytest.mark.parametrize("argv,item", [
     (["-m", "tpu-push", "--multihost", "--mesh", "2"],
      "--multihost owns the global mesh; drop --mesh"),
-    (["-m", "pull"], "'pull' is not ported yet: ROADMAP A.12"),
-    (["-m", "push", "--hb"], "'push' is not ported yet: ROADMAP A.12"),
-    (["-m", "local", "-w", "2"], "'local' is not ported yet: ROADMAP A.12"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("argv,module,name", [
+    (["-m", "local", "-w", "2"], "local", "LocalDispatcher"),
+    (["-m", "pull", "-p", "0"], "pull", "PullDispatcher"),
+    (["-m", "push", "-p", "0", "--hb", "--plb"], "push", "PushDispatcher"),
+])
+def test_cli_starts_the_host_modes(monkeypatch, argv, module, name):
+    """``main`` builds the port's dispatcher of each host-only mode, with
+    the flags passed on as JAX's CLI passes them, and reaches its serve
+    loop (stubbed to return); ``--device`` is tpu-push's alone."""
+    import importlib
+
+    cls = getattr(importlib.import_module(
+        f"tpu_faas_torch.dispatch.{module}"), name)
+    built = []
+
+    def serve(self, *a, **kw):
+        built.append(self)
+        return 0
+
+    monkeypatch.setattr(cls, "start", serve)
+    monkeypatch.setattr(cli, "_install_stop_signals", lambda d: None)
+    cli.main([*argv, "--store", "memory://"])
+    (d,) = built
+    assert type(d).__module__ == f"tpu_faas_torch.dispatch.{module}"
+    if module == "local":
+        assert d.num_workers == 2
+    else:
+        d.socket.close(linger=0)
+    if module == "push":
+        assert d.heartbeat and d.process_lb
 
 
 @pytest.mark.parametrize("argv", [
@@ -243,7 +286,6 @@ def test_cli_builds_the_multi_device_layouts(alone, monkeypatch, argv):
      "no CUDA device is available"),
     (["-m", "tpu-push", "--multihost", "--mesh", "2"],
      "--multihost owns the global mesh; drop --mesh"),
-    (["-m", "pull"], "'pull' is not ported yet: ROADMAP A.12"),
 ])
 def test_module_entry_point_refuses_what_is_not_ported(argv, message):
     out = subprocess.run(

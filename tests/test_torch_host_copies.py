@@ -1,8 +1,9 @@
 """Drift guard for the host layers the port copies from the JAX package.
 
-The port imports nothing of ``tpu_faas``, so every host module the
-tpu-push dispatcher reaches (its import closure, the dispatcher included)
-has a copy under ``tpu_faas_torch/`` at the same relative path. A copy equals
+The port imports nothing of ``tpu_faas``, so every host module its entry
+points reach (the import closure of the dispatcher, the gateway, the
+workers, their supervisor and the client, the entry points included) has a
+copy under ``tpu_faas_torch/`` at the same relative path. A copy equals
 its original after one rename, ``tpu_faas`` to ``tpu_faas_torch`` in
 import statements; a module changed on purpose is listed with its reason.
 The JAX sources are read as text only.
@@ -10,7 +11,9 @@ The JAX sources are read as text only.
 
 import ast
 import os
+import random
 import re
+import socket
 
 import pytest
 
@@ -29,7 +32,8 @@ obs/attribution.py obs/metrics.py obs/expofmt.py obs/slo.py obs/trace.py
 obs/tracectx.py obs/flightrec.py
 core/serialize.py core/payload.py core/task.py core/columns.py
 core/executor.py core/__init__.py
-worker/messages.py
+worker/messages.py worker/__init__.py worker/pool.py worker/drain.py
+worker/pull_worker.py worker/push_worker.py
 store/resp.py store/base.py store/memory.py store/snapshot.py
 store/replication.py store/sharding.py store/server.py
 store/launch.py store/native.py store/__init__.py store/racecheck.py
@@ -38,7 +42,10 @@ admission/__init__.py
 chaos/plan.py chaos/__init__.py
 sched/estimator.py sched/health.py
 graph/validate.py graph/__init__.py
-dispatch/__init__.py dispatch/base.py
+dispatch/__init__.py dispatch/base.py dispatch/local.py dispatch/pull.py
+dispatch/push.py
+gateway/app.py gateway/__init__.py
+client/sdk.py client/aio.py client/__init__.py
 """.split()
 
 #: copies changed on purpose, each with its reason
@@ -48,17 +55,22 @@ CHANGED = {
     "has no counterpart",
     "obs/__init__.py": "its docstring names the torch.profiler capture and "
     "its env var",
-    "worker/__init__.py": "exports the message module only: the workers "
-    "stay the JAX package's processes, so TaskPool is not copied",
+    "worker/deploy.py": "the supervisor starts the port's workers "
+    "(python -m tpu_faas_torch.worker.<protocol>_worker) where JAX's names "
+    "its own, and its docstring's command line names the port",
+    "gateway/__main__.py": "main() runs under an if __name__ == "
+    "'__main__' guard, so importing every module of the port (the package "
+    "test, chip_smoke.py's host phase) starts no gateway",
     "graph/frontier.py": "the device ops are torch ops; the host part "
     "(pad_pref, pad_edges, GraphFrontier) is checked statement for "
     "statement below",
     "dispatch/tpu_push.py": "a device argument (default 'cuda', resolved "
     "before the store and socket, so no card means no dispatcher) passed "
     "to the scheduler and to the multihost tick or resident scheduler; "
-    "tick_backend accepted and not passed on (the port's "
-    "ResidentScheduler has no such field: B1 serves every resident tick "
-    "on CUDA), so the status blocks report None; the kernels are built "
+    "tick_backend accepted and not passed on (B1 serves every "
+    "resident tick on CUDA), so the status blocks report the port "
+    "scheduler's own: 'fused_cuda' for the resident tick on the card, "
+    "None on the CPU and for the batch tick; the kernels are built "
     "in the constructor on CUDA (B1 when resident, B2 under the batch "
     "auction), so no nvcc run stalls the first tick; the batch tick's "
     "outputs are read with to_host (a CUDA tensor has no numpy view); "
@@ -66,13 +78,15 @@ CHANGED = {
     "wrote the backend label 'xla'; comments and the module docstring "
     "name the port. Only __init__, _tick_inner and _tick_resident "
     "differ, checked below",
-    "dispatch/__main__.py": "tpu-push only: local, pull and push exit "
-    "with ROADMAP A.12 before anything starts; --device cuda|cpu and "
-    "--dist-backend nccl|gloo added; --multihost joins a "
+    "dispatch/__main__.py": "local, pull and push start as JAX's do "
+    "(they touch no device); tpu-push gains --device cuda|cpu and "
+    "--dist-backend nccl|gloo; --multihost joins a "
     "torch.distributed group (its timeout from --follower-watchdog; "
     "--device cpu gives the process one CPU position); the XLA compile "
     "cache and the jax_platforms pin dropped; --tick-backend accepted "
-    "and unused. Only main differs, checked below",
+    "and unused; a multihost lead and its followers leave the group "
+    "before they exit (distributed.shutdown, ROADMAP C.7). Only main "
+    "differs, checked below",
     "store/client.py": "the subscription's socket sets an 8 MiB "
     "SO_RCVBUF (SUBSCRIBER_RCVBUF) before it connects, so _Conn connects "
     "through its own getaddrinfo loop (ROADMAP C.5: on a gVisor-style "
@@ -117,10 +131,14 @@ NOT_COPIED = {
     "tpu_faas.tenancy": "ported: tenancy/",
     "tpu_faas.tenancy.config": "ported: tenancy/config.py",
     "tpu_faas.tenancy.fairshare": "ported: tenancy/fairshare.py",
-    "tpu_faas.worker.pool": "the workers stay the JAX package's processes",
-    "tpu_faas.dispatch.local": "the other dispatcher modes, ROADMAP A.12",
-    "tpu_faas.dispatch.pull": "the other dispatcher modes, ROADMAP A.12",
-    "tpu_faas.dispatch.push": "the other dispatcher modes, ROADMAP A.12",
+    # not reached by any entry point, and not ported (ROADMAP says why)
+    "tpu_faas.analysis": "the JAX package's static analysers of its own "
+    "source: they read tpu_faas/, not the port",
+    "tpu_faas.compat.redis_shim": "a test helper (redis-py's surface on the "
+    "store client for the reference's own processes); waits for the "
+    "benchmark, ROADMAP A.10",
+    "tpu_faas.workloads": "the bench's and tests' task functions; the "
+    "benchmark (ROADMAP A.10) needs it importable in the port's workers",
 }
 
 
@@ -170,9 +188,20 @@ def _imports(mod: str) -> set[str]:
     return found
 
 
+#: the modules a user runs or imports: every dispatcher mode, the gateway,
+#: the store server, the workers and their supervisor, the client
+ENTRY_POINTS = (
+    "tpu_faas.dispatch.tpu_push", "tpu_faas.dispatch.__main__",
+    "tpu_faas.gateway", "tpu_faas.gateway.__main__", "tpu_faas.store.server",
+    "tpu_faas.worker.push_worker", "tpu_faas.worker.pull_worker",
+    "tpu_faas.worker.deploy", "tpu_faas.client", "tpu_faas.client.aio",
+)
+
+
 def dispatcher_closure() -> set[str]:
-    """The tpu-push dispatcher's import closure, itself included."""
-    todo = ["tpu_faas.dispatch.tpu_push", "tpu_faas.dispatch.__main__"]
+    """The import closure of the port's entry points (:data:`ENTRY_POINTS`),
+    the entry points included."""
+    todo = list(ENTRY_POINTS)
     seen: set[str] = set()
     while todo:
         mod = todo.pop()
@@ -220,7 +249,13 @@ def test_every_closure_module_is_copied_or_accounted_for():
     reached = {_rel(m) for m in closure} | {"obs/expofmt.py",
                                             "store/racecheck.py"}
     assert listed <= reached, sorted(listed - reached)
-    assert set(NOT_COPIED) <= closure, sorted(set(NOT_COPIED) - closure)
+    # an entry outside the closure names a module of the JAX package
+    outside = set(NOT_COPIED) - closure
+    paths = [os.path.join(_JAX, *m.split(".")[1:]) for m in outside]
+    assert all(os.path.isdir(p) or os.path.exists(p + ".py")
+               for p in paths), sorted(outside)
+    assert outside <= {"tpu_faas.analysis", "tpu_faas.compat.redis_shim",
+                       "tpu_faas.workloads"}, sorted(outside)
 
 
 def _defs(src: str) -> dict[str, str]:
@@ -293,23 +328,33 @@ def _port_has(mod: str) -> bool:
     return _module_file(_PORT, "tpu_faas_torch" + mod) is not None
 
 
-def twin_source(src: str, keep: tuple[str, ...] = ()) -> str:
+def twin_source(src: str, keep: tuple[str, ...] = (),
+                processes: tuple[str, ...] = ()) -> str:
     """A JAX test module's source with every import of a module the port
     has pointed at the port (``from tpu_faas import chaos`` included);
     imports of modules the port lacks, and of the modules in ``keep``,
-    stay as they are."""
+    stay as they are. ``processes`` names module prefixes a test starts
+    as a process from a string (``"tpu_faas.worker."`` in
+    ``f"tpu_faas.worker.{kind}"``): a string literal that begins with one
+    is pointed at the port's package too."""
     def sub(m):
         mod = m.group(2) or (f".{m.group(4)}" if m.group(4) else "")
         if mod and _port_has(mod) and "tpu_faas" + mod not in keep:
             return f"{m.group(1)}tpu_faas_torch{m.group(2)}"
         return m.group(0)
 
-    return _TEST_IMPORT.sub(sub, src)
+    src = _TEST_IMPORT.sub(sub, src)
+    for prefix in processes:
+        assert prefix.startswith("tpu_faas.") and _port_has(
+            "." + prefix.strip(".").split(".", 1)[1]), prefix
+        src = re.sub(r"""(?<=["'])""" + re.escape(prefix),
+                     "tpu_faas_torch" + prefix[len("tpu_faas"):], src)
+    return src
 
 
 def load_twins(test_file: str, exclude: dict[str, str],
-               keep: tuple[str, ...] = (), overrides: dict | None = None
-               ) -> dict:
+               keep: tuple[str, ...] = (), overrides: dict | None = None,
+               processes: tuple[str, ...] = ()) -> dict:
     """Run ``tests/<test_file>``'s source, with :func:`twin_source`'s
     renames, as a module namespace, and return its tests, fixtures and
     helpers minus ``exclude`` (each name with its reason: a test that
@@ -318,10 +363,11 @@ def load_twins(test_file: str, exclude: dict[str, str],
     stale. ``keep`` names JAX modules a twin still reads from the
     reference (the placement a host-layer test feeds, say);
     ``overrides`` replaces module-level names in the namespace (the
-    port's entry points on the CPU)."""
+    port's entry points on the CPU); ``processes`` as in
+    :func:`twin_source`, so a twin starts the port's processes."""
     path = os.path.join(_REPO, "tests", test_file)
     ns = {"__name__": "twin_" + test_file[:-3], "__file__": path}
-    src = twin_source(_read(path), keep)
+    src = twin_source(_read(path), keep, processes)
     assert src != _read(path), f"{test_file} imports nothing the port has"
     exec(compile(src, path, "exec"), ns)
     missing = sorted(set(exclude) - set(ns))
@@ -409,3 +455,37 @@ def dispatcher_twins(test_file: str, cases: list[str], factory: tuple,
         test_twin_builds_the_ports_dispatcher)
     out["dispatcher_on_cpu"] = dispatcher_on_cpu
     return out
+
+
+# ---------------------------------------------------------------------------
+# ports for servers a child process binds later (a rendezvous store, a
+# dispatcher's socket)
+# ---------------------------------------------------------------------------
+def _ephemeral_low() -> int:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+            return int(fh.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def reserved_port() -> int:
+    """A free TCP port below the kernel's ephemeral range.
+
+    A port from ``bind(0)`` lies in that range and, once its probe socket
+    closes, the kernel may hand it to the next process that binds port 0
+    or connects out; under the suite's parallel workers (gateways, stores,
+    dispatchers) a child then failed to bind it (EADDRINUSE). A port below
+    the range is taken only by a process that asks for it by number, so it
+    stays free between this probe and the child's bind."""
+    rng = random.SystemRandom()
+    hi = _ephemeral_low()
+    for _ in range(200):
+        port = rng.randrange(max(1024, hi - 12000), hi)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")

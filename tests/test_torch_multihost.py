@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import os
 import re
-import socket
 import subprocess
 import sys
 import zlib
@@ -198,16 +197,10 @@ def _child(rank: int, port: str, leg: str, placement: str) -> None:
 
 
 # -- the parent's side -------------------------------------------------------
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _run_children(leg: str, placement: str = "rank") -> list[str]:
-    port = _free_port()
+    from test_torch_host_copies import reserved_port
+
+    port = reserved_port()
     # one intra-op thread a child, as in the suite's own workers
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     procs = [
@@ -484,6 +477,11 @@ def test_process_device_is_local_rank_modulo_the_cards(monkeypatch):
 
 if __name__ == "__main__" and sys.argv[1:2] == ["child"]:
     _child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    # leave the group before exit: left to interpreter teardown, gloo's
+    # threads could abort a child that had finished (SIGABRT, ROADMAP C.7)
+    from tpu_faas_torch.parallel import distributed
+
+    distributed.shutdown()
     jax_modules = [m for m in sys.modules
                    if m.split(".")[0] in ("jax", "jaxlib", "tpu_faas")]
     print(f"JAX modules loaded: {len(jax_modules)}", flush=True)

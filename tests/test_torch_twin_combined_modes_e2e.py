@@ -1,7 +1,7 @@
 """Twin of tests/test_combined_modes_e2e.py: two --shared tpu-push
 dispatchers of the port, each ticking over a 4-position mesh (Sinkhorn
-placement, ``mesh_devices=4`` on the CPU), over one store, with the JAX
-package's gateway and push workers (``test_torch_host_copies.
+placement, ``mesh_devices=4`` on the CPU), over one store, behind the
+port's gateway, with the JAX package's push workers (``test_torch_host_copies.
 load_twins``): atomic claims, lease renewal, dead-sibling adoption and the
 sharded tick together, race-clean under the protocol monitor."""
 

@@ -1,9 +1,9 @@
 """Twins of tests/test_multihost_dispatch_e2e.py: two ``python -m
 tpu_faas_torch.dispatch -m tpu-push --multihost`` processes of the port
 (gloo, 4 CPU positions each, ``--device cpu``) form one fleet; the lead
-serves the JAX package's gateway, client SDK and push workers through the
-port's store server, every tick (batch) or packet (``--resident``)
-collective across both; a SIGTERM to the lead releases the follower
+serves behind the port's gateway and client SDK, through the port's store
+server, with the JAX package's push workers, every tick (batch) or packet
+(``--resident``) collective across both; a SIGTERM to the lead releases the follower
 through the stop broadcast. ``_spawn_dispatcher`` is the port's in the
 JAX tests' bodies (``test_torch_host_copies.load_twins``).
 
@@ -17,7 +17,7 @@ import sys
 
 import pytest
 
-from test_torch_host_copies import load_twins
+from test_torch_host_copies import load_twins, reserved_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,9 +50,12 @@ def _spawn_dispatcher(rank: int, coord: int, zmq_port: int, store_url: str,
     )
 
 
+# the coordinator's and the sockets' ports lie below the ephemeral range
+# (reserved_port): a bind(0) port could be taken before a child binds it
 globals().update(load_twins("test_multihost_dispatch_e2e.py", {},
                             overrides={"_spawn_dispatcher":
-                                       _spawn_dispatcher}))
+                                       _spawn_dispatcher,
+                                       "_free_port": reserved_port}))
 
 
 @pytest.mark.parametrize("resident", [False, True])

@@ -1,8 +1,8 @@
 """Twins of tests/test_resident_e2e.py: the port's ``TpuPushDispatcher``
 with ``resident=True`` on the CPU (``device="cpu"``: the resident tick runs
-B1's plain PyTorch version), serving the JAX package's gateway, client SDK
-and push worker processes, unmodified, through the port's in-process store
-server (``test_torch_host_copies.load_twins``). The JAX tests build their
+B1's plain PyTorch version), behind the port's gateway and client SDK,
+serving the JAX package's push worker processes, unmodified, through the
+port's in-process store server (``test_torch_host_copies.load_twins``). The JAX tests build their
 dispatchers with ``tests.test_tpu_push_e2e._make_dispatcher``, which is not
 a ``tpu_faas`` import and would build the JAX dispatcher, so the twins get
 the port's factory in its place."""

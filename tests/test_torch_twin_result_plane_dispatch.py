@@ -1,7 +1,10 @@
 """Twins of the dispatcher cases of tests/test_result_plane.py: the port's
 ``TpuPushDispatcher`` on the CPU with the result data plane on
-(``test_torch_host_copies.dispatcher_twins``), against the JAX package's
-push worker and gateway."""
+(``test_torch_host_copies.dispatcher_twins``), behind the port's gateway,
+against the JAX package's push worker: the file's task functions come from
+``tpu_faas.workloads`` (not ported, ROADMAP A.10), and ``merge_deps`` reads
+its parents' bodies through the JAX executor's ``dep_values``, which only
+the JAX worker fills."""
 
 from test_torch_host_copies import dispatcher_twins
 
@@ -14,4 +17,4 @@ globals().update(dispatcher_twins("test_result_plane.py", [
     "test_plane_off_frames_and_records_are_legacy_shaped",
     "test_result_plane_e2e_chain_never_round_trips_store",
     "test_dep_results_control_lane_reads_bodies_from_store",
-], factory=("_mk_disp",)))
+], factory=("_mk_disp",), keep=("tpu_faas.worker.push_worker",)))

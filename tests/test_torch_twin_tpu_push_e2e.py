@@ -1,9 +1,10 @@
 """Twins of tests/test_tpu_push_e2e.py: the port's ``TpuPushDispatcher``
 (``tpu_faas_torch/dispatch/tpu_push.py``) on the CPU, ``device="cpu"``,
-serving the JAX package's gateway, client SDK and push worker processes,
-unmodified, through the port's in-process store server and store client
+behind the port's gateway and client SDK, serving the JAX package's push
+worker processes (the JAX file's own launcher), unmodified, through the
+port's in-process store server and store client
 (``test_torch_host_copies.load_twins``). One case also runs against the
-JAX package's own store server and the gateway's own store client. The
+JAX package's own store server. The
 mesh case serves over 8 CPU positions (``mesh_devices=8``)."""
 
 from test_torch_host_copies import (

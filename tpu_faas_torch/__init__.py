@@ -34,23 +34,37 @@ reader can find each module's twin:
   ``torch.distributed``: meshes of (process, device) positions, the
   sharded tick, and the multi-process lead/follower ticks
 
-The host layers the tpu-push dispatcher imports are copies of the JAX
-package's modules at the same paths, changed only in their imports:
-:mod:`~tpu_faas_torch.core` (tasks, payloads, serialization, the columnar
-arena), :mod:`~tpu_faas_torch.store` (the store client, the in-process
-and asyncio servers, sharding, replication, snapshots, the native store's
-launcher), :mod:`~tpu_faas_torch.obs` (metrics, traces, SLOs, the flight
-recorder; ``obs.profile`` captures ticks with ``torch.profiler``),
+The host layer is a copy of the JAX package's modules at the same paths,
+changed only in their imports: :mod:`~tpu_faas_torch.core` (tasks,
+payloads, serialization, the columnar arena), :mod:`~tpu_faas_torch.store`
+(the store client, the in-process, asyncio and standalone servers,
+sharding, replication, snapshots, the native store's launcher),
+:mod:`~tpu_faas_torch.obs` (metrics, traces, SLOs, the flight recorder;
+``obs.profile`` captures ticks with ``torch.profiler``),
 :mod:`~tpu_faas_torch.admission`, :mod:`~tpu_faas_torch.chaos`,
-:mod:`~tpu_faas_torch.utils`, :mod:`tpu_faas_torch.worker.messages` (the
-worker wire; the workers stay the JAX package's processes),
+:mod:`~tpu_faas_torch.utils`, :mod:`~tpu_faas_torch.gateway` (the REST
+API), :mod:`~tpu_faas_torch.client` (the SDK, sync and asyncio),
+:mod:`~tpu_faas_torch.worker` (the pull and push worker processes, their
+pool, the supervisor and the wire), the dispatcher modes ``local``,
+``pull`` and ``push`` (:mod:`~tpu_faas_torch.dispatch`),
 :mod:`tpu_faas_torch.sched.estimator` and :mod:`tpu_faas_torch.sched.health`.
+None of them touches a device, and importing them loads no
+torch: the package's one export, :func:`resolve_device`, is imported on
+first use.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a GPU they
 raise unless the caller asks for ``"cpu"``. Nothing here imports ``jax`` or
 the ``tpu_faas`` package.
 """
 
-from tpu_faas_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name: str):
+    # PEP 562: torch loads only where a device is resolved, never in the
+    # host processes (gateway, workers and their pool children, client)
+    if name == "resolve_device":
+        from tpu_faas_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

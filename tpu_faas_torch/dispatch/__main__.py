@@ -1,5 +1,8 @@
 """Dispatcher CLI (analog of reference task_dispatcher.py:474-545).
 
+    python -m tpu_faas_torch.dispatch -m local -w 4 --store resp://127.0.0.1:6380
+    python -m tpu_faas_torch.dispatch -m pull -p 5555
+    python -m tpu_faas_torch.dispatch -m push -p 5555 [--hb] [--plb]
     python -m tpu_faas_torch.dispatch -m tpu-push -p 5555 [--resident]
     python -m tpu_faas_torch.dispatch -m tpu-push --device cpu
 
@@ -7,14 +10,14 @@
     python -m tpu_faas_torch.dispatch -m tpu-push --multihost [--resident] \
         --coordinator HOST:PORT --process-id R --num-processes P
 
-The tick runs on ``--device`` (``cuda`` by default; without a GPU that
-raises). ``--multihost`` joins a ``torch.distributed`` process group
-before anything else starts: process 0 serves, the others follow its ticks
-and exit when it stops; ``--dist-backend`` picks the group's backend
-(NCCL on cards, gloo on the CPU by default; gloo on cards stages every
-collective through host memory, the route for two processes on one card).
-Modes local, pull and push are not ported yet: the CLI exits at startup
-with ROADMAP A.12 rather than silently doing nothing.
+Modes local, pull and push are host code: they touch no device and never
+import torch. Only tpu-push schedules on a device: its tick runs on
+``--device`` (``cuda`` by default; without a GPU that raises).
+``--multihost`` joins a ``torch.distributed`` process group before
+anything else starts: process 0 serves, the others follow its ticks and
+exit when it stops; ``--dist-backend`` picks the group's backend (NCCL on
+cards, gloo on the CPU by default; gloo on cards stages every collective
+through host memory, the route for two processes on one card).
 """
 
 from __future__ import annotations
@@ -146,8 +149,9 @@ def main(argv: list[str] | None = None) -> None:
     )
     ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
-        help="tpu-push: where the scheduling tick runs; cuda raises "
-        "without a GPU, cpu runs the plain PyTorch path",
+        help="tpu-push only: where the scheduling tick runs; cuda raises "
+        "without a GPU, cpu runs the plain PyTorch path (local, pull and "
+        "push touch no device and ignore it)",
     )
     ap.add_argument(
         "--dist-backend", default=None, choices=("nccl", "gloo"),
@@ -393,15 +397,12 @@ def main(argv: list[str] | None = None) -> None:
         "retain at least fraction F of registered fleet capacity",
     )
     ns = ap.parse_args(argv)
-    if ns.mode != "tpu-push":
-        sys.exit(f"dispatcher mode {ns.mode!r} is not ported yet: "
-                 "ROADMAP A.12")
     if ns.delay:
         time.sleep(ns.delay)
 
-    # shard-slice ownership: build the store handle here so the
-    # ShardedStore scopes its consumption surface before the dispatcher
-    # constructor subscribes/rescans
+    # shard-slice ownership, resolved ONCE for every mode: build the
+    # store handle here so the ShardedStore scopes its consumption
+    # surface before any dispatcher constructor subscribes/rescans
     owned_store = None
     if ns.shards is not None:
         from tpu_faas_torch.store.launch import make_store
@@ -412,70 +413,104 @@ def main(argv: list[str] | None = None) -> None:
             binbatch=ns.store_binbatch,
         )
 
-    if ns.multihost:
-        # Validate flag combinations HERE, before any process joins the
-        # group: the lead's constructor also rejects these, but by then the
-        # followers are blocked in a collective and a lead that exits
-        # without serving never sends the stop broadcast
-        if ns.mesh:
-            sys.exit("--multihost owns the global mesh; drop --mesh")
-        # join the group BEFORE any other device use; followers never
-        # reach the dispatcher construction below
-        from tpu_faas_torch.parallel import distributed
+    # local, pull and push touch no device and never import torch
+    if ns.mode == "local":
+        from tpu_faas_torch.dispatch.local import LocalDispatcher
 
-        cpu_positions = ns.cpu_pod_devices or (
-            1 if ns.device == "cpu" else None)
-        distributed.initialize_multihost(
-            coordinator_address=ns.coordinator,
-            num_processes=ns.num_processes,
-            process_id=ns.process_id,
-            cpu_devices_per_process=cpu_positions,
-            backend=ns.dist_backend,
-            timeout=ns.follower_watchdog or None,
+        d = LocalDispatcher(
+            num_workers=ns.num_workers,
+            store_url=ns.store,
+            store=owned_store,
+            shared=ns.shared,
         )
-        if distributed.process_index() != 0:
-            log.info(
-                "multihost follower %d/%d: positions %s",
-                distributed.process_index(), distributed.process_count(),
-                [str(d) for d in distributed.local_devices(ns.device)],
+        log.info("local dispatcher: pool=%d store=%s", ns.num_workers, ns.store)
+        if ns.stats_port:
+            d.serve_stats(ns.stats_port)
+        _install_stop_signals(d)
+        d.start()
+        return
+
+    try:
+        if ns.mode == "pull":
+            from tpu_faas_torch.dispatch.pull import PullDispatcher as cls
+        elif ns.mode == "push":
+            from tpu_faas_torch.dispatch.push import PushDispatcher as cls
+        else:
+            if ns.multihost:
+                # Validate flag combinations HERE, before any process joins
+                # the group: the lead's constructor also rejects these, but
+                # by then the followers are blocked in a collective and a
+                # lead that exits without serving never sends the stop
+                # broadcast
+                if ns.mesh:
+                    sys.exit("--multihost owns the global mesh; drop --mesh")
+                # join the group BEFORE any other device use; followers
+                # never reach the dispatcher construction below
+                from tpu_faas_torch.parallel import distributed
+
+                cpu_positions = ns.cpu_pod_devices or (
+                    1 if ns.device == "cpu" else None)
+                distributed.initialize_multihost(
+                    coordinator_address=ns.coordinator,
+                    num_processes=ns.num_processes,
+                    process_id=ns.process_id,
+                    cpu_devices_per_process=cpu_positions,
+                    backend=ns.dist_backend,
+                    timeout=ns.follower_watchdog or None,
+                )
+                if distributed.process_index() != 0:
+                    log.info(
+                        "multihost follower %d/%d: positions %s",
+                        distributed.process_index(),
+                        distributed.process_count(),
+                        [str(d) for d in distributed.local_devices(ns.device)],
+                    )
+                    # shape args mirror the lead's dispatcher kwargs below:
+                    # the broadcast layout must agree in every process,
+                    # which is why max-slots is a CLI flag rather than a
+                    # buried default
+                    if ns.resident:
+                        from tpu_faas_torch.parallel.multihost_resident import (
+                            MultihostResidentScheduler,
+                        )
+
+                        follower = MultihostResidentScheduler.from_shape(
+                            max_workers=ns.max_fleet,
+                            max_pending=ns.max_pending,
+                            max_inflight=ns.max_inflight,
+                            max_slots=ns.max_slots,
+                            time_to_expire=ns.tte,
+                            placement=ns.placement,
+                            device=ns.device,
+                        )
+                        if follower.device.type == "cuda":
+                            # build B1 before the first packet, as the lead
+                            from tpu_faas_torch.sched import fused_tick
+
+                            fused_tick.KERNEL.load()
+                    else:
+                        from tpu_faas_torch.parallel.multihost_tick import (
+                            MultihostTick,
+                        )
+
+                        follower = MultihostTick(
+                            max_pending=ns.max_pending,
+                            max_workers=ns.max_fleet,
+                            max_slots=ns.max_slots,
+                            placement=ns.placement,
+                            device=ns.device,
+                        )
+                    follower.follow_loop(
+                        watchdog_timeout=ns.follower_watchdog or None)
+                    # leave the group while the interpreter is whole
+                    # (ROADMAP C.7)
+                    distributed.shutdown()
+                    return
+            from tpu_faas_torch.dispatch.tpu_push import (
+                TpuPushDispatcher as cls,
             )
-            # shape args mirror the lead's dispatcher kwargs below: the
-            # broadcast layout must agree in every process, which is why
-            # max-slots is a CLI flag rather than a buried default
-            if ns.resident:
-                from tpu_faas_torch.parallel.multihost_resident import (
-                    MultihostResidentScheduler,
-                )
-
-                follower = MultihostResidentScheduler.from_shape(
-                    max_workers=ns.max_fleet,
-                    max_pending=ns.max_pending,
-                    max_inflight=ns.max_inflight,
-                    max_slots=ns.max_slots,
-                    time_to_expire=ns.tte,
-                    placement=ns.placement,
-                    device=ns.device,
-                )
-                if follower.device.type == "cuda":
-                    # build B1 before the first packet, as the lead does
-                    from tpu_faas_torch.sched import fused_tick
-
-                    fused_tick.KERNEL.load()
-                follower.follow_loop(
-                    watchdog_timeout=ns.follower_watchdog or None)
-                return
-            from tpu_faas_torch.parallel.multihost_tick import MultihostTick
-
-            MultihostTick(
-                max_pending=ns.max_pending,
-                max_workers=ns.max_fleet,
-                max_slots=ns.max_slots,
-                placement=ns.placement,
-                device=ns.device,
-            ).follow_loop(watchdog_timeout=ns.follower_watchdog or None)
-            return
-
-    from tpu_faas_torch.dispatch.tpu_push import TpuPushDispatcher
+    except ImportError as exc:
+        sys.exit(f"dispatcher mode {ns.mode!r} is not available: {exc}")
 
     kwargs = dict(
         ip=ns.ip,
@@ -484,46 +519,53 @@ def main(argv: list[str] | None = None) -> None:
         time_to_expire=ns.tte,
         max_task_retries=ns.max_task_retries,
         shared=ns.shared,
-        rescan_period=ns.rescan,
-        tick_period=ns.tick_period,
-        max_pending=ns.max_pending,
-        max_workers=ns.max_fleet,
-        max_inflight=ns.max_inflight,
-        max_slots=ns.max_slots,
-        placement=ns.placement,
-        mesh_devices=ns.mesh or None,
-        lease_timeout=ns.lease_timeout,
-        multihost=ns.multihost,
-        resident=ns.resident,
-        tick_backend=ns.tick_backend,
-        estimate_runtimes=not ns.no_runtime_learning,
-        express=ns.express,
-        inline_result_max=ns.inline_result_max,
-        batch_max=ns.batch_max,
-        batch_window_ms=ns.batch_window_ms,
-        tenant_shares=ns.tenant_shares,
-        tenant_caps=ns.tenant_caps,
-        max_tenants=ns.max_tenants,
-        speculate_mult=ns.speculate_mult,
-        speculate_max_frac=ns.speculate_max_frac,
-        speculate_min_s=ns.speculate_min_s,
-        quarantine=ns.quarantine,
-        quarantine_enter=ns.quarantine_enter,
-        quarantine_release=ns.quarantine_release,
-        quarantine_canary_s=ns.quarantine_canary_s,
-        quarantine_min_live=ns.quarantine_min_live,
-        quarantine_min_capacity=ns.quarantine_min_capacity,
-        columnar=ns.columnar,
-        arena_capacity=ns.arena_capacity,
-        store_binbatch=ns.store_binbatch,
-        result_blobs=ns.result_blobs,
-        dep_results=ns.dep_results,
-        result_blob_min=ns.result_blob_min,
-        device=ns.device,
     )
     if owned_store is not None:
         kwargs["store"] = owned_store
-    if ns.multihost:
+    if ns.mode == "push":
+        kwargs.update(
+            heartbeat=ns.hb, process_lb=ns.plb, batch_max=ns.batch_max
+        )
+    elif ns.mode == "tpu-push":
+        kwargs.update(
+            rescan_period=ns.rescan,
+            tick_period=ns.tick_period,
+            max_pending=ns.max_pending,
+            max_workers=ns.max_fleet,
+            max_inflight=ns.max_inflight,
+            max_slots=ns.max_slots,
+            placement=ns.placement,
+            mesh_devices=ns.mesh or None,
+            lease_timeout=ns.lease_timeout,
+            multihost=ns.multihost,
+            resident=ns.resident,
+            tick_backend=ns.tick_backend,
+            estimate_runtimes=not ns.no_runtime_learning,
+            express=ns.express,
+            inline_result_max=ns.inline_result_max,
+            batch_max=ns.batch_max,
+            batch_window_ms=ns.batch_window_ms,
+            tenant_shares=ns.tenant_shares,
+            tenant_caps=ns.tenant_caps,
+            max_tenants=ns.max_tenants,
+            speculate_mult=ns.speculate_mult,
+            speculate_max_frac=ns.speculate_max_frac,
+            speculate_min_s=ns.speculate_min_s,
+            quarantine=ns.quarantine,
+            quarantine_enter=ns.quarantine_enter,
+            quarantine_release=ns.quarantine_release,
+            quarantine_canary_s=ns.quarantine_canary_s,
+            quarantine_min_live=ns.quarantine_min_live,
+            quarantine_min_capacity=ns.quarantine_min_capacity,
+            columnar=ns.columnar,
+            arena_capacity=ns.arena_capacity,
+            store_binbatch=ns.store_binbatch,
+            result_blobs=ns.result_blobs,
+            dep_results=ns.dep_results,
+            result_blob_min=ns.result_blob_min,
+            device=ns.device,
+        )
+    if ns.mode == "tpu-push" and ns.multihost:
         # Lead-side failure containment: once the followers joined they
         # sit in a blocking collective, and ONLY the serve loop's finally
         # releases them (lead_stop inside start()). Any failure before
@@ -532,7 +574,7 @@ def main(argv: list[str] | None = None) -> None:
         d = None
         serving = False
         try:
-            d = TpuPushDispatcher(**kwargs)
+            d = cls(**kwargs)
             log.info("%s dispatcher on %s:%d", ns.mode, ns.ip, ns.port)
             if ns.stats_port:
                 d.serve_stats(ns.stats_port)
@@ -580,9 +622,12 @@ def main(argv: list[str] | None = None) -> None:
                         "be killed manually"
                     )
             raise
+        # the followers are released: leave the group while the
+        # interpreter is whole (ROADMAP C.7)
+        distributed.shutdown()
         return
 
-    d = TpuPushDispatcher(**kwargs)
+    d = cls(**kwargs)
     log.info("%s dispatcher on %s:%d", ns.mode, ns.ip, ns.port)
     if ns.stats_port:
         d.serve_stats(ns.stats_port)

@@ -2176,8 +2176,9 @@ class TpuPushDispatcher(TaskDispatcher):
             "store_round_trips_last_tick": self._tick_round_trips,
             "batched_write_sizes": dict(self._batch_sizes),
             # resident-only: kernel launches issued by the last tick
-            # (steady state pins this at exactly 1); tick_backend is None
-            # here, since B1 serves every resident tick on the card
+            # (steady state pins this at exactly 1); tick_backend is the
+            # port scheduler's: "fused_cuda" when B1 serves the resident
+            # tick on the card, None on the CPU and for the batch tick
             "device_dispatches_last_tick": getattr(
                 self.arrays, "device_dispatches_last_tick", None
             ),

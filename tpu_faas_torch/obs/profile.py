@@ -30,6 +30,7 @@ from __future__ import annotations
 import bisect
 import json
 import os
+import time
 from contextlib import contextmanager
 
 PROFILE_DIR_ENV = "TPU_FAAS_TORCH_PROFILE_DIR"
@@ -38,6 +39,9 @@ PROFILE_TICKS_ENV = "TPU_FAAS_TORCH_PROFILE_TICKS"
 TICK_SPAN = "tpu_faas.device_tick"
 #: Chrome-trace categories of the operations that run on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: seconds of each of the capture's two warm-up waits on a card (the
+#: device records were seen to begin 3.5 ms late)
+WARMUP_S = 0.01
 
 
 class TickProfiler:
@@ -155,6 +159,18 @@ class TickProfiler:
                 activities.append(ProfilerActivity.CUDA)
             self._prof = profile(activities=activities)
             self._prof.start()
+            if torch.cuda.is_available():
+                # device activity records begin some milliseconds after the
+                # capture does: one capture lost every device record of
+                # its first 3.5 ms, its first tick's B1 included, while the
+                # runtime calls were all there (ROADMAP C.6). So the
+                # capture opens with a warm-up, as torch.profiler's
+                # schedule opens with a warm-up step: a device operation,
+                # WARMUP_S of wall time, another, all in no tick's span
+                for _ in range(2):
+                    torch.zeros(1, device="cuda")
+                    torch.cuda.synchronize()
+                    time.sleep(WARMUP_S)
             self._tracing = True
             if self._log is not None:
                 self._log.info(

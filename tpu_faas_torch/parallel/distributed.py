@@ -148,3 +148,17 @@ def local_devices(device: str | torch.device = "cuda") -> list[torch.device]:
     if n is not None:
         return [torch.device("cpu")] * n
     return [process_device(device)]
+
+
+def shutdown() -> None:
+    """Leave the process group before the process exits.
+
+    Destroys the group while the interpreter is whole, so its transport
+    threads (gloo's run loops, the store's) are joined here rather than
+    torn down at interpreter exit, where a process that finished its work
+    could still abort (SIGABRT: "terminate called without an active
+    exception"). Every process of a group calls it after its last
+    collective; a process that never joined one returns at once."""
+    if is_multiprocess():
+        dist.destroy_process_group()
+    _state.update(initialized=False, cpu_positions=None, local_rank=0)

@@ -751,6 +751,14 @@ class ResidentScheduler(SchedulerArrays):
             use_spec=self.use_spec, KG=self.KG,
         )
 
+    @property
+    def tick_backend(self) -> str | None:
+        """What serves the resident tick, for the dispatcher's status block
+        (JAX's ``tick_backend``): ``"fused_cuda"`` on the card, where every
+        tick is launches of B1 (``csrc/fused_tick.cu``), None on the CPU,
+        where its plain version runs."""
+        return "fused_cuda" if self.device.type == "cuda" else None
+
     def tenant_deficits(self) -> np.ndarray | None:
         """Host view of the resident deficit leaf (one sync, stats surface
         only); None with the tenancy plane off or before the first tick."""

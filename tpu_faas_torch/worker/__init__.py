@@ -1,10 +1,10 @@
-"""The dispatcher <-> worker wire vocabulary (:mod:`.messages`).
+"""Worker runtime: pull (REQ) and push (DEALER) worker nodes.
 
-The workers themselves stay the JAX package's processes, unmodified: the
-port's dispatcher speaks their wire, so only the message module is copied
-here, and ``TaskPool`` (the worker's process pool) is not.
+Capability parity with reference pull_worker.py / push_worker.py: each worker
+owns a local process pool executing `execute_fn` and speaks the dict-envelope
+ZMQ protocol (SURVEY §2.3) to its dispatcher.
 """
 
-from tpu_faas_torch.worker import messages
+from tpu_faas_torch.worker.pool import TaskPool
 
-__all__ = ["messages"]
+__all__ = ["TaskPool"]
