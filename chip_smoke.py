@@ -254,6 +254,18 @@ over):
    (the gateway's submit stamp to the terminal write's), beside the
    card's name and power limit; the children's logs go to
    ``chiprun_out/stack/``.
+17. ``analysis`` — run right after the build: the port's static analysers
+   (``python -m tpu_faas_torch.analysis``) over this checkout's
+   ``tpu_faas_torch/`` in a fresh interpreter, which must exit 0 with no
+   finding of either severity and load no torch, JAX or JAX package
+   module; prints the checker count, the file count and the inventory of
+   ``trace.host-sync`` suppressions (the host syncs on the card's path, by
+   site). Then the bindings against the libraries the build phase built:
+   every symbol the wrappers bind (as ``kernelparity`` reads them from
+   ``sched/fused_tick.py`` and ``sched/bid.py``) exists in its library,
+   and each bound function object's ``argtypes`` is as long as the
+   ``extern "C"`` parameter list parsed from its ``.cu`` source. Prints
+   the phase's seconds beside the card's name and power limit.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it lists each kernel's launches on its main path (the resident run for B1's
@@ -279,6 +291,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -4046,6 +4059,99 @@ def phase_stack(card: str) -> dict:
                 ticks=int(legs[0]["ticks"]))
 
 
+# -- phase 17: the static analysers and the bindings ---------------------------
+#: run in a fresh interpreter: the gate over the port's package, as JSON,
+#: with what the analysers loaded and the suppression inventory
+ANALYSIS_CHILD = r"""
+import contextlib, io, json, sys
+from pathlib import Path
+import tpu_faas_torch
+from tpu_faas_torch.analysis import ALL_CHECKERS
+from tpu_faas_torch.analysis.__main__ import main
+from tpu_faas_torch.analysis.core import Module, iter_py_files
+pkg = Path(tpu_faas_torch.__file__).parent
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = main(["--json", str(pkg)])
+files = iter_py_files([pkg])
+inventory = []
+for path, anchor in files:
+    text = path.read_text(encoding="utf-8")
+    mod = Module.parse(path, path.relative_to(anchor).as_posix(), text)
+    lines = text.splitlines()
+    for line, tokens in sorted(mod.allows.items()):
+        if tokens & {"trace.host-sync", "trace", "*"}:
+            why = lines[line - 1].split("faas: allow(", 1)[1]
+            inventory.append([mod.relpath, line, why.split(")", 1)[1].strip()])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("torch", "jax", "jaxlib", "tpu_faas"))
+print(json.dumps(dict(rc=rc, findings=json.loads(out.getvalue()),
+                      checkers=len(ALL_CHECKERS), files=len(files),
+                      inventory=inventory, loaded=loaded)))
+"""
+
+
+def phase_analysis(card: str) -> dict:
+    """The port's analysers over its own package in a fresh interpreter
+    (exit 0, no finding, no torch loaded), then every symbol the wrappers
+    bind against the built libraries and the parsed C signatures."""
+    import ctypes
+
+    from tpu_faas_torch.analysis import KernelParityChecker
+    from tpu_faas_torch.analysis.core import Module
+    from tpu_faas_torch.build import library_path
+    from tpu_faas_torch.sched import bid, fused_tick
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", ANALYSIS_CHILD], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["rc"] == 0 and res["findings"] == [], res["findings"][:20]
+    assert res["loaded"] == [], f"the analysers loaded {res['loaded'][:5]}"
+    log(f"phase analysis: python -m tpu_faas_torch.analysis over "
+        f"tpu_faas_torch/: {res['checkers']} checkers, {res['files']} files, "
+        f"0 errors, 0 warnings, exit 0; no torch, JAX or JAX package module "
+        f"loaded; {len(res['inventory'])} trace.host-sync suppressions, the "
+        f"host syncs on the card's path:")
+    for rel, line, why in res["inventory"]:
+        log(f"  {rel}:{line}  {why}")
+    # the bindings: the source as kernelparity reads it, against the
+    # libraries the build phase built and the function objects the
+    # wrappers loaded from them
+    checker = KernelParityChecker()
+    for rel in ("sched/resident.py", "sched/fused_tick.py", "sched/bid.py"):
+        path = os.path.join(root, "tpu_faas_torch", *rel.split("/"))
+        with open(path, encoding="utf-8") as fh:
+            src = fh.read()
+        list(checker.check(Module.parse(Path(path), rel, src)))
+    assert list(checker.finalize()) == []
+    libs = {name: ctypes.CDLL(str(library_path(name)))
+            for name in ("fused_tick", "bid_top2")}
+    loaded = {}
+    for obj in (fused_tick.KERNEL, bid.KERNEL):
+        for v in vars(obj).values():
+            if isinstance(v, ctypes._CFuncPtr):
+                loaded[v.__name__] = v
+    bound = sorted({b.symbol for b in checker.bindings}
+                   | {launch.symbol for launch in checker.launches})
+    assert bound and set(bound) <= set(loaded), sorted(set(bound) - set(loaded))
+    for sym in bound:
+        where = [n for n, lib in libs.items() if hasattr(lib, sym)]
+        assert where, f"{sym} is in no built library"
+        n_c = len(checker.c_sigs[sym].params)
+        n_py = len(loaded[sym].argtypes or ())
+        assert n_py == n_c, f"{sym}: argtypes {n_py}, C parameters {n_c}"
+    counts = ", ".join(f"{sym} {len(loaded[sym].argtypes or ())}"
+                       for sym in bound)
+    log(f"  bindings: {len(bound)} symbols bound by the wrappers, each in "
+        f"its built library (fused_tick, bid_top2), argtypes as long as the "
+        f"parsed extern \"C\" parameter list: {counts}")
+    log(f"phase analysis: {time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(inventory=res["inventory"], symbols=bound)
+
+
 # -- phase 14: the host layers the dispatcher imports -------------------------
 N_HOST_RECORDS = 300
 
@@ -5060,6 +5166,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     log_bid_loops()
+    phase_analysis(card)
 
     rk = phase_kernel(dev)
     re = rank_edges(dev)

@@ -46,6 +46,10 @@ dispatch/__init__.py dispatch/base.py dispatch/local.py dispatch/pull.py
 dispatch/push.py
 gateway/app.py gateway/__init__.py
 client/sdk.py client/aio.py client/__init__.py
+analysis/core.py analysis/locks.py analysis/obs.py analysis/eventloop.py
+analysis/registries.py analysis/shardsafety.py analysis/metricsdiscipline.py
+analysis/planegate.py
+workloads.py compat/redis_shim/redis/__init__.py
 """.split()
 
 #: copies changed on purpose, each with its reason
@@ -76,8 +80,12 @@ CHANGED = {
     "outputs are read with to_host (a CUDA tensor has no numpy view); "
     "the profiler's shape signature names the device type where JAX "
     "wrote the backend label 'xla'; comments and the module docstring "
-    "name the port. Only __init__, _tick_inner and _tick_resident "
-    "differ, checked below",
+    "name the port; the act loops (_tick_inner, _act_on_resolved) stamp "
+    "a task's 'sent' before its frame goes out and pass the stamp to "
+    "traces.note after the send, where JAX's note after it, so a worker's "
+    "exec_start never precedes 'sent' (ROADMAP C.8). Only __init__, "
+    "_tick_inner, _tick_resident and _act_on_resolved differ, checked "
+    "below",
     "dispatch/__main__.py": "local, pull and push start as JAX's do "
     "(they touch no device); tpu-push gains --device cuda|cpu and "
     "--dist-backend nccl|gloo; --multihost joins a "
@@ -107,6 +115,28 @@ CHANGED = {
     "parallel/multihost_resident.py": "every process holds a full replica "
     "of the resident state and runs B1 on it, where JAX shards the task "
     "leaves under GSPMD; dist.barrier for sync_global_devices",
+    "sched/problem.py": "PlacementProblem holds torch tensors on an "
+    "explicit device (build(..., device='cuda'), uploaded with "
+    "device.upload); pad_to and check_assignment as in JAX",
+    "analysis/__init__.py": "its docstring describes the port's checkers "
+    "(the three rewritten ones among them)",
+    "analysis/__main__.py": "the CLI is python -m tpu_faas_torch.analysis: "
+    "it scans the port's package by default and names itself so",
+    "analysis/protocol.py": "the store-package exemption keys on a "
+    "tpu_faas_torch/store path (and the installed tpu_faas_torch.store), "
+    "where JAX's keys on tpu_faas/store",
+    "analysis/tracesafety.py": "rewritten for torch: the scope is every "
+    "function reachable from the card's declared device entry points "
+    "(ROOTS), not jax.jit; host-sync, data-dependent-branch and print "
+    "kept, host-time, python-random, state-mutation and "
+    "unknown-axis-name dropped (its docstring says why)",
+    "analysis/kernelparity.py": "rewritten for the CUDA kernels' ctypes "
+    "bindings: launch lists, argtypes and pointer types against the "
+    "extern \"C\" signatures read from the .cu sources, where JAX's reads "
+    "the Pallas in_specs and aliases",
+    "analysis/devicesnapshot.py": "rewritten for torch uploads: "
+    "torch.from_numpy(a) copied with non_blocking=True, where JAX's checks "
+    "jnp.asarray and jax.device_put",
 }
 
 #: closure modules the port does not copy: ported under its own name by an
@@ -123,22 +153,27 @@ NOT_COPIED = {
     "sched/fused_tick.py, csrc/fused_tick.cu",
     "tpu_faas.sched.pallas_kernels": "ported as the CUDA kernel B2: "
     "sched/bid.py, csrc/bid_top2.cu",
-    "tpu_faas.sched.problem": "reached only through tpu_faas/sched/"
-    "__init__.py; the dispatcher uses none of it",
     "tpu_faas.spec": "ported: spec/",
     "tpu_faas.spec.policy": "ported: spec/policy.py",
     "tpu_faas.spec.straggler": "ported: spec/straggler.py",
     "tpu_faas.tenancy": "ported: tenancy/",
     "tpu_faas.tenancy.config": "ported: tenancy/config.py",
     "tpu_faas.tenancy.fairshare": "ported: tenancy/fairshare.py",
-    # not reached by any entry point, and not ported (ROADMAP says why)
-    "tpu_faas.analysis": "the JAX package's static analysers of its own "
-    "source: they read tpu_faas/, not the port",
-    "tpu_faas.compat.redis_shim": "a test helper (redis-py's surface on the "
-    "store client for the reference's own processes); waits for the "
-    "benchmark, ROADMAP A.10",
-    "tpu_faas.workloads": "the bench's and tests' task functions; the "
-    "benchmark (ROADMAP A.10) needs it importable in the port's workers",
+}
+
+#: modules no entry point imports that the port keeps all the same: the
+#: tests' and the benchmark's task functions, and redis-py's surface for
+#: the reference's own processes
+BESIDE_THE_CLOSURE = ("workloads.py", "compat/redis_shim/redis/__init__.py")
+
+#: the JAX modules with no counterpart in the port, each with its reason
+NO_COUNTERPART = {
+    "bench/": "the earlier benchmark's harness and configs: the port's "
+    "benchmark is ROADMAP A.10",
+    "sched/pallas_fused.py": "kernel B1, ported as CUDA: sched/fused_tick.py "
+    "and csrc/fused_tick.cu",
+    "sched/pallas_kernels.py": "kernel B2, ported as CUDA: sched/bid.py and "
+    "csrc/bid_top2.cu",
 }
 
 
@@ -195,6 +230,7 @@ ENTRY_POINTS = (
     "tpu_faas.gateway", "tpu_faas.gateway.__main__", "tpu_faas.store.server",
     "tpu_faas.worker.push_worker", "tpu_faas.worker.pull_worker",
     "tpu_faas.worker.deploy", "tpu_faas.client", "tpu_faas.client.aio",
+    "tpu_faas.analysis.__main__",
 )
 
 
@@ -244,18 +280,33 @@ def test_every_closure_module_is_copied_or_accounted_for():
         assert rel in listed, f"{mod} is neither copied nor accounted for"
         assert os.path.exists(os.path.join(_PORT, rel)), rel
     # nothing listed that the closure does not reach, but the parser the
-    # metrics tests share and the race monitor the dispatcher's e2e twins
-    # wrap its stores in
-    reached = {_rel(m) for m in closure} | {"obs/expofmt.py",
-                                            "store/racecheck.py"}
+    # metrics tests share, the race monitor the dispatcher's e2e twins wrap
+    # its stores in, and the modules kept beside the closure
+    reached = {_rel(m) for m in closure} | {
+        "obs/expofmt.py", "store/racecheck.py", *BESIDE_THE_CLOSURE}
     assert listed <= reached, sorted(listed - reached)
-    # an entry outside the closure names a module of the JAX package
+    # every entry names a module the closure reaches
     outside = set(NOT_COPIED) - closure
-    paths = [os.path.join(_JAX, *m.split(".")[1:]) for m in outside]
-    assert all(os.path.isdir(p) or os.path.exists(p + ".py")
-               for p in paths), sorted(outside)
-    assert outside <= {"tpu_faas.analysis", "tpu_faas.compat.redis_shim",
-                       "tpu_faas.workloads"}, sorted(outside)
+    assert not outside, sorted(outside)
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every ``.py`` under ``tpu_faas/`` has a file at the same relative
+    path in the port, but for :data:`NO_COUNTERPART`; and each exception
+    still names a module of the JAX package that the port lacks."""
+    missing = set()
+    for d, _dirs, files in os.walk(_JAX):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), _JAX)
+                if not os.path.exists(os.path.join(_PORT, rel)):
+                    missing.add(rel.replace(os.sep, "/"))
+    excused = {m for m in missing
+               if any(m == k or (k.endswith("/") and m.startswith(k))
+                      for k in NO_COUNTERPART)}
+    assert missing == excused, sorted(missing - excused)
+    for k in NO_COUNTERPART:
+        assert any(m == k or m.startswith(k) for m in missing), k
 
 
 def _defs(src: str) -> dict[str, str]:
@@ -284,7 +335,8 @@ def _defs(src: str) -> dict[str, str]:
 DISPATCH_CHANGED = {
     "dispatch/tpu_push.py": {"TpuPushDispatcher.__init__",
                              "TpuPushDispatcher._tick_inner",
-                             "TpuPushDispatcher._tick_resident"},
+                             "TpuPushDispatcher._tick_resident",
+                             "TpuPushDispatcher._act_on_resolved"},
     "dispatch/__main__.py": {"main"},
     # <statement 5>: the new constant SUBSCRIBER_RCVBUF
     "store/client.py": {"<statement 5>", "_Conn.__init__",

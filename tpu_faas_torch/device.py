@@ -37,4 +37,4 @@ def to_host(t: torch.Tensor | np.ndarray) -> np.ndarray:
     numpy array (the multihost tick's outputs) passes through."""
     if isinstance(t, np.ndarray):
         return t
-    return t.detach().cpu().numpy()
+    return t.detach().cpu().numpy()  # faas: allow(trace.host-sync) the port's readback; each call on the card's path is listed at its own site

@@ -62,6 +62,7 @@ from tpu_faas_torch.dispatch.base import (
     TaskDispatcher,
 )
 from tpu_faas_torch.obs.profile import TickProfiler
+from tpu_faas_torch.obs.trace import anchored_now
 from tpu_faas_torch.sched.estimator import RuntimeEstimator, fn_digest
 from tpu_faas_torch.sched.state import SchedulerArrays
 from tpu_faas_torch.store.base import LIVE_INDEX_KEY, blobreq_key
@@ -2677,12 +2678,16 @@ class TpuPushDispatcher(TaskDispatcher):
                         restore_from = idx + 1
                         continue
                     self.note_dispatch(task)
+                    # stamped before the frame leaves, so the worker's
+                    # exec_start can never precede it (ROADMAP C.8)
+                    sent_at = anchored_now()
                     self.send_task_frame(
                         task_frames, wid, caps, task, blob, frame_extra
                     )
                     self.note_payload_sent(task, blob)
                     self.traces.note(
-                        task.task_id, "sent", count_dup=task.retries == 0
+                        task.task_id, "sent", ts=sent_at,
+                        count_dup=task.retries == 0,
                     )
                     # on the wire (or in a buffered frame the finally is
                     # guaranteed to flush) + tracked: must NOT be restored
@@ -3309,10 +3314,13 @@ class TpuPushDispatcher(TaskDispatcher):
                         undo(task, row)  # inflight table full: wait a tick
                         continue
                     self.note_dispatch(task)
+                    # stamped before the frame leaves (ROADMAP C.8)
+                    sent_at = anchored_now()
                     self.send_task_frame(task_frames, wid, caps, task, blob)
                     self.note_payload_sent(task, blob)
                     self.traces.note(
-                        task.task_id, "sent", count_dup=task.retries == 0
+                        task.task_id, "sent", ts=sent_at,
+                        count_dup=task.retries == 0,
                     )
                     if task.retries:
                         # per-task on the re-dispatch path: the redispatch

@@ -158,7 +158,7 @@ def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     if t.dtype == torch.bool:
         t = t.to(torch.uint8)
     if mesh.backend == "gloo":
-        return t.cpu()
+        return t.cpu()  # faas: allow(trace.host-sync) gloo takes CPU tensors: a collective on gloo stages through host memory
     return t.to(mesh.lead)
 
 
@@ -464,7 +464,7 @@ def sharded_auction_placement(
     def unassigned() -> int:
         """The admitted tasks still without a slot, over every position:
         both the loop's condition and the round's bidders."""
-        return int(psum(mesh, [(adm[i] & (asg[i] < 0)).sum(dtype=_I32)
+        return int(psum(mesh, [(adm[i] & (asg[i] < 0)).sum(dtype=_I32)  # faas: allow(trace.host-sync) the sharded auction's round loop on the host (JAX's while_loop): one bidder count a round
                                for i in L])[0])
 
     rounds, bid_rows = 0, 0

@@ -113,7 +113,7 @@ class MultihostResidentScheduler(ResidentScheduler):
         # strict alternation with the kernels: this process's last launch
         # has finished before the next collective starts
         if self.device.type == "cuda" and self._r_state is not None:
-            torch.cuda.synchronize(self.device)
+            torch.cuda.synchronize(self.device)  # faas: allow(trace.host-sync) strict alternation: this process's last launch ends before the next collective
         return broadcast_from_lead(buf, self.device)
 
     def _apply_packet(self, packet: np.ndarray):
@@ -216,6 +216,6 @@ class MultihostResidentScheduler(ResidentScheduler):
                              else res[1])
             if self.device.type == "cuda":
                 # the kernel under the watchdog too, not just its launch
-                torch.cuda.synchronize(self.device)
+                torch.cuda.synchronize(self.device)  # faas: allow(trace.host-sync) the follower's watchdog covers the kernel, not just its launch
             in_tick_since[0] = None
             n += 1

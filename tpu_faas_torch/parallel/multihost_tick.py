@@ -48,7 +48,7 @@ def broadcast_from_lead(buf: np.ndarray, device: torch.device) -> np.ndarray:
     if dist.get_backend() != "gloo":
         t = t.to(device)
     dist.broadcast(t, src=0)
-    return to_host(t)
+    return to_host(t)  # faas: allow(trace.host-sync) the broadcast packet, read back in every process
 
 
 def watchdog(in_tick_since: list, timeout: float, what: str) -> None:
@@ -159,7 +159,7 @@ class MultihostTick:
                   if self.prio_section and has_prio else None)
         if self._prev_live is None:
             self._prev_live = torch.zeros(W, dtype=torch.bool, device=lead)
-        if self._price_refresh is not None and bool(self._price_refresh):
+        if self._price_refresh is not None and bool(self._price_refresh):  # faas: allow(trace.host-sync) the auction's refresh flag, computed a tick ago: one read a tick
             # last warm attempt's prices went stale: cold re-solve. The
             # read is of a replicated value computed a tick ago: the same
             # decision in every process
@@ -191,9 +191,9 @@ class MultihostTick:
         # the assignment is already whole in every process: the sharded
         # functions all_gather it
         return TickOutput(
-            to_host(out.assignment),
-            to_host(out.live),
-            to_host(out.purged),
+            to_host(out.assignment),  # faas: allow(trace.host-sync) the multihost tick's readback: assignment
+            to_host(out.live),  # faas: allow(trace.host-sync) the multihost tick's readback: live
+            to_host(out.purged),  # faas: allow(trace.host-sync) the multihost tick's readback: purged
             None,  # the lead fills redispatch from its own table
         )
 

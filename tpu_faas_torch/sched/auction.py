@@ -124,7 +124,7 @@ def _rank_dual_seed(
     # float32 is ONE serial float64 running sum, each prefix rounded to
     # float32: here, from the last position to the first. The auction
     # kernel sums in exactly this order.
-    p_sorted = torch.cumsum(contrib.flip(0).cpu(), 0).flip(0).to(dev)
+    p_sorted = torch.cumsum(contrib.flip(0).cpu(), 0).flip(0).to(dev)  # faas: allow(trace.host-sync) the seed's reversed cumsum, summed on the host in a fixed order (PR 2)
     prices = torch.zeros(S, dtype=torch.float32, device=dev)
     prices[slot_order_by_speed] = p_sorted
     return prices
@@ -273,7 +273,7 @@ def auction_placement_impl(
         nonlocal bid_rows
         rounds = 0
         while rounds < limit:
-            n_bid = int((admitted & (assigned_slot < 0)).sum())
+            n_bid = int((admitted & (assigned_slot < 0)).sum())  # faas: allow(trace.host-sync) the auction's round loop on the host (JAX's while_loop): one bidder count a round
             if n_bid == 0:
                 break
             price, owner, assigned_slot = body(price, owner, assigned_slot,
@@ -301,16 +301,16 @@ def auction_placement_impl(
         inv_max = torch.where(slot_valid, inv_speed, -_INF).amax()
         rng = size_max * inv_max - size_min * inv_min
         rng = torch.where(torch.isfinite(rng) & (rng > 0), rng, 0.0)
-        eps_f = torch.tensor(eps, dtype=torch.float32, device=dev)
+        eps_f = torch.tensor(eps, dtype=torch.float32, device=dev)  # faas: allow(trace.host-sync) the cold ladder's epsilon, copied up once a solve
         eps0 = torch.maximum(rng / 2.0, eps_f)
         exponent = 1.0 / (n_phases - 1) if n_phases > 1 else 0.0
         ratio = (eps_f / eps0) ** exponent
         price = torch.zeros(S, dtype=torch.float32, device=dev)
         owner, assigned_slot = owner0, assigned0
-        eps_prev = torch.tensor(_INF, dtype=torch.float32, device=dev)
+        eps_prev = torch.tensor(_INF, dtype=torch.float32, device=dev)  # faas: allow(trace.host-sync) the cold ladder's opening bound, copied up once a solve
         total = 0
         for i in range(n_phases):
-            eps_i = eps0 * ratio ** torch.tensor(float(i), device=dev)
+            eps_i = eps0 * ratio ** torch.tensor(float(i), device=dev)  # faas: allow(trace.host-sync) the cold ladder's phase index, copied up once a phase
             finer = eps_i < eps_prev * float(np.float32(1.0 - 1e-6))
             owner = torch.where(finer, -1, owner)
             assigned_slot = torch.where(finer, -1, assigned_slot)

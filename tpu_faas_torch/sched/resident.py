@@ -390,10 +390,10 @@ def _resident_tick_impl(
     if auction:
         new_state = new_state._replace(price=out.auction_price,
                                        refresh=out.auction_refresh)
-        rounds = torch.tensor(out.auction_rounds, dtype=_I32,
+        rounds = torch.tensor(out.auction_rounds, dtype=_I32,  # faas: allow(trace.host-sync) the plain version: on the card B1 returns its round count itself
                               device=packed.device)
         spilled = out.auction_spilled.to(_I32)
-        bid_rows = torch.tensor(out.auction_bid_rows, dtype=_I32,
+        bid_rows = torch.tensor(out.auction_bid_rows, dtype=_I32,  # faas: allow(trace.host-sync) the plain version: on the card B1 returns its bidder count itself
                                 device=packed.device)
     res = ResidentTickOutput(
         placed_slots, placed_rows, arrival_slots, redispatch_slots,
@@ -889,7 +889,7 @@ class ResidentScheduler(SchedulerArrays):
         rejected = 0
         if arrivals:
             rejects: list[_Arrival] = []
-            arr_slots = to_host(out.arrival_slots)[: len(arrivals)]
+            arr_slots = to_host(out.arrival_slots)[: len(arrivals)]  # faas: allow(trace.host-sync) resolve_next, the resident tick's readback: arrival slots
             for a, slot in zip(arrivals, arr_slots):
                 slot = int(slot)
                 if slot < 0:
@@ -903,8 +903,8 @@ class ResidentScheduler(SchedulerArrays):
             return ResolvedTick([], [], np.empty(0, np.int64), rejected,
                                 len(self.slot_task))
         placed: list[tuple[str, int]] = []
-        for slot, row in zip(to_host(out.placed_slots),
-                             to_host(out.placed_rows)):
+        for slot, row in zip(to_host(out.placed_slots),  # faas: allow(trace.host-sync) resolve_next: placed slots
+                             to_host(out.placed_rows)):  # faas: allow(trace.host-sync) resolve_next: placed rows
             if slot < 0:
                 break  # compaction puts pads last
             slot = int(slot)
@@ -921,13 +921,13 @@ class ResidentScheduler(SchedulerArrays):
                 # no host mapping for the reported slot (defensive): nothing
                 # will dispatch, so the next diff carries +1 back up
                 self._free_sent[row] -= 1
-        redisp = [int(s) for s in to_host(out.redispatch_slots) if s >= 0]
-        purged_rows = np.flatnonzero(to_host(out.purged))
+        redisp = [int(s) for s in to_host(out.redispatch_slots) if s >= 0]  # faas: allow(trace.host-sync) resolve_next: redispatch slots
+        purged_rows = np.flatnonzero(to_host(out.purged))  # faas: allow(trace.host-sync) resolve_next: purged rows
         stragglers: list[int] = []
         if self.use_spec:
-            stragglers = [int(s) for s in to_host(out.straggler_slots)
+            stragglers = [int(s) for s in to_host(out.straggler_slots)  # faas: allow(trace.host-sync) resolve_next: straggler slots
                           if s >= 0]
         return ResolvedTick(
-            placed, redisp, purged_rows, rejected, int(out.n_pending),
+            placed, redisp, purged_rows, rejected, int(out.n_pending),  # faas: allow(trace.host-sync) resolve_next: the pending count
             stragglers,
         )

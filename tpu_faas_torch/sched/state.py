@@ -762,7 +762,7 @@ class SchedulerArrays:
             )
             self.prev_live = out.live
             return out
-        if self._d_auction_refresh is not None and bool(
+        if self._d_auction_refresh is not None and bool(  # faas: allow(trace.host-sync) the batch auction's refresh flag, computed a tick ago: one read a tick
             self._d_auction_refresh
         ):
             # last tick's prices went stale: re-solve cold this tick (the

@@ -50,9 +50,9 @@ def straggler_flags_impl(
 ) -> torch.Tensor:
     """bool[I]: in-flight slots whose execution has outlived its
     prediction. A slot opts out with ``predicted <= 0``."""
-    mult = torch.as_tensor(quantile_mult, dtype=torch.float32,
+    mult = torch.as_tensor(quantile_mult, dtype=torch.float32,  # faas: allow(trace.host-sync) a host float on the batch tick (a device scalar on the resident one copies nothing)
                            device=inflight_predicted.device)
-    floor = torch.as_tensor(min_runtime_s, dtype=torch.float32,
+    floor = torch.as_tensor(min_runtime_s, dtype=torch.float32,  # faas: allow(trace.host-sync) a host float on the batch tick (a device scalar on the resident one copies nothing)
                             device=inflight_predicted.device)
     threshold = torch.maximum(mult * inflight_predicted, floor)
     return (

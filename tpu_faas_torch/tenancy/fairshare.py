@@ -200,9 +200,9 @@ def share_sum(w: torch.Tensor) -> torch.Tensor:
     to float32: the order kernel B1 sums in. Summed on the host (a read back
     of N floats when ``w`` lies on the card)."""
     acc = 0.0
-    for x in w.tolist():
+    for x in w.tolist():  # faas: allow(trace.host-sync) the deficit's share sum: one float64 sum on the host in index order (B1's order)
         acc += x
-    return torch.tensor(np.float32(acc), device=w.device)
+    return torch.tensor(np.float32(acc), device=w.device)  # faas: allow(trace.host-sync) the share sum copied back up, once a tick
 
 
 def tenant_deficit_update_impl(
