@@ -254,6 +254,33 @@ over):
    (the gateway's submit stamp to the terminal write's), beside the
    card's name and power limit; the children's logs go to
    ``chiprun_out/stack/``.
+16b. ``planes`` — the tpu-push dispatcher's opt-in planes through the same
+   entry points, run after the stack phase and before the profile phase
+   (one store server and gateway; every dispatcher ``-m tpu-push
+   --resident --device cuda``). (a) ``--express --batch-max 16
+   --batch-window-ms 2`` with 4 ``push_worker 4 --hb``: 1,000 calls of
+   3x + 1 in batches of 100, each collected with ``FaaSClient.wait_many``
+   before the next is submitted; every call answered once with its value,
+   the gateway's inline deliveries and the dispatcher's TASK_BATCH frames
+   above 0. (b) 2
+   ``push_worker 2 --hb``: a backlog of 200 priority-0 sleeps of 50 ms,
+   then 20 priority-9 ones; each priority-9 call starts before every
+   priority-0 call still queued when it was submitted (the record's
+   submit stamp; ``test_priority.py``'s ordering). (c) on (b)'s
+   dispatcher: 10 queued calls cancelled and 2 running ones
+   force-cancelled (CANCELLED), 5 calls with a timeout hint shorter than
+   their sleep (FAILED, ``TaskTimeout``), one call that kills its pool
+   child (FAILED), every other call COMPLETED; in (b) and (c) each call's
+   result announced once. (d) two ``--shared``
+   dispatchers on one store and the one card, each with 2 ``push_worker
+   2 --hb``: 400 calls, one dispatcher SIGKILLed with its fleet once half
+   are announced; every call COMPLETED and announced once, both
+   dispatchers placed calls. In (a), (b) and (d) every dispatcher's B1
+   launches equal its resident ticks (its ``/metrics``, read between
+   ticks) and ``tick_backend`` is ``fused_cuda``. Prints each leg's calls,
+   served/s, median and p99 submit-to-result (store stamps), B1 launches
+   and ticks, inline deliveries and TASK_BATCH frames beside the card's
+   name and power limit; the children's logs go to ``chiprun_out/planes/``.
 17. ``analysis`` — run right after the build: the port's static analysers
    (``python -m tpu_faas_torch.analysis``) over this checkout's
    ``tpu_faas_torch/`` in a fresh interpreter, which must exit 0 with no
@@ -279,7 +306,9 @@ and ``mesh_launches``, its launches in the mesh phase's (b) resident loop
 (``mesh_devices=1``) and in (c)'s lead and follower (the padded shape); B2's entry carries
 ``mesh_launches`` too, its launches in (a)'s gspmd and permute auctions.
 B1's rank entry also carries ``stack_launches`` and ``stack_ticks``, the
-stack phase's tpu-push dispatcher's B1 launches and resident ticks.
+stack phase's tpu-push dispatcher's B1 launches and resident ticks, and
+``planes_launches`` and ``planes_ticks``, the planes phase's dispatchers'
+(legs (a), (b)-(c), and (d)'s killed and surviving ones).
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -3830,6 +3859,37 @@ def http_metric(url: str, name: str) -> float:
     raise AssertionError(f"{name} not in {url}")
 
 
+def metric_samples(url: str) -> dict[str, float]:
+    """Every sample of a Prometheus text exposition, by its name with its
+    labels as written."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=5) as f:
+        out = {}
+        for line in f.read().decode().splitlines():
+            if line and not line.startswith("#"):
+                key, val = line.rsplit(" ", 1)
+                out[key] = float(val)
+        return out
+
+
+def launches_at_rest(stats: str, tries: int = 50) -> tuple:
+    """A tpu-push --resident dispatcher's (B1 launches, resident ticks)
+    from one read of its ``/metrics``, taken between two ticks: it counts
+    a tick when the tick starts and the tick's launches when it ends, so a
+    read while one runs sees one tick more than it launched. Reads until
+    the launches reach the ticks (20 ms apart); returns that read, or the
+    last one."""
+    for _ in range(tries):
+        m = metric_samples(stats + "/metrics")
+        got = (int(m["tpu_faas_tick_device_dispatches_total"]),
+               int(m["tpu_faas_device_ticks_total"]))
+        if got[0] >= got[1]:
+            return got
+        time.sleep(0.02)
+    return got
+
+
 def registered(stats: str) -> int:
     """The workers a dispatcher holds registered: its ``/stats`` where it
     reports them, else the gauge on its ``/metrics``."""
@@ -3968,13 +4028,10 @@ def stack_leg(procs: StackProcesses, store_url: str, store, client,
                    start_s=t_ready - t_start)
         if mode == "tpu-push":
             st = http_json(stats + "/stats")
-            m = stats + "/metrics"
             out.update(
                 tick_backend=st["tick_backend"],
-                launches_last_tick=st["device_dispatches_last_tick"],
-                ticks=http_metric(m, "tpu_faas_device_ticks_total"),
-                launches=http_metric(
-                    m, "tpu_faas_tick_device_dispatches_total"))
+                launches_last_tick=st["device_dispatches_last_tick"])
+            out["launches"], out["ticks"] = launches_at_rest(stats)
             want = "fused_cuda" if device == "cuda" else None
             assert out["tick_backend"] == want, out
             assert out["launches"] >= out["ticks"] > 0, out
@@ -4057,6 +4114,502 @@ def phase_stack(card: str) -> dict:
     log(f"phase stack: {time.perf_counter() - t0:.1f} s")
     return dict(legs=legs, launches=int(legs[0]["launches"]),
                 ticks=int(legs[0]["ticks"]))
+
+
+# -- phase 16b: the tpu-push dispatcher's opt-in planes through the port's
+# entry points ---------------------------------------------------------------
+#: leg (a): the calls, the dispatcher's flags and the fleet (workers x
+#: processes)
+PLANES_EXPRESS_CALLS = 1_000
+PLANES_EXPRESS_FLAGS = ("--express", "--batch-max", "16",
+                        "--batch-window-ms", "2")
+PLANES_EXPRESS_FLEET = (4, 4)
+#: leg (a)'s calls go in batches of this many: below the 512 arrivals one
+#: delta packet holds (ResidentScheduler.KA), so no burst takes an overflow
+#: flush launch and B1 launches once a resident tick
+PLANES_EXPRESS_BATCH = 100
+#: legs (b) and (c) share one dispatcher and fleet
+PLANES_FLEET = (2, 2)
+#: leg (b): the priority-0 backlog, the priority-9 calls, each call's sleep
+#: (seconds), and the grace after a priority-9 submit within which a
+#: priority-0 call placed before its announce reached the dispatcher may
+#: still start (a priority-0 call starting later was queued when the
+#: priority-9 call arrived)
+PLANES_BACKLOG, PLANES_HIGH, PLANES_NAP_S, PLANES_GRACE_S = 200, 20, 0.05, 0.05
+#: leg (c): the blockers' sleep, the calls cancelled while queued, the
+#: running ones force-cancelled, the calls given a timeout hint shorter than
+#: their sleep, and that hint
+PLANES_BLOCK_S, PLANES_QUEUED, PLANES_TIMEOUTS, PLANES_HINT_S = 3.0, 10, 5, 0.3
+#: leg (d): the calls across two shared dispatchers, each call's sleep, and
+#: the lease after which the survivor adopts the dead one's running tasks
+PLANES_SHARED_CALLS, PLANES_SHARED_NAP_S, PLANES_LEASE_S = 400, 0.01, 3.0
+#: leg (d): the survivor's stranded-task rescan period (seconds)
+PLANES_RESCAN_S = 0.5
+
+
+def b1_counts(stats: str) -> dict:
+    """A tpu-push --resident dispatcher's B1 launches and resident ticks
+    (:func:`launches_at_rest`), tick backend, calls dispatched and
+    TASK/TASK_BATCH frames."""
+    launches, ticks = launches_at_rest(stats)
+    m = metric_samples(stats + "/metrics")
+    st = http_json(stats + "/stats")
+    single = next((v for k, v in m.items()
+                   if k.startswith("tpu_faas_dispatch_batch_size_bucket")
+                   and 'le="1.0"' in k), 0.0)
+    frames = m.get("tpu_faas_dispatch_batch_size_count", 0.0)
+    return dict(launches=launches, ticks=ticks,
+                tick_backend=st["tick_backend"],
+                dispatched=int(st["n_dispatched"]),
+                task_frames=int(frames), batch_frames=int(frames - single))
+
+class Announces:
+    """Every announce on the store's results channel, counted by task id,
+    from a thread of its own."""
+
+    def __init__(self, store) -> None:
+        import threading
+
+        from tpu_faas_torch.store.base import (
+            RESULTS_CHANNEL,
+            decode_result_announce,
+        )
+
+        self.sub = store.subscribe(RESULTS_CHANNEL)
+        self.seen: dict[str, int] = {}
+        self._stop = threading.Event()
+
+        def listen() -> None:
+            while not self._stop.is_set():
+                msg = self.sub.get_message(timeout=0.05)
+                if msg is not None:
+                    tid = decode_result_announce(msg)[0]
+                    self.seen[tid] = self.seen.get(tid, 0) + 1
+
+        self._thread = threading.Thread(target=listen, daemon=True)
+        self._thread.start()
+
+    def once(self, ids, what: str) -> None:
+        """Each of ``ids`` announced exactly once (a late duplicate would
+        land within the half second waited here)."""
+        time.sleep(0.5)
+        bad = {t: self.seen.get(t, 0) for t in ids if self.seen.get(t) != 1}
+        assert not bad, f"{what}: announces {dict(list(bad.items())[:8])}"
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.sub.close()
+
+
+def planes_fleet(procs: StackProcesses, store_url: str, tag: str,
+                 flags: tuple, fleet: tuple, device: str) -> tuple:
+    """One ``tpu-push --resident`` dispatcher with ``flags`` and its push
+    workers, started through their entry points; returns the children's
+    names and the dispatcher's stats URL once every worker registered."""
+    zmq_port, stats_port = free_port(), free_port()
+    n_workers, n_procs = fleet
+    names = [f"{tag}-dispatcher"]
+    procs.start(names[0], "tpu_faas_torch.dispatch", "-m", "tpu-push",
+                "--resident", "--device", device, *flags, "-i", "127.0.0.1",
+                "-p", str(zmq_port), "--store", store_url, "--stats-port",
+                str(stats_port), "--tte", str(STACK_TTE_S))
+    for i in range(n_workers):
+        names.append(f"{tag}-push_worker-{i}")
+        procs.start(names[-1], "tpu_faas_torch.worker.push_worker",
+                    str(n_procs), f"tcp://127.0.0.1:{zmq_port}", "--hb",
+                    "--hb-period", str(STACK_HB_S))
+    return names, f"http://127.0.0.1:{stats_port}"
+
+
+def fleet_ready(procs: StackProcesses, tag: str, stats: str,
+                n_workers: int) -> None:
+    wait_until(f"planes {tag}: the dispatcher's stats",
+               lambda: http_json(stats + "/stats"), procs)
+    wait_until(f"planes {tag}: {n_workers} workers registered",
+               lambda: registered(stats) >= n_workers, procs)
+
+
+def served(store, ids: list, want: list, what: str,
+           status: str = "COMPLETED") -> list[float]:
+    """Every record of ``ids`` terminal with ``status`` and, for a
+    completed one, its value in ``want`` (None skips a value); returns the
+    submit-to-result milliseconds from the store's stamps."""
+    from tpu_faas_torch.core.serialize import deserialize
+    from tpu_faas_torch.core.task import (
+        FIELD_FINISHED_AT,
+        FIELD_RESULT,
+        FIELD_STATUS,
+        FIELD_SUBMITTED_AT,
+    )
+
+    recs = store.hgetall_many(ids)
+    lat = []
+    for tid, r, w in zip(ids, recs, want):
+        assert r.get(FIELD_STATUS) == status, (what, tid, r.get(FIELD_STATUS))
+        if status == "COMPLETED" and w is not None:
+            assert deserialize(r[FIELD_RESULT]) == w, (what, tid)
+        lat.append(1e3 * (float(r[FIELD_FINISHED_AT])
+                          - float(r[FIELD_SUBMITTED_AT])))
+    return lat
+
+
+def leg_numbers(lat: list[float], seconds: float) -> dict:
+    lat = sorted(lat)
+    return dict(calls=len(lat), served_per_s=len(lat) / seconds,
+                p50_ms=lat[len(lat) // 2],
+                p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))])
+
+
+def planes_express(procs, store_url, store, client, device) -> dict:
+    """Leg (a): ``--express --batch-max 16 --batch-window-ms 2``, 1,000
+    calls of 3x + 1 in batches of 100, each collected with ``wait_many``
+    before the next is submitted. Every call answered once
+    with its value, inline deliveries at the gateway and TASK_BATCH frames
+    above 0, B1 once a resident tick, express sub-ticks included."""
+    from tpu_faas_torch.core.serialize import deserialize
+
+    names, stats = planes_fleet(procs, store_url, "express",
+                                PLANES_EXPRESS_FLAGS, PLANES_EXPRESS_FLEET,
+                                device)
+    ann = Announces(store)
+    try:
+        fleet_ready(procs, "express", stats, PLANES_EXPRESS_FLEET[0])
+        fn = (lambda x: 3 * x + 1)  # noqa: E731
+        # one call through the whole path before the clock starts
+        assert client.run(fn, -1, timeout=STACK_TIMEOUT_S) == fn(-1)
+        fid = client.register(fn)
+        gw0 = metric_samples(client.base_url + "/metrics")
+        n = PLANES_EXPRESS_CALLS
+        ids: list[str] = []
+        got: dict[str, object] = {}
+        deadline = time.monotonic() + STACK_TIMEOUT_S
+        t0 = time.perf_counter()
+        for lo in range(0, n, PLANES_EXPRESS_BATCH):
+            batch = [h.task_id for h in client.submit_many(fid, [
+                ((i,), {}) for i in range(
+                    lo, min(n, lo + PLANES_EXPRESS_BATCH))])]
+            ids += batch
+            # the first wait parks before the batch's calls finish, so the
+            # announces carrying their results inline wake it
+            pending = batch
+            while pending:
+                procs.check()
+                assert time.monotonic() < deadline, "express: results missing"
+                results, pending, unknown = client.wait_many(pending,
+                                                             wait=5.0)
+                assert not unknown, unknown[:4]
+                for tid, (status, body) in results.items():
+                    assert tid not in got, f"express: {tid} delivered twice"
+                    assert status == "COMPLETED", (tid, status)
+                    got[tid] = deserialize(body)
+        t1 = time.perf_counter()
+        assert [got[t] for t in ids] == [3 * i + 1 for i in range(n)]
+        lat = served(store, ids, [3 * i + 1 for i in range(n)], "express")
+        ann.once(ids, "express")
+        procs.check()
+        gw1 = metric_samples(client.base_url + "/metrics")
+        key = 'tpu_faas_gateway_result_served_total{source="inline"}'
+        inline = int(gw1.get(key, 0) - gw0.get(key, 0))
+        out = dict(leg="a", **leg_numbers(lat, t1 - t0), inline=inline,
+                   **b1_counts(stats))
+        want = "fused_cuda" if device == "cuda" else None
+        assert out["tick_backend"] == want, out
+        assert out["launches"] == out["ticks"] > 0, out
+        assert out["inline"] > 0 and out["batch_frames"] > 0, out
+        return out
+    finally:
+        ann.close()
+        procs.stop(names)
+
+
+def planes_priority(procs, store, client, stats, ann) -> dict:
+    """Leg (b): a backlog of 200 priority-0 sleeps of 50 ms, then 20
+    priority-9 ones. Each call returns the time it started; each
+    priority-9 call must start before every priority-0 call still queued
+    when it arrived (started later than its submit plus the grace), unless
+    the two were placed by one tick (one RUNNING stamp)."""
+    from tpu_faas_torch.core.task import FIELD_LEASE_AT, FIELD_SUBMITTED_AT
+
+    # the start time, then the sleep: the list is built in order
+    stamped = (lambda s: [__import__("time").time(),  # noqa: E731
+                          __import__("time").sleep(s)][0])
+    fid = client.register(stamped, name="stamped_sleep")
+    c0 = b1_counts(stats)
+    t0 = time.perf_counter()
+    low = client.submit_many(fid, [((PLANES_NAP_S,), {})] * PLANES_BACKLOG)
+    time.sleep(10 * PLANES_NAP_S)  # the backlog flows
+    s_call = time.time()
+    high = client.submit_many(fid, [((PLANES_NAP_S,), {})] * PLANES_HIGH,
+                              priorities=[9] * PLANES_HIGH)
+    s_back = time.time()
+    start = {h.task_id: h.result(timeout=STACK_TIMEOUT_S)
+             for h in low + high}
+    t1 = time.perf_counter()
+    ids = [h.task_id for h in low + high]
+    lat = served(store, ids, [None] * len(ids), "priority")
+    ann.once(ids, "priority")
+    lease = dict(zip(ids, store.hget_many(ids, FIELD_LEASE_AT)))
+    # submitted: the gateway's stamp on the record
+    sub = dict(zip(ids, map(float, store.hget_many(ids, FIELD_SUBMITTED_AT))))
+    queued = {h.task_id: [q.task_id for q in low if start[q.task_id]
+                          > sub[h.task_id] + PLANES_GRACE_S] for h in high}
+    n_queued = min(len(v) for v in queued.values())
+    assert n_queued >= PLANES_BACKLOG // 2, (
+        f"priority: only {n_queued} priority-0 calls still queued")
+    late = [(h, q) for h, qs in queued.items() for q in qs
+            if start[q] < start[h] and lease[q] != lease[h]]
+    assert not late, (
+        f"priority: {len(late)} priority-0 calls first; the priority-9 "
+        f"submit took {s_back - s_call:.3f} s, stamped "
+        f"{min(sub[h] for h in queued) - s_call:.3f}-"
+        f"{max(sub[h] for h in queued) - s_call:.3f} s after the call, "
+        f"started {min(start[h] for h in queued) - s_call:.3f}-"
+        f"{max(start[h] for h in queued) - s_call:.3f} s after it")
+    c1 = b1_counts(stats)
+    out = dict(leg="b", **leg_numbers(lat, t1 - t0), queued=n_queued,
+               pairs=sum(map(len, queued.values())),
+               launches=c1["launches"] - c0["launches"],
+               ticks=c1["ticks"] - c0["ticks"], tick_backend=c1["tick_backend"],
+               inline=0, batch_frames=c1["batch_frames"] - c0["batch_frames"])
+    assert out["launches"] == out["ticks"] > 0, out
+    return out
+
+
+def planes_terminals(procs, store, client, stats, ann) -> dict:
+    """Leg (c): 4 blockers fill the fleet; 10 calls queued behind them
+    cancelled, 2 blockers force-cancelled mid-run, 5 calls with a timeout
+    hint shorter than their sleep, then one call that kills its pool
+    child, then 8 calls on the same fleet. Terminal states as the JAX
+    tests assert: CANCELLED, CANCELLED, FAILED with TaskTimeout, FAILED;
+    the other calls COMPLETED with their values."""
+    from tpu_faas_torch.client import TaskCancelledError, TaskFailedError
+    from tpu_faas_torch.core.executor import TaskTimeout
+    from tpu_faas_torch.workloads import sleep_task
+
+    fid = client.register(sleep_task)
+    slots = PLANES_FLEET[0] * PLANES_FLEET[1]
+    t0 = time.perf_counter()
+    blockers = [client.submit(fid, PLANES_BLOCK_S) for _ in range(slots)]
+    wait_until("terminals: the blockers running",
+               lambda: all(h.status() == "RUNNING" for h in blockers),
+               procs)
+    queued = [client.submit(fid, 0.01) for _ in range(PLANES_QUEUED)]
+    assert all(h.cancel() for h in queued), "terminals: a queued cancel"
+    for h in blockers[:2]:
+        assert h.cancel(force=True) is False  # async: converges below
+    for h in queued + blockers[:2]:
+        try:
+            h.result(timeout=STACK_TIMEOUT_S)
+            raise AssertionError(f"terminals: {h.task_id} ran")
+        except TaskCancelledError:
+            pass
+        assert h.status() == "CANCELLED", h.task_id
+    assert [h.result(timeout=STACK_TIMEOUT_S) for h in blockers[2:]] == [
+        PLANES_BLOCK_S] * (slots - 2)
+    timed = [client.submit_with(fid, args=(30.0,), timeout=PLANES_HINT_S)
+             for _ in range(PLANES_TIMEOUTS)]
+    for h in timed:
+        try:
+            h.result(timeout=STACK_TIMEOUT_S)
+            raise AssertionError(f"terminals: {h.task_id} outran its hint")
+        except TaskFailedError as exc:
+            assert isinstance(exc.cause, TaskTimeout), exc.cause
+    kill = (lambda: __import__("os").kill(  # noqa: E731
+        __import__("os").getpid(), 9))
+    poison = client.submit(client.register(kill, name="poison"))
+    try:
+        poison.result(timeout=STACK_TIMEOUT_S)
+        raise AssertionError("terminals: the poison call completed")
+    except TaskFailedError:
+        pass
+    after = [client.submit(fid, 0.01) for _ in range(8)]
+    assert [h.result(timeout=STACK_TIMEOUT_S) for h in after] == [0.01] * 8
+    t1 = time.perf_counter()
+    procs.check()
+    states, lat, ids = {}, [], []
+    for group, status in ((queued + blockers[:2], "CANCELLED"),
+                          (blockers[2:] + after, "COMPLETED"),
+                          (timed + [poison], "FAILED")):
+        group_ids = [h.task_id for h in group]
+        lat += served(store, group_ids, [None] * len(group_ids),
+                      "terminals", status)
+        states[status] = len(group_ids)
+        ids += group_ids
+    ann.once(ids, "terminals")
+    c = b1_counts(stats)
+    return dict(leg="c", **leg_numbers(lat, t1 - t0), states=states,
+                launches=c["launches"], ticks=c["ticks"],
+                tick_backend=c["tick_backend"], inline=0,
+                batch_frames=c["batch_frames"])
+
+
+def planes_shared(procs, store_url, store, client, device) -> dict:
+    """Leg (d): two ``--shared`` resident dispatchers on one store and the
+    one card, each with its own fleet; 400 calls; once half are announced
+    the one that placed more and its fleet are SIGKILLed (as
+    test_shared_dispatchers.py kills one that owns work, with its fleet).
+    Every call runs to COMPLETED exactly once: one terminal record with its
+    value, one announce; both dispatchers placed calls."""
+    from tpu_faas_torch.workloads import sleep_task
+
+    flags = ("--shared", "--lease-timeout", str(PLANES_LEASE_S),
+             "--rescan", str(PLANES_RESCAN_S))
+    fleets = [planes_fleet(procs, store_url, tag, flags, PLANES_FLEET,
+                           device) for tag in ("shared-1", "shared-2")]
+    ann = Announces(store)
+    try:
+        for (names, stats), tag in zip(fleets, ("shared-1", "shared-2")):
+            fleet_ready(procs, tag, stats, PLANES_FLEET[0])
+        fid = client.register(sleep_task)
+        n = PLANES_SHARED_CALLS
+        t0 = time.perf_counter()
+        handles = client.submit_many(fid, [((PLANES_SHARED_NAP_S,), {})] * n)
+        ids = [h.task_id for h in handles]
+        deadline = time.monotonic() + STACK_TIMEOUT_S
+        while sum(1 for t in ids if t in ann.seen) < n // 2:
+            procs.check()
+            assert time.monotonic() < deadline, "shared: half never served"
+            time.sleep(0.01)
+        # the victim is the one that placed more so far (claims race, and
+        # one may have won nearly all of them), as test_shared_dispatchers
+        # kills the one that owns work
+        placed = [http_json(stats + "/stats")["n_dispatched"]
+                  for _, stats in fleets]
+        (victims, vstats), (_, sstats) = (
+            fleets[i] for i in sorted((0, 1), key=lambda i: -placed[i]))
+        before_kill = b1_counts(vstats)
+        for name in victims:
+            procs.kill(name)
+        vals = [h.result(timeout=STACK_TIMEOUT_S) for h in handles]
+        t1 = time.perf_counter()
+        assert vals == [PLANES_SHARED_NAP_S] * n, "shared: values"
+        lat = served(store, ids, [PLANES_SHARED_NAP_S] * n, "shared")
+        ann.once(ids, "shared")
+        procs.check()
+        survivor = b1_counts(sstats)
+        out = dict(leg="d", **leg_numbers(lat, t1 - t0),
+                   killed_dispatched=before_kill["dispatched"],
+                   survivor_dispatched=survivor["dispatched"],
+                   launches=[before_kill["launches"], survivor["launches"]],
+                   ticks=[before_kill["ticks"], survivor["ticks"]],
+                   tick_backend=survivor["tick_backend"], inline=0,
+                   batch_frames=0)
+        assert out["killed_dispatched"] > 0 and out[
+            "survivor_dispatched"] > 0, out
+        assert out["launches"] == out["ticks"] and min(out["ticks"]) > 0, out
+        return out
+    finally:
+        ann.close()
+        for names, _ in fleets:
+            procs.stop([m for m in names if m in procs.procs])
+
+
+def planes_run(device: str, logdir: str, card: str = "") -> list[dict]:
+    """The store server and the gateway, then legs (a)-(d), every process
+    through the port's entry points, driven by the port's ``FaaSClient``
+    over REST; every child is reaped."""
+    import socket
+
+    from tpu_faas_torch.client import FaaSClient
+    from tpu_faas_torch.store.launch import make_store
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = StackProcesses(root, logdir)
+    store = None
+    out = []
+    try:
+        store_port, gw_port = free_port(), free_port()
+        procs.start("store", "tpu_faas_torch.store.server", "--port",
+                    str(store_port))
+        store_url = f"resp://127.0.0.1:{store_port}"
+
+        def store_up() -> bool:
+            with socket.create_connection(("127.0.0.1", store_port), 1):
+                return True
+
+        wait_until("store server", store_up, procs)
+        procs.start("gateway", "tpu_faas_torch.gateway", "--host",
+                    "127.0.0.1", "--port", str(gw_port), "--store",
+                    store_url)
+        base = f"http://127.0.0.1:{gw_port}"
+        wait_until("gateway", lambda: http_json(base + "/healthz"), procs)
+        store = make_store(store_url)
+        client = FaaSClient(base)
+        out.append(planes_express(procs, store_url, store, client, device))
+        names, stats = planes_fleet(procs, store_url, "plain", (),
+                                    PLANES_FLEET, device)
+        ann = Announces(store)
+        try:
+            fleet_ready(procs, "plain", stats, PLANES_FLEET[0])
+            out.append(planes_priority(procs, store, client, stats, ann))
+            out.append(planes_terminals(procs, store, client, stats, ann))
+        finally:
+            ann.close()
+            procs.stop(names)
+        out.append(planes_shared(procs, store_url, store, client, device))
+        procs.check()
+    finally:
+        if store is not None:
+            store.close()
+        procs.stop()
+    for r in out:
+        log(planes_text(r, card))
+    return out
+
+
+def planes_text(r: dict, card: str) -> str:
+    head = {"a": "leg (a) express lane and batched data plane "
+                 "(--express --batch-max 16 --batch-window-ms 2, 4 workers "
+                 "x 4, batches of 100 each collected by wait_many)",
+            "b": "leg (b) priority hints (2 workers x 2, 200 priority-0 "
+                 "sleeps of 50 ms, then 20 priority-9)",
+            "c": "leg (c) cancel, timeout and poison (on (b)'s dispatcher; "
+                 "B1's counts over legs (b)-(c))",
+            "d": "leg (d) two --shared resident dispatchers on one store and "
+                 "the one card (two processes on one card, not two cards), "
+                 "one SIGKILLed with its fleet halfway"}[r["leg"]]
+    extra = ""
+    if r["leg"] == "b":
+        extra = (f"; every priority-9 call started before the priority-0 "
+                 f"calls still queued when it was submitted (at least "
+                 f"{r['queued']} each, {r['pairs']} pairs)")
+    elif r["leg"] == "c":
+        extra = (f"; terminal states {r['states']} as the JAX tests "
+                 f"assert, no other call lost")
+    elif r["leg"] == "d":
+        extra = (f"; dispatched {r['killed_dispatched']} (killed) and "
+                 f"{r['survivor_dispatched']} (survivor)")
+    valued = "" if r["leg"] == "c" else " with its value"
+    return (f"phase planes, {head}: {r['calls']} calls, every one answered "
+            f"once{valued}; {r['served_per_s']:.1f} served/s, "
+            f"submit-to-result median {r['p50_ms']:.2f} ms, p99 "
+            f"{r['p99_ms']:.2f} ms (store stamps); B1 launched "
+            f"{r['launches']} times in {r['ticks']} resident ticks "
+            f"(tick_backend {r['tick_backend']}); inline deliveries "
+            f"{r['inline']}, TASK_BATCH frames {r['batch_frames']}{extra} "
+            f"[{card}]")
+
+
+def phase_planes(card: str) -> dict:
+    """The dispatcher's opt-in planes as separate processes on the card
+    machine (legs (a)-(d) of :func:`planes_run`). Logs under
+    chiprun_out/planes/."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    legs = planes_run("cuda", os.path.join(root, "chiprun_out", "planes"),
+                      card=card)
+    log(f"phase planes: {time.perf_counter() - t0:.1f} s")
+    # each dispatcher process's whole count: (a)'s, (b)-(c)'s (leg (c)
+    # reads it after both), (d)'s killed one (before the kill) and survivor
+    per = []
+    for r in legs:
+        if r["leg"] != "b":
+            both = (r["launches"], r["ticks"])
+            per += (list(zip(*both)) if isinstance(r["ticks"], list)
+                    else [both])
+    return dict(legs=legs, launches=[a for a, _ in per],
+                ticks=[b for _, b in per])
 
 
 # -- phase 17: the static analysers and the bindings ---------------------------
@@ -5240,6 +5793,7 @@ def main() -> int:
     ts = time_resident_sinkhorn(dev, rrs["samples"], probe)
     rd = phase_dispatcher(dev, card)
     rst = phase_stack(card)
+    rpl = phase_planes(card)
     t0 = time.perf_counter()
     phase_profile(dev, card)
     graph_card_ms(dev, card)
@@ -5270,7 +5824,9 @@ def main() -> int:
              "mesh_launches": rm["b1_launches"],
              # the stack phase's tpu-push --resident leg: the dispatcher
              # process's launches and resident ticks, from its /metrics
-             "stack_launches": rst["launches"], "stack_ticks": rst["ticks"]}
+             "stack_launches": rst["launches"], "stack_ticks": rst["ticks"],
+             # the planes phase's dispatcher processes, from their /metrics
+             "planes_launches": rpl["launches"], "planes_ticks": rpl["ticks"]}
     k_ms, p_ms, b_ms, by = tb["headline"]
     # no single PyTorch call computes the hashed top-2 bid
     entry_b2 = {"name": "bid_top2", "route": "cuda", "source": bid.SOURCE,

@@ -10,6 +10,7 @@ The JAX sources are read as text only.
 """
 
 import ast
+import gc
 import os
 import random
 import re
@@ -55,8 +56,9 @@ workloads.py compat/redis_shim/redis/__init__.py
 #: copies changed on purpose, each with its reason
 CHANGED = {
     "obs/profile.py": "the capture runs on torch.profiler (CUDA activity "
-    "on the card), its env vars drop 'JAX', and the jit cache cross-check "
-    "has no counterpart",
+    "on the card) and opens with a warm-up on a card (ROADMAP C.6), its "
+    "env vars drop 'JAX', and the jit cache cross-check has no "
+    "counterpart",
     "obs/__init__.py": "its docstring names the torch.profiler capture and "
     "its env var",
     "worker/deploy.py": "the supervisor starts the port's workers "
@@ -381,14 +383,21 @@ def _port_has(mod: str) -> bool:
 
 
 def twin_source(src: str, keep: tuple[str, ...] = (),
-                processes: tuple[str, ...] = ()) -> str:
+                processes: tuple[str, ...] = (),
+                twins: tuple[str, ...] = (),
+                edits: dict[str, str] | None = None) -> str:
     """A JAX test module's source with every import of a module the port
     has pointed at the port (``from tpu_faas import chaos`` included);
     imports of modules the port lacks, and of the modules in ``keep``,
     stay as they are. ``processes`` names module prefixes a test starts
     as a process from a string (``"tpu_faas.worker."`` in
     ``f"tpu_faas.worker.{kind}"``): a string literal that begins with one
-    is pointed at the port's package too."""
+    is pointed at the port's package too. ``twins`` names JAX test modules
+    a test imports helpers from (``from tests.test_workers_e2e import
+    _spawn_worker``, at the top or inside a body): those imports read the
+    module's twin, ``test_torch_twin_<name>``, instead. ``edits`` are
+    literal replacements, each of which must occur in the source (an
+    array library swapped inside a test's body, say)."""
     def sub(m):
         mod = m.group(2) or (f".{m.group(4)}" if m.group(4) else "")
         if mod and _port_has(mod) and "tpu_faas" + mod not in keep:
@@ -401,12 +410,22 @@ def twin_source(src: str, keep: tuple[str, ...] = (),
             "." + prefix.strip(".").split(".", 1)[1]), prefix
         src = re.sub(r"""(?<=["'])""" + re.escape(prefix),
                      "tpu_faas_torch" + prefix[len("tpu_faas"):], src)
+    for name in twins:
+        twin = "test_torch_twin_" + name[len("test_"):]
+        assert os.path.exists(os.path.join(_REPO, "tests", twin + ".py")), twin
+        src, n = re.subn(rf"^(\s*from\s+)tests\.{name}(?=\s+import\s)",
+                         rf"\g<1>{twin}", src, flags=re.M)
+        assert n, name
+    for old, new in (edits or {}).items():
+        assert old in src, old
+        src = src.replace(old, new)
     return src
 
 
 def load_twins(test_file: str, exclude: dict[str, str],
                keep: tuple[str, ...] = (), overrides: dict | None = None,
-               processes: tuple[str, ...] = ()) -> dict:
+               processes: tuple[str, ...] = (), twins: tuple[str, ...] = (),
+               edits: dict[str, str] | None = None) -> dict:
     """Run ``tests/<test_file>``'s source, with :func:`twin_source`'s
     renames, as a module namespace, and return its tests, fixtures and
     helpers minus ``exclude`` (each name with its reason: a test that
@@ -415,11 +434,12 @@ def load_twins(test_file: str, exclude: dict[str, str],
     stale. ``keep`` names JAX modules a twin still reads from the
     reference (the placement a host-layer test feeds, say);
     ``overrides`` replaces module-level names in the namespace (the
-    port's entry points on the CPU); ``processes`` as in
-    :func:`twin_source`, so a twin starts the port's processes."""
+    port's entry points on the CPU); ``processes``, ``twins`` and
+    ``edits`` as in :func:`twin_source`, so a twin starts the port's
+    processes and reads the port's helpers."""
     path = os.path.join(_REPO, "tests", test_file)
     ns = {"__name__": "twin_" + test_file[:-3], "__file__": path}
-    src = twin_source(_read(path), keep, processes)
+    src = twin_source(_read(path), keep, processes, twins, edits)
     assert src != _read(path), f"{test_file} imports nothing the port has"
     exec(compile(src, path, "exec"), ns)
     missing = sorted(set(exclude) - set(ns))
@@ -465,6 +485,21 @@ def dispatcher_on_cpu(monkeypatch):
     from tpu_faas_torch.dispatch import tpu_push
 
     monkeypatch.setattr(tpu_push, "TpuPushDispatcher", cpu_dispatcher())
+
+
+@pytest.fixture
+def frozen_heap():
+    """Every object the process holds before the test moved out of the
+    collector's reach until it ends (``gc.freeze``), so a full collection
+    during a test that times one request scans the test's own objects, not
+    all that earlier test files left in this worker: at the 380-500k
+    objects a worker of the suite holds, one pass took 160-290 ms
+    (ROADMAP C.9)."""
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
 
 
 def check_ports_dispatcher(d) -> None:

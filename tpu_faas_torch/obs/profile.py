@@ -39,9 +39,10 @@ PROFILE_TICKS_ENV = "TPU_FAAS_TORCH_PROFILE_TICKS"
 TICK_SPAN = "tpu_faas.device_tick"
 #: Chrome-trace categories of the operations that run on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-#: seconds of each of the capture's two warm-up waits on a card (the
-#: device records were seen to begin 3.5 ms late)
-WARMUP_S = 0.01
+#: seconds a capture on a card warms up before its first tick, a device
+#: operation every WARMUP_STEP_S (the device records were seen to begin
+#: 3.5 ms and 27.4 ms late)
+WARMUP_S, WARMUP_STEP_S = 0.5, 0.01
 
 
 class TickProfiler:
@@ -161,16 +162,17 @@ class TickProfiler:
             self._prof.start()
             if torch.cuda.is_available():
                 # device activity records begin some milliseconds after the
-                # capture does: one capture lost every device record of
-                # its first 3.5 ms, its first tick's B1 included, while the
-                # runtime calls were all there (ROADMAP C.6). So the
-                # capture opens with a warm-up, as torch.profiler's
-                # schedule opens with a warm-up step: a device operation,
-                # WARMUP_S of wall time, another, all in no tick's span
-                for _ in range(2):
+                # capture does: captures lost every device record of their
+                # first 3.5 ms and 27.4 ms, the first tick's B1 included,
+                # while the runtime calls were all there (ROADMAP C.6). So
+                # the capture opens with a warm-up, as torch.profiler's
+                # schedule opens with a warm-up step: a device operation
+                # every WARMUP_STEP_S for WARMUP_S, all in no tick's span
+                end = time.monotonic() + WARMUP_S
+                while time.monotonic() < end:
                     torch.zeros(1, device="cuda")
                     torch.cuda.synchronize()
-                    time.sleep(WARMUP_S)
+                    time.sleep(WARMUP_STEP_S)
             self._tracing = True
             if self._log is not None:
                 self._log.info(

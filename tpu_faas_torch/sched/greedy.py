@@ -26,6 +26,8 @@ import heapq
 import numpy as np
 import torch
 
+from tpu_faas_torch.device import resolve_device
+
 _I32 = torch.int32
 _I32_MAX = int(np.iinfo(np.int32).max)
 
@@ -97,6 +99,34 @@ def rank_match_placement_impl(
     assignment = torch.full((T,), -1, dtype=_I32, device=dev)
     assignment[paired_tasks] = paired_workers
     return assignment
+
+
+def rank_match_placement(
+    task_size,
+    task_valid,
+    worker_speed,
+    worker_free,
+    worker_live,
+    max_slots: int = 8,
+    task_priority=None,
+    task_adm_rank=None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """The public form, called as the JAX package's jitted
+    ``rank_match_placement`` is: any array-likes (numpy arrays, lists,
+    tensors), cast to JAX's dtypes (f32, bool, i32) on ``device``."""
+    dev = resolve_device(device)
+
+    def t(x, dtype):
+        return None if x is None else torch.as_tensor(x, dtype=dtype,
+                                                      device=dev)
+
+    return rank_match_placement_impl(
+        t(task_size, torch.float32), t(task_valid, torch.bool),
+        t(worker_speed, torch.float32), t(worker_free, _I32),
+        t(worker_live, torch.bool), max_slots=max_slots,
+        task_priority=t(task_priority, _I32),
+        task_adm_rank=t(task_adm_rank, _I32))
 
 
 #: the admission key of a task the select does not rank
