@@ -1166,11 +1166,14 @@ def log_bid_loops() -> None:
     from tpu_faas_torch.build import library_path
 
     counts = []
-    for lib, kernel in (("bid_top2", "bid_top2_kernel"),
-                        ("fused_tick", "fused_auction_kernel")):
+    # B1's auction: the instance with both lanes off (its mangled name)
+    for lib, kernel, name in (
+            ("bid_top2", "bid_top2_kernel", "bid_top2_kernel"),
+            ("fused_tick", "fused_auction_kernelILb0E",
+             "fused_auction_kernel<false>")):
         c = sass_loop_counts(library_path(lib), kernel)
         counts.append(dict(c["pipes"], all=c["n"]))
-        log(f"  SASS of {kernel}'s bid loop ({c['n']} instructions per "
+        log(f"  SASS of {name}'s bid loop ({c['n']} instructions per "
             f"{BID_LOOP_CELLS} cells): by pipe {c['pipes']}; by opcode "
             f"{c['ops']}")
     least = {p: min(c.get(p, 0) for c in counts)
@@ -1631,13 +1634,15 @@ def phase_auction_kernel(dev, probe) -> dict:
     return {"mismatches": 0, "max_abs_err": max_err}
 
 
-def auction_split(dev, probe, packet, pre) -> tuple[dict, int]:
+def auction_split(dev, probe, packet, pre,
+                  kw: dict | None = None) -> tuple[dict, int]:
     """One launch of the probe build from ``pre`` (left untouched), beside
     one of the kernel proper: (the probe's split, fields that differ
-    between the two launches)."""
+    between the two launches). ``kw``: the launch's shape and lanes (FCFS
+    at the headline shape by default)."""
     from tpu_faas_torch.sched.fused_tick import KERNEL
 
-    kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False)
+    kw = kw or dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False)
     res_k, st_k = KERNEL.auction(packet, clone_state(pre), **kw)
     res_p, st_p = probe.auction(packet, clone_state(pre), **kw)
     sp = probe.auction_split(dev, SHAPE["T"], SHAPE["W"], MAX_SLOTS)
@@ -2725,6 +2730,10 @@ def phase_resident_tenancy(dev, card: str, probe) -> dict:
                 f"{lane[name][0]:.4f} ms, on {lane[name][1]:.4f} ms "
                 f"(+{lane[name][1] - lane[name][0]:.4f} ms), medians of "
                 f"{n} [{card}]")
+            if name != "rank":
+                bad[name] += lane_probe_splits(
+                    dev, probe, "tenancy", name, (off_pkt, s_off, kw_off),
+                    (packet, s_on, kw))
     # tenant rows past the 1,024 block 0 counts in shared memory: their
     # counts live in global scratch; the rank grid's tiles count every row
     # in global scratch; rank (NT = 1,100 and 4,096) and auction (4,096)
@@ -2894,6 +2903,230 @@ def spec_branch(name: str):
             "sinkhorn": lambda p, st, k: KERNEL.sinkhorn(p, st, **k)}[name]
 
 
+def lane_cost_cases(dev, lane: str) -> dict:
+    """One synthetic headline state per branch with ``lane`` ("tenancy" or
+    "spec") off and on, built as the lane phases build theirs: per branch
+    ((packet, state, kw) with the lane off, (packet, state, kw) with it
+    on). Tenancy: FCFS, ``with_tenancy``'s table; speculation: priorities,
+    ``with_spec``'s lanes, every task the branch's main pass places
+    avoiding the row it gets (the veto fires on hundreds). The auction's
+    state opens from the seed. ``tools/ab_time.py`` times them in two trees
+    in one call."""
+    from tpu_faas_torch.sched.resident import state_from_numpy
+
+    spec = lane == "spec"
+    rng = np.random.default_rng(40 + int(spec))
+    base, bpkt = random_case(rng, spec, now=100.0)
+    if spec:
+        leaves, pkt = with_spec(base, bpkt, rng, True, False, now=100.0)
+        kw_on = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=True,
+                     **SPEC_KW)
+    else:
+        leaves, pkt = with_tenancy(base, bpkt, rng, False)
+        kw_on = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=False,
+                     **TENANCY_KW)
+    kw_off = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=spec)
+    price = (rng.integers(0, 64, SHAPE["W"] * MAX_SLOTS)
+             / 16).astype(np.float32)
+    on_pkt = torch.from_numpy(pkt).to(dev)
+    off_pkt = torch.from_numpy(bpkt).to(dev)
+    cases = {}
+    for name in ("rank", "auction", "sinkhorn"):
+        lv, lb = dict(leaves), dict(base)
+        if name == "auction":
+            lv.update(price=price, refresh=np.asarray(True))
+            lb.update(price=price, refresh=np.asarray(True))
+        if spec:
+            res0, _ = spec_branch(name)(on_pkt, state_from_numpy(
+                dict(lv, avoid=np.full(SHAPE["T"], -1, np.int32)), dev),
+                kw_on)
+            ok = res0.placed_slots >= 0
+            lv["avoid"] = lv["avoid"].copy()
+            lv["avoid"][res0.placed_slots[ok].long().cpu().numpy()] = (
+                res0.placed_rows[ok].cpu().numpy())
+        cases[name] = ((off_pkt, state_from_numpy(lb, dev), kw_off),
+                       (on_pkt, state_from_numpy(lv, dev), kw_on))
+    return cases
+
+
+def lane_split_text(lanes: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in lanes.items()) + " ms"
+
+
+def lane_probe_splits(dev, probe, lane: str, name: str, off: tuple,
+                      on: tuple) -> int:
+    """The auction or Sinkhorn branch's lanes' parts by the probe build
+    (``lane_split``: block 0's packet and liveness, the tenancy
+    eligibility, the fixup, the deficit carry and the compaction) on one
+    state with ``lane`` off and on, each (packet, state, kw); the probe's
+    launches beside the kernel proper's. Returns the fields where they
+    differ."""
+    split = {"auction": auction_split, "sinkhorn": sinkhorn_probe}[name]
+    bad, parts = 0, []
+    for packet, pre, kw in (off, on):
+        sp, b = split(dev, probe, packet, pre, kw)
+        bad += b
+        parts.append(sp["lanes"])
+    log(f"  {name} lanes' parts by the probe build, {lane} lane off: "
+        f"{lane_split_text(parts[0])}; on: {lane_split_text(parts[1])}")
+    return bad
+
+
+#: the hedge fixup's edge states (phase resident_spec): ``with_spec``'s
+#: state with every row live, then edited as the name says
+FIXUP_EDGES = ("equal", "signed_zero", "nan_inf", "nan_best",
+               "avoid_fastest", "emptied", "neg_free", "dead")
+#: the kinds with a NaN or -inf speed: the Sinkhorn solve's temperature and
+#: potentials are NaN there (its plain version's too), so those run in the
+#: rank and auction branches alone
+NONFINITE_EDGES = ("nan_inf", "nan_best")
+NAN_ROW, FAST_ROW = 7, 3
+
+
+def fixup_edge(kind: str, leaves: dict, pkt: np.ndarray,
+               rng) -> tuple[dict, np.ndarray]:
+    """One of FIXUP_EDGES on a copy of ``leaves``, the packet's heartbeat,
+    free, speed and liveness scatters dropped so that the edit holds:
+    ``equal`` every speed 1.0 (the keys differ in the row alone);
+    ``signed_zero`` every eighth row of speed +0.0 or -0.0 with two raw
+    slots past the others' (the fixup's candidates are those rows alone),
+    every task valid; ``nan_inf`` 40 NaN and 400 -inf speeds; ``nan_best``
+    a NaN row with 1,000 raw slots (no vetoed task avoids it: it is every
+    one's best); ``avoid_fastest`` one row of speed 100 with 50 raw slots
+    past the others (the tasks placed there avoid it); ``emptied`` one raw
+    slot past the main pass's on every row, every task valid (each fixup
+    step empties its row); ``neg_free`` half the rows with a raw free count
+    of -3; ``dead`` every other row dead, the fastest among them."""
+    W = SHAPE["W"]
+    lv = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+          for k, v in leaves.items()}
+    pkt = pkt.copy()
+    pkt[[2, 3, 5, 6]] = 0.0  # no heartbeat, free, speed or liveness lane
+    now = float(pkt[0])
+    speed, free, rows = lv["speed"], lv["free"], np.arange(W)
+    lv["active"][:] = True
+    lv["last_hb"][:] = now
+    if kind == "equal":
+        speed[:] = 1.0
+    elif kind == "signed_zero":
+        zero = rows % 8 == 0
+        speed[zero] = np.where(rows[zero] % 16 == 0, -0.0, 0.0)
+        free[:] = MAX_SLOTS
+        free[zero] = MAX_SLOTS + 2
+        lv["valid"][:] = True
+    elif kind == "nan_inf":
+        speed[rng.choice(W, 40, replace=False)] = np.nan
+        speed[rng.choice(W, 400, replace=False)] = -np.inf
+    elif kind == "nan_best":
+        speed[NAN_ROW] = np.nan
+        free[NAN_ROW] = 1000
+    elif kind == "avoid_fastest":
+        speed[FAST_ROW] = 100.0
+        free[FAST_ROW] = MAX_SLOTS + 50
+    elif kind == "emptied":
+        free[:] = MAX_SLOTS + 1
+        lv["valid"][:] = True
+    elif kind == "neg_free":
+        free[: W // 2] = -3
+    elif kind == "dead":
+        lv["last_hb"][::2] = now - 100.0
+        speed[0] = 99.0
+        free[0] = 100
+    return lv, pkt
+
+
+def fixup_edge_checks(dev, card: str) -> dict:
+    """The hedge fixup's edge states (FIXUP_EDGES) at the headline shape,
+    with priorities, the tenancy lane off and on, in all three branches
+    (but NONFINITE_EDGES in Sinkhorn):
+    every task the branch's main pass places avoids the row it gets (but
+    the NaN row, for ``nan_best``), so the veto fires on hundreds; rank
+    and auction launches exactly equal to their plain versions, Sinkhorn
+    within its contract with the fixup's counts (``spec_fixup_counts``);
+    no task on its avoid row, no tenant past its allowance. Returns the
+    mismatches and violations per branch."""
+    from tpu_faas_torch.sched.fused_tick import KERNEL
+    from tpu_faas_torch.sched.resident import (
+        _resident_tick_impl, state_from_numpy,
+    )
+
+    bad = {"rank": 0, "auction": 0, "sinkhorn": 0}
+    for tenancy in (False, True):
+        for i, kind in enumerate(FIXUP_EDGES):
+            rng = np.random.default_rng(60 + 10 * int(tenancy) + i)
+            base, bpkt = random_case(rng, True, now=100.0)
+            leaves, pkt = (with_tenancy(base, bpkt, rng, True) if tenancy
+                           else (base, bpkt))
+            leaves, pkt = with_spec(leaves, pkt, rng, True, tenancy,
+                                    now=100.0)
+            leaves, pkt = fixup_edge(kind, leaves, pkt, rng)
+            kw = dict(SHAPE, max_slots=MAX_SLOTS, use_priority=True,
+                      **SPEC_KW, **(TENANCY_KW if tenancy else {}))
+            packet = torch.from_numpy(pkt).to(dev)
+            price = (rng.integers(0, 64, SHAPE["W"] * MAX_SLOTS)
+                     / 16).astype(np.float32)
+            line = []
+            for name in ("rank", "auction", "sinkhorn"):
+                if name == "sinkhorn" and kind in NONFINITE_EDGES:
+                    continue
+                lv = dict(leaves)
+                if name == "auction":
+                    lv.update(price=price, refresh=np.asarray(True))
+                res0, _ = spec_branch(name)(packet, state_from_numpy(
+                    dict(lv, avoid=np.full(SHAPE["T"], -1, np.int32)), dev),
+                    kw)
+                ok = res0.placed_slots >= 0
+                slots = res0.placed_slots[ok].long().cpu().numpy()
+                rows = res0.placed_rows[ok].cpu().numpy()
+                if kind == "nan_best":
+                    slots = slots[rows != NAN_ROW]
+                    rows = rows[rows != NAN_ROW]
+                lv["avoid"] = lv["avoid"].copy()
+                lv["avoid"][slots] = rows
+                pre = state_from_numpy(lv, dev)
+                label = f"fixup edge {kind}{' tenancy' if tenancy else ''}"
+                if name == "rank":
+                    res_p, new_p = _resident_tick_impl(
+                        packet, clone_state(pre), **kw)
+                    res_k, new_k = KERNEL(packet, clone_state(pre),
+                                          flush=False, **kw)
+                    torch.cuda.synchronize()
+                    b1, _ = compare(res_k, res_p, f"{label} rank out")
+                    b2, _ = compare(new_k, new_p, f"{label} rank state")
+                    b = b1 + b2 + spec_violations(res_k, new_k.avoid)
+                elif name == "auction":
+                    b = compare_auction_tick(dev, lv, pkt, True,
+                                             f"{label} auction",
+                                             plain_twin=False,
+                                             tenancy=tenancy, spec=True)[0]
+                    res_k, new_k = KERNEL.auction(packet, clone_state(pre),
+                                                  **kw)
+                else:
+                    res_k, new_k = KERNEL.sinkhorn(packet, clone_state(pre),
+                                                   **kw)
+                    torch.cuda.synchronize()
+                    b = sinkhorn_check(pre, packet, res_k, new_k, kw,
+                                       f"{label} sinkhorn")["bad"]
+                if tenancy:
+                    b += tenancy_violations(res_k, new_k.tenant, pkt)
+                arrived = res_k.arrival_slots.cpu().numpy()
+                placed = res_k.placed_slots.cpu().numpy()
+                rehomed = int((np.isin(placed, slots)
+                               & ~np.isin(placed, arrived)).sum())
+                if rehomed > 64 or (kind == "nan_best" and rehomed):
+                    log(f"  MISMATCH {label} {name}: {rehomed} re-placed")
+                    b += 1
+                bad[name] += b
+                line.append(f"{name} {len(slots)} vetoed, {rehomed} "
+                            f"re-placed, {b} bad")
+            log(f"  {label}: {'; '.join(line)}")
+    log(f"  the fixup's edge states, {len(FIXUP_EDGES)} kinds x tenancy "
+        f"off and on x 3 branches (Sinkhorn "
+        f"{len(FIXUP_EDGES) - len(NONFINITE_EDGES)} kinds): mismatches and "
+        f"violations {bad} [{card}]")
+    return bad
+
+
 def phase_resident_spec(dev, card: str, probe) -> dict:
     """B1's speculation lane in its three branches: against the plain version
     on synthetic headline states (tenancy lane off and on); its time with
@@ -3017,6 +3250,10 @@ def phase_resident_spec(dev, card: str, probe) -> dict:
                 f"off {lane[name][0]:.4f} ms, on {lane[name][1]:.4f} ms "
                 f"(+{lane[name][1] - lane[name][0]:.4f} ms), medians of {n} "
                 f"[{card}]")
+            if name != "rank":
+                bad[name] += lane_probe_splits(
+                    dev, probe, "speculation", name, (off_pkt, s_off, kw_off),
+                    (packet, s_on, kw))
     # the plain fixup reads nothing back to the host: its 64 steps under
     # the sync check, every task vetoed (its avoid row is its placement)
     from tpu_faas_torch.spec.straggler import hedge_fixup_impl
@@ -3034,6 +3271,8 @@ def phase_resident_spec(dev, card: str, probe) -> dict:
         torch.cuda.set_sync_debug_mode("default")
     n_fixed = int(((assign >= 0) & (fixed >= 0)).sum())
     assert 0 < n_fixed <= 64, f"the plain fixup re-placed {n_fixed}"
+    for name, b in fixup_edge_checks(dev, card).items():
+        bad[name] += b
     fix_ms = statistics.median(event_ms(lambda _: hedge_fixup_impl(*args),
                                         10))
     log(f"  the plain fixup alone (64 steps of torch ops, no host read): "

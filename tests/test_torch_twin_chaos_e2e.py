@@ -11,6 +11,7 @@ an environment dict."""
 import os
 import subprocess
 import sys
+import time
 
 from test_torch_host_copies import (
     check_ports_dispatcher,
@@ -42,14 +43,45 @@ def _spawn_dispatcher(port: int, store_url: str, *extra: str):
     )
 
 
+def _await_pull_workers(disp, n: int, holding: bool,
+                        timeout: float = 120.0) -> None:
+    """Setup of the pull case (ROADMAP C.10): wait until ``n`` pull workers
+    have sent ``disp`` their first request, and with ``holding`` until each
+    of them holds a task. The JAX case kills ``workers[0]`` once any two
+    tasks run; under load both can run on ``workers[1]`` before
+    ``workers[0]``'s first request, and then nothing is reclaimed. The
+    twin waits for each worker first (before the submits, and before the
+    kill); its assertions and bounds are the JAX case's."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        held = [len(ts) for ts in list(disp.worker_tasks.values())]
+        if len(list(disp.last_seen)) >= n and (
+                not holding or (len(held) >= n and all(held))):
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"{n} pull workers never "
+                         f"{'held a task each' if holding else 'registered'}")
+
+
 # the dispatcher's port lies below the ephemeral range (reserved_port): a
-# bind(0) port could be taken before the respawned child binds it
+# bind(0) port could be taken before the respawned child binds it; the pull
+# case waits for each worker before its submits and its kill
 globals().update(load_twins(
     "test_chaos_e2e.py", {},
     overrides={"TpuPushDispatcher": cpu_dispatcher(),
                "_spawn_dispatcher": _spawn_dispatcher,
-               "_free_port": reserved_port},
+               "_free_port": reserved_port,
+               "_await_pull_workers": _await_pull_workers},
     twins=("test_workers_e2e",),
+    edits={
+        "        handles = [client.submit(fid, 0.8) for _ in range(8)]\n":
+        "        _await_pull_workers(disp, 2, holding=False)\n"
+        "        handles = [client.submit(fid, 0.8) for _ in range(8)]\n",
+        "            raise AssertionError(\"tasks never started on the pull "
+        "fleet\")\n":
+        "            raise AssertionError(\"tasks never started on the pull "
+        "fleet\")\n        _await_pull_workers(disp, 2, holding=True)\n",
+    },
 ))
 
 

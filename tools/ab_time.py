@@ -13,10 +13,16 @@ resident Sinkhorn loop (40 ticks) at the headline shape, each launch held
 against its plain version as ``chip_smoke.py`` holds it. Then each branch
 is timed with CUDA events on the loop's last 10 states, every state once
 per pass, 3 passes; the rank branch also on ``chip_smoke.edge_case``'s
-cold tick (every slot free, priorities), 10 launches. Prints one JSON line
-with the card, the means and each state's medians. Needs one CUDA device;
-compare two trees in turns (parent, change, change, parent) within one
-call.
+cold tick (every slot free, priorities), 10 launches. Then B1's two lanes:
+each branch on ``chip_smoke.lane_cost_cases``' synthetic state with the
+tenancy lane and with the speculation lane off and on (rank 20 launches,
+auction 3, Sinkhorn 10, off and on in turns), with the probe build's split
+of one launch each (the rank branch's phases, the auction's opening and
+end, the Sinkhorn branch's phases, and where the tree has them the lanes'
+parts), and the rank branch with each lane on that lane's resident rank
+loop (40 ticks, the last 10 states timed as above). Prints one JSON line
+with the card, the means and each state's medians. Needs one CUDA device; compare two trees in turns
+(parent, change, change, parent) within one call.
 """
 
 from __future__ import annotations
@@ -52,7 +58,9 @@ def main() -> int:
                          f"not from {root}")
     dev = torch.device("cuda")
     kernel = fused_tick.KERNEL
+    probe = fused_tick.FusedTickKernel(probe=True)
     kernel.load()
+    probe.load()
     out = {"label": sys.argv[2], "root": str(root), "card": cs.card_line()}
     from tpu_faas_torch.sched.resident import state_from_numpy
 
@@ -89,6 +97,57 @@ def main() -> int:
             "cold": [bool(pre.refresh) for _, pre, _ in samples]
             if placement == "auction" else None,
         }
+    # B1's lanes: their cost on one synthetic state per branch, off and on
+    # in turns, and the rank branch on each lane's own loop
+    launches = {"rank": rank, "auction": kernel.auction,
+                "sinkhorn": kernel.sinkhorn}
+    T, W, S = cs.SHAPE["T"], cs.SHAPE["W"], cs.MAX_SLOTS
+
+    def split(placement, packet, pre, k):
+        """One probe launch's split (the tree's own reader)."""
+        if placement == "rank":
+            probe(packet, cs.clone_state(pre), flush=False, **k)
+            return probe.rank_split(dev, T, W, S)
+        if placement == "auction":
+            probe.auction(packet, cs.clone_state(pre), **k)
+            sp = probe.auction_split(dev, T, W, S)
+            return {key: sp[key] for key in ("open", "end", "total", "lanes")
+                    if key in sp}
+        probe.sinkhorn(packet, cs.clone_state(pre), **k)
+        sp = {"phases": probe.sinkhorn_phase_ms(dev, T, W, S)}
+        lanes = probe.sinkhorn_split(dev, T, W, S).get("lanes")
+        return dict(sp, lanes=lanes) if lanes else sp
+
+    for lane in ("tenancy", "spec"):
+        cases = cs.lane_cost_cases(dev, lane)
+        for placement, (off, on) in cases.items():
+            launch = launches[placement]
+            n = {"rank": 20, "auction": 3, "sinkhorn": 10}[placement]
+            t_off, t_on = [], []
+            for _ in range(2):
+                for times, (packet, pre, k) in ((t_off, off), (t_on, on)):
+                    times += cs.event_ms(
+                        lambda a, k=k: launch(a[0], a[1], **k), n,
+                        setup=lambda p=packet, s0=pre: (p, cs.clone_state(s0)))
+            out[f"{lane}_{placement}"] = {
+                "off_ms": statistics.median(t_off),
+                "on_ms": statistics.median(t_on),
+                "split_off": split(placement, *off),
+                "split_on": split(placement, *on)}
+        run = cs.phase_resident(dev, 40, 10, placement="rank",
+                                **{lane: True})
+        if run["mismatches"]:
+            raise SystemExit(f"{lane} rank loop: {run['mismatches']} "
+                             f"mismatches")
+        lkw = dict(cs.SHAPE, max_slots=cs.MAX_SLOTS, use_priority=True,
+                   **(cs.TENANCY_KW if lane == "tenancy" else cs.SPEC_KW))
+        per_state = []
+        for packet, pre, _ in run["samples"]:
+            ms = cs.event_ms(lambda a: rank(a[0], a[1], **lkw), 3,
+                             setup=lambda: (packet, cs.clone_state(pre)))
+            per_state.append(statistics.median(ms))
+        out[f"{lane}_rank_loop"] = {"mean_ms": statistics.mean(per_state),
+                                    "state_ms": per_state}
     print(json.dumps(out), flush=True)
     return 0
 

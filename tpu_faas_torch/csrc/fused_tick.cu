@@ -23,17 +23,19 @@
 //      every placement reads as its valid set, the tenants with demand,
 //      and for rank the admitted set of the admission order (eligible
 //      tasks by -eff_prio, then v, then index);
-//   3. placement (below); with speculation, then the hedge fixup on block 0
-//      (straggler.py::hedge_fixup_impl): the veto of tasks placed on their
-//      avoid row, the free slots left after placement from the RAW free
-//      counts, and the first 64 vetoed tasks in index order each placed in
-//      turn on the first-argmax live row with slots left, never its avoid
-//      row (a block-wide argmax: ties to the lower row, NaN the maximum);
-//   4. with tenancy, the deficit carry on block 0 from the final assignment
-//      (integer counts per tenant, in shared memory up to 1,024 tenant rows
-//      and in the wrapper's global scratch past that, so NT is bounded only
-//      by the int32 segment key; the share sum is ONE float64 running
-//      sum in index order, rounded once, as the plain version takes it);
+//   3. placement (below); with speculation, then the hedge fixup over the
+//      grid (straggler.py::hedge_fixup_impl; grid_fixup below): the veto of
+//      tasks placed on their avoid row, the free slots left after placement
+//      from the RAW free counts, and the first 64 vetoed tasks in index
+//      order each placed in turn on the first-argmax live row with slots
+//      left, never its avoid row (ties to the lower row, NaN the maximum),
+//      walked by one warp over the first 65 rows of that order;
+//   4. with tenancy, the deficit carry from the final assignment: integer
+//      counts per tenant, each block its tile's (in shared memory up to
+//      1,024 tenant rows, global atomics past that, so NT is bounded only
+//      by the int32 segment key), then on block 0 the share sum, ONE
+//      float64 running sum in index order rounded once, as the plain
+//      version takes it, and each row's expression;
 //   5. compaction: the first KP placements (clearing their valid bit and
 //      taking their free slot on the device), and n_pending.
 // The state tensors are updated in place: the counterpart of the Pallas
@@ -63,9 +65,8 @@
 // to the full-length sorts on block 0 (rank_place), counted in the
 // scratch. The tenancy lane's j: each block stably sorts its tile by
 // segment, a warp scans each tenant row's tile counts over the blocks, and
-// j is that offset plus the position in the tile's run. The hedge fixup
-// and the deficit carry stay on block 0. The flush mode (phase 1 alone) is
-// one block (fused_flush_kernel).
+// j is that offset plus the position in the tile's run. The flush mode
+// (phase 1 alone) is one block (fused_flush_kernel).
 //
 // The radix select: the n_slots-th smallest 64-bit key, most significant
 // byte first. Each pass histograms the keys of the chosen bucket by the
@@ -79,11 +80,14 @@
 // 1024-thread blocks as the card holds at once, phases separated by grid
 // barriers. Phase 3 is tpu_faas/sched/auction.py::auction_placement_impl on
 // the resident carry:
-//   - block 0 alone runs phases 1, 2 and the auction's opening: the slot
-//     order by speed (rank's key), n_match = min(valid tasks, free live
-//     slots), FCFS admission of the first n_match valid tasks, the n_match
-//     fastest slots, and the opening prices -- the rank-dual seed when the
-//     carried refresh flag is set, else the carried prices re-based;
+//   - block 0 alone runs phases 1 and 2 (with the tenancy lane, the grid
+//     then computes the eligibility as the rank branch's tiles do; with the
+//     speculation lane, the grid lists the stragglers at the close) and the
+//     auction's opening: the slot order by speed (rank's key), n_match =
+//     min(valid tasks, free live slots), FCFS admission of the first
+//     n_match valid tasks, the n_match fastest slots, and the opening
+//     prices -- the rank-dual seed when the carried refresh flag is set,
+//     else the carried prices re-based;
 //   - then at most warm_rounds bidding rounds across the whole grid while an
 //     admitted task has no slot. Each round: every bidder's top-2 bid with
 //     the code of kernel B2 (bid_top2.cuh; JAX's NaN rule for a row with a
@@ -99,8 +103,11 @@
 //     two index sets are disjoint); a barrier; the next round's bidders
 //     collected; a barrier. Every block reads the loop condition from the
 //     device after the barrier: no host round trip;
-//   - block 0 closes the tick: the rank spill of the leftover tail, refresh,
-//     and phase 4.
+//   - block 0 closes the tick: the rank spill of the leftover tail and
+//     refresh; with a lane on, the grid then runs the lanes' close
+//     (lanes_close: the hedge fixup and the deficit carry); block 0
+//     compacts. With both lanes off the other blocks return after the
+//     rounds. The Sinkhorn branch opens and closes its lanes the same way.
 // The seed's reversed cumsum is ONE float64 running sum from the end,
 // rounded per element: the order the plain version's host cumsum uses.
 // Every product and sum of the seed and the round is spelled with
@@ -150,7 +157,10 @@ constexpr int kMaxItems = 8192;   // work items that keep a partial top-2
 constexpr unsigned long long kNoBid = ~0ull;
 constexpr int kSmemTenants = 1024;  // tenancy: rows counted in shared memory
 constexpr int kFixupK = 64;       // speculation: vetoed rows re-placed a tick
-constexpr int kMaxRankBlocks = 256;  // blocks of the rank grid, at most
+constexpr int kMaxRankBlocks = 256;  // blocks of the rank grid, at most (and
+                                     // of the other grids with a lane on)
+constexpr int kSelPasses = 8;  // one byte of the 64-bit key a pass, at most
+constexpr unsigned long long kNoKey = ~0ull;  // not ranked by a select
 
 // The auction's phase stamps (a probe build, -DTPU_FAAS_PROBE, alone writes
 // them; the layout exists in every build): 0 start, 1 packet, liveness and
@@ -160,11 +170,15 @@ constexpr int kMaxRankBlocks = 256;  // blocks of the rank grid, at most
 // (the largest clock over the blocks), and block 0's clock after the bids'
 // barrier, after the install pass and its barrier, and after the bidder
 // collection and its barrier; then the close (spill, refresh) and the end
-// (fixup, deficit, compaction).
+// (fixup, deficit, compaction); then the lanes' words: block 0's clock
+// after the packet and after liveness (both inside the opening), after the
+// hedge fixup and after the deficit carry (both inside the end; 0 with the
+// lanes off).
 constexpr int kStampRounds = 64;
 constexpr int kStampRound = 4;
 constexpr int kStampClose = kStampRound + 5 * kStampRounds;
-constexpr int kAuStamps = kStampClose + 2;
+constexpr int kStampLanes = kStampClose + 2;
+constexpr int kAuStamps = kStampLanes + 4;
 #ifdef TPU_FAAS_PROBE
 #define PROBE(...) __VA_ARGS__
 #else
@@ -247,15 +261,37 @@ struct Tenancy {
   const float* ahead;      // [n] packet tail: inflight per tenant
   const float* cap;        // [n] packet tail: inflight ceilings, 0 = none
   uint8_t* elig;           // [T] output: the placement's valid set
-  int32_t* cnt;            // [n] scratch: segment starts, then placed counts
+  int32_t* cnt;            // [n] scratch: placements per tenant row
   uint8_t* demand;         // [n] scratch: an eligible task this tick
-  int32_t* tile_cnt;       // [n kMaxRankBlocks] scratch (rank): per tenant
+  int32_t* tile_cnt;       // [n kMaxRankBlocks] scratch: per tenant
                            //   row, its tasks in each block's tile, then
                            //   their offsets over the blocks
   int32_t* tile_first;     // [n kMaxRankBlocks] ... its first position in
                            //   the tile's segment sort
   float starve_deficit, deficit_cap;
   int starve_boost;
+};
+
+// A radix select's scratch (radix_select): per pass each digit's count,
+// least and greatest key; and the members' least and greatest key.
+struct Select {
+  unsigned long long* key;  // [n] the keys, kNoKey on a non-member
+  int32_t* cnt;             // [kSelPasses RADIX]
+  unsigned long long* mn;   // [kSelPasses RADIX]
+  unsigned long long* mx;   // [kSelPasses RADIX]
+  unsigned long long* mm;   // [2]
+};
+
+// The hedge fixup's per-block count rows.
+enum FixCount { kFixVetoed, kFixCand, kFixStraggler, kFixCounts };
+
+// The hedge fixup's grid scratch, in each branch's layout (fixup_layout).
+struct Fixup {
+  int32_t* cnt;               // [kFixCounts kMaxRankBlocks] per-block counts
+  Select sel;                 // the candidate rows' keys [W] and their select
+  unsigned long long* cand;   // [kFixupK + 1] the selected keys, unordered
+  int32_t* n_cand;            // [1] their count
+  int32_t* vet;               // [kFixupK] the first vetoed tasks, index order
 };
 
 // The speculation lane's leaves, packet lanes and scratch.
@@ -265,7 +301,9 @@ struct Spec {
   float* pred;             // [I] state leaf: predicted runtime per slot
   int32_t* avoid;          // [T] state leaf: forbidden worker row per task
   const float* tail;       // [2] packet: the multiplier and the floor
-  int32_t* free_rem;       // [W] scratch: free slots left for the fixup
+  int32_t* free_rem;       // [W] scratch: placements kept per row, then
+                           //   the free slots left for the fixup
+  Fixup fx;                // the fixup's grid scratch (the branch's layout)
 };
 
 struct Smem {
@@ -279,12 +317,14 @@ struct Smem {
   int trivial[4];            // pass p has one digit for every key
   int scan[NWARP];           // block scan scratch
   int bcast[2];              // a value one thread hands the block
-  int ten_cnt[kSmemTenants];  // tenancy: Tenancy::cnt, for n <= kSmemTenants
-  uint8_t ten_demand[kSmemTenants];  // ... and Tenancy::demand
+  int ten_cnt[kSmemTenants];  // tenancy: a tile's placements per tenant row,
+                              // for n <= kSmemTenants
   float ten_wsum;            // tenancy: the share sum
-  float arg_v[NWARP];        // speculation: each warp's argmax value
-  int arg_i[NWARP];          //   ... and row
-  int vet[kFixupK];          // speculation: the fixup's vetoed rows
+  // speculation, the fixup's walk: the candidate keys as gathered, then
+  // the candidates' rows in key order and whether their speed is NaN
+  unsigned long long fx_key[kFixupK + 1];
+  int fx_row[kFixupK + 1];
+  uint8_t fx_nan[kFixupK + 1];
 };
 
 // f32 -> i32 as XLA converts: truncate, saturate, NaN -> 0 (cvt.rzi.s32.f32)
@@ -659,13 +699,10 @@ __device__ void liveness(const Dims& D, const State& st, const Spec& sp,
   first_k(D.I, D.KR, out.redispatch,
           [&](int i) { return dead_slot(st, out, W, i); }, [](int, int) {},
           sm);
-  if (!sp.on) {
+  // with the speculation lane the grid lists the stragglers at the close
+  // (fixup_rows): nothing this tick changes what they read after here
+  if (!sp.on)
     for (int j = tid; j < D.KG; j += NT) out.straggler[j] = -1;
-    return;
-  }
-  first_k(D.I, D.KG, out.straggler,
-          [&](int i) { return straggling(st, out, sp, W, i, now); },
-          [](int, int) {}, sm);
 }
 
 // Slot expansion (greedy.py's layout: slot s is process s % K of worker
@@ -702,111 +739,12 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
 }
 
-// The per-tenant words: shared memory for up to kSmemTenants rows, else the
-// wrapper's global scratch. One code path serves both: the generic pointers
-// take plain loads, stores and atomicAdd in either space.
-struct TenantWords {
-  int32_t* cnt;
-  uint8_t* demand;
-};
-
-__device__ __forceinline__ TenantWords tenant_words(const Tenancy& tn,
-                                                    Smem& sm) {
-  if (tn.n <= kSmemTenants) return TenantWords{sm.ten_cnt, sm.ten_demand};
-  return TenantWords{tn.cnt, tn.demand};
-}
-
 // The inflight-cap allowance of tenant row g: a task is eligible when its
 // FCFS rank j within the tenant's valid backlog is below it.
 __device__ __forceinline__ int tenant_allowance(const Dims& D,
                                                 const Tenancy& tn, int g) {
   const int cap = f2i(tn.cap[g]);
   return cap > 0 ? max(wrap_sub(cap, f2i(tn.ahead[g])), 0) : D.T;
-}
-
-// tenant_fair_admission_impl's eligibility on one block (the auction and
-// Sinkhorn branches): tn.elig (the placement's valid set) and the demand
-// words, from the FCFS rank j within each tenant's valid backlog (one stable
-// radix sort on the tenant segment). The rank branch computes the same over
-// the grid (rank_tenancy). Ends with a barrier.
-__device__ void tenancy_admit(const Dims& D, const State& st,
-                              const Tenancy& tn, const Scratch& sc,
-                              Smem& sm) {
-  const int tid = threadIdx.x;
-  const int T = D.T, N = tn.n;
-  const TenantWords tw = tenant_words(tn, sm);
-  for (int i = tid; i < N; i += NT) tw.demand[i] = 0;
-  // the FCFS rank j within each tenant's valid backlog: one stable sort on
-  // the segment (the tenant, N for invalid rows), j = position - start
-  for (int t = tid; t < T; t += NT) {
-    sc.tk[0][t] = st.valid[t] ? static_cast<uint32_t>(tenant_row(tn, t))
-                              : static_cast<uint32_t>(N);
-    sc.tv[0][t] = t;
-  }
-  __syncthreads();
-  const int b = block_radix_sort(sc.tk, sc.tv, T, sm);
-  const uint32_t* seg = sc.tk[b];
-  const int32_t* by_seg = sc.tv[b];
-  for (int i = tid; i < T; i += NT) {
-    const uint32_t g = seg[i];
-    if (g < static_cast<uint32_t>(N) && (i == 0 || seg[i - 1] != g))
-      tw.cnt[g] = i;
-  }
-  __syncthreads();
-  // the inflight-cap eligibility: j below the tenant's allowance
-  for (int i = tid; i < T; i += NT) {
-    const uint32_t g = seg[i];
-    const int t = by_seg[i];
-    bool e = false;
-    if (g < static_cast<uint32_t>(N)) {
-      e = i - tw.cnt[g] < tenant_allowance(D, tn, g);
-      if (e) tw.demand[g] = 1;
-    }
-    tn.elig[t] = e ? 1 : 0;
-  }
-  __syncthreads();
-}
-
-// ---- phase 4: the deficit carry (fairshare.py::tenant_deficit_update_impl)
-// On one block, from the final assignment, in the plain version's order.
-__device__ void tenancy_deficit(const Dims& D, const Tenancy& tn,
-                                const int32_t* assign, Smem& sm) {
-  const int tid = threadIdx.x, N = tn.n;
-  const TenantWords tw = tenant_words(tn, sm);
-  for (int i = tid; i < N; i += NT) tw.cnt[i] = 0;
-  __syncthreads();
-  int mine = 0;
-  for (int t = tid; t < D.T; t += NT) {
-    if (assign[t] >= 0) {
-      atomicAdd(&tw.cnt[tenant_row(tn, t)], 1);
-      ++mine;
-    }
-  }
-  int total;
-  block_exclusive_scan(mine, &total, sm);  // also the barrier for tw.cnt
-  if (tid == 0) {
-    // w.sum(): ONE float64 running sum in index order, rounded once
-    double acc = 0.0;
-    for (int i = 0; i < N; ++i)
-      acc += tw.demand[i] ? static_cast<double>(clamp_min(tn.share[i], 1e-6f))
-                          : 0.0;
-    sm.ten_wsum = static_cast<float>(acc);
-  }
-  __syncthreads();
-  const float wsum = clamp_min(sm.ten_wsum, 1e-9f);
-  for (int i = tid; i < N; i += NT) {
-    float d = 0.0f;
-    if (tw.demand[i]) {
-      const float w = clamp_min(tn.share[i], 1e-6f);
-      const float entitled =
-          __fmul_rn(__fdiv_rn(w, wsum), static_cast<float>(total));
-      d = __fsub_rn(__fadd_rn(tn.deficit[i], entitled),
-                    static_cast<float>(tw.cnt[i]));
-      d = clamp_max(clamp_min(d, 0.0f), tn.deficit_cap);
-    }
-    tn.deficit[i] = d;
-  }
-  __syncthreads();
 }
 
 // ---- phase 3, rank over every slot and task (greedy.py) ------------------
@@ -862,74 +800,6 @@ __device__ void rank_place(const Dims& D, const State& st, const Out& out,
   __syncthreads();
 }
 
-// ---- phase 3b: the hedge fixup (straggler.py::hedge_fixup_impl) ----------
-// On one block, after placement and before the deficit carry: veto every
-// task placed on its avoid row, then re-place the first kFixupK vetoed tasks
-// in index order, each in turn on the first-argmax row of `live & free
-// slots left & not its avoid row ? speed : -inf` (NaN counts as the maximum,
-// as in jnp.argmax); a row whose best is -inf or NaN stays queued. The slots
-// left are the RAW free count (not min(free, K)), as in the reference, less
-// the placements after the veto. Every pass ends in a barrier.
-__device__ void hedge_fixup(const Dims& D, const State& st, const Out& out,
-                            const Spec& sp, int32_t* assign, Smem& sm) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int T = D.T, W = D.W;
-  auto vetoed = [&](int t) {
-    const int a = sp.avoid[t];
-    return a >= 0 && assign[t] == a;
-  };
-  const int n_vetoed = first_k(T, kFixupK, sm.vet, vetoed, [](int, int) {},
-                               sm);
-  // first_k reads the mask by contiguous chunks, the clear below by
-  // strides: no thread clears before every thread has read
-  __syncthreads();
-  for (int t = tid; t < T; t += NT)
-    if (vetoed(t)) assign[t] = -1;
-  for (int w = tid; w < W; w += NT)
-    sp.free_rem[w] = out.live[w] ? st.free_cnt[w] : 0;
-  __syncthreads();
-  for (int t = tid; t < T; t += NT) {
-    const int a = assign[t];
-    if (a >= 0) atomicSub(&sp.free_rem[a], 1);  // int32 wraps, as XLA's
-  }
-  __syncthreads();
-  for (int w = tid; w < W; w += NT) sp.free_rem[w] = max(sp.free_rem[w], 0);
-  __syncthreads();
-  // a step with no vetoed row changes nothing in the reference: stop there
-  const int n_steps = min(n_vetoed, kFixupK);
-  for (int k = 0; k < n_steps; ++k) {
-    const int t = sm.vet[k];
-    const int avoid = sp.avoid[t];
-    float v = neg_inf();
-    int at = INT32_MAX;  // loses to every real row
-    for (int w = tid; w < W; w += NT) {
-      const float x = (out.live[w] && sp.free_rem[w] > 0 && w != avoid)
-                          ? st.speed[w]
-                          : neg_inf();
-      if (beats(x, w, v, at)) {
-        v = x;
-        at = w;
-      }
-    }
-    warp_argmax_merge(&v, &at);
-    if (lane == 0) {
-      sm.arg_v[warp] = v;
-      sm.arg_i[warp] = at;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      v = sm.arg_v[lane];
-      at = sm.arg_i[lane];
-      warp_argmax_merge(&v, &at);
-      if (lane == 0 && v > neg_inf()) {
-        assign[t] = at;
-        sp.free_rem[at] -= 1;
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // ---- phase 4: compaction (resident.py::_resident_tick_impl) --------------
 __device__ void compact(const Dims& D, const State& st, const Out& out,
                         const int32_t* assign, Smem& sm) {
@@ -980,15 +850,14 @@ enum RankCount {
 // padding (an even count keeps the stamps after them aligned).
 enum RankWord { kWordBad, kWordTasks, kWordSlotBuf, kWordTaskBuf,
                 kWordFallbacks, kWordPad, kRankWords };
-constexpr int kSelPasses = 8;  // one byte of the 64-bit key a pass, at most
-constexpr unsigned long long kNoKey = ~0ull;  // not ranked by the admission
 // The rank branch's phase stamps (a probe build alone writes them): 0
 // start, then block 0's clock at the end of 1 the packet's scatters, 2 the
 // arrivals and liveness, 3 the lists (the valid slots, the admission keys
 // or, with tenancy, the tiles' segment sorts), 4 the tenancy lane's j,
 // eligibility and keys, 5 the select, 6 the admission with the redispatch
 // and straggler lists, 7 the sorts, 8 the pairing, 9 the hedge fixup, 10
-// the counts for compaction with the deficit carry, 11 the compaction; then
+// the counts for compaction and the deficit's, their barrier and block 0's
+// deficit carry, 11 the compaction; then
 // the counts 12 valid slots, 13 admitted tasks, 14 select passes, 15 1 on
 // the full-length path. Each grid phase ends at its barrier.
 constexpr int kRkStamps = 16;
@@ -1020,26 +889,39 @@ __device__ __forceinline__ void tile_of(int n, int* lo, int* hi) {
   *hi = min(*lo + c, n);
 }
 
-// One block's count into row r of the counts (every thread calls it).
-__device__ __forceinline__ void put_count(const Rank& rk, int r, int mine,
-                                          Smem& sm) {
-  int total;
-  block_exclusive_scan(mine, &total, sm);
-  if (threadIdx.x == 0) rk.cnt[r * kMaxRankBlocks + blockIdx.x] = total;
+// Row r of a table of per-block counts (kMaxRankBlocks words a row).
+__device__ __forceinline__ int32_t* count_row(int32_t* cnt, int r) {
+  return cnt + r * kMaxRankBlocks;
 }
 
-// This block's offset in the scan of count row r over the blocks; *total
+// One block's count into a row of per-block counts (every thread calls it).
+__device__ __forceinline__ void put_count(int32_t* row, int mine, Smem& sm) {
+  int total;
+  block_exclusive_scan(mine, &total, sm);
+  if (threadIdx.x == 0) row[blockIdx.x] = total;
+}
+
+__device__ __forceinline__ void put_count(const Rank& rk, int r, int mine,
+                                          Smem& sm) {
+  put_count(count_row(rk.cnt, r), mine, sm);
+}
+
+// This block's offset in the scan of a count row over the blocks; *total
 // gets the grid's sum. Every thread calls it, after a grid barrier.
-__device__ int grid_offset(const Rank& rk, int r, int* total, Smem& sm) {
+__device__ int grid_offset(const int32_t* row, int* total, Smem& sm) {
   const int tid = threadIdx.x;
-  const int v =
-      tid < static_cast<int>(gridDim.x) ? rk.cnt[r * kMaxRankBlocks + tid] : 0;
+  const int v = tid < static_cast<int>(gridDim.x) ? row[tid] : 0;
   const int excl = block_exclusive_scan(v, total, sm);
   if (tid == static_cast<int>(blockIdx.x)) sm.bcast[0] = excl;
   __syncthreads();
   const int off = sm.bcast[0];
   __syncthreads();
   return off;
+}
+
+__device__ __forceinline__ int grid_offset(const Rank& rk, int r, int* total,
+                                           Smem& sm) {
+  return grid_offset(count_row(rk.cnt, r), total, sm);
 }
 
 // The i in [lo, hi) with mask(i), in index order, at base + their rank:
@@ -1058,12 +940,12 @@ __device__ void tile_emit(int lo, int hi, int base, Mask mask, Emit emit,
 }
 
 // The first K indices of mask over [0, n) into out[K], -1 padded, from the
-// blocks' counts in row r (rank_count put them there before the barrier).
+// blocks' counts in `row` (rank_count put them there before the barrier).
 template <class Mask>
-__device__ void grid_first_k(const Rank& rk, int r, int n, int K,
-                             int32_t* out, Mask mask, Smem& sm) {
+__device__ void grid_first_k(const int32_t* row, int n, int K, int32_t* out,
+                             Mask mask, Smem& sm) {
   int total;
-  const int off = grid_offset(rk, r, &total, sm);
+  const int off = grid_offset(row, &total, sm);
   int lo, hi;
   tile_of(n, &lo, &hi);
   if (off < K)
@@ -1073,15 +955,27 @@ __device__ void grid_first_k(const Rank& rk, int r, int n, int K,
   for (int j = total + gthread; j < K; j += gridDim.x * NT) out[j] = -1;
 }
 
-// The count of mask over this block's tile of [0, n) into row r.
 template <class Mask>
-__device__ void rank_count(const Rank& rk, int r, int n, Mask mask,
-                           Smem& sm) {
+__device__ __forceinline__ void grid_first_k(const Rank& rk, int r, int n,
+                                             int K, int32_t* out, Mask mask,
+                                             Smem& sm) {
+  grid_first_k(count_row(rk.cnt, r), n, K, out, mask, sm);
+}
+
+// The count of mask over this block's tile of [0, n) into a count row.
+template <class Mask>
+__device__ void rank_count(int32_t* row, int n, Mask mask, Smem& sm) {
   int lo, hi;
   tile_of(n, &lo, &hi);
   int mine = 0;
   for (int i = lo + threadIdx.x; i < hi; i += NT) mine += mask(i) ? 1 : 0;
-  put_count(rk, r, mine, sm);
+  put_count(row, mine, sm);
+}
+
+template <class Mask>
+__device__ __forceinline__ void rank_count(const Rank& rk, int r, int n,
+                                           Mask mask, Smem& sm) {
+  rank_count(count_row(rk.cnt, r), n, mask, sm);
 }
 
 // The valid slots of row w: min(free, K) on a live row (free may be
@@ -1201,8 +1095,8 @@ __device__ int rank_tenancy_keys(const Dims& D, const State& st,
   return mine;
 }
 
-// The members' least and greatest key, from each thread's, into rk.key_mm.
-__device__ void put_key_range(const Rank& rk, unsigned long long kmin,
+// The members' least and greatest key, from each thread's, into mm[2].
+__device__ void put_key_range(unsigned long long* mm, unsigned long long kmin,
                               unsigned long long kmax) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -1210,26 +1104,28 @@ __device__ void put_key_range(const Rank& rk, unsigned long long kmin,
     kmax = max64(kmax, __shfl_xor_sync(FULL, kmax, o));
   }
   if ((threadIdx.x & 31) == 0 && kmin <= kmax) {
-    atomicMin(rk.key_mm, kmin);
-    atomicMax(rk.key_mm + 1, kmax);
+    atomicMin(mm, kmin);
+    atomicMax(mm + 1, kmax);
   }
 }
 
-// The admission's threshold: the key at position k - 1 of the members'
-// stable order (the n_slots-th smallest), found by a radix select, most
-// significant byte first. Each pass histograms the members that share the
-// chosen bucket's prefix by the first byte where its least and greatest
-// key differ, with each digit's least and greatest key; a grid barrier;
-// then every block picks the same digit. It ends when a bucket holds one
-// key. *below gets the members below the threshold; returns the threshold
-// and *passes the passes run. Every block calls it, after a barrier.
-__device__ unsigned long long radix_select(const Dims& D, const Rank& rk,
-                                          int k, int* below, int* passes,
-                                          Smem& sm, cg::grid_group& grid) {
+// The key at position k - 1 of the members' stable order over sel.key[n]
+// (the rank admission's threshold: the n_slots-th smallest; the hedge
+// fixup's candidate cut), found by a radix select, most significant byte
+// first. Each pass histograms the members that share the chosen bucket's
+// prefix by the first byte where its least and greatest key differ, with
+// each digit's least and greatest key; a grid barrier; then every block
+// picks the same digit. It ends when a bucket holds one key. *below gets
+// the members below the threshold; returns the threshold and *passes the
+// passes run. Every block calls it, after a barrier that orders sel.mm and
+// after sel's per-pass words were reset.
+__device__ unsigned long long radix_select(const Select& sel, int n, int k,
+                                          int* below, int* passes, Smem& sm,
+                                          cg::grid_group& grid) {
   const int tid = threadIdx.x;
-  unsigned long long bmin = rk.key_mm[0], bmax = rk.key_mm[1];
+  unsigned long long bmin = sel.mm[0], bmax = sel.mm[1];
   int lo, hi;
-  tile_of(D.T, &lo, &hi);
+  tile_of(n, &lo, &hi);
   int p = 0;
   *below = 0;
   while (bmin != bmax) {
@@ -1244,7 +1140,7 @@ __device__ unsigned long long radix_select(const Dims& D, const Rank& rk,
     }
     __syncthreads();
     for (int t = lo + tid; t < hi; t += NT) {
-      const unsigned long long key = rk.key[t];
+      const unsigned long long key = sel.key[t];
       if (key == kNoKey) continue;
       if (shift < 56 && ((key ^ bmin) >> (shift + 8)) != 0) continue;
       const int d = static_cast<int>((key >> shift) & 0xff);
@@ -1254,13 +1150,13 @@ __device__ unsigned long long radix_select(const Dims& D, const Rank& rk,
     }
     __syncthreads();
     if (tid < RADIX && sm.hist[0][tid]) {
-      atomicAdd(rk.sel_cnt + p * RADIX + tid, sm.hist[0][tid]);
-      atomicMin(rk.sel_min + p * RADIX + tid, mn[tid]);
-      atomicMax(rk.sel_max + p * RADIX + tid, mx[tid]);
+      atomicAdd(sel.cnt + p * RADIX + tid, sm.hist[0][tid]);
+      atomicMin(sel.mn + p * RADIX + tid, mn[tid]);
+      atomicMax(sel.mx + p * RADIX + tid, mx[tid]);
     }
     grid.sync();
     // the digit whose keys hold position k - 1 - below
-    const int c = tid < RADIX ? rk.sel_cnt[p * RADIX + tid] : 0;
+    const int c = tid < RADIX ? sel.cnt[p * RADIX + tid] : 0;
     int n_in;
     const int at = block_exclusive_scan(c, &n_in, sm);
     const int r = k - 1 - *below;
@@ -1271,13 +1167,360 @@ __device__ unsigned long long radix_select(const Dims& D, const Rank& rk,
     __syncthreads();
     const int d = sm.bcast[0];
     *below += sm.bcast[1];
-    bmin = rk.sel_min[p * RADIX + d];
-    bmax = rk.sel_max[p * RADIX + d];
+    bmin = sel.mn[p * RADIX + d];
+    bmax = sel.mx[p * RADIX + d];
     __syncthreads();
     ++p;
   }
   *passes = p;
   return bmin;
+}
+
+// ---- the lanes over the grid ----------------------------------------------
+// The tenancy lane's eligibility in the auction and Sinkhorn branches (after
+// block 0's packet and liveness and a grid barrier): the rank branch's tiles
+// and their scan, then per task j, the eligibility tn.elig and the demand
+// words as rank_tenancy_keys computes them (these branches admit FCFS from
+// the eligibility alone: no keys). Every block calls it; the caller's grid
+// barrier orders its writes.
+__device__ void grid_tenancy_elig(const Dims& D, const State& st,
+                                  const Tenancy& tn, const Scratch& sc,
+                                  Smem& sm, cg::grid_group& grid) {
+  const int buf = rank_tenancy_tiles(D, st, tn, sc, sm);
+  grid.sync();
+  rank_tenancy_scan(tn);
+  grid.sync();
+  const int N = tn.n, b = blockIdx.x;
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  const uint32_t* seg = sc.tk[buf] + lo;
+  const int32_t* by_seg = sc.tv[buf] + lo;
+  for (int i = threadIdx.x; i < hi - lo; i += NT) {
+    const uint32_t g = seg[i];
+    bool e = false;
+    if (g < static_cast<uint32_t>(N)) {
+      const int at = static_cast<int>(g) * kMaxRankBlocks + b;
+      const int j = tn.tile_cnt[at] + i - tn.tile_first[at];
+      e = j < tenant_allowance(D, tn, g);
+      if (e) tn.demand[g] = 1;
+    }
+    tn.elig[by_seg[i]] = e ? 1 : 0;
+  }
+}
+
+// ---- phase 4: the deficit carry (fairshare.py::tenant_deficit_update_impl)
+// The counts, every block over its tile of the final assignment: a
+// shared-memory histogram added into tn.cnt (zeroed before the kernel's
+// first grid barrier) for up to kSmemTenants rows, global atomics past
+// that. They are integers: the order of the adds does not matter.
+__device__ void deficit_counts(const Dims& D, const Tenancy& tn,
+                               const int32_t* assign, Smem& sm) {
+  const int tid = threadIdx.x, N = tn.n;
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  if (N > kSmemTenants) {
+    for (int t = lo + tid; t < hi; t += NT)
+      if (assign[t] >= 0) atomicAdd(&tn.cnt[tenant_row(tn, t)], 1);
+    return;
+  }
+  for (int g = tid; g < N; g += NT) sm.ten_cnt[g] = 0;
+  __syncthreads();
+  for (int t = lo + tid; t < hi; t += NT)
+    if (assign[t] >= 0) atomicAdd(&sm.ten_cnt[tenant_row(tn, t)], 1);
+  __syncthreads();
+  for (int g = tid; g < N; g += NT)
+    if (sm.ten_cnt[g]) atomicAdd(&tn.cnt[g], sm.ten_cnt[g]);
+}
+
+// The carry, on block 0 after a grid barrier, in the plain version's order:
+// the placements summed from the counts, the share sum ONE float64 running
+// sum in index order rounded once (its terms staged in shared memory by the
+// block for up to kSumTerms rows, so that one thread's running sum waits on
+// no global load), then each tenant row's expression.
+constexpr int kSumTerms = NWARP * RADIX;  // floats in Smem::cnt
+__device__ __forceinline__ float share_term(const Tenancy& tn, int i) {
+  return tn.demand[i] ? clamp_min(tn.share[i], 1e-6f) : 0.0f;
+}
+
+__device__ void deficit_carry(const Tenancy& tn, Smem& sm) {
+  const int tid = threadIdx.x, N = tn.n;
+  float* terms = reinterpret_cast<float*>(&sm.cnt[0][0]);
+  const bool staged = N <= kSumTerms;
+  int mine = 0;
+  for (int g = tid; g < N; g += NT) {
+    mine += tn.cnt[g];
+    if (staged) terms[g] = share_term(tn, g);
+  }
+  int total;
+  block_exclusive_scan(mine, &total, sm);  // also the barrier for terms
+  if (tid == 0) {
+    // w.sum(): ONE float64 running sum in index order, rounded once
+    double acc = 0.0;
+    if (staged) {
+#pragma unroll 8
+      for (int i = 0; i < N; ++i) acc += static_cast<double>(terms[i]);
+    } else {
+      for (int i = 0; i < N; ++i)
+        acc += static_cast<double>(share_term(tn, i));
+    }
+    sm.ten_wsum = static_cast<float>(acc);
+  }
+  __syncthreads();
+  const float wsum = clamp_min(sm.ten_wsum, 1e-9f);
+  for (int i = tid; i < N; i += NT) {
+    float d = 0.0f;
+    if (tn.demand[i]) {
+      const float w = clamp_min(tn.share[i], 1e-6f);
+      const float entitled =
+          __fmul_rn(__fdiv_rn(w, wsum), static_cast<float>(total));
+      d = __fsub_rn(__fadd_rn(tn.deficit[i], entitled),
+                    static_cast<float>(tn.cnt[i]));
+      d = clamp_max(clamp_min(d, 0.0f), tn.deficit_cap);
+    }
+    tn.deficit[i] = d;
+  }
+  __syncthreads();
+}
+
+// The hedge fixup (straggler.py::hedge_fixup_impl), in every branch after
+// placement: the veto of tasks placed on their avoid row, the free slots
+// left (the RAW free count on a live row less the placements kept after the
+// veto, int32 wrapping as XLA's, floored at 0), and the first kFixupK vetoed
+// tasks in index order, each placed in turn on jnp.argmax's row of `live &
+// slots left & not its avoid row ? speed : -inf` (the first maximum, a NaN
+// the maximum); a task whose best is -inf or NaN stays queued and takes no
+// slot. Over the grid, in four parts with a grid barrier between them:
+//   1. each block counts its tile's vetoed tasks and adds each placement it
+//      keeps into its row's word of sp.free_rem;
+//   2. the first kFixupK vetoed tasks listed in index order at the blocks'
+//      offsets, every vetoed task cleared, each row's slots left into
+//      sp.free_rem, and each candidate row's key: a row with slots left
+//      whose speed is not -inf (such a row never beats the mask's -inf),
+//      keyed (~float_key(speed) << 32) | row, so ascending keys run NaN
+//      first, then by speed down, ties to the lower row (-0.0 is +0.0), and
+//      every key is distinct;
+//   3. with more than kFixupK + 1 candidates, the (kFixupK + 1)-th smallest
+//      key by radix_select; every candidate key up to it gathered;
+//   4. one warp of block 0 sorts the gathered keys (each key's rank among
+//      them) into shared memory and walks the vetoed tasks: one ballot over
+//      the list a task for the first row with slots left that is not its
+//      avoid row; a NaN row there keeps the task queued, any other takes it
+//      and one of its slots. No block barrier a step.
+// Why kFixupK + 1 rows are enough: in key order, the rows before step k's
+// pick are rows an earlier step emptied (a step takes one slot, so at most
+// k of them, and k < kFixupK) and the task's own avoid row. So the pick lies
+// among the first k + 2 <= kFixupK + 1 candidates, or there is none
+// (tests/test_torch_lane_select.py holds the plain model of this walk,
+// straggler.py::hedge_fixup_listed, to the reference, with a pick at list
+// position kFixupK).
+// The auction and Sinkhorn branches list the straggler slots in parts 1 and
+// 2 as well; the rank branch lists them with its other lists.
+static_assert(kFixupK <= 64, "the walk holds two steps a lane");
+
+// The fixup's scratch, before the kernel's first grid barrier.
+__device__ void fixup_reset(const Spec& sp, int W, int gthread,
+                            int n_gthread) {
+  const Select& sel = sp.fx.sel;
+  for (int i = gthread; i < kSelPasses * RADIX; i += n_gthread) {
+    sel.cnt[i] = 0;
+    sel.mn[i] = kNoKey;
+    sel.mx[i] = 0;
+  }
+  for (int w = gthread; w < W; w += n_gthread) sp.free_rem[w] = 0;
+  if (gthread == 0) {
+    sel.mm[0] = kNoKey;
+    sel.mm[1] = 0;
+    sp.fx.n_cand[0] = 0;
+  }
+}
+
+__device__ __forceinline__ bool vetoed(const Spec& sp, const int32_t* assign,
+                                       int t) {
+  const int a = assign[t];
+  return a >= 0 && sp.avoid[t] == a;
+}
+
+// Part 1, every block.
+__device__ void fixup_count(const Dims& D, const State& st, const Out& out,
+                            const Spec& sp, const int32_t* assign,
+                            bool stragglers, float now, Smem& sm) {
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  int mine = 0;
+  for (int t = lo + threadIdx.x; t < hi; t += NT) {
+    const int a = assign[t];
+    if (a < 0) continue;
+    if (sp.avoid[t] == a) {
+      ++mine;
+    } else {
+      atomicAdd(&sp.free_rem[a], 1);
+    }
+  }
+  put_count(count_row(sp.fx.cnt, kFixVetoed), mine, sm);
+  if (stragglers)
+    rank_count(count_row(sp.fx.cnt, kFixStraggler), D.I,
+               [&](int i) { return straggling(st, out, sp, D.W, i, now); },
+               sm);
+}
+
+// Part 2, every block. Returns the vetoed tasks (the same in every block).
+__device__ int fixup_rows(const Dims& D, const State& st, const Out& out,
+                          const Spec& sp, int32_t* assign, bool stragglers,
+                          float now, Smem& sm) {
+  const Fixup& fx = sp.fx;
+  if (stragglers)
+    grid_first_k(count_row(fx.cnt, kFixStraggler), D.I, D.KG, out.straggler,
+                 [&](int i) { return straggling(st, out, sp, D.W, i, now); },
+                 sm);
+  int n_vet;
+  grid_offset(count_row(fx.cnt, kFixVetoed), &n_vet, sm);
+  if (n_vet == 0) return 0;
+  grid_first_k(count_row(fx.cnt, kFixVetoed), D.T, kFixupK, fx.vet,
+               [&](int t) { return vetoed(sp, assign, t); }, sm);
+  __syncthreads();
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  for (int t = lo + threadIdx.x; t < hi; t += NT)
+    if (vetoed(sp, assign, t)) assign[t] = -1;
+  tile_of(D.W, &lo, &hi);
+  unsigned long long kmin = kNoKey, kmax = 0;
+  int mine = 0;
+  for (int w = lo + threadIdx.x; w < hi; w += NT) {
+    const int rem =
+        max(wrap_sub(out.live[w] ? st.free_cnt[w] : 0, sp.free_rem[w]), 0);
+    sp.free_rem[w] = rem;
+    const float v = st.speed[w];
+    unsigned long long key = kNoKey;
+    if (rem > 0 && v != neg_inf()) {
+      key = (static_cast<unsigned long long>(~float_key(v)) << 32) |
+            static_cast<uint32_t>(w);
+      ++mine;
+      kmin = min64(kmin, key);
+      kmax = max64(kmax, key);
+    }
+    fx.sel.key[w] = key;
+  }
+  put_count(count_row(fx.cnt, kFixCand), mine, sm);
+  put_key_range(fx.sel.mm, kmin, kmax);
+  return n_vet;
+}
+
+// Part 3, every block.
+__device__ void fixup_select(const Dims& D, const Spec& sp, Smem& sm,
+                             cg::grid_group& grid) {
+  const Fixup& fx = sp.fx;
+  int n_cand;
+  grid_offset(count_row(fx.cnt, kFixCand), &n_cand, sm);
+  unsigned long long thr = kNoKey;
+  if (n_cand > kFixupK + 1) {
+    int below, passes;
+    thr = radix_select(fx.sel, D.W, kFixupK + 1, &below, &passes, sm, grid);
+  }
+  int lo, hi;
+  tile_of(D.W, &lo, &hi);
+  for (int w = lo + threadIdx.x; w < hi; w += NT) {
+    const unsigned long long key = fx.sel.key[w];
+    if (key != kNoKey && key <= thr) fx.cand[atomicAdd(fx.n_cand, 1)] = key;
+  }
+}
+
+// Part 4, the first warp of block 0.
+__device__ void fixup_walk(const State& st, const Spec& sp, int32_t* assign,
+                           int n_vet, Smem& sm) {
+  const int lane = threadIdx.x & 31;
+  const Fixup& fx = sp.fx;
+  const int n_cand = fx.n_cand[0];
+  for (int e = lane; e < n_cand; e += 32) sm.fx_key[e] = fx.cand[e];
+  __syncwarp();
+  for (int e = lane; e < n_cand; e += 32) {
+    const unsigned long long key = sm.fx_key[e];
+    int r = 0;
+    for (int j = 0; j < n_cand; ++j) r += sm.fx_key[j] < key ? 1 : 0;
+    const int w = static_cast<int>(static_cast<uint32_t>(key));
+    sm.fx_row[r] = w;
+    sm.fx_nan[r] = st.speed[w] != st.speed[w];
+  }
+  __syncwarp();
+  // list position 32 q + lane in register q
+  constexpr int kPer = (kFixupK + 1 + 31) / 32;
+  int row[kPer], rem[kPer];
+  bool nan_row[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const int e = 32 * q + lane;
+    row[q] = e < n_cand ? sm.fx_row[e] : -1;
+    rem[q] = e < n_cand ? sp.free_rem[row[q]] : 0;
+    nan_row[q] = e < n_cand && sm.fx_nan[e];
+  }
+  // step k's task and its avoid row in register k / 32 of lane k % 32
+  const int n_steps = min(n_vet, kFixupK);
+  int task[2], avoid[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = 32 * h + lane;
+    task[h] = k < n_steps ? fx.vet[k] : -1;
+    avoid[h] = task[h] >= 0 ? sp.avoid[task[h]] : -1;
+  }
+  for (int k = 0; k < n_steps; ++k) {
+    const int t = __shfl_sync(FULL, k < 32 ? task[0] : task[1], k & 31);
+    const int av = __shfl_sync(FULL, k < 32 ? avoid[0] : avoid[1], k & 31);
+    int pick = -1;  // warp-uniform: the first list position that fits
+#pragma unroll
+    for (int q = kPer - 1; q >= 0; --q) {
+      const unsigned fit = __ballot_sync(FULL, rem[q] > 0 && row[q] != av);
+      if (fit) pick = 32 * q + __ffs(fit) - 1;
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      if (pick == 32 * q + lane && !nan_row[q]) {
+        assign[t] = row[q];
+        --rem[q];
+      }
+    }
+  }
+}
+
+// The fixup, parts 1-4; every block calls it. Returns whether it changed
+// the assignment (then the caller orders block 0's walk before any other
+// read of it).
+__device__ bool grid_fixup(const Dims& D, const State& st, const Out& out,
+                           const Spec& sp, int32_t* assign, bool stragglers,
+                           float now, Smem& sm, cg::grid_group& grid) {
+  fixup_count(D, st, out, sp, assign, stragglers, now, sm);
+  grid.sync();
+  const int n_vet = fixup_rows(D, st, out, sp, assign, stragglers, now, sm);
+  if (n_vet == 0) return false;
+  grid.sync();
+  fixup_select(D, sp, sm, grid);
+  grid.sync();
+  if (blockIdx.x == 0 && threadIdx.x < 32)
+    fixup_walk(st, sp, assign, n_vet, sm);
+  return true;
+}
+
+// The lanes' close in the auction and Sinkhorn branches, after block 0 closed
+// the placement: the hedge fixup (with the straggler list) and the deficit
+// carry, over the grid. Every block calls it; block 0 then holds the final
+// assignment and has carried the deficit. A probe build stamps block 0's
+// clock after the fixup (stamps[0]) and after the carry (stamps[1]).
+__device__ void lanes_close(const Dims& D, const State& st, const Out& out,
+                            const Tenancy& tn, const Spec& sp,
+                            int32_t* assign, float now,
+                            unsigned long long* stamps, Smem& sm,
+                            cg::grid_group& grid) {
+  PROBE(const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;)
+  grid.sync();  // block 0's close wrote the assignment
+  if (sp.on && grid_fixup(D, st, out, sp, assign, true, now, sm, grid) &&
+      tn.on)
+    grid.sync();  // block 0's walk, before every block's counts
+  __syncthreads();
+  PROBE(if (stamp) stamps[0] = global_ns();)
+  if (tn.on) {
+    deficit_counts(D, tn, assign, sm);
+    grid.sync();
+    if (blockIdx.x == 0) deficit_carry(tn, sm);
+  }
+  PROBE(if (stamp) stamps[1] = global_ns();)
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -1303,8 +1546,13 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
     rk.sel_min[i] = kNoKey;
     rk.sel_max[i] = 0;
   }
-  if (tn.on)
-    for (int g = gthread; g < tn.n; g += n_gthread) tn.demand[g] = 0;
+  if (tn.on) {
+    for (int g = gthread; g < tn.n; g += n_gthread) {
+      tn.demand[g] = 0;
+      tn.cnt[g] = 0;
+    }
+  }
+  if (sp.on) fixup_reset(sp, W, gthread, n_gthread);
   if (gthread == 0) {
     rk.key_mm[0] = kNoKey;
     rk.key_mm[1] = 0;
@@ -1415,7 +1663,7 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
       }
     }
     put_count(rk, kCntMembers, mine, sm);
-    put_key_range(rk, kmin, kmax);
+    put_key_range(rk.key_mm, kmin, kmax);
   }
   grid.sync();
   PROBE(if (stamp) rk.stamps[3] = global_ns();)
@@ -1428,7 +1676,7 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
     const int mine =
         rank_tenancy_keys(D, st, tn, sc, rk, tile_buf, &kmin, &kmax);
     put_count(rk, kCntMembers, mine, sm);
-    put_key_range(rk, kmin, kmax);
+    put_key_range(rk.key_mm, kmin, kmax);
     grid.sync();
   }
   PROBE(if (stamp) rk.stamps[4] = global_ns();)
@@ -1446,7 +1694,9 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
     thr = kNoKey;  // every member below it
   } else {
     int below;
-    thr = radix_select(D, rk, n_slots, &below, &passes, sm, grid);
+    thr = radix_select(
+        Select{rk.key, rk.sel_cnt, rk.sel_min, rk.sel_max, rk.key_mm}, T,
+        n_slots, &below, &passes, sm, grid);
     need = n_slots - below;
     if (passes) {
       int lt = 0, eq = 0;
@@ -1569,15 +1819,13 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
   }
   PROBE(if (stamp) rk.stamps[8] = global_ns();)
 
-  // -- 9: the hedge fixup on block 0 --------------------------------------
-  if (sp.on) {
-    if (b == 0) hedge_fixup(D, st, out, sp, sc.assign, sm);
+  // -- 9: the hedge fixup over the grid -----------------------------------
+  if (sp.on && grid_fixup(D, st, out, sp, sc.assign, false, now, sm, grid))
     grid.sync();
-  }
   PROBE(if (stamp) rk.stamps[9] = global_ns();)
 
-  // -- 10: the placements and the valid tasks counted; the deficit carry
-  // on block 0 --------------------------------------------------------------
+  // -- 10: the placements and the valid tasks counted, and the deficit's
+  // placements per tenant; the deficit carry on block 0 -----------------------
   {
     int placed = 0, valid = 0;
     for (int t = lo_t + tid; t < hi_t; t += NT) {
@@ -1587,15 +1835,10 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
     put_count(rk, kCntPlaced, placed, sm);
     put_count(rk, kCntValid, valid, sm);
   }
-  if (tn.on && b == 0) {
-    if (tn.n <= kSmemTenants) {
-      for (int g = tid; g < tn.n; g += NT) sm.ten_demand[g] = tn.demand[g];
-      __syncthreads();
-    }
-    tenancy_deficit(D, tn, sc.assign, sm);
-  }
-  PROBE(if (stamp) rk.stamps[10] = global_ns();)
+  if (tn.on) deficit_counts(D, tn, sc.assign, sm);
   grid.sync();
+  if (tn.on && b == 0) deficit_carry(tn, sm);
+  PROBE(if (stamp) rk.stamps[10] = global_ns();)
 
   // -- 11: the first KP placements (each clears its valid bit and takes
   // its slot on the device), and n_pending: the valid tasks less those
@@ -1963,6 +2206,10 @@ __device__ __forceinline__ int load_volatile(const int32_t* p) {
   return *reinterpret_cast<const volatile int32_t*>(p);
 }
 
+// kLanes: the instance launched with a lane on; the one with both lanes off
+// holds none of their code, so the lanes' registers never weigh on its
+// rounds.
+template <bool kLanes>
 __global__ void __launch_bounds__(NT, 1)
 fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
                      Out out, Scratch sc, Auction au, Tenancy tn, Spec sp) {
@@ -1974,18 +2221,35 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
   const int n_gthread = gridDim.x * NT;
   PROBE(const bool stamp = blockIdx.x == 0 && tid == 0;
         if (stamp) au.stamps[0] = global_ns();)
+  PROBE(unsigned long long* ls = au.stamps + kStampLanes;)
   int n_match = 0;
   // the bidder groups' tickets start at 0; the first barrier orders it
   for (int i = gthread; i < kMaxItems; i += n_gthread) au.ticket[i] = 0;
+  if (kLanes && tn.on) {
+    for (int g = gthread; g < tn.n; g += n_gthread) {
+      tn.demand[g] = 0;
+      tn.cnt[g] = 0;
+    }
+  }
+  if (kLanes && sp.on) fixup_reset(sp, D.W, gthread, n_gthread);
   if (blockIdx.x == 0) {
-    PROBE(for (int i = 1 + tid; i < kAuStamps; i += NT) au.stamps[i] = 0;)
+    PROBE(for (int i = 1 + tid; i < kAuStamps; i += NT) au.stamps[i] = 0;
+          __syncthreads();)
     float now, tte;
     apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
+    PROBE(__syncthreads(); if (stamp) ls[0] = global_ns();)
     __syncthreads();
     liveness(D, st, sp, out, now, tte, sm);
-    // the auction sees the eligibility mask alone (FCFS admission)
-    if (tn.on) tenancy_admit(D, st, tn, sc, sm);
-    PROBE(if (stamp) au.stamps[1] = global_ns();)
+    PROBE(__syncthreads(); if (stamp) ls[1] = global_ns();)
+  }
+  // the auction sees the eligibility mask alone (FCFS admission)
+  if (kLanes && tn.on) {
+    grid.sync();
+    grid_tenancy_elig(D, st, tn, sc, sm, grid);
+    grid.sync();
+  }
+  PROBE(if (stamp) au.stamps[1] = global_ns();)
+  if (blockIdx.x == 0) {
     n_match = auction_open(D, st, out, sc, au, sm);
     PROBE(__syncthreads(); if (stamp) au.stamps[2] = global_ns();)
   }
@@ -2043,11 +2307,20 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
     PROBE(if (stamp && rstamp) rs[4] = global_ns();)
     ++rounds;
   }
-  if (blockIdx.x != 0) return;
-  auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
-  PROBE(if (stamp) au.stamps[kStampClose] = global_ns();)
-  if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
-  if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
+  // with a lane on, every block stays for the lanes' close
+  const bool lanes = kLanes && (sp.on || tn.on);
+  if (blockIdx.x != 0 && !lanes) return;
+  if (blockIdx.x == 0) {
+    auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+    PROBE(if (stamp) au.stamps[kStampClose] = global_ns();)
+  }
+  if (lanes) {
+    unsigned long long* lane_stamps = nullptr;
+    PROBE(lane_stamps = ls + 2;)
+    lanes_close(D, st, out, tn, sp, sc.assign, packet[0], lane_stamps, sm,
+                grid);
+    if (blockIdx.x != 0) return;
+  }
   compact(D, st, out, sc.assign, sm);
   PROBE(__syncthreads(); if (stamp) au.stamps[kStampClose + 1] = global_ns();)
 }
@@ -2109,12 +2382,16 @@ constexpr int kStamps = 8;  // phase stamps, see fused_sinkhorn_kernel
 // the repair done, the spill's slot order, the spill done; then its counts
 // from kSkCount: candidates (valid and not to_slack), spilled tasks,
 // spilled pairs placed, and 1 when the spill took rank placement's own
-// sorts (a non-finite size or speed).
+// sorts (a non-finite size or speed); then the lanes' words from kSkLanes:
+// block 0's clock after the packet and after liveness (inside phase 1),
+// after the hedge fixup and after the deficit carry (inside phase 7; 0 with
+// the lanes off).
 constexpr int kSkIters = 64;
 constexpr int kSkIter = kStamps;
 constexpr int kSkClose = kSkIter + 4 * kSkIters;
 constexpr int kSkCount = kSkClose + 6;
-constexpr int kSkStamps = kSkCount + 4;
+constexpr int kSkLanes = kSkCount + 4;
+constexpr int kSkStamps = kSkLanes + 4;
 
 struct Sinkhorn {
   int bucketed;         // 1: bucketed solver and rounding; 0: dense
@@ -2830,9 +3107,12 @@ __device__ void sinkhorn_close(const Dims& D, const State& st,
 
 // Block 0's thread 0 stamps the clock at the start and at the end of each
 // phase into sk.stamps (scratch, read back by the wrapper on request):
-// 0 start, 1 packet and liveness, 2 reductions, 3 setup, 4 iterations,
-// 5 rounding candidates, 6 capacity repair and spill, 7 the hedge fixup
-// (speculation), the deficit carry (tenancy) and compaction.
+// 0 start, 1 packet and liveness (and the tenancy lane's eligibility), 2
+// reductions, 3 setup, 4 iterations, 5 rounding candidates, 6 capacity
+// repair and spill, 7 the hedge fixup (speculation), the deficit carry
+// (tenancy) and compaction.
+// kLanes as in fused_auction_kernel.
+template <bool kLanes>
 __global__ void __launch_bounds__(NT, 1)
 fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
                       Out out, Scratch sc, Sinkhorn sk, Tenancy tn, Spec sp) {
@@ -2843,20 +3123,36 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
   cg::grid_group grid = cg::this_grid();
   const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
   if (stamp) sk.stamps[0] = global_ns();
+  PROBE(unsigned long long* ls = sk.stamps + kSkLanes;)
+  const int gthread = blockIdx.x * NT + threadIdx.x;
+  const int n_gthread = gridDim.x * NT;
+  if (kLanes && tn.on) {
+    for (int g = gthread; g < tn.n; g += n_gthread) {
+      tn.demand[g] = 0;
+      tn.cnt[g] = 0;
+    }
+  }
+  if (kLanes && sp.on) fixup_reset(sp, D.W, gthread, n_gthread);
   if (blockIdx.x == 0) {
+    PROBE(for (int i = kStamps + threadIdx.x; i < kSkStamps; i += NT)
+            sk.stamps[i] = 0;
+          __syncthreads();)
     float now, tte;
     apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
+    PROBE(__syncthreads(); if (stamp) ls[0] = global_ns();)
     __syncthreads();
     liveness(D, st, sp, out, now, tte, sm);
-    // the eligibility every block's placement reads, before the barrier
-    if (tn.on) tenancy_admit(D, st, tn, sc, sm);
+    PROBE(__syncthreads(); if (stamp) ls[1] = global_ns();)
     if (threadIdx.x < kRed) sk.red[threadIdx.x] = red_identity(threadIdx.x);
     if (sk.bucketed)
       for (int k = threadIdx.x; k < sk.nb; k += NT) sk.counts[k] = 0;
-    PROBE(for (int i = kStamps + threadIdx.x; i < kSkStamps; i += NT)
-            sk.stamps[i] = 0;)
-    if (stamp) sk.stamps[1] = global_ns();
   }
+  // the eligibility every block's placement reads, before the barrier
+  if (kLanes && tn.on) {
+    grid.sync();
+    grid_tenancy_elig(D, st, tn, sc, sm, grid);
+  }
+  if (stamp) sk.stamps[1] = global_ns();
   grid.sync();
   sinkhorn_reduce(D, st, out, sk);
   grid.sync();
@@ -2898,12 +3194,21 @@ fused_sinkhorn_kernel(const float* __restrict__ packet, Dims D, State st,
   grid.sync();
   sinkhorn_task_candidates(D, st, sc, sk, s, sm);
   grid.sync();
-  if (blockIdx.x != 0) return;
-  if (stamp) sk.stamps[5] = global_ns();
-  sinkhorn_close(D, st, out, sc, sk, sm);
-  if (stamp) sk.stamps[6] = global_ns();
-  if (sp.on) hedge_fixup(D, st, out, sp, sc.assign, sm);
-  if (tn.on) tenancy_deficit(D, tn, sc.assign, sm);
+  // with a lane on, every block stays for the lanes' close
+  const bool lanes = kLanes && (sp.on || tn.on);
+  if (blockIdx.x != 0 && !lanes) return;
+  if (blockIdx.x == 0) {
+    if (stamp) sk.stamps[5] = global_ns();
+    sinkhorn_close(D, st, out, sc, sk, sm);
+    if (stamp) sk.stamps[6] = global_ns();
+  }
+  if (lanes) {
+    unsigned long long* lane_stamps = nullptr;
+    PROBE(lane_stamps = ls + 2;)
+    lanes_close(D, st, out, tn, sp, sc.assign, packet[0], lane_stamps, sm,
+                grid);
+    if (blockIdx.x != 0) return;
+  }
   compact(D, st, out, sc.assign, sm);
   if (stamp) sk.stamps[7] = global_ns();
 }
@@ -3058,13 +3363,41 @@ int cooperative_launch(const void* kernel, void** args, void* stream,
   spec_args(packet, d, use_spec, use_tenancy, infl_start, infl_pred, avoid, \
             free_rem)
 
+// The hedge fixup's scratch, in int32 words (at an even offset): cnt
+// [kFixCounts kMaxRankBlocks] ++ sel.cnt [kSelPasses RADIX] ++ sel.key [2W]
+// ++ sel.mn sel.mx [2 kSelPasses RADIX each] ++ sel.mm [4] ++ cand
+// [2 (kFixupK + 1)] ++ n_cand [2] ++ vet [kFixupK]; every count is even.
+// With p null it only counts; returns the words.
+long long fixup_layout(int32_t* p, long long W, Fixup* fx) {
+  long long off = 0;
+  auto take = [&](long long n) {
+    int32_t* q = p ? p + off : nullptr;
+    off += n;
+    return q;
+  };
+  auto take64 = [&](long long n) {
+    return reinterpret_cast<unsigned long long*>(take(2 * n));
+  };
+  fx->cnt = take(kFixCounts * kMaxRankBlocks);
+  fx->sel.cnt = take(kSelPasses * RADIX);
+  fx->sel.key = take64(W);
+  fx->sel.mn = take64(kSelPasses * RADIX);
+  fx->sel.mx = take64(kSelPasses * RADIX);
+  fx->sel.mm = take64(2);
+  fx->cand = take64(kFixupK + 1);
+  fx->n_cand = take(2);
+  fx->vet = take(kFixupK);
+  return off;
+}
+
 // Scratch of the rank branch, in int32 words: the rank layout [4S + 6T] ++
 // cnt [kRankCounts kMaxRankBlocks] ++ sel_cnt [kSelPasses RADIX] ++ key
-// [2T] ++ sel_min sel_max [2 kSelPasses RADIX each] ++ key_mm [4] ++ word
-// [kRankWords] ++ stamps [2 kRkStamps]; every count is even, so the 64-bit
-// words stay aligned. With p null it only counts; returns the words.
-long long rank_layout(int32_t* p, long long T, long long S, Scratch* sc,
-                      Rank* rk) {
+// [2T] ++ sel_min sel_max [2 kSelPasses RADIX each] ++ key_mm [4] ++ the
+// fixup's (fixup_layout) ++ word [kRankWords] ++ stamps [2 kRkStamps];
+// every count is even, so the 64-bit words stay aligned. With p null it
+// only counts; returns the words.
+long long rank_layout(int32_t* p, long long T, long long W, long long S,
+                      Scratch* sc, Rank* rk, Fixup* fx) {
   long long off = 0;
   auto take = [&](long long n) {
     int32_t* q = p ? p + off : nullptr;
@@ -3082,6 +3415,7 @@ long long rank_layout(int32_t* p, long long T, long long S, Scratch* sc,
   rk->sel_min = take64(kSelPasses * RADIX);
   rk->sel_max = take64(kSelPasses * RADIX);
   rk->key_mm = take64(2);
+  off += fixup_layout(p ? p + off : nullptr, W, fx);
   rk->word = take(kRankWords);
   rk->stamps = take64(kRkStamps);
   return off;
@@ -3112,7 +3446,8 @@ extern "C" int tpu_faas_fused_resident_tick(
   }
   Scratch sc;
   Rank rk;
-  rank_layout(scratch, T, static_cast<long long>(W) * max_slots, &sc, &rk);
+  rank_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc, &rk,
+              &sp.fx);
   void* args[] = {&packet, &d, &st, &o, &sc, &rk, &tn, &sp};
   return cooperative_launch(reinterpret_cast<const void*>(fused_rank_kernel),
                             args, stream, 0, kMaxRankBlocks);
@@ -3121,8 +3456,9 @@ extern "C" int tpu_faas_fused_resident_tick(
 extern "C" long long tpu_faas_fused_rank_scratch_words(int T, int W,
                                                        int max_slots) {
   Rank rk;
-  return rank_layout(nullptr, T, static_cast<long long>(W) * max_slots,
-                     nullptr, &rk);
+  Fixup fx;
+  return rank_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
+                     nullptr, &rk, &fx);
 }
 
 // The int32 offsets in the rank scratch of its phase stamps (kRkStamps
@@ -3150,10 +3486,11 @@ extern "C" long long tpu_faas_fused_tenancy_scratch_words(int n_tenants) {
 // layout [4S + 6T] ++ inv valid_f owner [S each] ++ assigned bid list0
 // list1 [T each] ++ cnt [2] ++ nonfinite [1] ++ part_v1 part_b part_v2
 // [kMaxItems kRows each]
-// ++ ticket [kMaxItems] ++ (8-byte alignment) ++ stamps [2 kAuStamps].
+// ++ ticket [kMaxItems] ++ (8-byte alignment) ++ the fixup's
+// (fixup_layout) ++ stamps [2 kAuStamps].
 // With p null it only counts; returns the words.
-long long auction_layout(int32_t* p, long long T, long long S, Scratch* sc,
-                         Auction* au) {
+long long auction_layout(int32_t* p, long long T, long long W, long long S,
+                         Scratch* sc, Auction* au, Fixup* fx) {
   long long off = 0;
   auto take = [&](long long n) {
     int32_t* q = p ? p + off : nullptr;
@@ -3178,6 +3515,7 @@ long long auction_layout(int32_t* p, long long T, long long S, Scratch* sc,
   au->part_v2 = takef(kMaxItems * kRows);
   au->ticket = take(kMaxItems);
   take(off & 1);
+  off += fixup_layout(p ? p + off : nullptr, W, fx);
   au->stamps = reinterpret_cast<unsigned long long*>(take(2 * kAuStamps));
   return off;
 }
@@ -3206,21 +3544,27 @@ extern "C" int tpu_faas_fused_resident_auction(
   au.price = price;
   au.refresh = refresh;
   Scratch sc;
-  auction_layout(scratch, T, static_cast<long long>(W) * max_slots, &sc, &au);
+  auction_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc,
+                 &au, &sp.fx);
   au.eps = eps;
   au.jitter = jitter;
   au.warm_rounds = warm_rounds;
 
   void* args[] = {&packet, &d, &st, &o, &sc, &au, &tn, &sp};
-  return cooperative_launch(reinterpret_cast<const void*>(fused_auction_kernel),
-                            args, stream);
+  // a lane's per-block rows hold kMaxRankBlocks blocks
+  const bool lanes = use_tenancy || use_spec;
+  return cooperative_launch(
+      lanes ? reinterpret_cast<const void*>(fused_auction_kernel<true>)
+            : reinterpret_cast<const void*>(fused_auction_kernel<false>),
+      args, stream, 0, lanes ? kMaxRankBlocks : 1 << 30);
 }
 
 extern "C" long long tpu_faas_fused_auction_scratch_words(int T, int W,
                                                           int max_slots) {
   Auction au;
-  return auction_layout(nullptr, T, static_cast<long long>(W) * max_slots,
-                        nullptr, &au);
+  Fixup fx;
+  return auction_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
+                        nullptr, &au, &fx);
 }
 
 // The scratch offset, in int32 words, of the auction branch's phase stamps
@@ -3238,10 +3582,12 @@ extern "C" int tpu_faas_fused_auction_stamp_count() { return kAuStamps; }
 // col_g [C each] ++ colv capf used remaining seg_first [W each] ++ logs
 // bucket best_w best_p to_slack a0 spilled cand [T each] ++ counts best_w_b
 // to_slack_b [nb each] ++ cand_n cand_off [kMaxBlocks each] ++ red [kRed]
-// ++ stamps [2 kSkStamps].
+// ++ (8-byte alignment) ++ the fixup's (fixup_layout) ++ stamps
+// [2 kSkStamps].
 // With p null it only counts; returns the words.
 long long sinkhorn_layout(int32_t* p, long long T, long long W,
-                          long long S, Scratch* sc, Sinkhorn* sk) {
+                          long long S, Scratch* sc, Sinkhorn* sk,
+                          Fixup* fx) {
   const long long R = sk->R, C = sk->C, nb = sk->nb;
   long long off = 0;
   auto take = [&](long long n) {
@@ -3282,6 +3628,7 @@ long long sinkhorn_layout(int32_t* p, long long T, long long W,
   sk->cand_off = take(kMaxBlocks);
   sk->red = reinterpret_cast<uint32_t*>(take(kRed));
   take(off & 1);  // 8-byte alignment for the stamps
+  off += fixup_layout(p ? p + off : nullptr, W, fx);
   sk->stamps = reinterpret_cast<unsigned long long*>(take(2 * kSkStamps));
   return off;
 }
@@ -3299,8 +3646,9 @@ Sinkhorn sinkhorn_shape(int T, int W, int bucketed, int n_buckets) {
 extern "C" long long tpu_faas_fused_sinkhorn_scratch_words(
     int T, int W, int max_slots, int bucketed, int n_buckets) {
   Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
+  Fixup fx;
   return sinkhorn_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
-                         nullptr, &sk);
+                         nullptr, &sk, &fx);
 }
 
 // The Sinkhorn branch: one cooperative launch. Returns as the auction entry
@@ -3331,13 +3679,16 @@ extern "C" int tpu_faas_fused_resident_sinkhorn(
   sk.tau_out = tau_out;
   Scratch sc;
   sinkhorn_layout(scratch, T, W, static_cast<long long>(W) * max_slots, &sc,
-                  &sk);
+                  &sk, &sp.fx);
   void* args[] = {&packet, &d, &st, &o, &sc, &sk, &tn, &sp};
   const int smem = static_cast<int>(
       sizeof(float) * (2 * NWARP + (sk.vec_smem ? 2 * (sk.R + sk.C) : 0)));
+  // a lane's per-block rows hold kMaxRankBlocks blocks
+  const bool lanes = use_tenancy || use_spec;
   return cooperative_launch(
-      reinterpret_cast<const void*>(fused_sinkhorn_kernel), args, stream,
-      smem, kMaxBlocks);
+      lanes ? reinterpret_cast<const void*>(fused_sinkhorn_kernel<true>)
+            : reinterpret_cast<const void*>(fused_sinkhorn_kernel<false>),
+      args, stream, smem, lanes ? kMaxRankBlocks : kMaxBlocks);
 }
 
 // expf and logf of n floats, compiled as the Sinkhorn branch compiles them:
@@ -3363,8 +3714,9 @@ extern "C" int tpu_faas_math_probe(const float* x, float* e, float* l, int n,
 extern "C" long long tpu_faas_fused_sinkhorn_stamps_offset(
     int T, int W, int max_slots, int bucketed, int n_buckets) {
   Sinkhorn sk = sinkhorn_shape(T, W, bucketed, n_buckets);
+  Fixup fx;
   return sinkhorn_layout(nullptr, T, W, static_cast<long long>(W) * max_slots,
-                         nullptr, &sk) - 2 * kSkStamps;
+                         nullptr, &sk, &fx) - 2 * kSkStamps;
 }
 
 extern "C" int tpu_faas_fused_sinkhorn_stamp_count() { return kSkStamps; }

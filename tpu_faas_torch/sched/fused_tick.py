@@ -102,12 +102,21 @@ _SPEC_TYPES = [_P] * 4 + [ctypes.c_int]
 #: the cooperative entries' own error codes
 #: the Sinkhorn stamps' layout (``csrc/fused_tick.cu``: kStamps phase
 #: stamps, then the probe build's kSkIters x 4 iteration words from
-#: kSkIter, 6 close words from kSkClose and 4 counts from kSkCount)
+#: kSkIter, 6 close words from kSkClose, 4 counts from kSkCount and the 4
+#: lanes' clocks from kSkLanes)
 SK_PHASES, SK_ITERS = 8, 64
 SK_ITER = SK_PHASES
 SK_CLOSE = SK_ITER + 4 * SK_ITERS
 SK_COUNT = SK_CLOSE + 6
-SK_STAMPS = SK_COUNT + 4
+SK_LANES = SK_COUNT + 4
+SK_STAMPS = SK_LANES + 4
+#: the auction stamps' layout (kStampRound, kStampRounds, kStampClose,
+#: kStampLanes, kAuStamps): 4 open the launch, 5 follow each stamped
+#: round, 2 close it, then the 4 lanes' clocks
+AU_ROUND, AU_ROUNDS = 4, 64
+AU_CLOSE = AU_ROUND + 5 * AU_ROUNDS
+AU_LANES = AU_CLOSE + 2
+AU_STAMPS = AU_LANES + 4
 #: the rank branch's stamps (``csrc/fused_tick.cu``: kRkStamps words at the
 #: end of its scratch): 0 start, then block 0's clock at the end of each of
 #: RANK_PHASES, then the counts RANK_COUNTS
@@ -120,6 +129,25 @@ _COOP_ERRORS = {
     -1: "the device has no cooperative launch",
     -2: "no block of the kernel fits on an SM",
 }
+
+
+def lane_split(start: int, opened: int, closed: int, end: int,
+               lanes: list[int]) -> dict:
+    """The lanes' parts of an auction or Sinkhorn launch's opening and
+    end, in ms, from block 0's clocks: the launch's start, the opening's
+    end, the placement's close and the launch's end, and the lanes' four
+    words (after the packet, after liveness, after the fixup, after the
+    deficit carry; the last two 0 with the lanes off)."""
+    packet, live, fixup, deficit = lanes
+    if not fixup:  # the lanes off: the end is the compaction alone
+        fixup = deficit = closed
+
+    def ms(a, b):
+        return (b - a) / 1e6
+
+    return {"packet": ms(start, packet), "liveness": ms(packet, live),
+            "tenancy": ms(live, opened), "fixup": ms(closed, fixup),
+            "deficit": ms(fixup, deficit), "compaction": ms(deficit, end)}
 
 
 class FusedTickKernel:
@@ -155,7 +183,6 @@ class FusedTickKernel:
         self._sinkhorn_words = None
         self._fn_math = self._stamps_at = self._fn_barrier = None
         self._auction_words = self._auction_stamps_at = None
-        self._n_auction_stamps = 0
         self._rank_words = self._rank_stamps_at = None
         self._rank_fallbacks_at = self._tenancy_words = None
         self._scratch: dict[tuple, torch.Tensor] = {}
@@ -206,7 +233,10 @@ class FusedTickKernel:
             f.argtypes = [ctypes.c_int] * 3
             f.restype = ctypes.c_longlong
         self._auction_words, self._auction_stamps_at = awords, astamps
-        self._n_auction_stamps = lib.tpu_faas_fused_auction_stamp_count()
+        n_au = lib.tpu_faas_fused_auction_stamp_count()
+        if n_au != AU_STAMPS:
+            raise RuntimeError(f"the library keeps {n_au} auction stamps, "
+                               f"the wrapper reads {AU_STAMPS}")
         rwords = lib.tpu_faas_fused_rank_scratch_words
         rstamps = lib.tpu_faas_fused_rank_stamps_offset
         rfall = lib.tpu_faas_fused_rank_fallbacks_offset
@@ -490,7 +520,11 @@ class FusedTickKernel:
         rank placement's own sorts); and the counts ``candidates`` (valid
         tasks not sent to slack), ``spilled`` (valid tasks the repair did
         not keep), ``pairs`` (spilled tasks the spill placed) and
-        ``rank_spill`` (the spill took rank placement's own sorts)."""
+        ``rank_spill`` (the spill took rank placement's own sorts); and
+        ``lanes``, the lanes' parts: ``packet`` and ``liveness`` (block 0's
+        part of phase 1), ``tenancy`` (the rest of it: the eligibility over
+        the grid), ``fixup``, ``deficit`` and ``compaction`` (phase 7;
+        the first two 0 with the lanes off)."""
         if not self.probe:
             raise RuntimeError("sinkhorn_split needs a probe build: "
                                "FusedTickKernel(probe=True)")
@@ -515,7 +549,9 @@ class FusedTickKernel:
         cand, spilled, pairs, rank_spill = ns[SK_COUNT : SK_COUNT + 4]
         return {"iters": iters, "close": close, "candidates": cand,
                 "spilled": spilled, "pairs": pairs,
-                "rank_spill": bool(rank_spill)}
+                "rank_spill": bool(rank_spill),
+                "lanes": lane_split(ns[0], ns[1], ns[6], ns[7],
+                                    ns[SK_LANES : SK_LANES + 4])}
 
     def rank_split(self, dev: torch.device, T: int, W: int,
                    max_slots: int) -> dict:
@@ -549,18 +585,19 @@ class FusedTickKernel:
                       max_slots: int) -> dict:
         """The last auction launch's phases at this shape, in ms, from block
         0's clock (a probe build's stamps; reads the card, a sync):
-        ``open`` (packet, liveness, tenancy admission), ``seed`` (the slot
-        sort and the opening prices), ``start`` (the first grid barrier),
-        per round ``rounds`` of ``(bidders, bids, bid barrier, install and
-        its barrier, collection and its barrier)`` — ``bids`` ends when the
-        last block finished its bids — then ``close`` (spill, refresh) and
-        ``end`` (fixup, deficit, compaction)."""
+        ``open`` (packet, liveness, tenancy eligibility), ``seed`` (the
+        slot sort and the opening prices), ``start`` (the first grid
+        barrier), per round ``rounds`` of ``(bidders, bids, bid barrier,
+        install and its barrier, collection and its barrier)`` — ``bids``
+        ends when the last block finished its bids — then ``close`` (spill,
+        refresh), ``end`` (fixup, deficit, compaction) and ``lanes``: the
+        parts of ``open`` and ``end`` as :meth:`sinkhorn_split` gives
+        them."""
         if not self.probe:
             raise RuntimeError("auction_split needs a probe build: "
                                "FusedTickKernel(probe=True)")
         at = self._auction_stamps_at(T, W, max_slots)
-        n = self._n_auction_stamps
-        ns = self._clocks(dev, ("auction", T, W, max_slots), at, n)
+        ns = self._clocks(dev, ("auction", T, W, max_slots), at, AU_STAMPS)
 
         def ms(a, b):
             return (b - a) / 1e6
@@ -568,18 +605,20 @@ class FusedTickKernel:
         out = {"open": ms(ns[0], ns[1]), "seed": ms(ns[1], ns[2]),
                "start": ms(ns[2], ns[3]), "rounds": []}
         last = ns[3]
-        # 4 stamps open the launch, 5 follow each stamped round, 2 close it
-        for r in range((n - 6) // 5):
-            n_bid, bids, bar, inst, coll = ns[4 + 5 * r : 9 + 5 * r]
+        for r in range(AU_ROUNDS):
+            at_r = AU_ROUND + 5 * r
+            n_bid, bids, bar, inst, coll = ns[at_r : at_r + 5]
             if n_bid == 0:
                 break
             out["rounds"].append((n_bid, ms(last, bids), ms(bids, bar),
                                   ms(bar, inst), ms(inst, coll)))
             last = coll
-        close, end = ns[n - 2 : n]
+        close, end = ns[AU_CLOSE : AU_CLOSE + 2]
         out["close"] = ms(last, close)
         out["end"] = ms(close, end)
         out["total"] = ms(ns[0], end)
+        out["lanes"] = lane_split(ns[0], ns[1], close, end,
+                                  ns[AU_LANES : AU_LANES + 4])
         return out
 
     def barrier_probe(self, n: int) -> None:

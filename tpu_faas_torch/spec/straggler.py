@@ -17,6 +17,11 @@ which equals these ops exactly.
   with capacity left after the main pass, never the row's own forbidden
   worker.
 
+Also here: :func:`hedge_fixup_listed`, a plain model of how kernel B1
+computes the fixup over its grid (a candidate list of
+``HEDGE_FIXUP_K + 1`` rows cut by a radix select, then a walk over it),
+for the tests; the card's path never runs it.
+
 Parity rules with the JAX twin: ``max`` is ``torch.maximum`` (NaN
 propagates, as ``jnp.maximum``), and the fixup's ``argmax`` is spelled out
 as ``jnp.argmax`` decides it: the first maximum, a NaN counting as the
@@ -26,8 +31,10 @@ maximum. None of them reads a value back to the host: the fixup's
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from tpu_faas_torch.sched.greedy import NO_KEY, float_key, radix_select
 from tpu_faas_torch.sched.scatter import scatter_add, scatter_set
 
 _I32 = torch.int32
@@ -131,3 +138,58 @@ def hedge_fixup_impl(
         free_rem = scatter_add(free_rem, row,
                                torch.where(can, -1, 0).to(_I32))
     return assignment
+
+
+def hedge_fixup_listed(
+    assignment: np.ndarray,  # i32[T] placement output
+    task_avoid_worker: np.ndarray,  # i32[T] forbidden row (-1 = none)
+    worker_speed: np.ndarray,  # f32[W]
+    worker_free: np.ndarray,  # i32[W] raw free counts
+    worker_live: np.ndarray,  # bool[W]
+) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`hedge_fixup_impl` as kernel B1 computes it over its grid:
+    ``(assignment, rows)``, with ``rows`` the candidate list in key order.
+    The rows with slots left after the veto (int32 arithmetic, floored at
+    0) whose speed is not -inf are keyed ``(~float_key(speed) << 32) |
+    row``: ascending keys run NaN first, then by speed down, ties to the
+    lower row, all distinct. The list is the first ``HEDGE_FIXUP_K + 1``
+    of them, cut by :func:`~tpu_faas_torch.sched.greedy.radix_select`.
+    Each of the first ``HEDGE_FIXUP_K`` vetoed tasks in index order then
+    takes the first listed row with slots left that is not its avoid row,
+    unless that row's speed is NaN (``jnp.argmax``'s NaN fails ``> -inf``:
+    the task stays queued). A step's pick lies among the first ``k + 2``
+    positions (the rows before it were emptied by the ``k`` earlier steps,
+    or are its avoid row), so the list is enough; the walk asserts it."""
+    W = worker_speed.shape[0]
+    a = assignment.astype(np.int64)
+    avoid = task_avoid_worker.astype(np.int64)
+    veto = (avoid >= 0) & (a == avoid)
+    a = np.where(veto, -1, a)
+    kept = np.bincount(a[a >= 0], minlength=W)
+    raw = np.where(worker_live, worker_free.astype(np.int64), 0) - kept
+    rem = np.maximum((raw + 2**31) % 2**32 - 2**31, 0)  # int32 wraps
+    cand = (rem > 0) & (worker_speed != np.float32(-np.inf))
+    rows_all = np.arange(W, dtype=np.uint64)
+    keys = np.where(
+        cand,
+        ((~float_key(worker_speed.astype(np.float32))).astype(np.uint64)
+         << np.uint64(32)) | rows_all,
+        np.uint64(NO_KEY))
+    K = HEDGE_FIXUP_K
+    thr = radix_select(keys, K + 1)[0] if int(cand.sum()) > K + 1 else NO_KEY
+    listed = cand & (keys <= np.uint64(thr))
+    rows = np.flatnonzero(listed)[np.argsort(keys[listed], kind="stable")]
+    assert rows.size <= K + 1
+    for k, t in enumerate(np.flatnonzero(veto)[:K]):
+        fit = np.flatnonzero((rem[rows] > 0) & (rows != avoid[t]))
+        if fit.size == 0:
+            # none fits anywhere: a list of K + 1 rows always holds one
+            assert rows.size <= K
+            continue
+        assert fit[0] <= k + 1
+        w = rows[fit[0]]
+        if np.isnan(worker_speed[w]):
+            continue
+        a[t] = w
+        rem[w] -= 1
+    return a.astype(np.int32), rows.astype(np.int32)

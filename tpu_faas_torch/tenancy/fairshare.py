@@ -20,8 +20,9 @@ the tenant's tasks by ``starve_boost`` priority classes.
 
 Also here: :func:`tenant_admission_tiled`, a plain model of how the CUDA
 kernel's rank branch computes the same admission over its grid (a tiled
-within-tenant rank, and per task the key its admission select ranks), for
-the tests.
+within-tenant rank, and per task the key its admission select ranks), and
+:func:`tenant_deficit_tiled`, of how every branch counts the deficit's
+placements over its grid, for the tests.
 
 Parity rules with the JAX twin: the sorts are stable ``argsort``s on
 literally JAX's keys (``jnp.lexsort`` becomes one stable sort per key, the
@@ -193,6 +194,41 @@ def tenant_admission_tiled(
     keys = ((int_key(neg.astype(np.int32)).astype(np.uint64) << np.uint64(32))
             | float_key(v.astype(np.float32)).astype(np.uint64))
     return eligible, np.where(eligible, keys, np.uint64(NO_KEY)), demand
+
+
+def tenant_deficit_tiled(
+    assignment: np.ndarray,  # i32[T]
+    task_tenant: np.ndarray,  # i32[T]
+    demand: np.ndarray,  # bool[N]
+    tenant_share: np.ndarray,  # f32[N]
+    tenant_deficit: np.ndarray,  # f32[N]
+    tile: int,
+    deficit_cap: float = DEFAULT_DEFICIT_CAP,
+) -> np.ndarray:
+    """:func:`tenant_deficit_update_impl` as kernel B1 computes it: each
+    tile of ``tile`` tasks counts its placements per tenant row (a
+    block's histogram), the tiles' counts are summed (integers: any order),
+    the placements are the counts' sum, the share sum is ONE float64
+    running sum in index order rounded once, and each row's float32
+    expression is the plain version's."""
+    N = tenant_share.shape[0]
+    T = assignment.shape[0]
+    g = np.clip(task_tenant, 0, N - 1)
+    counts = np.zeros(N, np.int64)
+    for lo in range(0, T, tile):
+        sl = slice(lo, lo + tile)
+        counts += np.bincount(g[sl][assignment[sl] >= 0], minlength=N)
+    total = np.float32(counts.sum())
+    w = np.where(demand, np.maximum(tenant_share, np.float32(1e-6)),
+                 np.float32(0))
+    acc = 0.0
+    for x in w.tolist():
+        acc += x
+    wsum = np.maximum(np.float32(acc), np.float32(1e-9))
+    entitled = (w / wsum) * total
+    new = (tenant_deficit + entitled) - counts.astype(np.float32)
+    new = np.minimum(np.maximum(new, np.float32(0)), np.float32(deficit_cap))
+    return np.where(demand, new, np.float32(0)).astype(np.float32)
 
 
 def share_sum(w: torch.Tensor) -> torch.Tensor:
