@@ -206,14 +206,23 @@ over):
    positions named explicitly on the one card (``make_mesh(devices=...)``;
    positions, not cards): ``sharded_scheduler_tick`` under rank (with
    priorities), the auction through both winner routes (``gspmd``: the
-   single-device solver on the gathered tasks; ``permute``: each position
-   bids its shard with B2, the ring resolves the winners) and Sinkhorn
-   (the sharded dense iterations), each against the single-device tick on
-   the same inputs: rank and both auction routes equal on every output,
-   prices and rounds included, B2 launched once a round (gspmd) or once a
-   position a round (permute); Sinkhorn the same count placed at a cost
-   within 5% (JAX's pin), no row over-booked. (b) ``mesh_devices=1`` on
-   cuda: ``SchedulerArrays`` and ``ResidentScheduler`` through 40 ticks of
+   single-device solver on the gathered tasks; ``permute``: each run of
+   positions on one device bids its rows as one block with B2, the ring
+   resolves the winners across runs; run again with each position a run
+   of its own, the layout of positions that each have a card: B2 at each
+   position's row offset, the ring across the four) and Sinkhorn (the
+   sharded dense iterations, one scripted call a tick), each against the
+   single-device tick on the same inputs: rank and the auction routes
+   equal on every output, prices and rounds included, B2 launched once a
+   round (gspmd), once a run a round (permute: the four positions share
+   the card, one run) or four times a round (runs of one); Sinkhorn the
+   same count placed at a cost within 5% (JAX's pin),
+   no row over-booked; each tick's torch calls from Python counted.
+   (a') The single-device rank batch tick (one scripted call) against
+   ``scheduler_tick_impl`` run eagerly, FCFS and with priorities: every
+   output equal, both timed in turns.
+   (b) ``mesh_devices=1`` on cuda: ``SchedulerArrays`` and
+   ``ResidentScheduler`` through 40 ticks of
    a churn loop (256 results and arrivals a tick, 64 workers silenced at
    tick 25) in lockstep with the same loop without a mesh: every output
    and resolved tick equal, the resident states equal, one B1 launch a
@@ -225,7 +234,10 @@ over):
    at an odd ``max_pending`` that the 2-position mesh pads by one; both
    ranks bit for bit, the lead equal to the single-process tick and
    scheduler at the padded shape, the broadcast's bytes and milliseconds
-   a tick logged. (d)
+   a tick logged; then 2 Sinkhorn ticks of ``MultihostTick``, one
+   position a process (the scripted tick's collectives through gloo):
+   both ranks bit for bit, the lead's held to the single-device tick as
+   in (a). (d)
    ``python -m tpu_faas_torch.dispatch -m tpu-push`` in each layout with
    a store server of the port's each, all started at once and served in
    turn: ``--resident --multihost`` and ``--multihost`` as a lead and a
@@ -333,6 +345,7 @@ Without a CUDA device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -5400,9 +5413,12 @@ def phase_profile(dev, card: str) -> dict:
 
 # -- phase 15: multi-device scheduling (tpu_faas_torch/parallel) --------------
 MESH_POSITIONS = 4
-#: (a)'s single tick per placement and route
-MESH_CASES = (("rank", "gspmd"), ("auction", "gspmd"), ("auction", "permute"),
-              ("sinkhorn", "gspmd"))
+#: (a)'s single tick per placement, route and layout: the positions as
+#: ``_device_runs`` gives them (one run on the one card), or each a run of
+#: its own (the layout of a process whose positions each have a card)
+MESH_CASES = (("rank", "gspmd", False), ("auction", "gspmd", False),
+              ("auction", "permute", False), ("auction", "permute", True),
+              ("sinkhorn", "gspmd", False))
 #: Sinkhorn's sharded dense plan against the single-device tick's: JAX's own
 #: pin (tests/test_parallel_mesh.py:64-86)
 MESH_COST_RTOL = 0.05
@@ -5416,6 +5432,9 @@ MH_TICKS = 20
 MH_PENDING = SHAPE["T"] - 1
 MH_REQUESTS, MH_BURST, MH_WORKERS = 64, 16, 4
 MH_TIMEOUT_S = 240
+#: (c)'s Sinkhorn ticks across the two processes: the scripted tick's
+#: collectives call back into Python for gloo's gathers (ROADMAP C.11)
+MH_SK_TICKS = 2
 
 
 def mesh_tick_inputs(seed: int, n_valid: int | None = None):
@@ -5451,6 +5470,50 @@ def digest(*arrays) -> int:
     return crc
 
 
+def torch_calls(fn) -> int:
+    """The torch calls ``fn()`` makes from Python, each a release and
+    retake of the interpreter lock around its op (a ``TorchFunctionMode``
+    sees no op inside a scripted call)."""
+    from tpu_faas_torch.sched.scripted import CallCount
+
+    with CallCount() as calls:
+        fn()
+    return calls.n
+
+
+def sinkhorn_contract(a, b, x) -> str:
+    """A sharded Sinkhorn assignment ``a`` against the single-device tick's
+    ``b`` on the inputs ``x``: the same count placed, no row over-booked, no
+    invalid row placed, a cost within MESH_COST_RTOL; returns the detail."""
+    assert (a >= 0).sum() == (b >= 0).sum(), (a >= 0).sum()
+    cap = np.where(x["active"] & (x["hb_age"] <= 10.0),
+                   np.minimum(x["free"], MAX_SLOTS), 0)
+    use = np.bincount(a[a >= 0], minlength=SHAPE["W"])
+    assert (use <= cap).all(), "a row over-booked"
+    assert not ((a >= 0) & ~x["valid"]).any(), "an invalid row placed"
+    cost = float((x["sizes"][a >= 0] / x["speed"][a[a >= 0]]).sum())
+    ref = float((x["sizes"][b >= 0] / x["speed"][b[b >= 0]]).sum())
+    assert abs(cost - ref) <= MESH_COST_RTOL * ref, (cost, ref)
+    return (f"{int((a >= 0).sum())} placed by both, cost {cost:.3f} against "
+            f"the single tick's {ref:.3f} ({100 * (cost / ref - 1):+.3f}%), "
+            f"no row over-booked")
+
+
+@contextlib.contextmanager
+def runs_of_one(tm):
+    """Each position of a mesh a run of its own while active: the permute
+    auction then bids each position with B2 at its own row offset and the
+    ring resolves the winners across the positions, as in a process whose
+    positions each have a card."""
+    runs = tm._device_runs
+    tm._device_runs = lambda m: [(i, i + 1, d)
+                                 for i, d in enumerate(m.devices)]
+    try:
+        yield
+    finally:
+        tm._device_runs = runs
+
+
 def mesh_one_card(dev, card: str) -> dict:
     """(a) sharded_scheduler_tick over MESH_POSITIONS positions named on
     the one card against the single-device tick on the same inputs."""
@@ -5469,14 +5532,17 @@ def mesh_one_card(dev, card: str) -> dict:
     fleet = [full[k] for k in ("speed", "free", "active", "hb_age",
                                "prev_live", "inflight")]
     out = dict(b2=[])
-    for placement, route in MESH_CASES:
+    for placement, route, each in MESH_CASES:
         prio_kw = placement == "rank"
+        label = f"{route}, runs of one" if each else route
 
         def sharded():
-            return tm.sharded_scheduler_tick(
-                mesh, ts, tv, *fleet, 10.0, max_slots=MAX_SLOTS,
-                placement=placement, task_priority=tp if prio_kw else None,
-                winner_resolve=route)
+            with runs_of_one(tm) if each else contextlib.nullcontext():
+                return tm.sharded_scheduler_tick(
+                    mesh, ts, tv, *fleet, 10.0, max_slots=MAX_SLOTS,
+                    placement=placement,
+                    task_priority=tp if prio_kw else None,
+                    winner_resolve=route)
 
         def single():
             return scheduler_tick_impl(
@@ -5500,40 +5566,93 @@ def mesh_one_card(dev, card: str) -> dict:
         a = got.assignment.cpu().numpy()
         for f in ("live", "purged", "redispatch"):
             assert torch.equal(getattr(got, f), getattr(want, f)), (
-                placement, route, f)
+                placement, label, f)
+        calls = torch_calls(sharded)
+        torch.cuda.synchronize()
         if placement == "sinkhorn":
-            b = want.assignment.cpu().numpy()
-            assert (a >= 0).sum() == (b >= 0).sum(), (a >= 0).sum()
-            cap = np.where(x["active"] & (x["hb_age"] <= 10.0),
-                           np.minimum(x["free"], MAX_SLOTS), 0)
-            use = np.bincount(a[a >= 0], minlength=SHAPE["W"])
-            assert (use <= cap).all(), "a row over-booked"
-            assert not ((a >= 0) & ~x["valid"]).any(), "an invalid row placed"
-            cost = float((x["sizes"][a >= 0] / x["speed"][a[a >= 0]]).sum())
-            ref = float((x["sizes"][b >= 0] / x["speed"][b[b >= 0]]).sum())
-            assert abs(cost - ref) <= MESH_COST_RTOL * ref, (cost, ref)
-            detail = (f"{int((a >= 0).sum())} placed by both, cost "
-                      f"{cost:.3f} against the single tick's {ref:.3f} "
-                      f"({100 * (cost / ref - 1):+.3f}%), no row over-booked")
+            detail = sinkhorn_contract(a, want.assignment.cpu().numpy(), x)
         else:
             assert torch.equal(got.assignment, want.assignment), (
-                placement, route)
+                placement, label)
             detail = f"{int((a >= 0).sum())} placed, every output equal"
             if placement == "auction":
                 assert got.auction_rounds == want.auction_rounds
                 assert torch.equal(got.auction_price, want.auction_price)
                 assert bool(got.auction_refresh) == bool(want.auction_refresh)
-                per = MESH_POSITIONS if route == "permute" else 1
+                # the permute route bids each run of positions on one
+                # device as one block: one launch a round on the one card,
+                # or one a position where each is a run of its own
+                per = 1
+                if route == "permute":
+                    per = mesh.size if each else len(tm._device_runs(mesh))
                 assert b2 == per * got.auction_rounds, (b2, got.auction_rounds)
                 out["b2"].append(b2)
                 detail += (f", prices and {got.auction_rounds} rounds equal; "
-                           f"B2 launches {b2} = {per} position"
-                           f"{'s' if per > 1 else ''} x "
+                           f"B2 launches {b2} = {per} launch"
+                           f"{'es' if per > 1 else ''} a round x "
                            f"{got.auction_rounds} rounds")
-        out[placement, route] = ms
-        log(f"  {placement} ({route}): sharded tick {ms:.3f} ms, the "
+        out[placement, label] = ms
+        out["calls", placement, label] = calls
+        log(f"  {placement} ({label}): sharded tick {ms:.3f} ms, the "
             f"single-device tick {one_ms:.3f} ms (host clock, synchronized; "
-            f"one call each after one untimed); {detail} [{card}]")
+            f"one call each after one untimed); torch calls from Python "
+            f"{calls} a sharded tick (a TorchFunctionMode, one more call); "
+            f"{detail} [{card}]")
+    return out
+
+
+def scripted_rank_tick(dev, card: str) -> dict:
+    """(a') The single-device rank batch tick with no plane or graph lane,
+    one scripted call (``sched/state.py::_rank_tick``, ROADMAP C.12),
+    against ``scheduler_tick_impl`` run eagerly on the same headline
+    inputs, FCFS and with priorities: every output equal; both timed in
+    turns (scripted, eager, scripted, eager), 20 ticks each, synchronized,
+    on the host clock."""
+    from tpu_faas_torch.sched.state import packed_tick, scheduler_tick_impl
+
+    T, W = SHAPE["T"], SHAPE["W"]
+    x = mesh_tick_inputs(53, n_valid=40_000)
+    n = 40_000
+    sizes = x["sizes"].copy()
+    sizes[n:] = 0.0
+    packed = torch.from_numpy(np.concatenate(
+        [sizes, x["hb_age"], x["free"].astype(np.float32)])).to(dev)
+    f = {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+    out = {}
+    for label, prio in (("fcfs", None), ("priority", f["prio"])):
+        def scripted():
+            return packed_tick(packed, n, f["speed"], f["active"],
+                               f["prev_live"], f["inflight"], 10.0, prio,
+                               T=T, W=W, max_slots=MAX_SLOTS)
+
+        def eager():
+            return scheduler_tick_impl(
+                packed[:T], torch.arange(T, device=dev) < n, f["speed"],
+                packed[T + W:].to(torch.int32), f["active"],
+                packed[T:T + W], f["prev_live"], f["inflight"], 10.0,
+                max_slots=MAX_SLOTS, task_priority=prio)
+
+        a, b = scripted(), eager()
+        for k in ("assignment", "live", "purged", "redispatch"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), (label, k)
+        ms: dict = {"scripted": [], "eager": []}
+        for name, fn in (("scripted", scripted), ("eager", eager)) * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0) / 20)
+        calls = torch_calls(scripted)
+        out[label] = dict(ms=ms, calls=calls,
+                          placed=int((a.assignment >= 0).sum()))
+        log(f"phase mesh (a'): the rank batch tick ({label}), one scripted "
+            f"call, equal to scheduler_tick_impl run eagerly on every output "
+            f"({out[label]['placed']} placed); ms a tick, in turns: scripted "
+            f"{[round(t, 4) for t in ms['scripted']]}, eager "
+            f"{[round(t, 4) for t in ms['eager']]} (host clock, "
+            f"synchronized, 20 ticks each); torch calls from Python {calls} "
+            f"[{card}]")
     return out
 
 
@@ -5743,6 +5862,46 @@ def mesh_child(rank: int, port: int, device: str = "cuda") -> None:
                tick_bcast_ms=statistics.median(times[:MH_TICKS]),
                tick_ms=statistics.median(tick_ms) if tick_ms else None)
 
+    # Sinkhorn across the two processes: each holds one position, and the
+    # scripted tick's collectives gather through gloo
+    from tpu_faas_torch.sched.state import scheduler_tick_impl
+
+    ms = MultihostTick(max_pending=MH_PENDING, max_workers=SHAPE["W"],
+                       max_slots=MAX_SLOTS, placement="sinkhorn", device=dev)
+    sk_digests, sk_ms, sk_detail = [], [], []
+    prev = torch.zeros(SHAPE["W"], dtype=torch.bool, device=dev)
+    for k in range(MH_SK_TICKS):
+        n = 40_000 + 500 * k
+        x = mesh_tick_inputs(700 + k, n_valid=n)
+        if rank == 0:
+            t0 = time.perf_counter()
+            res = ms.lead_tick(x["sizes"][:n], x["speed"], x["free"],
+                               x["active"], x["hb_age"], x["inflight"], 10.0)
+            sk_ms.append(1e3 * (time.perf_counter() - t0))
+            # the single-device tick on the same inputs (the broadcast
+            # buffer's zero padding and the lead's carried prev_live)
+            f = {key: torch.from_numpy(v).to(dev) for key, v in x.items()}
+            sizes = f["sizes"].clone()
+            sizes[n:] = 0.0
+            want = scheduler_tick_impl(
+                sizes, f["valid"], f["speed"], f["free"], f["active"],
+                f["hb_age"], prev,
+                torch.full((1,), -1, dtype=torch.int32, device=dev), 10.0,
+                max_slots=MAX_SLOTS, placement="sinkhorn")
+            prev = want.live
+            assert np.array_equal(res.live, want.live.cpu().numpy())
+            sk_detail.append(sinkhorn_contract(
+                res.assignment, want.assignment.cpu().numpy(), x))
+        else:
+            res = ms._run(ms._broadcast(np.zeros(ms.buflen, np.float32)))
+        sk_digests.append(digest(res.assignment, res.live, res.purged))
+    if rank == 0:
+        ms.lead_stop()
+    else:
+        assert ms._run(ms._broadcast(np.zeros(ms.buflen, np.float32))) is None
+    out.update(sinkhorn_digests=sk_digests, sinkhorn_detail=sk_detail,
+               sinkhorn_tick_ms=sk_ms)
+
     if dev.type == "cuda":
         fused_tick.KERNEL.load()
     box = [1000.0]
@@ -5876,6 +6035,7 @@ def mesh_two_processes(dev, card: str) -> dict:
         line.split(" ", 1)[1] for line in o.splitlines()
         if line.startswith("MESHCHILD "))) for o in outs)
     assert lead["tick_digests"] == follower["tick_digests"]
+    assert lead["sinkhorn_digests"] == follower["sinkhorn_digests"]
     assert lead["state"] == follower["state"], "the resident replicas differ"
     assert lead["b1_launches"] == follower["b1_launches"] > 0
     # both layouts padded the odd max_pending to the 2-position mesh
@@ -5924,6 +6084,12 @@ def mesh_two_processes(dev, card: str) -> dict:
         f"{lead['b1_launches']} times in each process, both replicas and "
         f"the single process's state bit for bit, every resolved tick equal "
         f"[{card}]")
+    log(f"phase mesh (c): MultihostTick, Sinkhorn, {MH_SK_TICKS} ticks, one "
+        f"position a process (the scripted tick's collectives through "
+        f"gloo): both ranks bit for bit; the lead's ticks "
+        f"{[round(t, 3) for t in lead['sinkhorn_tick_ms']]} ms (host clock); "
+        f"against the single-device tick: {'; '.join(lead['sinkhorn_detail'])}"
+        f" [{card}]")
     return dict(lead=lead, follower=follower)
 
 
@@ -6105,6 +6271,7 @@ def phase_mesh(dev, card: str) -> dict:
     t0 = time.perf_counter()
     a = mesh_one_card(dev, card)
     assert all(n > 0 for n in a["b2"]), a["b2"]
+    a["rank_batch"] = scripted_rank_tick(dev, card)
     bb = mesh_batch_churn(dev)
     br = mesh_resident_churn(dev)
     log(f"phase mesh (b): mesh_devices=1 on cuda, {bb['ticks']} headline "
@@ -6282,8 +6449,8 @@ def main() -> int:
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": None,
                 # the mesh phase's (a), counted from 0: the gspmd auction
-                # (one launch a round) and the permute one (one a position
-                # a round)
+                # (one launch a round) and the permute one (one a run of
+                # positions on one device a round)
                 "mesh_launches": rm["b2_launches"],
                 # the bench phase's config 7 process (its line's count)
                 "bench_launches": rbe["b2_launches"]}

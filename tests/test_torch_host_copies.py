@@ -578,10 +578,25 @@ def cpu_dispatcher():
 @pytest.fixture
 def dispatcher_on_cpu(monkeypatch):
     """Imports of ``tpu_faas_torch.dispatch.tpu_push.TpuPushDispatcher``
-    inside a twin's body get :func:`cpu_dispatcher` for the test."""
+    inside a twin's body get :func:`cpu_dispatcher` for the test, and
+    torch runs one intra-op thread until it ends. The dispatcher's tick
+    shares the test's process with its gateway, store and client threads,
+    as the JAX case's does; its small host ops (the liveness pass runs
+    over the whole in-flight table) each opened a parallel region of
+    torch's pool, and on a loaded host gathering the pool's threads took
+    tens of milliseconds a tick where JAX's one compiled call took a few
+    (ROADMAP C.12)."""
+    import torch
+
     from tpu_faas_torch.dispatch import tpu_push
 
     monkeypatch.setattr(tpu_push, "TpuPushDispatcher", cpu_dispatcher())
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.fixture

@@ -34,6 +34,8 @@ from tpu_faas.parallel import mesh as jmesh
 from tpu_faas.sched.problem import PlacementProblem as JaxProblem
 from tpu_faas_torch.parallel import mesh as tmesh
 from tpu_faas_torch.sched import resident as tres
+from tpu_faas_torch.sched import sinkhorn as tsink
+from tpu_faas_torch.sched.scripted import scripted
 from tpu_faas_torch.sched import state as tstate
 
 # the suite runs as several worker processes sharing the machine's cores:
@@ -271,6 +273,117 @@ def _runs_of_one(mesh):
     return [(i, i + 1, d) for i, d in enumerate(mesh.devices)]
 
 
+def _eager_sinkhorn_plan(mesh, runs, task_size, task_valid, worker_speed,
+                         worker_free, worker_live, tau=0.05, n_iters=60,
+                         max_slots=8):
+    """The sharded plan's body as eager torch ops, one process: the body
+    the scripted one replaced (ROADMAP C.11), kept as its reference. The
+    scripted body must issue these ops in this order, bit for bit."""
+    inf = float("inf")
+    lead = mesh.lead
+
+    def per_run(x):
+        if isinstance(x, (list, tuple)):
+            return [x[a].to(d) for a, _, d in runs]
+        return [x.to(d) for _, _, d in runs]
+
+    def fold(parts, op):
+        local = (parts[0].to(lead) if len(parts) == 1
+                 else torch.cat([q.to(lead) for q in parts]))
+        first, *rest = local.to(lead).unbind(0)
+        for x in rest:
+            first = op(first, x)
+        return [first.to(d) for _, _, d in runs]
+
+    R = range(len(runs))
+    ts = [torch.stack(list(task_size[a:b])) for a, b, _ in runs]
+    tv = [torch.stack(list(task_valid[a:b])) for a, b, _ in runs]
+    speed, free, live = (per_run(x)
+                         for x in (worker_speed, worker_free, worker_live))
+    cap = [torch.where(lv, fr.clamp(max=max_slots), 0).to(torch.float32)
+           for lv, fr in zip(live, free)]
+    n_tasks = fold([v.sum(1).to(torch.float32) for v in tv], torch.add)
+    total_cap = [c.sum() for c in cap]
+    cost = [ts[r][:, :, None] / speed[r].clamp_min(1e-6)[None, None, :]
+            for r in R]
+    mask = [tv[r][:, :, None] & (cap[r][None, None, :] > 0) for r in R]
+    cmax = fold([torch.where(mask[r], cost[r], 0.0).amax(dim=(1, 2))
+                 for r in R], torch.maximum)
+    loga, loga_slack, logb, negc, negc_slack, tau_eff = [], [], [], [], [], []
+    for r in R:
+        slack_cost = cmax[r] + 1.0
+        te = tau * cmax[r].clamp_min(1e-30)
+        cost_all = torch.cat([
+            torch.where(mask[r], cost[r], inf),
+            torch.where(tv[r], slack_cost, inf)[:, :, None],
+        ], dim=2)
+        b = torch.cat([cap[r],
+                       (n_tasks[r] - total_cap[r]).clamp_min(0.0)[None]])
+        a_slack = (total_cap[r] - n_tasks[r]).clamp_min(0.0)
+        loga.append(torch.where(tv[r], 0.0, -inf))
+        loga_slack.append(torch.where(
+            a_slack > 0, torch.log(a_slack.clamp_min(1e-30)), -inf))
+        logb.append(torch.where(b > 0, torch.log(b.clamp_min(1e-30)), -inf))
+        negc.append(-cost_all / te)
+        negc_slack.append(torch.cat([
+            torch.where(cap[r] > 0, 0.0, -inf),
+            torch.full((1,), -inf, device=cap[r].device),
+        ]))
+        tau_eff.append(te)
+    W = cap[0].shape[0]
+    f = [torch.zeros_like(t) for t in ts]
+    g = [torch.zeros(W + 1, dtype=torch.float32, device=d) for *_, d in runs]
+    rows_in, slack_in, cols_in = ([torch.isfinite(x) for x in xs]
+                                  for xs in (loga, loga_slack, logb))
+    for _ in range(n_iters):
+        z, slack_z = [], []
+        for r in R:
+            te = tau_eff[r]
+            g_te = g[r] / te
+            fi = te * (loga[r] - tsink._logsumexp(negc[r] + g_te, 2))
+            f[r] = torch.where(rows_in[r], fi, -inf)
+            fs = te * (loga_slack[r]
+                       - tsink._logsumexp(negc_slack[r] + g_te, 0))
+            f_slack = torch.where(slack_in[r], fs, -inf)
+            z.append(negc[r] + f[r][:, :, None] / te)
+            slack_z.append(negc_slack[r] + f_slack / te)
+        zmax = fold([zr.amax(dim=1) for zr in z], torch.maximum)
+        zmax_s = [torch.maximum(zmax[r], slack_z[r]) for r in R]
+        zmax_safe = [torch.where(torch.isfinite(m), m, 0.0) for m in zmax_s]
+        expsum = fold([torch.exp(z[r] - zmax_safe[r]).sum(1) for r in R],
+                      torch.add)
+        for r in R:
+            es = expsum[r] + torch.exp(slack_z[r] - zmax_safe[r])
+            lse = zmax_safe[r] + torch.log(es.clamp_min(1e-30))
+            lse = torch.where(torch.isfinite(zmax_s[r]), lse, -inf)
+            gi = tau_eff[r] * (logb[r] - lse)
+            g[r] = torch.where(cols_in[r], gi, -inf)
+    plan = [torch.exp(negc[r] + (f[r][:, :, None] + g[r]) / tau_eff[r])
+            for r in R]
+    return torch.cat([p.to(lead) for pr in plan for p in pr.unbind(0)])
+
+
+def _same_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got.nan_to_num(7.0).view(torch.int32),
+                       want.nan_to_num(7.0).view(torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["one_run", "runs_of_one"])
+@pytest.mark.parametrize("seed", range(8))
+def test_scripted_sinkhorn_plan_is_the_eager_body(seed, layout, monkeypatch):
+    """ROADMAP C.11: the scripted plan (one call a solve) equals the eager
+    body it replaced bit for bit, NaN in the same places, with the
+    process's positions stacked as one run and each a run of its own."""
+    m, args = _stacked_case(seed)
+    if layout == "runs_of_one":
+        monkeypatch.setattr(tmesh, "_device_runs", _runs_of_one)
+    got = tmesh.sharded_sinkhorn_plan(m, *args, max_slots=8)
+    _same_bits(got, _eager_sinkhorn_plan(m, tmesh._device_runs(m), *args,
+                                         max_slots=8))
+
+
 @pytest.mark.parametrize("seed", range(8))
 def test_stacked_sinkhorn_plan_is_the_position_loop(seed, monkeypatch):
     """ROADMAP C.11: one process holding every position on one device
@@ -330,6 +443,150 @@ def test_stacked_sinkhorn_issues_a_fraction_of_the_ops(monkeypatch):
     monkeypatch.setattr(tmesh, "_device_runs", _runs_of_one)
     looped = ops()
     assert looped > 15_000 and stacked * 3.5 < looped, (looped, stacked)
+
+
+def _twin_shape_tick(placement="sinkhorn"):
+    """A tick function at the shared mesh dispatchers' shape
+    (tests/test_combined_modes_e2e.py): 8 pending over 4 host positions,
+    32 worker rows, two of them live with two free slots, 256 in-flight
+    rows."""
+    m = tmesh.make_mesh(4, device="cpu")
+    (ts,) = tmesh.shard_task_arrays(m, np.linspace(0.5, 2.0, 8, dtype=f32))
+    live = torch.arange(32) < 2
+    fleet = (torch.ones(32), torch.where(live, 2, 0).to(torch.int32), live,
+             torch.where(live, 0.1, 9.0), live,
+             torch.full((256,), -1, dtype=torch.int32))
+
+    def tick():
+        return tmesh.sharded_scheduler_tick(m, ts, None, *fleet, 2.0,
+                                            placement=placement, n_valid=8)
+
+    return tick
+
+
+#: torch calls from Python a Sinkhorn mesh tick may make (ROADMAP C.11:
+#: 4,056 before its body was scripted, each a hand-off of the lock)
+MAX_TICK_CALLS = 200
+
+
+def test_sinkhorn_tick_makes_few_torch_calls_from_python():
+    """ROADMAP C.11: each torch call from Python releases and retakes the
+    interpreter lock around its op, and under threads contending in the
+    dispatcher's process a tick of thousands outlasted the shared
+    dispatchers' 3 s lease. The scripted tick makes at most
+    MAX_TICK_CALLS (counted by a TorchFunctionMode, which sees no op
+    inside a scripted call), and places as the eager body did."""
+    from tpu_faas_torch.sched.scripted import CallCount
+
+    tick = _twin_shape_tick()
+    first = tick()
+    with CallCount() as calls:
+        out = tick()
+    assert calls.n <= MAX_TICK_CALLS, calls.n
+    assert torch.equal(out.assignment, first.assignment)
+    assert int((out.assignment >= 0).sum()) == 4  # two workers, two slots
+
+
+def test_scripted_sinkhorn_runs_unfused_where_the_fuser_is_on():
+    """The body runs with the graph executor's optimisations off (a
+    thread's own setting, where ``torch.jit.fuser("none")`` would switch
+    process-wide flags under the other dispatcher's thread), so no fuser
+    touches it even where one is on, as NNC is for the card on a CUDA
+    build: with the CPU fuser forced on, the graph it executed holds no
+    fusion group and its plan keeps the eager body's bits."""
+    fusers = ("prim::TensorExprGroup", "prim::FusionGroup",
+              "prim::CudaFusionGroup")
+    m, args = _stacked_case(2)
+    want = _eager_sinkhorn_plan(m, tmesh._device_runs(m), *args, n_iters=3)
+    old = torch._C._jit_can_fuse_on_cpu(), torch._C._jit_texpr_fuser_enabled()
+    torch._C._jit_override_can_fuse_on_cpu(True)
+    torch._C._jit_set_texpr_fuser_enabled(True)
+    try:
+        for _ in range(3):  # past the profiling executor's warm-up runs
+            got = tmesh.sharded_sinkhorn_plan(m, *args, n_iters=3)
+        graph = str(torch.jit.last_executed_optimized_graph())
+    finally:
+        torch._C._jit_override_can_fuse_on_cpu(old[0])
+        torch._C._jit_set_texpr_fuser_enabled(old[1])
+    _same_bits(got, want)
+    assert "aten::exp" in graph and "aten::log" in graph
+    assert not any(k in graph for k in fusers)
+
+
+def test_sinkhorn_body_that_fails_to_compile_raises(monkeypatch):
+    """No eager fallback: a body TorchScript refuses fails the tick."""
+    def refuse(fn, *a, **kw):
+        raise RuntimeError("refused")
+
+    scripted.cache_clear()
+    monkeypatch.setattr(torch.jit, "script", refuse)
+    try:
+        with pytest.raises(RuntimeError, match="refused"):
+            _twin_shape_tick()()
+    finally:
+        monkeypatch.undo()
+        scripted.cache_clear()
+
+
+def test_mesh_arrays_compile_the_sinkhorn_tick_before_their_first(
+        monkeypatch):
+    """SchedulerArrays(mesh_devices=N, placement="sinkhorn") compiles the
+    scripted tick where it is built (the dispatcher's constructor), so the
+    first tick, inside a lease, compiles nothing."""
+    scripted.cache_clear()
+    a = tstate.SchedulerArrays(max_workers=32, max_pending=8, max_slots=8,
+                               placement="sinkhorn", mesh_devices=4,
+                               device="cpu")
+
+    def refuse(fn, *args, **kw):
+        raise AssertionError("compiled inside a tick")
+
+    monkeypatch.setattr(torch.jit, "script", refuse)
+    a.register(b"w0", 2)
+    out = a.tick(np.ones(3, f32))
+    assert int((out.assignment >= 0).sum()) == 2
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_permute_auction_bids_a_run_as_one_block(warm, monkeypatch):
+    """The permute auction bids each run of positions on one device as one
+    block (one B2 launch a run a round, ROADMAP C.11's cut of its host
+    calls): its result equals the same positions bid one a run and
+    resolved around the ring, bit for bit, on sizes and speeds that are
+    not dyadic, warm and cold."""
+    m = tmesh.make_mesh(4, device="cpu")
+    sizes, valid, speeds, free, live = _problem(9, T=256, W=64, n=200)
+    ts, tv = tmesh.shard_task_arrays(m, sizes, valid)
+    fleet = (_t(speeds), _t(free), _t(live))
+    kw = {}
+    if warm:
+        cold = tmesh.sharded_auction_placement(m, ts, tv, *fleet,
+                                               max_slots=4)
+        kw["init_price"] = cold.prices * 1.01
+    calls = []
+    bid = tmesh.bid_top2
+    monkeypatch.setattr(tmesh, "bid_top2",
+                        lambda *a, **k: calls.append(1) or bid(*a, **k))
+
+    def solve():
+        calls.clear()
+        return tmesh.sharded_auction_placement(m, ts, tv, *fleet,
+                                               max_slots=4, **kw), len(calls)
+
+    (got, got_calls), runs = solve(), tmesh._device_runs(m)
+    monkeypatch.setattr(tmesh, "_device_runs", _runs_of_one)
+    want, want_calls = solve()
+    assert got.n_rounds > 1
+    assert (got_calls, want_calls) == (got.n_rounds * len(runs),
+                                       want.n_rounds * 4)
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b) and a.dtype == b.dtype, f
+            if a.is_floating_point():
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert a == b, f
 
 
 @pytest.mark.parametrize("warm", [False, True])

@@ -114,6 +114,58 @@ def test_scheduler_arrays_tick_matches_jax():
                                           err_msg=f"tick {k} {field}")
 
 
+@pytest.mark.parametrize("lane", ["none", "priority", "place_cap"])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_scripted_rank_tick_is_the_eager_tick(seed, lane):
+    """ROADMAP C.12: ``packed_tick``'s rank tick with no plane or graph
+    lane is one scripted call (``state._rank_tick``); it equals
+    ``scheduler_tick_impl`` run eagerly on the unpacked inputs, every
+    output, with a float and a tensor ``time_to_expire``."""
+    from tpu_faas_torch.sched.state import packed_tick
+
+    inputs, rng = _tick_inputs(seed)
+    T, W = len(inputs["task_size"]), len(inputs["worker_speed"])
+    n = int(rng.integers(1, T))
+    t = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    packed = torch.cat([t["task_size"] * (torch.arange(T) < n),
+                        t["heartbeat_age"], t["worker_free"].float()])
+    prio = (torch.from_numpy(rng.integers(-3, 4, T).astype(i32))
+            if lane == "priority" else None)
+    cap = (torch.from_numpy(rng.integers(0, 3, W).astype(i32))
+           if lane == "place_cap" else None)
+    want = t_tick(packed[:T], torch.arange(T) < n, t["worker_speed"],
+                  t["worker_free"], t["worker_active"], t["heartbeat_age"],
+                  t["prev_live"], t["inflight_worker"], 10.0, max_slots=4,
+                  task_priority=prio, worker_place_cap=cap)
+    for tte in (10.0, torch.tensor(10.0)):
+        got = packed_tick(packed, n, t["worker_speed"], t["worker_active"],
+                          t["prev_live"], t["inflight_worker"], tte, prio,
+                          None, cap, T=T, W=W, max_slots=4)
+        for field in ("assignment", "live", "purged", "redispatch"):
+            a, b = getattr(got, field), getattr(want, field)
+            assert a.dtype == b.dtype and torch.equal(a, b), field
+
+
+def test_rank_tick_makes_few_torch_calls_from_python():
+    """ROADMAP C.12: the express dispatcher's tick (rank, no lane) held
+    the interpreter lock for each of its 57 torch calls, and under threads
+    contending in its process each call waited for the lock: its sub-tick
+    took hundreds of milliseconds where JAX's one compiled call took tens.
+    Now ``SchedulerArrays.tick`` makes the packed upload and one scripted
+    call, counted by a ``TorchFunctionMode`` (which sees no op inside a
+    scripted call)."""
+    from tpu_faas_torch.sched.scripted import CallCount
+
+    a = TArrays(max_workers=16, max_pending=128, max_slots=2, device="cpu")
+    a.register(b"w0", 2)
+    sizes = np.ones(3, f32)
+    a.tick(sizes)
+    with CallCount() as calls:
+        out = a.tick(sizes)
+    assert calls.n <= 5, calls.n
+    assert int((out.assignment >= 0).sum()) == 2
+
+
 @pytest.mark.parametrize("placement,exc", [
     pytest.param("auction", None, id="auction-NotImplementedError"),
     pytest.param("sinkhorn", None, id="sinkhorn-NotImplementedError"),

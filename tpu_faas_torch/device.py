@@ -25,11 +25,14 @@ def upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     copy must not read the live array later. On CUDA the snapshot is a
     pinned buffer and the copy is asynchronous on the current stream; the
     caching host allocator keeps the pinned block from being reused until
-    that copy has run, so no host sync is needed here."""
-    t = torch.from_numpy(np.ascontiguousarray(host))
+    that copy has run, so no host sync is needed here. On the CPU the
+    snapshot is a numpy copy, and the tensor is that copy: no torch op
+    runs, so the call never hands the interpreter lock to another thread
+    (ROADMAP C.12)."""
     if device.type == "cuda":
+        t = torch.from_numpy(np.ascontiguousarray(host))
         return t.pin_memory().to(device, non_blocking=True)
-    return t.clone()
+    return torch.from_numpy(np.array(host, order="C"))
 
 
 def to_host(t: torch.Tensor | np.ndarray) -> np.ndarray:
@@ -37,4 +40,9 @@ def to_host(t: torch.Tensor | np.ndarray) -> np.ndarray:
     numpy array (the multihost tick's outputs) passes through."""
     if isinstance(t, np.ndarray):
         return t
+    if t.device.type == "cpu":
+        # the tensor's own memory, in one call (ROADMAP C.12: each torch
+        # call hands the interpreter lock to any thread that wants it); the
+        # ticks' outputs never require grad
+        return t.numpy()  # faas: allow(trace.host-sync) a CPU tensor's own memory: no device to wait for
     return t.detach().cpu().numpy()  # faas: allow(trace.host-sync) the port's readback; each call on the card's path is listed at its own site

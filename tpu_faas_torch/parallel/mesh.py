@@ -56,8 +56,9 @@ from tpu_faas_torch.sched.auction import (
 )
 from tpu_faas_torch.sched.bid import bid_top2
 from tpu_faas_torch.sched.greedy import rank_match_placement_impl
-from tpu_faas_torch.sched.sinkhorn import _logsumexp, round_plan
-from tpu_faas_torch.sched.state import TickOutput
+from tpu_faas_torch.sched.sinkhorn import N_ITERS, TAU, _logsumexp, round_plan
+from tpu_faas_torch.sched.scripted import call, scripted
+from tpu_faas_torch.sched.state import TickOutput, fleet_state
 
 TASK_AXIS = "tasks"
 _I32 = torch.int32
@@ -152,27 +153,15 @@ def make_mesh(n_devices: int | None = None,
 
 
 # -- collectives over a process's list of positions --------------------------
-def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """What a collective sends: gloo takes CPU tensors only (the staging
-    copy through host memory), and bool travels as uint8."""
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """What a collective across processes sends of ``t``, a tensor on the
+    process's lead device: gloo takes CPU tensors only (the staging copy
+    through host memory), and bool travels as uint8."""
     if t.dtype == torch.bool:
         t = t.to(torch.uint8)
-    if mesh.backend == "gloo":
+    if dist.get_backend() == "gloo":
         return t.cpu()  # faas: allow(trace.host-sync) gloo takes CPU tensors: a collective on gloo stages through host memory
-    return t.to(mesh.lead)
-
-
-def _all_positions(mesh: Mesh, stacked: torch.Tensor) -> torch.Tensor:
-    """This process's positions' values stacked on a leading axis, as
-    every position's, in position order: as they are in one process, else
-    every process's gathered."""
-    if mesh.n_procs == 1:
-        return stacked
-    dtype = stacked.dtype
-    mine = _wire(mesh, stacked.to(mesh.lead))
-    parts = [torch.empty_like(mine) for _ in range(mesh.n_procs)]
-    dist.all_gather(parts, mine.contiguous())
-    return torch.cat(parts).to(dtype)
+    return t
 
 
 def _every_position(mesh: Mesh, xs: Sequence[torch.Tensor]
@@ -181,8 +170,8 @@ def _every_position(mesh: Mesh, xs: Sequence[torch.Tensor]
     as it is, or every process's gathered."""
     if mesh.n_procs == 1:
         return list(xs)
-    return list(_all_positions(
-        mesh, torch.stack([x.to(mesh.lead) for x in xs])).unbind(0))
+    return list(_positions(torch.stack([x.to(mesh.lead) for x in xs]),
+                           mesh.lead, mesh.n_procs).unbind(0))
 
 
 def _reduce(mesh: Mesh, xs, op) -> list[torch.Tensor]:
@@ -214,7 +203,7 @@ def ppermute(mesh: Mesh, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         src = [xs[-1]] + list(xs[:-1])
     else:
         dtype = xs[-1].dtype
-        out = _wire(mesh, xs[-1]).contiguous()
+        out = _wire(xs[-1].to(mesh.lead)).contiguous()
         into = torch.empty_like(out)
         nxt = (mesh.rank + 1) % mesh.n_procs
         prev = (mesh.rank - 1) % mesh.n_procs
@@ -230,14 +219,6 @@ def ppermute(mesh: Mesh, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
 def all_gather(mesh: Mesh, shards: Sequence[torch.Tensor]) -> torch.Tensor:
     """The whole array from its shards, in position order, on ``lead``."""
     return torch.cat([v.to(mesh.lead) for v in _every_position(mesh, shards)])
-
-
-def _per_position(mesh: Mesh, x) -> list[torch.Tensor]:
-    """A replicated argument as one copy per local position."""
-    if isinstance(x, (list, tuple)):
-        return [t.to(d) for t, d in zip(x, mesh.devices)]
-    x = _host(x)
-    return [x.to(d) for d in mesh.devices]
 
 
 def _on_lead(mesh: Mesh, x) -> torch.Tensor:
@@ -299,39 +280,289 @@ def ring_winner_resolve(mesh: Mesh, slot_bid: Sequence[torch.Tensor],
 
 
 def _device_runs(mesh: Mesh) -> list[tuple[int, int, torch.device]]:
-    """This process's positions as maximal runs of neighbours on one
-    device, ``(start, stop, device)`` in position order: one run when the
-    process holds its positions on the host or on one card, one a position
-    when each has a card of its own."""
+    """This process's positions as maximal runs of neighbours (on the mesh
+    and so on the task axis) on one device, ``(start, stop, device)`` in
+    position order: one run when the process holds its positions on the
+    host or on one card, one a position when each has a card of its
+    own."""
     runs: list[tuple[int, int, torch.device]] = []
     for i, d in enumerate(mesh.devices):
-        if runs and runs[-1][2] == d:
+        if (runs and runs[-1][2] == d
+                and mesh.local[i] == mesh.local[i - 1] + 1):
             runs[-1] = (runs[-1][0], i + 1, d)
         else:
             runs.append((i, i + 1, d))
     return runs
 
 
-def _per_run(runs, x) -> list[torch.Tensor]:
-    """A replicated argument as one copy per run of :func:`_device_runs`."""
-    if isinstance(x, (list, tuple)):
-        return [x[a].to(d) for a, _, d in runs]
-    x = _host(x)
-    return [x.to(d) for _, _, d in runs]
+# -- the Sinkhorn shard body: one scripted call a tick (ROADMAP C.11) --------
+# The functions below are compiled by TorchScript and run unoptimised
+# (``sched/scripted.py``): the interpreter lock is released once for the
+# whole tick, not once an op, and the bits are the eager ops'
+# (``tests/test_torch_parallel_mesh.py``). A run is a maximal set of
+# neighbouring positions on one device (:func:`_device_runs`), given as
+# ``starts`` (each run's first position, then the count) and ``devices``
+# (each run's device). Across processes the collectives call back into
+# Python (:func:`_gather_processes`), once a collective.
+@torch.jit.ignore
+def _gather_processes(stacked):
+    # type: (Tensor) -> Tensor
+    """Every process's ``stacked`` values (on its lead device) concatenated
+    in rank order, on the wire's device (:func:`_wire`) in ``stacked``'s
+    dtype. Its types are a comment: TorchScript reads an ignored
+    function's annotations as values, and this module's are strings."""
+    dtype = stacked.dtype
+    mine = _wire(stacked)
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine.contiguous())
+    return torch.cat(parts).to(dtype)
 
 
-def _fold(mesh: Mesh, runs, parts: Sequence[torch.Tensor], op
-          ) -> list[torch.Tensor]:
+def _positions(stacked: torch.Tensor, lead: torch.device,
+               n_procs: int) -> torch.Tensor:
+    """This process's positions' values stacked on a leading axis, as
+    every position's, in position order."""
+    if n_procs == 1:
+        return stacked
+    return _gather_processes(stacked.to(lead))
+
+
+def _gather_runs(shards: list[torch.Tensor], lead: torch.device,
+                 n_procs: int) -> torch.Tensor:
+    """:func:`all_gather` of this process's shards, one a position."""
+    if n_procs == 1:
+        return torch.cat([v.to(lead) for v in shards])
+    every = _positions(torch.stack([x.to(lead) for x in shards]), lead,
+                       n_procs)
+    return torch.cat([v.to(lead) for v in every.unbind(0)])
+
+
+def _fold_runs(parts: list[torch.Tensor], devices: list[torch.device],
+               lead: torch.device, n_procs: int,
+               take_max: bool) -> list[torch.Tensor]:
     """A collective over stacked partials, one tensor a run whose leading
     axis is the run's positions: every position's partial, gathered across
-    processes, folded on ``lead`` in position order as :func:`_reduce`
-    folds a list; the result on every run's device."""
-    local = (parts[0].to(mesh.lead) if len(parts) == 1
-             else torch.cat([p.to(mesh.lead) for p in parts]))
-    first, *rest = _all_positions(mesh, local).to(mesh.lead).unbind(0)
-    for x in rest:
-        first = op(first, x)
-    return [first.to(d) for _, _, d in runs]
+    processes, folded on ``lead`` in position order as :func:`psum` (or,
+    with ``take_max``, :func:`pmax`) folds a list; the result on every
+    run's device."""
+    if len(parts) == 1:
+        local = parts[0].to(lead)
+    else:
+        local = torch.cat([p.to(lead) for p in parts])
+    vals = _positions(local, lead, n_procs).to(lead).unbind(0)
+    acc = vals[0]
+    for i in range(1, len(vals)):
+        if take_max:
+            acc = torch.maximum(acc, vals[i])
+        else:
+            acc = torch.add(acc, vals[i])
+    return [acc.to(d) for d in devices]
+
+
+def _per_run(xs: list[torch.Tensor], starts: list[int],
+             devices: list[torch.device]) -> list[torch.Tensor]:
+    """A replicated argument (one tensor, or one a local position) as one
+    copy per run."""
+    out: list[torch.Tensor] = []
+    for r in range(len(devices)):
+        src = xs[starts[r]] if len(xs) > 1 else xs[0]
+        out.append(src.to(devices[r]))
+    return out
+
+
+def _sinkhorn_plan_runs(
+    starts: list[int],
+    devices: list[torch.device],
+    lead: torch.device,
+    n_procs: int,
+    task_size: list[torch.Tensor],  # f32[Tl] per local position
+    task_valid: list[torch.Tensor],  # bool[Tl] per local position
+    worker_speed: list[torch.Tensor],  # f32[W]: one, or one a position
+    worker_free: list[torch.Tensor],  # i32[W]
+    worker_live: list[torch.Tensor],  # bool[W]
+    tau: float,
+    n_iters: int,
+    max_slots: int,
+) -> torch.Tensor:
+    """The body of :func:`sharded_sinkhorn_plan`, each run's positions
+    stacked on a leading axis and iterated at once."""
+    R = len(devices)
+    ts = [torch.stack(task_size[starts[r]:starts[r + 1]]) for r in range(R)]
+    tv = [torch.stack(task_valid[starts[r]:starts[r + 1]])
+          for r in range(R)]
+    speed = _per_run(worker_speed, starts, devices)
+    free = _per_run(worker_free, starts, devices)
+    live = _per_run(worker_live, starts, devices)
+    cap = [torch.where(live[r], free[r].clamp(max=max_slots), 0)
+           .to(torch.float32) for r in range(R)]
+    n_tasks = _fold_runs([v.sum(1).to(torch.float32) for v in tv], devices,
+                         lead, n_procs, False)
+    total_cap = [c.sum() for c in cap]
+    cost = [ts[r][:, :, None] / speed[r].clamp_min(1e-6)[None, None, :]
+            for r in range(R)]
+    mask = [tv[r][:, :, None] & (cap[r][None, None, :] > 0)
+            for r in range(R)]
+    cmax = _fold_runs([torch.where(mask[r], cost[r], 0.0).amax(dim=[1, 2])
+                       for r in range(R)], devices, lead, n_procs, True)
+    loga: list[torch.Tensor] = []
+    loga_slack: list[torch.Tensor] = []
+    logb: list[torch.Tensor] = []
+    negc: list[torch.Tensor] = []
+    negc_slack: list[torch.Tensor] = []
+    tau_eff: list[torch.Tensor] = []
+    for r in range(R):
+        slack_cost = cmax[r] + 1.0
+        # scale-free smoothing, relative to the global cost magnitude
+        te = tau * cmax[r].clamp_min(1e-30)
+        # columns: W real + 1 slack (absorbs tasks beyond capacity)
+        cost_all = torch.cat([
+            torch.where(mask[r], cost[r], torch.inf),
+            torch.where(tv[r], slack_cost, torch.inf)[:, :, None],
+        ], dim=2)
+        b = torch.cat([cap[r],
+                       (n_tasks[r] - total_cap[r]).clamp_min(0.0)[None]])
+        # the slack row (unused capacity): cost 0 to every real worker
+        a_slack = (total_cap[r] - n_tasks[r]).clamp_min(0.0)
+        loga.append(torch.where(tv[r], 0.0, -torch.inf))
+        loga_slack.append(torch.where(
+            a_slack > 0, torch.log(a_slack.clamp_min(1e-30)), -torch.inf))
+        logb.append(torch.where(b > 0, torch.log(b.clamp_min(1e-30)),
+                                -torch.inf))
+        negc.append(-cost_all / te)
+        negc_slack.append(torch.cat([
+            torch.where(cap[r] > 0, 0.0, -torch.inf),
+            torch.full([1], -torch.inf, device=cap[r].device),
+        ]))
+        tau_eff.append(te)
+    W = cap[0].shape[0]
+    f = [torch.zeros_like(t) for t in ts]
+    g = [torch.zeros(W + 1, dtype=torch.float32, device=d) for d in devices]
+    # the loop's invariant masks, computed once
+    rows_in = [torch.isfinite(x) for x in loga]
+    slack_in = [torch.isfinite(x) for x in loga_slack]
+    cols_in = [torch.isfinite(x) for x in logb]
+    for _ in range(n_iters):
+        z: list[torch.Tensor] = []
+        slack_z: list[torch.Tensor] = []
+        for r in range(R):
+            te = tau_eff[r]
+            # f-update (rows): local, no communication
+            g_te = g[r] / te
+            fi = te * (loga[r] - _logsumexp(negc[r] + g_te, 2))
+            f[r] = torch.where(rows_in[r], fi, -torch.inf)
+            fs = te * (loga_slack[r] - _logsumexp(negc_slack[r] + g_te, 0))
+            f_slack = torch.where(slack_in[r], fs, -torch.inf)
+            z.append(negc[r] + f[r][:, :, None] / te)
+            slack_z.append(negc_slack[r] + f_slack / te)
+        # g-update (columns): the distributed logsumexp over the task axis
+        zmax = _fold_runs([zr.amax(dim=1) for zr in z], devices, lead,
+                          n_procs, True)
+        zmax_s = [torch.maximum(zmax[r], slack_z[r]) for r in range(R)]
+        zmax_safe = [torch.where(torch.isfinite(m), m, 0.0) for m in zmax_s]
+        expsum = _fold_runs([torch.exp(z[r] - zmax_safe[r]).sum(1)
+                             for r in range(R)], devices, lead, n_procs,
+                            False)
+        for r in range(R):
+            es = expsum[r] + torch.exp(slack_z[r] - zmax_safe[r])
+            lse = zmax_safe[r] + torch.log(es.clamp_min(1e-30))
+            lse = torch.where(torch.isfinite(zmax_s[r]), lse, -torch.inf)
+            gi = tau_eff[r] * (logb[r] - lse)
+            g[r] = torch.where(cols_in[r], gi, -torch.inf)
+    # the local soft plan over real workers + the slack mass per task
+    rows: list[torch.Tensor] = []
+    for r in range(R):
+        plan = torch.exp(negc[r] + (f[r][:, :, None] + g[r]) / tau_eff[r])
+        rows.extend(plan.unbind(0))
+    return _gather_runs(rows, lead, n_procs)
+
+
+def _sinkhorn_placement_runs(
+    starts: list[int],
+    devices: list[torch.device],
+    lead: torch.device,
+    n_procs: int,
+    task_size: list[torch.Tensor],
+    task_valid: list[torch.Tensor],
+    worker_speed: list[torch.Tensor],
+    worker_free: list[torch.Tensor],
+    worker_live: list[torch.Tensor],
+    tau: float,
+    n_iters: int,
+    max_slots: int,
+) -> torch.Tensor:
+    """The body of :func:`sharded_sinkhorn_placement`: the plan, then the
+    rounding on the gathered plan."""
+    plan = _sinkhorn_plan_runs(starts, devices, lead, n_procs, task_size,
+                               task_valid, worker_speed, worker_free,
+                               worker_live, tau, n_iters, max_slots)
+    return round_plan(
+        plan, _gather_runs(task_size, lead, n_procs),
+        _gather_runs(task_valid, lead, n_procs), worker_speed[0].to(lead),
+        worker_free[0].to(lead), worker_live[0].to(lead), max_slots,
+    )
+
+
+def _valid_shards(task_size: list[torch.Tensor], positions: list[int],
+                  n_valid: int) -> list[torch.Tensor]:
+    """The valid mask of each local shard from a scalar, built on the
+    shard's device: the first ``n_valid`` rows of the whole task axis."""
+    Tl = task_size[0].shape[0]
+    return [torch.arange(g * Tl, (g + 1) * Tl, device=ts.device) < n_valid
+            for g, ts in zip(positions, task_size)]
+
+
+def _sinkhorn_tick_runs(
+    starts: list[int],
+    devices: list[torch.device],
+    lead: torch.device,
+    n_procs: int,
+    positions: list[int],  # each local position's index in the mesh
+    task_size: list[torch.Tensor],
+    task_valid: list[torch.Tensor],  # empty: from n_valid
+    n_valid: int,
+    fleet: list[list[torch.Tensor]],  # speed, free, active, ages, prev, iw
+    time_to_expire: torch.Tensor | float,
+    tau: float,
+    n_iters: int,
+    max_slots: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The body of :func:`sharded_scheduler_tick` with Sinkhorn placement:
+    (assignment, live, purged, redispatch)."""
+    if len(task_valid) == 0:
+        task_valid = _valid_shards(task_size, positions, n_valid)
+    speed, free, active, ages, prev, iw = [x[0].to(lead) for x in fleet]
+    expiry = time_to_expire
+    if isinstance(expiry, torch.Tensor):
+        expiry = expiry.to(lead)
+    live, purged, redispatch = fleet_state(active, ages, prev, iw, expiry)
+    assignment = _sinkhorn_placement_runs(
+        starts, devices, lead, n_procs, task_size, task_valid, [speed],
+        [free], [live], tau, n_iters, max_slots)
+    return assignment, live, purged, redispatch
+
+
+def prepare_sinkhorn() -> None:
+    """Compile the Sinkhorn tick body (:func:`sharded_scheduler_tick`'s,
+    which the dispatcher's mesh arrays and the multihost tick call) now,
+    where a caller sets up, not inside its first tick. It runs
+    unoptimised, so its first call costs no more than the next; the plan
+    and placement entry points compile on their first call."""
+    scripted(_sinkhorn_tick_runs)
+
+
+def _replicas(x) -> list[torch.Tensor]:
+    """A replicated argument as the scripted bodies take it: one tensor a
+    local position, or one for all."""
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x if isinstance(x, torch.Tensor) else _host(x)]
+
+
+def _run_scripted(body, mesh: Mesh, *args):
+    """One call of a scripted Sinkhorn body over this process's runs."""
+    runs = _device_runs(mesh)
+    return call(body, [a for a, _, _ in runs] + [len(mesh.devices)],
+                [d for _, _, d in runs], mesh.lead, mesh.n_procs, *args)
 
 
 def sharded_sinkhorn_plan(
@@ -341,8 +572,8 @@ def sharded_sinkhorn_plan(
     worker_speed,  # f32[W] replicated
     worker_free,  # i32[W]
     worker_live,  # bool[W]
-    tau: float = 0.05,
-    n_iters: int = 60,
+    tau: float = TAU,
+    n_iters: int = N_ITERS,
     max_slots: int = 8,
 ) -> torch.Tensor:
     """The soft plan f32[T, W+1] (real workers, then the slack column) of
@@ -351,87 +582,16 @@ def sharded_sinkhorn_plan(
     Each position iterates on its own rows; the slack row (unused
     capacity) is a replicated scalar potential, and the column update is
     the distributed logsumexp: a ``pmax`` for the shift and a ``psum`` of
-    the mass (:func:`_fold`). The positions of a run on one device
+    the mass (:func:`_fold_runs`). The positions of a run on one device
     (:func:`_device_runs`: all of a process's on the host, or several named
-    on one card) are stacked on a leading axis and iterated at once, one
-    op a step for the run and not one a position: a process ticking a
-    4-position mesh on the host issues a quarter of the ops, each of which
-    holds the interpreter lock (ROADMAP C.11)."""
-    runs = _device_runs(mesh)
-    R = range(len(runs))
-    ts = [torch.stack(list(task_size[a:b])) for a, b, _ in runs]
-    tv = [torch.stack(list(task_valid[a:b])) for a, b, _ in runs]
-    speed, free, live = (_per_run(runs, x)
-                         for x in (worker_speed, worker_free, worker_live))
-    cap = [torch.where(lv, fr.clamp(max=max_slots), 0).to(torch.float32)
-           for lv, fr in zip(live, free)]
-    n_tasks = _fold(mesh, runs, [v.sum(1).to(torch.float32) for v in tv],
-                    torch.add)
-    total_cap = [c.sum() for c in cap]
-    cost = [ts[r][:, :, None] / speed[r].clamp_min(1e-6)[None, None, :]
-            for r in R]
-    mask = [tv[r][:, :, None] & (cap[r][None, None, :] > 0) for r in R]
-    cmax = _fold(mesh, runs, [torch.where(mask[r], cost[r], 0.0)
-                              .amax(dim=(1, 2)) for r in R], torch.maximum)
-    loga, loga_slack, logb, negc, negc_slack, tau_eff = [], [], [], [], [], []
-    for r in R:
-        slack_cost = cmax[r] + 1.0
-        # scale-free smoothing, relative to the global cost magnitude
-        te = tau * cmax[r].clamp_min(1e-30)
-        # columns: W real + 1 slack (absorbs tasks beyond capacity)
-        cost_all = torch.cat([
-            torch.where(mask[r], cost[r], _INF),
-            torch.where(tv[r], slack_cost, _INF)[:, :, None],
-        ], dim=2)
-        b = torch.cat([cap[r],
-                       (n_tasks[r] - total_cap[r]).clamp_min(0.0)[None]])
-        # the slack row (unused capacity): cost 0 to every real worker
-        a_slack = (total_cap[r] - n_tasks[r]).clamp_min(0.0)
-        loga.append(torch.where(tv[r], 0.0, -_INF))
-        loga_slack.append(torch.where(
-            a_slack > 0, torch.log(a_slack.clamp_min(1e-30)), -_INF))
-        logb.append(torch.where(b > 0, torch.log(b.clamp_min(1e-30)), -_INF))
-        negc.append(-cost_all / te)
-        negc_slack.append(torch.cat([
-            torch.where(cap[r] > 0, 0.0, -_INF),
-            torch.full((1,), -_INF, device=cap[r].device),
-        ]))
-        tau_eff.append(te)
-    W = cap[0].shape[0]
-    f = [torch.zeros_like(t) for t in ts]
-    g = [torch.zeros(W + 1, dtype=torch.float32, device=d)
-         for _, _, d in runs]
-    # the loop's invariant masks, computed once
-    rows_in, slack_in, cols_in = ([torch.isfinite(x) for x in xs]
-                                  for xs in (loga, loga_slack, logb))
-    for _ in range(n_iters):
-        z, slack_z = [], []
-        for r in R:
-            te = tau_eff[r]
-            # f-update (rows): local, no communication
-            g_te = g[r] / te
-            fi = te * (loga[r] - _logsumexp(negc[r] + g_te, 2))
-            f[r] = torch.where(rows_in[r], fi, -_INF)
-            fs = te * (loga_slack[r] - _logsumexp(negc_slack[r] + g_te, 0))
-            f_slack = torch.where(slack_in[r], fs, -_INF)
-            z.append(negc[r] + f[r][:, :, None] / te)
-            slack_z.append(negc_slack[r] + f_slack / te)
-        # g-update (columns): the distributed logsumexp over the task axis
-        zmax = _fold(mesh, runs, [zr.amax(dim=1) for zr in z], torch.maximum)
-        zmax_s = [torch.maximum(zmax[r], slack_z[r]) for r in R]
-        zmax_safe = [torch.where(torch.isfinite(m), m, 0.0) for m in zmax_s]
-        expsum = _fold(mesh, runs, [torch.exp(z[r] - zmax_safe[r]).sum(1)
-                                    for r in R], torch.add)
-        for r in R:
-            es = expsum[r] + torch.exp(slack_z[r] - zmax_safe[r])
-            lse = zmax_safe[r] + torch.log(es.clamp_min(1e-30))
-            lse = torch.where(torch.isfinite(zmax_s[r]), lse, -_INF)
-            gi = tau_eff[r] * (logb[r] - lse)
-            g[r] = torch.where(cols_in[r], gi, -_INF)
-    # the local soft plan over real workers + the slack mass per task
-    plan = [torch.exp(negc[r] + (f[r][:, :, None] + g[r]) / tau_eff[r])
-            for r in R]
-    return all_gather(mesh, [p for pr in plan for p in pr.unbind(0)])
+    on one card) are stacked on a leading axis and iterated at once, and
+    the whole solve is one scripted call (``sched/scripted.py``): a process
+    ticking a 4-position mesh on the host takes the interpreter lock back
+    a few times a tick, not once an op (ROADMAP C.11)."""
+    return _run_scripted(
+        _sinkhorn_plan_runs, mesh, list(task_size), list(task_valid),
+        *(_replicas(x) for x in (worker_speed, worker_free, worker_live)),
+        float(tau), int(n_iters), int(max_slots))
 
 
 def sharded_sinkhorn_placement(
@@ -441,21 +601,18 @@ def sharded_sinkhorn_placement(
     worker_speed,
     worker_free,
     worker_live,
-    tau: float = 0.05,
-    n_iters: int = 60,
+    tau: float = TAU,
+    n_iters: int = N_ITERS,
     max_slots: int = 8,
 ) -> torch.Tensor:
     """Entropic placement with task-sharded Sinkhorn iterations; the
     rounding is the port's ``sched/sinkhorn.py::round_plan`` on the
-    gathered plan. Returns the assignment i32[T] on ``lead``."""
-    plan = sharded_sinkhorn_plan(mesh, task_size, task_valid, worker_speed,
-                                 worker_free, worker_live, tau, n_iters,
-                                 max_slots)
-    return round_plan(
-        plan, all_gather(mesh, task_size), all_gather(mesh, task_valid),
-        _on_lead(mesh, worker_speed), _on_lead(mesh, worker_free),
-        _on_lead(mesh, worker_live), max_slots,
-    )
+    gathered plan, in the same scripted call. Returns the assignment i32[T]
+    on ``lead``."""
+    return _run_scripted(
+        _sinkhorn_placement_runs, mesh, list(task_size), list(task_valid),
+        *(_replicas(x) for x in (worker_speed, worker_free, worker_live)),
+        float(tau), int(n_iters), int(max_slots))
 
 
 def sharded_auction_placement(
@@ -476,19 +633,23 @@ def sharded_auction_placement(
 
     Setup (slot expansion, squaring, the analytic dual seed) and the close
     (the rank spill) are global: :func:`all_gather` and the single-device
-    helpers. Each round, each position bids its shard with ``bid_top2``
-    (kernel B2 on the card) at its global ``row_offset``, reduces its
-    bids to a per-slot (best bid, lowest task id) pair with two scatters,
-    and the ring resolves the winners. The rounds run while any admitted
-    task is unassigned (a ``psum`` of the positions' counts, read on the
-    host) and fewer than ``warm_rounds`` have run. Round for round this is
-    the single-device seeded or warm solver: the same bid values, exact
-    maxima and the same tie rule, so its assignment and round count equal
-    ``auction_placement_impl``'s."""
+    helpers. Each round, each run of positions on one device
+    (:func:`_device_runs`, whose rows are neighbours on the task axis) bids
+    its rows as one block with ``bid_top2`` (kernel B2 on the card: one
+    launch a run a round) at its global ``row_offset``, reduces its bids to
+    a per-slot (best bid, lowest task id) pair with two scatters, and the
+    ring resolves the winners across runs and processes (one run in one
+    process holds every position, and its pair is the winner). A bid is
+    finite and never -0.0 (a finite price plus a positive increment), so
+    the pair of a block is the ring's fold of its positions' pairs. The
+    rounds run while any admitted task is unassigned (a ``psum`` of the
+    runs' counts, read on the host) and fewer than ``warm_rounds`` have
+    run. Round for round this is the single-device seeded or warm solver:
+    the same bid values, exact maxima and the same tie rule, so its
+    assignment and round count equal ``auction_placement_impl``'s."""
     ts_all = all_gather(mesh, task_size)
     tv_all = all_gather(mesh, task_valid)
     speed = _on_lead(mesh, worker_speed)
-    T = ts_all.shape[0]
     W = speed.shape[0]
     S = W * max_slots
     Tl = task_size[0].shape[0]
@@ -506,72 +667,94 @@ def sharded_auction_placement(
                              _rebase(init_price.to(mesh.lead)))
     else:
         price0 = _rebase(init_price.to(mesh.lead))
-    inv_speed = _per_position(mesh, 1.0 / slot_speed.clamp_min(1e-6))
-    valid_f = _per_position(mesh, slot_valid.to(torch.float32))
     jitter_scale, eps_f = bid_scalars(eps)
-    (adm,) = shard_task_arrays(mesh, admitted)
-    L = range(len(mesh.devices))
-    gid0 = [g * Tl for g in mesh.local]
-    gids = [torch.arange(gid0[i], gid0[i] + Tl, dtype=_I32,
-                         device=mesh.devices[i]) for i in L]
-    price = _per_position(mesh, price0)
-    owner = [torch.full((S,), -1, dtype=_I32, device=d) for d in mesh.devices]
-    asg = [torch.full((Tl,), -1, dtype=_I32, device=d) for d in mesh.devices]
-    slots = [torch.arange(S, dtype=_I32, device=d) for d in mesh.devices]
+    runs = _device_runs(mesh)
+    R = range(len(runs))
+    devs = [d for _, _, d in runs]
+    # each run's rows: [gid0, gid0 + n) of the task axis
+    gid0 = [mesh.local[a] * Tl for a, _, _ in runs]
+    n = [(b - a) * Tl for a, b, _ in runs]
+    sizes = [torch.cat([x.to(d) for x in task_size[a:b]])
+             for a, b, d in runs]
+    adm = [admitted[g:g + k].to(d) for g, k, d in zip(gid0, n, devs)]
+    gids = [torch.arange(g, g + k, dtype=_I32, device=d)
+            for g, k, d in zip(gid0, n, devs)]
+    inv_speed, valid_f, price = (
+        [x.to(d) for d in devs]
+        for x in (1.0 / slot_speed.clamp_min(1e-6),
+                  slot_valid.to(torch.float32), price0))
+    owner = [torch.full((S,), -1, dtype=_I32, device=d) for d in devs]
+    asg = [torch.full((k,), -1, dtype=_I32, device=d)
+           for k, d in zip(n, devs)]
+    slots = [torch.arange(S, dtype=_I32, device=d) for d in devs]
+    one_block = len(runs) == 1 and mesh.n_procs == 1
+    zero = torch.zeros((), dtype=_I32, device=mesh.lead)
 
     def unassigned() -> int:
-        """The admitted tasks still without a slot, over every position:
-        both the loop's condition and the round's bidders."""
-        return int(psum(mesh, [(adm[i] & (asg[i] < 0)).sum(dtype=_I32)  # faas: allow(trace.host-sync) the sharded auction's round loop on the host (JAX's while_loop): one bidder count a round
-                               for i in L])[0])
+        """The admitted tasks still without a slot, over every position
+        (a run's count at its first position): both the loop's condition
+        and the round's bidders."""
+        counts = [zero] * len(mesh.devices)
+        for r in R:
+            counts[runs[r][0]] = (adm[r] & (asg[r] < 0)).sum(dtype=_I32)
+        return int(psum(mesh, counts)[0])  # faas: allow(trace.host-sync) the sharded auction's round loop on the host (JAX's while_loop): one bidder count a round
 
     rounds, bid_rows = 0, 0
     un = unassigned()
     while un > 0 and rounds < warm_rounds:
         bid_rows += un
-        slot_bid, slot_tid, bid, bidder = [], [], [], []
-        for i in L:
-            d = mesh.devices[i]
-            b_i = adm[i] & (asg[i] < 0)
-            v1, best, v2 = bid_top2(task_size[i], inv_speed[i], valid_f[i],
-                                    price[i], jitter_scale,
-                                    row_offset=gid0[i], n_slots_total=S)
-            b_i = b_i & torch.isfinite(v1)
+        slot_bid, slot_tid = [], []
+        for r in R:
+            b_r = adm[r] & (asg[r] < 0)
+            v1, best, v2 = bid_top2(sizes[r], inv_speed[r], valid_f[r],
+                                    price[r], jitter_scale,
+                                    row_offset=gid0[r], n_slots_total=S)
+            b_r = b_r & torch.isfinite(v1)
             incr = torch.where(torch.isfinite(v2), v1 - v2, 1.0) + eps_f
-            bid_i = price[i][best.long()] + incr
-            # the local per-slot best: one scatter-max, then the lowest
-            # task id among the local bids that reached it (the compared
+            bid_r = price[r][best.long()] + incr
+            # the block's per-slot best: one scatter-max, then the lowest
+            # task id among the block's bids that reached it (the compared
             # values are the same stored floats)
-            sk = torch.where(b_i, best, S).long()
-            sb = torch.full((S + 1,), -_INF, device=d).scatter_reduce(
-                0, sk, torch.where(b_i, bid_i, -_INF), "amax")[:S]
-            hit = b_i & (bid_i == sb[best.clamp(0, S - 1).long()])
-            st = torch.full((S + 1,), BIG, dtype=_I32, device=d)
+            sk = torch.where(b_r, best, S).long()
+            sb = torch.full((S + 1,), -_INF, device=devs[r]).scatter_reduce(
+                0, sk, torch.where(b_r, bid_r, -_INF), "amax")[:S]
+            hit = b_r & (bid_r == sb[best.clamp(0, S - 1).long()])
+            st = torch.full((S + 1,), BIG, dtype=_I32, device=devs[r])
             st = st.scatter_reduce(0, torch.where(hit, best, S).long(),
-                                   torch.where(hit, gids[i], BIG), "amin")
+                                   torch.where(hit, gids[r], BIG), "amin")
             slot_bid.append(sb)
             slot_tid.append(st[:S])
-        win_p, win_t = ring_winner_resolve(mesh, slot_bid, slot_tid)
-        for i in L:
-            win = torch.isfinite(win_p[i]) & (win_t[i] < BIG)
-            owner[i] = torch.where(win, win_t[i], owner[i])
-            price[i] = torch.where(win, win_p[i], price[i])
+        if one_block:
+            win_p, win_t = slot_bid, slot_tid
+        else:
+            # every position of a run holds the run's pair; the fold is
+            # idempotent, so each ends with the global winner
+            at = [r for r, (a, b, _) in enumerate(runs) for _ in range(a, b)]
+            wp, wt = ring_winner_resolve(mesh, [slot_bid[r] for r in at],
+                                         [slot_tid[r] for r in at])
+            win_p = [wp[a] for a, _, _ in runs]
+            win_t = [wt[a] for a, _, _ in runs]
+        for r in R:
+            win = torch.isfinite(win_p[r]) & (win_t[r] < BIG)
+            owner[r] = torch.where(win, win_t[r], owner[r])
+            price[r] = torch.where(win, win_p[r], price[r])
             # eviction is derived: a task keeps its slot iff it still owns
             # it after the winners install (single-device scatter semantics)
-            a = asg[i]
+            a = asg[r]
             a = torch.where(
-                (a >= 0) & (owner[i][a.clamp(0, S - 1).long()] != gids[i]),
+                (a >= 0) & (owner[r][a.clamp(0, S - 1).long()] != gids[r]),
                 -1, a)
-            in_rng = win & (win_t[i] >= gid0[i]) & (win_t[i] < gid0[i] + Tl)
-            idx = torch.where(in_rng, win_t[i] - gid0[i], Tl).long()
+            in_rng = win & (win_t[r] >= gid0[r]) & (win_t[r] < gid0[r] + n[r])
+            idx = torch.where(in_rng, win_t[r] - gid0[r], n[r]).long()
             buf = torch.cat([a, a.new_zeros(1)])
-            buf[idx] = torch.where(in_rng, slots[i], -1)
-            asg[i] = buf[:Tl]
+            buf[idx] = torch.where(in_rng, slots[r], -1)
+            asg[r] = buf[:n[r]]
         rounds += 1
         un = unassigned()
     assignment, stranded, refresh, n_spill = _rank_spill_close(
-        all_gather(mesh, asg), owner[0].to(mesh.lead), admitted, ts_all,
-        slot_valid, slot_speed, slot_worker, n_match,
+        all_gather(mesh, [p for a in asg for p in a.split(Tl)]),
+        owner[0].to(mesh.lead), admitted, ts_all, slot_valid, slot_speed,
+        slot_worker, n_match,
     )
     return AuctionResult(assignment, rounds, price[0].to(mesh.lead), stranded,
                          refresh, n_spill, bid_rows)
@@ -600,33 +783,29 @@ def sharded_scheduler_tick(
     ``sched/state.py::scheduler_tick_impl``. Sinkhorn ignores
     ``task_priority`` (entropic admission is soft); the auction runs the
     single-device solver on the gathered tasks (``gspmd``) or the sharded
-    rounds (``permute``), with warm prices through ``auction_price``."""
+    rounds (``permute``), with warm prices through ``auction_price``.
+    The Sinkhorn tick is one scripted call (:func:`_sinkhorn_tick_runs`)."""
+    if not isinstance(time_to_expire, torch.Tensor):
+        # a float or a 0-d array: the f32 value the ages compare with
+        time_to_expire = float(np.float32(np.asarray(time_to_expire)))
+    fleet = [_replicas(x) for x in (worker_speed, worker_free, worker_active,
+                                    heartbeat_age, prev_live,
+                                    inflight_worker)]
+    if placement == "sinkhorn":
+        return TickOutput(*_run_scripted(
+            _sinkhorn_tick_runs, mesh, list(mesh.local), list(task_size),
+            [] if task_valid is None else list(task_valid),
+            -1 if n_valid is None else int(n_valid), fleet, time_to_expire,
+            TAU, N_ITERS, int(max_slots)))
     if task_valid is None:
-        # the valid mask from a scalar, built on each position
-        Tl = task_size[0].shape[0]
-        task_valid = [
-            torch.arange(g * Tl, (g + 1) * Tl, device=d) < n_valid
-            for g, d in zip(mesh.local, mesh.devices)
-        ]
-    speed = _on_lead(mesh, worker_speed)
-    free = _on_lead(mesh, worker_free)
+        task_valid = _valid_shards(list(task_size), mesh.local, n_valid)
+    speed, free, active, ages, prev, iw = (x[0].to(mesh.lead)
+                                           for x in fleet)
     if isinstance(time_to_expire, torch.Tensor):
         time_to_expire = time_to_expire.to(mesh.lead)
-    else:  # a float or a 0-d array: the f32 value the ages compare with
-        time_to_expire = float(np.float32(np.asarray(time_to_expire)))
-    live = _on_lead(mesh, worker_active) & (
-        _on_lead(mesh, heartbeat_age) <= time_to_expire)
-    purged = _on_lead(mesh, prev_live) & ~live
-    iw = _on_lead(mesh, inflight_worker)
-    occupied = iw >= 0
-    # the gather clamps like XLA's: a row past W reads the last worker
-    redispatch = occupied & ~live[iw.clamp(0, live.shape[0] - 1).long()]
-    if placement == "sinkhorn":
-        assignment = sharded_sinkhorn_placement(
-            mesh, task_size, task_valid, speed, free, live,
-            max_slots=max_slots,
-        )
-    elif placement == "auction":
+    live, purged, redispatch = fleet_state(active, ages, prev, iw,
+                                           time_to_expire)
+    if placement == "auction":
         if winner_resolve == "permute":
             res = sharded_auction_placement(
                 mesh, task_size, task_valid, speed, free, live,
@@ -642,11 +821,10 @@ def sharded_scheduler_tick(
         return TickOutput(res.assignment, live, purged, redispatch,
                           res.prices, res.refresh, res.n_rounds,
                           res.n_spilled, res.n_bid_rows)
-    else:
-        assignment = rank_match_placement_impl(
-            all_gather(mesh, task_size), all_gather(mesh, task_valid),
-            speed, free, live, max_slots=max_slots,
-            task_priority=(None if task_priority is None
-                           else all_gather(mesh, task_priority)),
-        )
+    assignment = rank_match_placement_impl(
+        all_gather(mesh, task_size), all_gather(mesh, task_valid),
+        speed, free, live, max_slots=max_slots,
+        task_priority=(None if task_priority is None
+                       else all_gather(mesh, task_priority)),
+    )
     return TickOutput(assignment, live, purged, redispatch)

@@ -90,13 +90,16 @@ class MultihostTick:
         placement: str | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        from tpu_faas_torch.parallel.mesh import make_mesh
+        from tpu_faas_torch.parallel.mesh import make_mesh, prepare_sinkhorn
 
         self.T = int(max_pending)
         self.W = int(max_workers)
         self.max_slots = int(max_slots)
         self.placement = placement or "rank"
         self.mesh = make_mesh(device=distributed.process_device(device))
+        if self.placement == "sinkhorn":
+            # the scripted tick compiled here, not in the first tick
+            prepare_sinkhorn()
         n_dev = self.mesh.size
         if self.T % n_dev:
             self.T += n_dev - (self.T % n_dev)

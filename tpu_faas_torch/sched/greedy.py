@@ -42,18 +42,21 @@ def rank_match_placement_impl(
     task_priority: torch.Tensor | None = None,  # i32[T], higher first
     task_adm_rank: torch.Tensor | None = None,  # i32[T] precomputed order
 ) -> torch.Tensor:
-    """Return assignment i32[T]: worker index per task, -1 = stay queued."""
+    """Return assignment i32[T]: worker index per task, -1 = stay queued.
+
+    TorchScript compiles this function inside the mesh's Sinkhorn tick
+    (``parallel/mesh.py``), so it names its dtypes and constants itself:
+    the compiler reads no dtype or int from a module global."""
     T = task_size.shape[0]
     W = worker_speed.shape[0]
     S = W * max_slots
     dev = task_size.device
 
-    free = torch.where(worker_live, worker_free.to(_I32), 0)
-    k = torch.arange(max_slots, dtype=_I32, device=dev)
+    free = torch.where(worker_live, worker_free.to(torch.int32), 0)
+    k = torch.arange(max_slots, dtype=torch.int32, device=dev)
     slot_valid = (k[None, :] < free[:, None]).reshape(S)
-    slot_worker = torch.arange(W, dtype=_I32, device=dev).repeat_interleave(
-        max_slots
-    )
+    slot_worker = torch.arange(
+        W, dtype=torch.int32, device=dev).repeat_interleave(max_slots)
     slot_speed = torch.where(
         slot_valid,
         worker_speed[:, None].expand(W, max_slots).reshape(S),
@@ -67,36 +70,38 @@ def rank_match_placement_impl(
     # admission: FCFS by default; with task_priority (priority desc, arrival
     # asc — the stable sort keeps FCFS as the tie-break); with task_adm_rank
     # a direct rank compare against the slot count
-    n_slots = slot_valid.sum(dtype=_I32)
+    n_slots = slot_valid.sum(dtype=torch.int32)
     if task_adm_rank is not None:
         admitted = task_valid & (task_adm_rank < n_slots)
     elif task_priority is None:
-        arrival_rank = torch.cumsum(task_valid.to(_I32), 0, dtype=_I32) - 1
+        arrival_rank = torch.cumsum(task_valid.to(torch.int32), 0,
+                                    dtype=torch.int32) - 1
         admitted = task_valid & (arrival_rank < n_slots)
     else:
         # integer key (a float key would collapse priorities above 2**24);
         # invalid tasks sink to the end via int32 max
         adm_key = torch.where(
-            task_valid, -task_priority.to(_I32), _I32_MAX
-        ).to(_I32)
+            task_valid, -task_priority.to(torch.int32), 2147483647
+        ).to(torch.int32)
         adm_order = torch.argsort(adm_key, stable=True)
-        adm_rank = torch.zeros(T, dtype=_I32, device=dev)
-        adm_rank[adm_order] = torch.arange(T, dtype=_I32, device=dev)
+        adm_rank = torch.zeros(T, dtype=torch.int32, device=dev)
+        adm_rank[adm_order] = torch.arange(T, dtype=torch.int32, device=dev)
         admitted = task_valid & (adm_rank < n_slots)
 
     # largest admitted tasks first (non-admitted sink to the end)
     task_key = torch.where(admitted, task_size, -torch.inf)
     task_order = torch.argsort(-task_key, stable=True)
 
-    n_tasks = admitted.sum(dtype=_I32)
+    n_tasks = admitted.sum(dtype=torch.int32)
     L = min(T, S)  # static pairing length
     n_pairs = torch.minimum(n_slots, n_tasks)
-    pair_ok = torch.arange(L, dtype=_I32, device=dev) < n_pairs
+    pair_ok = torch.arange(L, dtype=torch.int32, device=dev) < n_pairs
 
     paired_tasks = task_order[:L]
-    paired_workers = torch.where(pair_ok, slot_worker_sorted[:L], -1).to(_I32)
+    paired_workers = torch.where(pair_ok, slot_worker_sorted[:L],
+                                 -1).to(torch.int32)
 
-    assignment = torch.full((T,), -1, dtype=_I32, device=dev)
+    assignment = torch.full((T,), -1, dtype=torch.int32, device=dev)
     assignment[paired_tasks] = paired_workers
     return assignment
 

@@ -44,6 +44,8 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 #: the temperature the scheduler tick solves at, relative to the cost scale
 TAU = 0.05
+#: the iterations the scheduler tick runs
+N_ITERS = 60
 
 
 class SinkhornResult(NamedTuple):
@@ -70,7 +72,8 @@ def _log_marginal(a: torch.Tensor) -> torch.Tensor:
     return torch.where(a > 0, torch.log(a.clamp_min(1e-30)), -_INF)
 
 
-def _capacity(worker_free, worker_live, max_slots):
+def _capacity(worker_free: torch.Tensor, worker_live: torch.Tensor,
+              max_slots: int) -> torch.Tensor:
     """Per-worker capacity this tick (i32; negative free counts stay)."""
     return torch.where(worker_live, worker_free.clamp(max=max_slots), 0)
 
@@ -82,7 +85,7 @@ def sinkhorn_placement_impl(
     worker_free: torch.Tensor,  # i32[W]
     worker_live: torch.Tensor,  # bool[W]
     tau: float = TAU,
-    n_iters: int = 60,
+    n_iters: int = N_ITERS,
     max_slots: int = 8,
     *,
     potentials: tuple[torch.Tensor, torch.Tensor] | None = None,
@@ -184,13 +187,16 @@ def round_plan(
 ) -> torch.Tensor:
     """Round a soft transport plan to an integral assignment: per-task
     argmax over real workers (a task whose slack mass dominates stays
-    queued), then :func:`_repair_candidates`."""
+    queued), then :func:`_repair_candidates`. TorchScript compiles it (and
+    what it calls) inside the mesh's Sinkhorn tick (``parallel/mesh.py``),
+    so these functions name their dtypes themselves: the compiler reads no
+    dtype from a module global."""
     W = worker_speed.shape[0]
     real_plan = plan[:, :W]
     best_p, best_w = real_plan.max(dim=1)  # first index on a tie
     to_slack = plan[:, W] >= best_p  # slack got more mass than any worker
     return _repair_candidates(
-        best_w.to(_I32), best_p, to_slack, task_size, task_valid,
+        best_w.to(torch.int32), best_p, to_slack, task_size, task_valid,
         worker_speed, worker_free, worker_live, max_slots,
     )
 
@@ -213,25 +219,25 @@ def _repair_candidates(
     dev = task_valid.device
     cand = torch.where(task_valid & ~to_slack, best_w, -1)
 
-    key_worker = torch.where(cand >= 0, cand, W).to(_I32)
+    key_worker = torch.where(cand >= 0, cand, W).to(torch.int32)
     # lexsort((-best_p, key_worker)): the secondary key first, then a stable
     # sort by the primary
     order = torch.argsort(-best_p, stable=True)
     order = order[torch.argsort(key_worker[order], stable=True)]
     sorted_w = key_worker[order]
-    idx = torch.arange(T, dtype=_I32, device=dev)
+    idx = torch.arange(T, dtype=torch.int32, device=dev)
     seg_start = torch.ones(T, dtype=torch.bool, device=dev)
     seg_start[1:] = sorted_w[1:] != sorted_w[:-1]
     start_idx = torch.where(seg_start, idx, 0)
     first = torch.cummax(start_idx, 0).values
     rank = idx - first
-    cap_i = _capacity(worker_free, worker_live, max_slots).to(_I32)
+    cap_i = _capacity(worker_free, worker_live, max_slots).to(torch.int32)
     keep = (sorted_w < W) & (rank < cap_i[sorted_w.clamp(0, W - 1).long()])
-    assignment = torch.full((T,), -1, dtype=_I32, device=dev)
-    assignment[order] = torch.where(keep, sorted_w, -1).to(_I32)
+    assignment = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    assignment[order] = torch.where(keep, sorted_w, -1).to(torch.int32)
 
-    used = torch.zeros(W, dtype=_I32, device=dev).index_add_(
-        0, assignment.clamp(min=0).long(), (assignment >= 0).to(_I32)
+    used = torch.zeros(W, dtype=torch.int32, device=dev).index_add_(
+        0, assignment.clamp(min=0).long(), (assignment >= 0).to(torch.int32)
     )
     remaining = (cap_i - used).clamp_min(0)
     spilled = task_valid & (assignment < 0)
@@ -419,7 +425,7 @@ def sinkhorn_placement_streamed(
     worker_free: torch.Tensor,  # i32[W]
     worker_live: torch.Tensor,  # bool[W]
     tau: float = TAU,
-    n_iters: int = 60,
+    n_iters: int = N_ITERS,
     max_slots: int = 8,
     chunk: int = 4096,
 ) -> SinkhornResult:
@@ -519,7 +525,7 @@ def sinkhorn_placement_bucketed_impl(
     worker_free: torch.Tensor,  # i32[W]
     worker_live: torch.Tensor,  # bool[W]
     tau: float = TAU,
-    n_iters: int = 60,
+    n_iters: int = N_ITERS,
     max_slots: int = 8,
     n_buckets: int = 1024,
     chunk: int = 8192,

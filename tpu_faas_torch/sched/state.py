@@ -46,6 +46,7 @@ from tpu_faas_torch.graph.frontier import (
 )
 from tpu_faas_torch.sched.auction import auction_placement_impl
 from tpu_faas_torch.sched.greedy import rank_match_placement_impl
+from tpu_faas_torch.sched.scripted import call, scripted
 from tpu_faas_torch.sched.sinkhorn import (
     sinkhorn_placement_bucketed_impl,
     sinkhorn_placement_impl,
@@ -116,6 +117,32 @@ class TickOutput(NamedTuple):
     straggler: torch.Tensor | None = None
 
 
+def fleet_state(
+    worker_active: torch.Tensor,  # bool[W] registered
+    heartbeat_age: torch.Tensor,  # f32[W] seconds since last heartbeat
+    prev_live: torch.Tensor,  # bool[W]
+    inflight_worker: torch.Tensor,  # i32[I] worker per in-flight slot
+    time_to_expire: torch.Tensor | float,  # f32 scalar
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A tick's failure detection: (live, purged, redispatch)."""
+    # ages, not absolute stamps (f32 error stays on a small number); one
+    # compare spelled twice, so that TorchScript types each branch
+    if isinstance(time_to_expire, torch.Tensor):
+        fresh = heartbeat_age <= time_to_expire
+    else:
+        fresh = heartbeat_age <= time_to_expire
+    live = worker_active & fresh
+    purged = prev_live & ~live
+    # in-flight redistribution: the gather clamps like XLA's, a row past W
+    # reads the last worker. index_select, not live[...]: on the CPU
+    # aten::index opens a parallel region at a few thousand rows, and on a
+    # loaded host gathering the intra-op pool for it took milliseconds a
+    # tick (ROADMAP C.12)
+    worker_of = inflight_worker.clamp(0, live.shape[0] - 1).long()
+    redispatch = (inflight_worker >= 0) & ~live.index_select(0, worker_of)
+    return live, purged, redispatch
+
+
 def scheduler_tick_impl(
     task_size: torch.Tensor,  # f32[T]
     task_valid: torch.Tensor,  # bool[T]
@@ -164,25 +191,18 @@ def scheduler_tick_impl(
         worker_speed = worker_speed * worker_health
     if worker_place_cap is not None:
         worker_free = torch.minimum(worker_free, worker_place_cap)
-    # -- failure detection: ages, not absolute stamps (f32 error stays on
-    # a small number) ------------------------------------------------------
-    fresh = heartbeat_age <= time_to_expire
-    live = worker_active & fresh
-    purged = prev_live & ~live
-
-    # -- in-flight redistribution ------------------------------------------
-    # the gather clamps like XLA's: a row past W reads the last worker
-    W = worker_speed.shape[0]
-    iw = inflight_worker
-    occupied = iw >= 0
-    worker_of = iw.clamp(0, W - 1).long()
-    redispatch = occupied & ~live[worker_of]
+    live, purged, redispatch = fleet_state(
+        worker_active, heartbeat_age, prev_live, inflight_worker,
+        time_to_expire)
 
     # -- speculation plane: straggler flags on the same liveness pass
     straggler = None
     if spec_elapsed is not None:
+        iw = inflight_worker
+        worker_of = iw.clamp(0, worker_speed.shape[0] - 1).long()
         straggler = straggler_flags_impl(
-            spec_elapsed, spec_predicted, occupied & live[worker_of],
+            spec_elapsed, spec_predicted,
+            (iw >= 0) & live.index_select(0, worker_of),
             spec_mult, spec_min_s,
         )
 
@@ -258,6 +278,44 @@ def scheduler_tick_impl(
                       **tenancy_out(assignment))
 
 
+def _unpack(packed: torch.Tensor, n_valid: int, T: int, W: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`packed_tick`'s upload as (sizes, valid mask, heartbeat ages,
+    free counts), the valid mask built on the device from the count."""
+    task_valid = torch.arange(T, device=packed.device) < n_valid
+    return (packed[:T], task_valid, packed[T:T + W],
+            packed[T + W:].to(torch.int32))
+
+
+def _rank_tick(
+    packed: torch.Tensor,
+    n_valid: int,
+    worker_speed: torch.Tensor,
+    worker_active: torch.Tensor,
+    prev_live: torch.Tensor,
+    inflight_worker: torch.Tensor,
+    time_to_expire: torch.Tensor | float,
+    task_priority: torch.Tensor | None,
+    worker_place_cap: torch.Tensor | None,
+    T: int,
+    W: int,
+    max_slots: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`packed_tick` with rank placement and no plane or graph lane:
+    (assignment, live, purged, redispatch), one scripted call
+    (``sched/scripted.py``; ROADMAP C.12)."""
+    task_size, task_valid, hb_age, worker_free = _unpack(packed, n_valid, T,
+                                                         W)
+    if worker_place_cap is not None:
+        worker_free = torch.minimum(worker_free, worker_place_cap)
+    live, purged, redispatch = fleet_state(
+        worker_active, hb_age, prev_live, inflight_worker, time_to_expire)
+    assignment = rank_match_placement_impl(
+        task_size, task_valid, worker_speed, worker_free, live,
+        max_slots=max_slots, task_priority=task_priority)
+    return assignment, live, purged, redispatch
+
+
 def packed_tick(
     packed: torch.Tensor,  # f32[T + 2W]: sizes ++ heartbeat ages ++ free
     n_valid: int,  # first n rows of the batch are real tasks
@@ -293,11 +351,16 @@ def packed_tick(
     mask narrows the valid tasks before placement, the byte preference
     overrides the function preference wherever it is >= 0, and the
     locality exchange runs on the final assignment, after the tenancy and
-    speculation planes."""
-    task_size = packed[:T]
-    hb_age = packed[T : T + W]
-    worker_free = packed[T + W :].to(_I32)
-    task_valid = torch.arange(T, device=packed.device) < n_valid
+    speculation planes. The rank tick with no plane or graph lane, the
+    production default, is one scripted call (:func:`_rank_tick`)."""
+    if placement == "rank" and not plane_kw and all(
+            x is None for x in (dep_edge_child, task_pref, pref_child)):
+        return TickOutput(*call(
+            _rank_tick, packed, n_valid, worker_speed, worker_active,
+            prev_live, inflight_worker, time_to_expire, task_priority,
+            worker_place_cap, T, W, max_slots))
+    task_size, task_valid, hb_age, worker_free = _unpack(packed, n_valid, T,
+                                                         W)
     if dep_edge_child is not None:
         task_valid = task_valid & dep_ready_mask(
             dep_edge_child, dep_edge_undone, T=T
@@ -363,17 +426,26 @@ class SchedulerArrays:
         self.device = resolve_device(self.device)
         self.mesh = None
         if self.mesh_devices:
-            from tpu_faas_torch.parallel.mesh import make_mesh
+            from tpu_faas_torch.parallel.mesh import (
+                make_mesh,
+                prepare_sinkhorn,
+            )
 
             # N distinct cards on cuda (fewer present raises), N host
             # positions on cpu
             self.mesh = make_mesh(self.mesh_devices, device=self.device)
+            if self.placement == "sinkhorn":
+                # the scripted tick compiled here, not in the first tick
+                prepare_sinkhorn()
             if self.max_pending % self.mesh_devices:
                 # the task axis must split evenly; round up rather than
                 # reject — max_pending is a padding size anyway
                 self.max_pending += self.mesh_devices - (
                     self.max_pending % self.mesh_devices
                 )
+        elif self.placement == "rank":
+            # the scripted rank tick compiled here, not in the first tick
+            scripted(_rank_tick)
         W = self.max_workers
         self.worker_speed = np.zeros(W, dtype=np.float32)
         #: tail-health multiplier on effective placement speed (1.0 =
@@ -898,9 +970,9 @@ class SchedulerArrays:
         cached per position behind host compares (the in-flight table
         through its delta-maintained device mirror, re-replicated only
         when that mirror changed); heartbeat ages and free counts are sent
-        every tick."""
+        every tick, once, to the first position (the sharded tick reads
+        the fleet there)."""
         from tpu_faas_torch.parallel.mesh import (
-            replicate,
             shard_task_arrays,
             sharded_scheduler_tick,
         )
@@ -908,9 +980,9 @@ class SchedulerArrays:
         mesh = self.mesh
         (ts_d,) = shard_task_arrays(mesh, ts)
         prio_d = None if prio is None else shard_task_arrays(mesh, prio)[0]
-        # .copy(): the act loop mutates worker_free the moment tick()
-        # returns
-        hb, wf = replicate(mesh, hb_age, self.worker_free.copy())
+        # upload snapshots: the act loop mutates worker_free the moment
+        # tick() returns
+        hb, wf = (upload(x, mesh.lead) for x in (hb_age, self.worker_free))
         ws = self._cached_mesh("speed@mesh", self.worker_speed)
         wa = self._cached_mesh("active@mesh", self.worker_active)
         src = self._device_inflight()
