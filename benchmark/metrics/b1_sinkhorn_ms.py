@@ -1,0 +1,9 @@
+"""b1_sinkhorn_ms: device milliseconds of one launch of B1's Sinkhorn
+branch (``fused_sinkhorn_kernel``), the mean over the traced window."""
+
+KERNEL = "fused_sinkhorn_kernel"
+
+
+def read(ctx):
+    d = ctx.launches(KERNEL)
+    return None if d is None else 1e3 * sum(d) / len(d)
