@@ -59,7 +59,9 @@ CHANGED = {
     "obs/profile.py": "the capture runs on torch.profiler (CUDA activity "
     "on the card) and opens with a warm-up on a card (ROADMAP C.6), its "
     "env vars drop 'JAX', and the jit cache cross-check has no "
-    "counterpart",
+    "counterpart; it also holds the resident scheduler's span recorder "
+    "(record_function spans and a bounded in-memory log of spans and "
+    "counters, on while any torch.profiler capture runs)",
     "obs/__init__.py": "its docstring names the torch.profiler capture and "
     "its env var",
     "worker/deploy.py": "the supervisor starts the port's workers "

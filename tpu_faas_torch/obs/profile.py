@@ -23,6 +23,19 @@ card is present — each tick inside a ``record_function`` span named
 (``tick_trace.<pid>.json``, viewable in Perfetto) at :attr:`trace_path`;
 :func:`tick_spans` and :func:`device_ops_by_tick` read it back as each
 tick's span on the host and its device operations.
+
+Spans and counters inside the resident scheduler
+(``sched/resident.py::ResidentScheduler``): while a ``torch.profiler``
+capture runs in the process (this module's, or any other caller's), each
+site the scheduler marks runs in a ``record_function`` span of its name
+(:data:`SPAN_DIFF` ... :data:`SPAN_RESOLVE_MAP`; under this module's
+capture the enqueue's three nest in :data:`TICK_SPAN`) and appends ``(name,
+start, end)``, in ``time.perf_counter`` seconds, to :data:`SPAN_LOG`; its
+counters (:data:`COUNT_AUCTION_ROUNDS`, :data:`COUNT_AUCTION_SPILLED`,
+:data:`COUNT_PLACED`) append ``(name, stamp, value)`` there. With no
+capture running a site costs one read of torch's own flag
+(:func:`tracing`) and records nothing. The log is one per process, as the
+profiler is; the benchmark's per-layer readers read it after the window.
 """
 
 from __future__ import annotations
@@ -30,7 +43,9 @@ from __future__ import annotations
 import bisect
 import json
 import os
+import sys
 import time
+from collections import deque
 from contextlib import contextmanager
 
 PROFILE_DIR_ENV = "TPU_FAAS_TORCH_PROFILE_DIR"
@@ -43,6 +58,91 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 #: operation every WARMUP_STEP_S (the device records were seen to begin
 #: 3.5 ms and 27.4 ms late)
 WARMUP_S, WARMUP_STEP_S = 0.5, 0.01
+
+#: the resident tick's spans: the host diff against the last upload, each
+#: packet's packing, each packet's upload and B1's launch call, and in
+#: resolve_next the wait for B1 (to its first readback's return) and the
+#: rest (the mapping, the mirrors' decrements, the later readbacks)
+SPAN_DIFF = "tpu_faas.tick.diff"
+SPAN_PACK = "tpu_faas.tick.pack"
+SPAN_LAUNCH = "tpu_faas.tick.launch"
+SPAN_RESOLVE_WAIT = "tpu_faas.tick.resolve_wait"
+SPAN_RESOLVE_MAP = "tpu_faas.tick.resolve_map"
+#: the resolved tick's counters: an auction tick's bidding rounds and the
+#: tasks its rank spill placed (B1's own counts), and every tick's
+#: placements
+COUNT_AUCTION_ROUNDS = "tpu_faas.tick.auction_rounds"
+COUNT_AUCTION_SPILLED = "tpu_faas.tick.auction_spilled"
+COUNT_PLACED = "tpu_faas.tick.placed"
+#: entries the span log keeps, the newest
+SPAN_LOG_CAPACITY = 1 << 18
+
+
+class SpanLog:
+    """The process's spans ``(name, start, end)`` and counters ``(name,
+    stamp, value)``, in ``time.perf_counter`` seconds, in the order they
+    closed: a ring of :data:`SPAN_LOG_CAPACITY` entries that keeps the
+    newest and counts the rest in :attr:`dropped`."""
+
+    def __init__(self, capacity: int = SPAN_LOG_CAPACITY) -> None:
+        self.entries: deque[tuple[str, float, float]] = deque(
+            maxlen=capacity)
+        self.appended = 0
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    @property
+    def dropped(self) -> int:
+        return self.appended - len(self.entries)
+
+    def append(self, entry: tuple[str, float, float]) -> None:
+        self.entries.append(entry)
+        self.appended += 1
+
+    def clear(self) -> None:
+        self.entries.clear()
+        self.appended = 0
+
+    def nbytes(self) -> int:
+        """Bytes the log holds: the ring, each tuple and its two numbers
+        (the names are the constants above, shared)."""
+        return sys.getsizeof(self.entries) + sum(
+            sys.getsizeof(e) + sys.getsizeof(e[1]) + sys.getsizeof(e[2])
+            for e in self.entries)
+
+
+SPAN_LOG = SpanLog()
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` capture runs in this process: torch's
+    own flag, which ``profile.start()`` sets and ``stop()`` clears. Loads
+    no torch (no capture runs without it)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def span_open(name: str) -> tuple:
+    """Enter span ``name`` (call while :func:`tracing`); pass what it
+    returns to :func:`span_close`."""
+    import torch
+
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return name, rf, time.perf_counter()
+
+
+def span_close(opened: tuple) -> None:
+    name, rf, start = opened
+    end = time.perf_counter()
+    rf.__exit__(None, None, None)
+    SPAN_LOG.append((name, start, end))
+
+
+def count(name: str, value: int) -> None:
+    """Record counter ``name`` (call while :func:`tracing`)."""
+    SPAN_LOG.append((name, time.perf_counter(), value))
 
 
 class TickProfiler:

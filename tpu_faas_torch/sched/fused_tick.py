@@ -20,7 +20,9 @@ allocates nothing: the wrapper allocates scratch once per shape and the
 outputs fresh every tick, so a tick issued before the previous one is read
 back never overwrites that one's outputs. An auction tick's round count,
 spilled count and bidder rows (summed over its rounds) come back as device
-tensors, which the wrapper never reads. Sinkhorn placement is a third
+tensors, which the wrapper never reads; ``ResidentScheduler.resolve_next``
+reads the first two while a ``torch.profiler`` capture runs, as counters
+of ``obs/profile.py``'s span log. Sinkhorn placement is a third
 cooperative launch: its iterations alternate row and column logsumexps
 across the grid, and its final potentials also come back as device tensors
 the wrapper never reads. With the tenancy plane on (``use_tenancy``, ``NT``

@@ -56,6 +56,20 @@ import numpy as np
 import torch
 
 from tpu_faas_torch.device import to_host, upload
+from tpu_faas_torch.obs.profile import (
+    COUNT_AUCTION_ROUNDS,
+    COUNT_AUCTION_SPILLED,
+    COUNT_PLACED,
+    SPAN_DIFF,
+    SPAN_LAUNCH,
+    SPAN_PACK,
+    SPAN_RESOLVE_MAP,
+    SPAN_RESOLVE_WAIT,
+    count,
+    span_close,
+    span_open,
+    tracing,
+)
 from tpu_faas_torch.sched.scatter import (
     drop_index,
     f32_to_i32,
@@ -80,9 +94,11 @@ class ResidentTickOutput(NamedTuple):
     #: i32[KG] in-flight slots flagged as stragglers (speculation plane;
     #: length 1, all -1, while it is off), -1 = pad
     straggler_slots: torch.Tensor | None = None
-    #: i32 scalar (auction only): bidding rounds this tick ran
+    #: i32 scalar (auction only): bidding rounds this tick ran; read back
+    #: by resolve_next under a profiler capture alone (obs/profile.py)
     auction_rounds: torch.Tensor | None = None
-    #: i32 scalar (auction only): tasks the rank spill placed
+    #: i32 scalar (auction only): tasks the rank spill placed; read as the
+    #: rounds are
     auction_spilled: torch.Tensor | None = None
     #: i32 scalar (auction only): rows that bid, summed over the rounds
     auction_bid_rows: torch.Tensor | None = None
@@ -699,6 +715,9 @@ class ResidentScheduler(SchedulerArrays):
         )
 
     def _pack(self, now_rel, arrivals, hb, fr, infl, sp, ac) -> np.ndarray:
+        on = tracing()
+        if on:
+            span = span_open(SPAN_PACK)
         p = np.zeros(self.packet_len(), dtype=np.float32)
         p[0] = now_rel
         p[1] = len(arrivals)
@@ -740,6 +759,8 @@ class ResidentScheduler(SchedulerArrays):
             ten = self.tenancy
             for vec in (ten.share, ten.inflight, ten.cap):
                 put(vec[: self.NT], self.NT)
+        if on:
+            span_close(span)
         return p
 
     def _statics(self) -> dict:
@@ -776,7 +797,10 @@ class ResidentScheduler(SchedulerArrays):
         # imported here: fused_tick imports this module's plain version
         from tpu_faas_torch.sched.fused_tick import fused_resident_tick
 
-        return fused_resident_tick(
+        on = tracing()
+        if on:
+            span = span_open(SPAN_LAUNCH)
+        out = fused_resident_tick(
             upload(packet, self.device),
             self._r_state,
             **self._statics(),
@@ -786,6 +810,9 @@ class ResidentScheduler(SchedulerArrays):
             flush=flush,
             placement=self.placement,
         )
+        if on:
+            span_close(span)
+        return out
 
     def _run_flush(self, packet: np.ndarray):
         packet[7] = _OP_FLUSH
@@ -813,8 +840,13 @@ class ResidentScheduler(SchedulerArrays):
             if self._hb_sent is not None:
                 self._hb_sent[np.isfinite(self._hb_sent)] = np.nan
         now_rel = now_abs - self._epoch
+        on = tracing()
+        if on:
+            span = span_open(SPAN_DIFF)
         (hb_idx, hb_val, fr_idx, fr_val, if_idx, if_val,
          sp_idx, sp_val, ac_idx, ac_val) = self._diff_deltas()
+        if on:
+            span_close(span)
 
         # overflow: drain surplus deltas in flush launches so the tick
         # always sees one in-capacity packet
@@ -875,7 +907,8 @@ class ResidentScheduler(SchedulerArrays):
         """Consume the oldest unresolved tick: map its arrivals to slots,
         its reported placements to task ids. MUST be called in tick order
         (enforced by the internal queue). Returns None when nothing is
-        outstanding. Reads that tick's outputs back (a device sync).
+        outstanding. Reads that tick's outputs back (a device sync: the
+        first read waits for the tick's launches).
 
         Capacity consistency: the device already decremented its free
         count for every placement reported here, so this resolve mirrors
@@ -885,12 +918,38 @@ class ResidentScheduler(SchedulerArrays):
         uploads only its own +1 and cannot resurrect the consumed slot."""
         if not self._unresolved:
             return None
+        on = tracing()
+        if on:
+            span = span_open(SPAN_RESOLVE_WAIT)
         arrivals, out = self._unresolved.popleft()
+        # a flush resolves with arrivals always; a tick may have none
+        first = to_host(out.arrival_slots if arrivals  # faas: allow(trace.host-sync) resolve_next, the resident tick's readback: arrival slots, or placed slots on a tick with no arrival
+                        else out.placed_slots)
+        if on:
+            span_close(span)
+            span = span_open(SPAN_RESOLVE_MAP)
+        res = self._map_resolved(arrivals, out, first)
+        if on:
+            if not isinstance(out, _FlushOnly):
+                count(COUNT_PLACED, len(res.placed))
+                if out.auction_rounds is not None:
+                    # one small readback, B1 long done, under capture alone
+                    rounds, spilled = to_host(torch.stack(  # faas: allow(trace.host-sync) resolve_next under a profiler capture: B1's auction round and spill counts
+                        [out.auction_rounds, out.auction_spilled])).tolist()
+                    count(COUNT_AUCTION_ROUNDS, rounds)
+                    count(COUNT_AUCTION_SPILLED, spilled)
+            span_close(span)
+        return res
+
+    def _map_resolved(self, arrivals: list[_Arrival], out,
+                      first: np.ndarray) -> ResolvedTick:
+        """resolve_next's mapping of one tick read back; ``first`` is its
+        first readback, the arrival slots, or the placed slots where the
+        tick took no arrival."""
         rejected = 0
         if arrivals:
             rejects: list[_Arrival] = []
-            arr_slots = to_host(out.arrival_slots)[: len(arrivals)]  # faas: allow(trace.host-sync) resolve_next, the resident tick's readback: arrival slots
-            for a, slot in zip(arrivals, arr_slots):
+            for a, slot in zip(arrivals, first[: len(arrivals)]):
                 slot = int(slot)
                 if slot < 0:
                     rejects.append(a)  # pending buffer was full: retry
@@ -903,7 +962,8 @@ class ResidentScheduler(SchedulerArrays):
             return ResolvedTick([], [], np.empty(0, np.int64), rejected,
                                 len(self.slot_task))
         placed: list[tuple[str, int]] = []
-        for slot, row in zip(to_host(out.placed_slots),  # faas: allow(trace.host-sync) resolve_next: placed slots
+        slots = to_host(out.placed_slots) if arrivals else first  # faas: allow(trace.host-sync) resolve_next: placed slots
+        for slot, row in zip(slots,
                              to_host(out.placed_rows)):  # faas: allow(trace.host-sync) resolve_next: placed rows
             if slot < 0:
                 break  # compaction puts pads last
