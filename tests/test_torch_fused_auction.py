@@ -315,7 +315,8 @@ def test_auction_wrapper_validates_price_and_refresh():
 @pytest.mark.cuda
 def test_auction_kernel_matches_plain_on_card():
     """The CUDA auction branch against its plain version on the card:
-    every output and state leaf exactly equal, rounds and spills too."""
+    every output and state leaf exactly equal, rounds and spills too. The
+    kernel alone reports whether it took the full-length path: here never."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU form)")
     for refresh in (True, False):
@@ -329,5 +330,167 @@ def test_auction_kernel_matches_plain_on_card():
             got, gst = fused_tick.fused_resident_tick(
                 pkt, tres.state_from_numpy(leaves, "cuda"),
                 placement="auction", **statics)
-            assert leaves_equal(got, want)
+            assert int(got.auction_full_length) == 0
+            assert leaves_equal(got._replace(auction_full_length=None), want)
             assert leaves_equal(gst, wst)
+
+
+def _quiet(packet):
+    """The packet with every count 0: no arrival and no delta, so the
+    state alone decides the tick."""
+    p = packet.copy()
+    p[1:7] = 0
+    return p
+
+
+def _saturated(seed, T, W, K, n_free, refresh, price_hi=0.0, KP=1024):
+    """A fleet as the benchmark's auction cell holds it: every worker live
+    and busy but for about ``n_free`` free processes, 95% of the pending
+    slots valid, lognormal sizes, speeds U(0.5, 4), carried prices U(0,
+    price_hi), and a quiet packet."""
+    rng = np.random.default_rng(seed)
+    now = 50.0
+    free = np.zeros(W, i32)
+    np.add.at(free, rng.integers(0, W, n_free), 1)
+    leaves = dict(
+        sizes=rng.lognormal(0.3, 1.0, T).astype(f32),
+        valid=rng.random(T) < 0.95,
+        prio=np.zeros(T, i32),
+        tenant=np.zeros(T, i32),
+        last_hb=np.full(W, now, f32),
+        free=np.minimum(free, K).astype(i32),
+        inflight=np.full(W * K, -1, i32),
+        prev_live=np.ones(W, bool),
+        speed=rng.uniform(0.5, 4.0, W).astype(f32),
+        active=np.ones(W, bool),
+        price=rng.uniform(0.0, price_hi, W * K).astype(f32),
+        t_deficit=np.zeros(1, f32),
+        infl_start=np.zeros(1, f32),
+        infl_pred=np.zeros(1, f32),
+        avoid=np.full(1, -1, i32),
+        refresh=np.asarray(refresh),
+    )
+    K8 = 8
+    p = np.zeros(9 + K8 + 2 * 5 * K8, f32)
+    p[0], p[8] = now, 10.0
+    statics = dict(T=T, W=W, I=W * K, KA=K8, KH=K8, KF=K8, KI=K8, KS=K8,
+                   KB=K8, KP=KP, KR=K8, max_slots=K, use_priority=False)
+    return leaves, p, statics
+
+
+def _card_case(name):
+    """(leaves, packet, statics, the kernel's full-length word) of one of
+    CARD_CASES."""
+    if name in ("tenancy", "spec"):
+        # imported here: both modules import this one
+        if name == "tenancy":
+            from test_torch_fused_tenancy import _tenancy_case
+
+            return (*_tenancy_case(0, False, "auction"), 0)
+        from test_torch_fused_spec import _spec_case
+
+        return (*_spec_case(1, False, False), 0)
+    if name == "spill":
+        # cold prices kept (no refresh): the budget of 64 rounds runs out
+        return (*_saturated(1, 4096, 1024, 8, 400, False), 0)
+    if name == "cell":
+        return (*_saturated(2, 200_000, 16_384, 8, 340, False,
+                            price_hi=0.5, KP=2048), 0)
+    refresh = name.startswith("cold") or name in ("n_match_0", "all_free")
+    leaves, packet, statics = _case(30 + CARD_CASES.index(name),
+                                    name.endswith("prio"), refresh)
+    if name in ("cold_fcfs", "cold_prio", "warm_fcfs", "warm_prio"):
+        return leaves, packet, statics, 0
+    packet = _quiet(packet)
+    now, K = float(packet[0]), statics["max_slots"]
+    valid = leaves["valid"]
+    live = np.flatnonzero(leaves["active"]
+                          & (now - leaves["last_hb"] <= packet[8]))
+    if name == "n_match_0":
+        valid[:] = False
+    elif name == "n_match_1":
+        valid[:] = False
+        valid[7] = True
+        leaves["free"][live] = 2
+    elif name == "all_free":
+        valid[:] = True  # T >= S: every slot kept
+        leaves["active"][:] = True
+        leaves["last_hb"][:] = now
+        leaves["free"][:] = K
+    elif name in ("inf_speed", "nan_speed"):
+        w = live[0]
+        leaves["free"][w] = 2
+        leaves["speed"][w] = -np.inf if name == "inf_speed" else np.nan
+    elif name == "nan_size":
+        leaves["free"][live] = 2
+        leaves["sizes"][np.flatnonzero(valid)[0]] = np.nan
+    elif name == "nan_price":
+        # two free slots a live row, fewer than the valid tasks: every free
+        # slot is kept; NaN and +inf carried prices on kept slots, and a
+        # NaN on a slot past its row's free count
+        leaves["free"][live] = 2
+        leaves["price"][live[0] * K] = np.nan
+        leaves["price"][live[1] * K + 1] = np.inf
+        leaves["price"][live[2] * K + 3] = np.nan
+    return leaves, packet, statics, int(name in HOSTILE)
+
+
+HOSTILE = ("inf_speed", "nan_speed", "nan_size")
+CARD_CASES = ["n_match_0", "n_match_1", "all_free", "cold_fcfs", "cold_prio",
+              "warm_fcfs", "warm_prio", "spill", "cell", *HOSTILE, "tenancy",
+              "spec", "nan_price"]
+
+
+def _same(a, b) -> bool:
+    """Bit for bit, a NaN equal to a NaN in the same place; None to None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if torch.equal(a, b):
+        return True
+    if not a.is_floating_point() or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_compacted_auction_matches_plain_on_card(case):
+    """B1's auction over compacted lists against its plain version on the
+    card, every output and state leaf (the carried prices included) bit
+    for bit: no match, one (the 1 + eps increment), every slot free, cold
+    and warm, FCFS and priority, a tick out of rounds that spills, the
+    benchmark cell's shape, the tenancy and speculation lanes, NaN and
+    +inf carried prices on kept slots (JAX's NaN rule in every bid); and the
+    ticks with a -inf or NaN speed on a free slot or a NaN size on an
+    admitted task, which take the full-length path and say so in the
+    fourth aux word."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    leaves, packet, statics, full = _card_case(case)
+    pkt = torch.from_numpy(packet).cuda()
+    want, wst = tres._resident_tick_impl(
+        pkt, tres.state_from_numpy(leaves, "cuda"), placement="auction",
+        **statics)
+    got, gst = fused_tick.fused_resident_tick(
+        pkt, tres.state_from_numpy(leaves, "cuda"), placement="auction",
+        **statics)
+    assert want.auction_full_length is None
+    assert int(got.auction_full_length) == full
+    bad = [f for f, a, b in zip(got._fields, got, want, strict=True)
+           if f != "auction_full_length" and not _same(a, b)]
+    bad += [f"state.{f}" for f, a, b in zip(gst._fields, gst, wst,
+                                            strict=True)
+            if not _same(a, b)]
+    assert not bad, bad
+    rounds = int(got.auction_rounds)
+    placed = int((got.placed_slots >= 0).sum())
+    if case == "n_match_0":
+        assert rounds == 0 and placed == 0
+    elif case == "n_match_1":
+        assert rounds == 1 and placed == 1
+    elif case == "all_free":
+        S = statics["W"] * statics["max_slots"]
+        assert placed == min(statics["KP"], S)
+    elif case == "spill":
+        assert rounds == tau.WARM_ROUNDS and int(got.auction_spilled) > 0

@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tpu_faas_torch.obs import profile as obs_profile
 from tpu_faas_torch.obs.profile import (
+    COUNT_AUCTION_FULL_LENGTH,
     COUNT_AUCTION_ROUNDS,
     COUNT_AUCTION_SPILLED,
     COUNT_PLACED,
@@ -183,6 +184,46 @@ def test_auction_counters_equal_the_tick_outputs(arrivals):
         }
 
 
+@pytest.mark.parametrize("word", [None, 0, 1], ids=["plain", "lists",
+                                                     "full-length"])
+def test_full_length_counter_is_the_kernels_word(word, monkeypatch):
+    """B1's fourth aux word (the card's auction: 1 on a tick that took the
+    full-length path) becomes the counter, read back with the rounds, only
+    while a capture runs; the plain version has no such word (None) and
+    the counter is absent."""
+    from tpu_faas_torch.sched import fused_tick
+
+    if word is not None:
+        plain = fused_tick.fused_resident_tick
+
+        def card_like(packet, st, *, flush=False, **kw):
+            out = plain(packet, st, flush=flush, **kw)
+            if flush:
+                return out
+            res, new = out
+            return res._replace(auction_full_length=torch.tensor(
+                word, dtype=torch.int32)), new
+
+        monkeypatch.setattr(fused_tick, "fused_resident_tick", card_like)
+    rs = _mk("auction")
+    _tick(rs, 6, -1)
+    SPAN_LOG.clear()
+    _, out, _ = _tick(rs, 6, 0)
+    assert len(SPAN_LOG) == 0  # no capture, no counter
+    assert (out.auction_full_length is None) == (word is None)
+    with profile(activities=[ProfilerActivity.CPU]):
+        (_, t1, t2), out, resolved = _tick(rs, 6, 1)
+    got = {e[0]: e[2] for e in _within(t1, t2) if e[0] not in SPANS}
+    want = {
+        COUNT_PLACED: len(resolved[0].placed),
+        COUNT_AUCTION_ROUNDS: int(out.auction_rounds),
+        COUNT_AUCTION_SPILLED: int(out.auction_spilled),
+    }
+    if word is not None:
+        want[COUNT_AUCTION_FULL_LENGTH] = word
+    assert got == want
+
+
 def test_rank_and_sinkhorn_ticks_count_placements_alone():
     for placement in ("rank", "sinkhorn"):
         rs = _mk(placement)
@@ -262,3 +303,6 @@ def test_benchmark_readers_on_the_cut_cells(cell, small):
         want = [ctx.work[k][0] for k in r["ticks"]]
         assert values["b1_auction_rounds"] == sum(want) / len(want)
         assert 0.0 <= values["b1_auction_spilled_pct"] <= 100.0
+        # the plain version has no compacted path, so no full-length count
+        full = spec.metric_reader("b1_auction_full_length_pct")
+        assert full.read(ctx) is None

@@ -40,6 +40,12 @@
 // loses, a NaN among them propagated. So a row's slots may be split into
 // chunks, each swept by its own warp, and the chunks' results merged: the
 // outcome equals one warp's sweep over [0, S) bit for bit.
+//
+// warp_top2_listed sweeps a list of valid slots instead (the fused tick's
+// kept slots, ascending): the same cell (top2_cell), the same merge, with
+// `best` a list position. An invalid slot contributes -inf, the identity of
+// the top-2, so over the list of the sweep's valid slots every result is
+// the sweep's.
 
 #pragma once
 
@@ -96,6 +102,52 @@ __device__ __forceinline__ void warp_merge(float& v1, int& b, float& v2) {
   }
 }
 
+// One cell of a row's running top-2: slot s (its hash index row_base[r] +
+// s), reported as `at`, with inverse speed inv, price p and validity ok.
+template <int ROWS, bool NAN_RULE>
+__device__ __forceinline__ void top2_cell(
+    const float (&neg_size)[ROWS], const uint32_t (&row_base)[ROWS],
+    uint32_t s, int at, float inv, float p, bool ok, float jitter,
+    float (&v1)[ROWS], int (&best)[ROWS], float (&v2)[ROWS]) {
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const uint32_t h = wang_hash(row_base[r] + s);
+    const float u = (float)(int)(h >> 8) * 0x1p-24f;
+    float v = __fsub_rn(
+        __fadd_rn(__fmul_rn(neg_size[r], inv), __fmul_rn(u, jitter)), p);
+    if (!ok) v = -CUDART_INF_F;
+    if (NAN_RULE) {
+      // the first NaN takes v1; v2 keeps every other cell's NaN
+      const bool vn = v != v, n1 = v1[r] != v1[r];
+      if ((vn && !n1) || v > v1[r]) {
+        v2[r] = v1[r];
+        v1[r] = v;
+        best[r] = at;
+      } else {
+        v2[r] = (vn || v2[r] != v2[r]) ? CUDART_NAN_F : fmaxf(v2[r], v);
+      }
+    } else if (v > v1[r]) {
+      v2[r] = v1[r];
+      v1[r] = v;
+      best[r] = at;
+    } else {
+      v2[r] = fmaxf(v2[r], v);
+    }
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void top2_init(float (&v1)[ROWS],
+                                          int (&best)[ROWS],
+                                          float (&v2)[ROWS]) {
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    v1[r] = -CUDART_INF_F;
+    v2[r] = -CUDART_INF_F;
+    best[r] = 0;
+  }
+}
+
 // The top-2 of ROWS rows over slots [s_lo, s_hi), in every lane of the
 // calling warp. neg_size[r] is -size of row r; row_base[r] its hash base,
 // the uint32 product (global row id) * n_slots_total.
@@ -106,42 +158,33 @@ __device__ __forceinline__ void warp_top2(
     float jitter, int s_lo, int s_hi, float (&v1)[ROWS], int (&best)[ROWS],
     float (&v2)[ROWS]) {
   const int lane = threadIdx.x & 31;
+  top2_init(v1, best, v2);
+  for (int s = s_lo + lane; s < s_hi; s += 32)
+    top2_cell<ROWS, NAN_RULE>(neg_size, row_base, (uint32_t)s, s,
+                              inv_speed[s], price[s], valid[s] > 0.0f,
+                              jitter, v1, best, v2);
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    v1[r] = -CUDART_INF_F;
-    v2[r] = -CUDART_INF_F;
-    best[r] = 0;
-  }
-  for (int s = s_lo + lane; s < s_hi; s += 32) {
-    const float inv = inv_speed[s];
-    const float p = price[s];
-    const bool ok = valid[s] > 0.0f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const uint32_t h = wang_hash(row_base[r] + (uint32_t)s);
-      const float u = (float)(int)(h >> 8) * 0x1p-24f;
-      float v = __fsub_rn(
-          __fadd_rn(__fmul_rn(neg_size[r], inv), __fmul_rn(u, jitter)), p);
-      if (!ok) v = -CUDART_INF_F;
-      if (NAN_RULE) {
-        // the first NaN takes v1; v2 keeps every other cell's NaN
-        const bool vn = v != v, n1 = v1[r] != v1[r];
-        if ((vn && !n1) || v > v1[r]) {
-          v2[r] = v1[r];
-          v1[r] = v;
-          best[r] = s;
-        } else {
-          v2[r] = (vn || v2[r] != v2[r]) ? CUDART_NAN_F : fmaxf(v2[r], v);
-        }
-      } else if (v > v1[r]) {
-        v2[r] = v1[r];
-        v1[r] = v;
-        best[r] = s;
-      } else {
-        v2[r] = fmaxf(v2[r], v);
-      }
-    }
-  }
+  for (int r = 0; r < ROWS; ++r) warp_merge<NAN_RULE>(v1[r], best[r], v2[r]);
+}
+
+// The same over a list of valid slots: positions [i_lo, i_hi) of a list
+// whose position i holds slot slot_id[i] (ascending in i), its inverse
+// speed inv[i] and price price[i]; `best` is a position. The lane walk and
+// the merge keep ascending positions, so ties go to the lower slot; a slot
+// left out of the list would only give -inf, the top-2's identity, so over
+// the list of a sweep's valid slots every result equals the sweep's, bit
+// for bit (best as the position of its slot).
+template <int ROWS, bool NAN_RULE = false>
+__device__ __forceinline__ void warp_top2_listed(
+    const float (&neg_size)[ROWS], const uint32_t (&row_base)[ROWS],
+    const int32_t* slot_id, const float* inv, const float* price,
+    float jitter, int i_lo, int i_hi, float (&v1)[ROWS], int (&best)[ROWS],
+    float (&v2)[ROWS]) {
+  const int lane = threadIdx.x & 31;
+  top2_init(v1, best, v2);
+  for (int i = i_lo + lane; i < i_hi; i += 32)
+    top2_cell<ROWS, NAN_RULE>(neg_size, row_base, (uint32_t)slot_id[i], i,
+                              inv[i], price[i], true, jitter, v1, best, v2);
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) warp_merge<NAN_RULE>(v1[r], best[r], v2[r]);
 }

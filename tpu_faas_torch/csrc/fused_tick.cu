@@ -76,38 +76,59 @@
 // block picks the same digit. It ends when a bucket holds one key: at most
 // 8 passes, 2 on the resident loop's priorities, none for FCFS.
 //
-// Auction placement (fused_auction_kernel): one COOPERATIVE launch of as many
-// 1024-thread blocks as the card holds at once, phases separated by grid
-// barriers. Phase 3 is tpu_faas/sched/auction.py::auction_placement_impl on
-// the resident carry:
-//   - block 0 alone runs phases 1 and 2 (with the tenancy lane, the grid
-//     then computes the eligibility as the rank branch's tiles do; with the
-//     speculation lane, the grid lists the stragglers at the close) and the
-//     auction's opening: the slot order by speed (rank's key), n_match =
-//     min(valid tasks, free live slots), FCFS admission of the first
-//     n_match valid tasks, the n_match fastest slots, and the opening
-//     prices -- the rank-dual seed when the carried refresh flag is set,
-//     else the carried prices re-based;
+// Auction placement (fused_auction_kernel): one COOPERATIVE launch of one
+// 1024-thread block per SM (at most kMaxRankBlocks), phases separated by
+// grid barriers. Phase 3 is tpu_faas/sched/auction.py::auction_placement_impl
+// on the resident carry, over compacted lists built as the rank branch
+// builds its own (every index range one tile per block, each list in index
+// order at the blocks' scanned offsets):
+//   - phases 1 and 2 over the grid as the rank branch runs them
+//     (grid_arrivals, grid_liveness; with the tenancy lane, then the
+//     eligibility; with the speculation lane, the grid lists the stragglers
+//     at the close);
+//   - the opening: the free slots (live, below the free count) listed with
+//     their -speed keys, the placeable tasks counted, n_match = min(free
+//     slots, placeable tasks), and the first n_match placeable tasks
+//     admitted FCFS and listed (au.adm) with their -size keys; on a refresh
+//     tick every carried price is zeroed, else the grid finds their least
+//     positive one and re-bases them all (auction.py::_rebase). Block 0 sorts
+//     the free list by -speed and keeps the n_match fastest, listed in
+//     ascending slot order (au.kept); on a refresh tick block 1 sorts the
+//     admitted list by -size and block 0 prices the kept slots by the
+//     rank-dual seed. Both lists are in index order, so the stable sorts give
+//     the full-length sorts' first positions;
 //   - then at most warm_rounds bidding rounds across the whole grid while an
-//     admitted task has no slot. Each round: every bidder's top-2 bid with
-//     the code of kernel B2 (bid_top2.cuh; JAX's NaN rule for a row with a
-//     non-finite size, and for every row once the opening or an installed
-//     price flags a slot or the jitter), spread over the grid's warps as
-//     (4 bidders, slot chunk) work items when bidders are few, the chunks'
-//     partial top-2s merged exactly by the group's last warp (bid_round);
-//     each bid an atomicMin on its slot's 64-bit key (order-preserving bits of
+//     admitted task has no slot, bidding on positions of the kept list (an
+//     invalid slot would only give -inf, the top-2's identity, so each bid
+//     is the full sweep's bit for bit). Each round: every bidder's top-2 bid
+//     with the code of kernel B2 (bid_top2.cuh's listed sweep: the cell
+//     index stays row * S + slot; JAX's NaN rule for a row with a non-finite
+//     size, and for every row once the opening or an installed price flags
+//     a slot or the jitter), spread over the grid's warps as (4 bidders,
+//     position chunk) work items when bidders are few, the chunks' partial
+//     top-2s merged exactly by the group's last warp (bid_round); each bid an
+//     atomicMin on its position's 64-bit key (order-preserving bits of
 //     -bid_price, then the task index, so the highest bid wins and a tie goes
 //     to the lower task, as the plain version's lexsort decides); a grid
-//     barrier; every won slot evicts its previous owner and installs the
-//     winner, its slot and its price (the evicted owners never bid, so the
-//     two index sets are disjoint); a barrier; the next round's bidders
-//     collected; a barrier. Every block reads the loop condition from the
-//     device after the barrier: no host round trip;
-//   - block 0 closes the tick: the rank spill of the leftover tail and
-//     refresh; with a lane on, the grid then runs the lanes' close
-//     (lanes_close: the hedge fixup and the deficit carry); block 0
-//     compacts. With both lanes off the other blocks return after the
-//     rounds. The Sinkhorn branch opens and closes its lanes the same way.
+//     barrier; every won position evicts its previous owner and installs the
+//     winner and its price (the evicted owners never bid, so the two index
+//     sets are disjoint); a barrier; the next round's bidders collected from
+//     the admitted list; a barrier. Every block reads the loop condition from
+//     the device after the barrier: no host round trip;
+//   - block 0 closes the tick over the same lists (auction_close_listed: the
+//     rank spill of the leftover tasks and slots, each sorted alone, and
+//     refresh) while the grid writes the kept prices back; with a lane on,
+//     the grid runs the lanes' close (lanes_close: the hedge fixup and the
+//     deficit carry); the grid compacts the first KP placements
+//     (grid_compact).
+// A free slot whose speed or an admitted task whose size is -inf or NaN
+// would sort among the invalid ones in the plain version's full-length
+// sorts: a flag raised before the sorts sends such a tick to the
+// full-length opening and close on block 0 (auction_open, auction_close),
+// and the fourth aux word reports it. That opening lists its kept slots
+// as the compacted one does, so the rounds are the same on both paths. The
+// Sinkhorn branch opens and closes its lanes as block 0 and the grid did
+// here before the lists: block 0's packet and liveness, lanes_close.
 // The seed's reversed cumsum is ONE float64 running sum from the end,
 // rounded per element: the order the plain version's host cumsum uses.
 // Every product and sum of the seed and the round is spelled with
@@ -125,12 +146,11 @@
 // traffic a tick, a fraction of a microsecond of HBM time; the grid design
 // is latency-bound on its 7-11 grid barriers (about 1 us each) and the
 // block-wide sorts of the compacted lists (hundreds of keys a tick on the
-// resident loop). Auction: the bids' instructions per
-// (bidder, slot) cell on the integer pipe (the Wang hash, the index and the
-// compares: 64 a clock per SM, against 128 for float32), the int->float
-// conversion on its 16-a-clock pipe besides; a round spreads its cells over
-// every warp of the grid, so it costs its cells plus three grid barriers,
-// but the block-0 phases and the serial seed leave the rest idle.
+// resident loop). Auction: a few hundred kept slots and admitted tasks a
+// tick, so a round's (bidder, slot) cells are a few microseconds of the
+// integer pipe (the Wang hash, the index and the compares: 64 a clock per
+// SM); a round is bound by its three grid barriers and the chain of
+// dependent loads and atomics in its bids, install and collection.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // Interface: plain C (ctypes), launches on the given stream, allocates nothing,
@@ -157,28 +177,35 @@ constexpr int kMaxItems = 8192;   // work items that keep a partial top-2
 constexpr unsigned long long kNoBid = ~0ull;
 constexpr int kSmemTenants = 1024;  // tenancy: rows counted in shared memory
 constexpr int kFixupK = 64;       // speculation: vetoed rows re-placed a tick
-constexpr int kMaxRankBlocks = 256;  // blocks of the rank grid, at most (and
-                                     // of the other grids with a lane on)
+constexpr int kMaxRankBlocks = 256;  // blocks of the rank and auction grids,
+                                     // at most (and of the Sinkhorn grid
+                                     // with a lane on)
 constexpr int kSelPasses = 8;  // one byte of the 64-bit key a pass, at most
 constexpr unsigned long long kNoKey = ~0ull;  // not ranked by a select
 
 // The auction's phase stamps (a probe build, -DTPU_FAAS_PROBE, alone writes
 // them; the layout exists in every build): 0 start, 1 packet, liveness and
-// tenancy admission, 2 the opening (slot sort, seed or rebase), 3 the first
-// grid barrier; then per round r < kStampRounds five words from
-// kStampRound + 5r: the round's bidders, the last block's end of its bids
-// (the largest clock over the blocks), and block 0's clock after the bids'
-// barrier, after the install pass and its barrier, and after the bidder
-// collection and its barrier; then the close (spill, refresh) and the end
-// (fixup, deficit, compaction); then the lanes' words: block 0's clock
-// after the packet and after liveness (both inside the opening), after the
-// hedge fixup and after the deficit carry (both inside the end; 0 with the
-// lanes off).
+// tenancy admission, 2 the opening (lists, admission, sorts, the kept
+// slots and their prices), 3 the opening's last grid barrier; then per
+// round r < kStampRounds five words from kStampRound + 5r: the round's
+// bidders, the last block's end of its bids (the largest clock over the
+// blocks), and block 0's clock after the bids' barrier, after the install
+// pass and its barrier, and after the bidder collection and its barrier;
+// then the close (spill, refresh) and the end (fixup, deficit,
+// compaction); then the lanes' words: block 0's clock after the packet and
+// after liveness (both inside the opening), after the hedge fixup and
+// after the deficit carry (both inside the end; 0 with the lanes off);
+// then the opening's words: block 0's clock after the lists' barrier, the
+// admission's and the sorts' (the re-base alone on the full-length path);
+// then the counts:
+// free slots, placeable tasks, n_match, 1 on the full-length path.
 constexpr int kStampRounds = 64;
 constexpr int kStampRound = 4;
 constexpr int kStampClose = kStampRound + 5 * kStampRounds;
 constexpr int kStampLanes = kStampClose + 2;
-constexpr int kAuStamps = kStampLanes + 4;
+constexpr int kStampOpen = kStampLanes + 4;
+constexpr int kStampCount = kStampOpen + 3;
+constexpr int kAuStamps = kStampCount + 4;
 #ifdef TPU_FAAS_PROBE
 #define PROBE(...) __VA_ARGS__
 #else
@@ -214,8 +241,9 @@ struct Out {
   int32_t* straggler;     // [KG]
   uint8_t* purged;        // [W]
   uint8_t* live;          // [W]
-  int32_t* aux;           // [3] auction: rounds run, tasks spilled, and
-                          //     bidder rows summed over the rounds
+  int32_t* aux;           // [4] auction: rounds run, tasks spilled,
+                          //     bidder rows summed over the rounds, and 1
+                          //     on a tick that took the full-length path
 };
 
 struct Scratch {
@@ -227,15 +255,32 @@ struct Scratch {
   int32_t* admitted;// [T] 0/1
 };
 
-// The auction's carried leaves, its per-tick scratch and its constants.
+// The auction's grid words: 0 the tick takes the full-length path, 1 the
+// bits of the carried prices' least positive one (positive floats order as
+// their bits), 2 the sorted admitted tasks' buffer, 3 the full-length
+// opening's count of kept slots.
+enum AuWord { kAuBad, kAuMin, kAuTaskBuf, kAuKept, kAuWords };
+
+// The auction's carried leaves, its per-tick scratch and its constants. The
+// rounds bid on positions of the kept list: position i is the kept slot
+// kept[i], on either path.
 struct Auction {
   float* price;          // [S] state leaf: slot prices
   uint8_t* refresh;      // [1] state leaf: open from the seed this tick
   unsigned long long* slot_bid;  // [S] this round's best (key, task) bid
-  float* inv;            // [S] 1 / max(slot speed, 1e-6)
-  float* valid_f;        // [S] 1.0 on the n_match fastest valid slots
-  int32_t* owner;        // [S] task owning the slot, -1 none
-  int32_t* assigned;     // [T] slot of the task, -1 none
+                                 //     per position
+  float* inv;            // [S] 1 / max(slot speed, 1e-6) per position
+  int32_t* owner;        // [S] task owning the position, -1 none
+  int32_t* assigned;     // [T] position of the task, -1 none
+  int32_t* adm;          // [T] the admitted tasks, index order
+  int32_t* free_id;      // [S] compacted path: the free slots, index order
+  int32_t* kpos;         // [S] each free-list entry's (compacted path) or
+                         //     slot's (full-length path) kept position, -1
+                         //     none
+  int32_t* kept;         // [S] the kept slots, ascending
+  float* kprice;         // [S] ... and their prices
+  int32_t* counts;       // [kRankCounts kMaxRankBlocks] per-block counts
+  int32_t* word;         // [kAuWords]
   float* bid;            // [T] this round's bid price of each bidder
   int32_t* list[2];      // [T] bidders of even and odd rounds
   int32_t* cnt;          // [2] their counts
@@ -985,6 +1030,136 @@ __device__ __forceinline__ int row_slots(const Dims& D, const State& st,
   return out.live[w] ? min(max(st.free_cnt[w], 0), D.K) : 0;
 }
 
+// ---- grid phases shared by the rank and auction branches -----------------
+// Each takes the branch's table of per-block counts (RankCount rows).
+
+// Phase 2's arrivals, after the invalid pending slots were counted into row
+// kCntInvalid and a grid barrier: the first min(n_arr, invalid, KA) invalid
+// pending slots of the pre-arrival state, in index order.
+__device__ void grid_arrivals(const PacketLanes& pk, const Dims& D,
+                              const State& st, const Tenancy& tn,
+                              const Spec& sp, const Out& out, int32_t* cnt,
+                              Smem& sm) {
+  int n_invalid;
+  const int off = grid_offset(count_row(cnt, kCntInvalid), &n_invalid, sm);
+  const int accept = max(min(min(pk.n_arr, n_invalid), D.KA), 0);
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  if (off < accept)
+    tile_emit(lo, hi, off, [&](int i) { return st.valid[i] == 0; },
+              [&](int s, int j) {
+                if (j >= accept) return;
+                out.arrival_slots[j] = s;
+                put_arrival(pk, D, st, tn, sp, j, s);
+              },
+              sm);
+  for (int j = accept + blockIdx.x * NT + threadIdx.x; j < D.KA;
+       j += gridDim.x * NT)
+    out.arrival_slots[j] = -1;
+}
+
+// Phase 2's liveness: each row's liveness, purge and carried flag, and its
+// valid slots counted into row kCntSlots; *bad_word gets 1 where a valid
+// slot's -speed would sort among the invalid slots' +inf (a -inf or NaN
+// speed).
+__device__ void grid_liveness(const Dims& D, const State& st, const Out& out,
+                              float now, float tte, int32_t* cnt,
+                              int32_t* bad_word, Smem& sm) {
+  int lo, hi;
+  tile_of(D.W, &lo, &hi);
+  int slots = 0;
+  bool bad = false;
+  for (int w = lo + threadIdx.x; w < hi; w += NT) {
+    const uint8_t l = row_live(st, w, now, tte) ? 1 : 0;
+    out.purged[w] = (st.prev_live[w] && !l) ? 1 : 0;
+    out.live[w] = l;
+    st.prev_live[w] = l;
+    const int n = l ? min(max(st.free_cnt[w], 0), D.K) : 0;
+    slots += n;
+    bad |= n > 0 && !(st.speed[w] > neg_inf());
+  }
+  put_count(count_row(cnt, kCntSlots), slots, sm);
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *bad_word = 1;
+}
+
+// Phase 3's valid slots (live, below the free count) listed in index order
+// from the counts of row kCntSlots: emit(p, s, key) for list position p,
+// slot s and its sort key float_key(-speed). Returns the valid slots.
+template <class Emit>
+__device__ int grid_slot_list(const Dims& D, const State& st, const Out& out,
+                              int32_t* cnt, Emit emit, Smem& sm) {
+  int n_slots;
+  const int off = grid_offset(count_row(cnt, kCntSlots), &n_slots, sm);
+  int lo, hi;
+  tile_of(D.W, &lo, &hi);
+  int base = off;
+  for (int c = lo; c < hi; c += NT) {
+    const int w = c + threadIdx.x;
+    const int n = w < hi ? row_slots(D, st, out, w) : 0;
+    int total;
+    const int p = base + block_exclusive_scan(n, &total, sm);
+    if (n) {
+      const uint32_t key = float_key(-st.speed[w]);
+      for (int k = 0; k < n; ++k) emit(p + k, w * D.K + k, key);
+    }
+    base += total;
+  }
+  return n_slots;
+}
+
+// The compaction's counts: the tasks with a worker (row kCntPlaced) and the
+// valid tasks (row kCntValid).
+__device__ void compact_counts(const Dims& D, const State& st,
+                               const int32_t* assign, int32_t* cnt,
+                               Smem& sm) {
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  int placed = 0, valid = 0;
+  for (int t = lo + threadIdx.x; t < hi; t += NT) {
+    placed += assign[t] >= 0;
+    valid += st.valid[t];
+  }
+  put_count(count_row(cnt, kCntPlaced), placed, sm);
+  put_count(count_row(cnt, kCntValid), valid, sm);
+}
+
+// The compaction, after compact_counts and a grid barrier: the first KP
+// placements in index order (each clears its valid bit and takes its slot
+// on the device), and n_pending, added into out.n_pending (zeroed before
+// the first barrier): the valid tasks less those the reported placements
+// cleared (a full-length path can place an invalid task, as greedy.py's
+// sorts do when a -inf or NaN size ties them).
+__device__ void grid_compact(const Dims& D, const State& st, const Out& out,
+                             const int32_t* assign, int32_t* cnt, Smem& sm) {
+  int n_placed, n_valid;
+  const int off = grid_offset(count_row(cnt, kCntPlaced), &n_placed, sm);
+  grid_offset(count_row(cnt, kCntValid), &n_valid, sm);
+  int lo, hi;
+  tile_of(D.T, &lo, &hi);
+  int cleared = 0;
+  if (off < D.KP)
+    tile_emit(lo, hi, off, [&](int t) { return assign[t] >= 0; },
+              [&](int t, int p) {
+                if (p >= D.KP) return;
+                const int row = assign[t];
+                out.placed_slots[p] = t;
+                out.placed_rows[p] = row;
+                cleared += st.valid[t];
+                st.valid[t] = 0;  // clear ONLY reported placements
+                atomicAdd(&st.free_cnt[row], -1);
+              },
+              sm);
+  for (int j = n_placed + blockIdx.x * NT + threadIdx.x; j < D.KP;
+       j += gridDim.x * NT) {
+    out.placed_slots[j] = -1;
+    out.placed_rows[j] = -1;
+  }
+  int total;
+  block_exclusive_scan(cleared, &total, sm);
+  if (threadIdx.x == 0)
+    atomicAdd(out.n_pending, (blockIdx.x == 0 ? n_valid : 0) - total);
+}
+
 // The tenancy lane's admission over the grid, part 1 (after the arrivals):
 // each block stably sorts its tile of tasks by segment (the tenant row, N
 // for an invalid task) in place in the task scratch, and writes per tenant
@@ -1565,41 +1740,8 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
 
   // -- 2: arrivals into the first invalid pending slots; liveness; the
   // valid slots counted ---------------------------------------------------
-  {
-    int n_invalid;
-    const int off = grid_offset(rk, kCntInvalid, &n_invalid, sm);
-    const int accept = max(min(min(pk.n_arr, n_invalid), D.KA), 0);
-    int lo, hi;
-    tile_of(T, &lo, &hi);
-    if (off < accept)
-      tile_emit(lo, hi, off, [&](int i) { return st.valid[i] == 0; },
-                [&](int s, int j) {
-                  if (j >= accept) return;
-                  out.arrival_slots[j] = s;
-                  put_arrival(pk, D, st, tn, sp, j, s);
-                },
-                sm);
-    for (int j = accept + gthread; j < D.KA; j += n_gthread)
-      out.arrival_slots[j] = -1;
-  }
-  {
-    int lo, hi;
-    tile_of(W, &lo, &hi);
-    int slots = 0;
-    bool bad = false;
-    for (int w = lo + tid; w < hi; w += NT) {
-      const uint8_t l = row_live(st, w, now, tte) ? 1 : 0;
-      out.purged[w] = (st.prev_live[w] && !l) ? 1 : 0;
-      out.live[w] = l;
-      st.prev_live[w] = l;
-      const int n = l ? min(max(st.free_cnt[w], 0), K) : 0;
-      slots += n;
-      // a valid slot whose -speed sorts among the invalid slots' +inf
-      bad |= n > 0 && !(st.speed[w] > neg_inf());
-    }
-    put_count(rk, kCntSlots, slots, sm);
-    if (__syncthreads_or(bad) && tid == 0) rk.word[kWordBad] = 1;
-  }
+  grid_arrivals(pk, D, st, tn, sp, out, rk.cnt, sm);
+  grid_liveness(D, st, out, now, tte, rk.cnt, rk.word + kWordBad, sm);
   grid.sync();
   PROBE(if (stamp) rk.stamps[2] = global_ns();)
 
@@ -1611,27 +1753,13 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
     rank_count(rk, kCntStraggler, I,
                [&](int i) { return straggling(st, out, sp, W, i, now); },
                sm);
-  int n_slots;
-  {
-    const int off = grid_offset(rk, kCntSlots, &n_slots, sm);
-    int lo, hi;
-    tile_of(W, &lo, &hi);
-    int base = off;
-    for (int c = lo; c < hi; c += NT) {
-      const int w = c + tid;
-      const int n = w < hi ? row_slots(D, st, out, w) : 0;
-      int total;
-      const int p = base + block_exclusive_scan(n, &total, sm);
-      if (n) {
-        const uint32_t key = float_key(-st.speed[w]);
-        for (int k = 0; k < n; ++k) {
-          sc.sk[0][p + k] = key;
-          sc.sv[0][p + k] = w * K + k;
-        }
-      }
-      base += total;
-    }
-  }
+  const int n_slots = grid_slot_list(
+      D, st, out, rk.cnt,
+      [&](int p, int s, uint32_t key) {
+        sc.sk[0][p] = key;
+        sc.sv[0][p] = s;
+      },
+      sm);
   int lo_t, hi_t;
   tile_of(T, &lo_t, &hi_t);
   for (int t = lo_t + tid; t < hi_t; t += NT) sc.assign[t] = -1;
@@ -1826,50 +1954,14 @@ fused_rank_kernel(const float* __restrict__ packet, Dims D, State st,
 
   // -- 10: the placements and the valid tasks counted, and the deficit's
   // placements per tenant; the deficit carry on block 0 -----------------------
-  {
-    int placed = 0, valid = 0;
-    for (int t = lo_t + tid; t < hi_t; t += NT) {
-      placed += sc.assign[t] >= 0;
-      valid += st.valid[t];
-    }
-    put_count(rk, kCntPlaced, placed, sm);
-    put_count(rk, kCntValid, valid, sm);
-  }
+  compact_counts(D, st, sc.assign, rk.cnt, sm);
   if (tn.on) deficit_counts(D, tn, sc.assign, sm);
   grid.sync();
   if (tn.on && b == 0) deficit_carry(tn, sm);
   PROBE(if (stamp) rk.stamps[10] = global_ns();)
 
-  // -- 11: the first KP placements (each clears its valid bit and takes
-  // its slot on the device), and n_pending: the valid tasks less those
-  // the reported placements cleared (the full-length path can place an
-  // invalid task, as greedy.py's sorts do when a -inf or NaN size ties
-  // them) ---------------------------------------------------------------
-  {
-    int n_placed, n_valid;
-    const int off = grid_offset(rk, kCntPlaced, &n_placed, sm);
-    grid_offset(rk, kCntValid, &n_valid, sm);
-    int cleared = 0;
-    if (off < D.KP)
-      tile_emit(lo_t, hi_t, off, [&](int t) { return sc.assign[t] >= 0; },
-                [&](int t, int p) {
-                  if (p >= D.KP) return;
-                  const int row = sc.assign[t];
-                  out.placed_slots[p] = t;
-                  out.placed_rows[p] = row;
-                  cleared += st.valid[t];
-                  st.valid[t] = 0;  // clear ONLY reported placements
-                  atomicAdd(&st.free_cnt[row], -1);
-                },
-                sm);
-    for (int j = n_placed + gthread; j < D.KP; j += n_gthread) {
-      out.placed_slots[j] = -1;
-      out.placed_rows[j] = -1;
-    }
-    int total;
-    block_exclusive_scan(cleared, &total, sm);
-    if (tid == 0) atomicAdd(out.n_pending, (b == 0 ? n_valid : 0) - total);
-  }
+  // -- 11: the first KP placements and n_pending (grid_compact) ---------
+  grid_compact(D, st, out, sc.assign, rk.cnt, sm);
   PROBE(if (stamp) {
     rk.stamps[11] = global_ns();
     rk.stamps[12] = n_slots;
@@ -1888,10 +1980,45 @@ fused_flush_kernel(const float* __restrict__ packet, Dims D, State st,
   apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
 }
 
-// ---- the auction: opening (block 0) --------------------------------------
-// auction.py::_rank_dual_seed into au.price: the k-th largest admitted size
-// against the k-th fastest slot, each price step the midpoint of its
-// stability interval, summed from the slowest matched slot up.
+// ---- the auction: the full-length opening (block 0) ----------------------
+// A tick whose free slot has a -inf or NaN speed, or whose admitted task has
+// a -inf or NaN size, opens here: such a key would sort among the invalid
+// ones in the plain version's full-length sorts, which these keep.
+//
+// auction.py::_rank_dual_seed's prices in sorted order, p_sorted[j] for j <
+// n: the j-th largest admitted size (size_sorted) against the j-th fastest
+// slot (inv_sorted, its inverse speed), each price step the midpoint of its
+// stability interval, summed from the slowest matched slot up; positions j
+// >= n_match - 1 contribute +0.0 and keep a +0.0 sum. The reversed sum is
+// ONE float64 running sum from the end, rounded per element: the order of
+// the plain version's host cumsum.
+template <class Size, class Inv>
+__device__ void seed_prices(float* p_sorted, int n, int n_match,
+                            Size size_sorted, Inv inv_sorted) {
+  const int tid = threadIdx.x;
+  for (int j = tid; j < n; j += NT) {
+    float c = 0.0f;
+    if (j + 1 < n_match) {  // j + 1 < min(T, S): both neighbours exist
+      const float mid =
+          __fmul_rn(__fadd_rn(size_sorted(j), size_sorted(j + 1)), 0.5f);
+      const float diff = __fsub_rn(inv_sorted(j + 1), inv_sorted(j));
+      c = __fmul_rn(mid, clamp_min(diff, 0.0f));
+    }
+    p_sorted[j] = c;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double acc = 0.0;
+#pragma unroll 8
+    for (int j = n_match - 2; j >= 0; --j) {
+      acc += static_cast<double>(p_sorted[j]);
+      p_sorted[j] = static_cast<float>(acc);
+    }
+  }
+  __syncthreads();
+}
+
+// The seed over every slot and task into au.price.
 __device__ void rank_dual_seed(const Dims& D, const State& st, const Out& out,
                                const Scratch& sc, const Auction& au,
                                const int32_t* slot_order, int n_match,
@@ -1917,50 +2044,20 @@ __device__ void rank_dual_seed(const Dims& D, const State& st, const Out& out,
     const float key = (s - w * K) < f ? st.speed[w] : neg_inf();
     return __fdiv_rn(1.0f, clamp_min(key, 1e-6f));
   };
-  // contributions, then their reversed running sum in place; positions
-  // j >= n_match - 1 contribute +0.0 and keep a +0.0 sum
   float* p_sorted = reinterpret_cast<float*>(sc.sk[0]);
-  for (int j = tid; j < S; j += NT) {
-    float c = 0.0f;
-    if (j + 1 < n_match) {  // j + 1 < min(T, S): both neighbours exist
-      const float mid =
-          __fmul_rn(__fadd_rn(size_sorted(j), size_sorted(j + 1)), 0.5f);
-      const float diff = __fsub_rn(inv_sorted(j + 1), inv_sorted(j));
-      c = __fmul_rn(mid, clamp_min(diff, 0.0f));
-    }
-    p_sorted[j] = c;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // ONE float64 running sum from the end, rounded per element: the order
-    // of the plain version's host cumsum
-    double acc = 0.0;
-#pragma unroll 8
-    for (int j = n_match - 2; j >= 0; --j) {
-      acc += static_cast<double>(p_sorted[j]);
-      p_sorted[j] = static_cast<float>(acc);
-    }
-  }
-  __syncthreads();
+  seed_prices(p_sorted, S, n_match, size_sorted, inv_sorted);
   for (int i = tid; i < S; i += NT) au.price[slot_order[i]] = p_sorted[i];
 }
 
-// auction.py::_rebase in place: shift by the smallest positive price,
-// clamped at 0.
-__device__ void rebase(int S, const Auction& au, Smem& sm) {
-  float m = CUDART_INF_F;
-  for (int s = threadIdx.x; s < S; s += NT) {
-    const float p = au.price[s];
-    if (p > 0.0f) m = fminf(m, p);
-  }
-  m = block_min(m, sm);
-  const float shift = isfinite(m) ? m : 0.0f;
-  for (int s = threadIdx.x; s < S; s += NT)
-    au.price[s] = clamp_min(__fsub_rn(au.price[s], shift), 0.0f);
-}
-
-// auction.py::_expand_and_square and the opening prices. Also the first
-// round's bidders (every admitted task, in index order). Returns n_match.
+// auction.py::_expand_and_square and the opening prices over every slot and
+// task: the rank-dual seed on a refresh tick (on any other the grid
+// re-based the carried prices). The kept slots -- the valid ones among the
+// n_match fastest -- listed in ascending slot order as the compacted
+// opening lists its own (au.kept, au.kpos by slot id, their count in
+// au.word[kAuKept]), each position with its inverse speed, price, no owner
+// and no bid; the non-finite flag over them; the admitted list and the
+// first round's bidders (every admitted task, in index order). Returns
+// n_match.
 __device__ int auction_open(const Dims& D, const State& st, const Out& out,
                             const Scratch& sc, const Auction& au, Smem& sm) {
   const int tid = threadIdx.x;
@@ -1982,48 +2079,143 @@ __device__ int auction_open(const Dims& D, const State& st, const Out& out,
     const bool adm = v && rank < n_match;
     sc.admitted[t] = adm ? 1 : 0;
     au.assigned[t] = -1;
-    if (adm) au.list[0][rank] = t;
+    if (adm) au.list[0][rank] = au.adm[rank] = t;
     rank += v ? 1 : 0;
   }
-  // the n_match fastest valid slots are the auction's
-  for (int i = tid; i < S; i += NT) {
+  // the valid slots among the n_match fastest are the auction's (a -inf or
+  // NaN speed sorts among the invalid ones: they may be fewer than n_match)
+  for (int s = tid; s < S; s += NT) au.kpos[s] = 0;
+  __syncthreads();
+  for (int i = tid; i < n_match; i += NT) {
     const int s = slot_order[i], w = s / K;
     const int f = out.live[w] ? st.free_cnt[w] : 0;
-    au.valid_f[s] = ((s - w * K) < f && i < n_match) ? 1.0f : 0.0f;
-    au.inv[s] = __fdiv_rn(1.0f, clamp_min(st.speed[w], 1e-6f));
-    au.owner[s] = -1;
-    au.slot_bid[s] = kNoBid;
+    if ((s - w * K) < f) au.kpos[s] = 1;
   }
+  __syncthreads();
+  int n_kept = 0;
+  for (int c = 0; c < S; c += NT) {
+    const int s = c + tid;
+    const bool kept = s < S && au.kpos[s] != 0;
+    int total;
+    const int at = n_kept + block_exclusive_scan(kept ? 1 : 0, &total, sm);
+    if (s < S) au.kpos[s] = kept ? at : -1;
+    if (kept) au.kept[at] = s;
+    n_kept += total;
+  }
+  if (refresh) rank_dual_seed(D, st, out, sc, au, slot_order, n_match, sm);
+  __syncthreads();
+  bool bad = !isfinite(au.jitter);
+  for (int i = tid; i < n_kept; i += NT) {
+    const int s = au.kept[i];
+    au.inv[i] = __fdiv_rn(1.0f, clamp_min(st.speed[s / K], 1e-6f));
+    au.owner[i] = -1;
+    au.slot_bid[i] = kNoBid;
+    au.kprice[i] = au.price[s];
+    bad |= tpu_faas_bid::slot_nonfinite(au.inv[i], 1.0f, au.kprice[i]);
+  }
+  bad = __syncthreads_or(bad);
   if (tid == 0) {
+    au.nonfinite[0] = bad ? 1 : 0;
+    au.word[kAuKept] = n_kept;
     au.cnt[0] = n_match;
     au.cnt[1] = 0;
   }
-  __syncthreads();
-  if (refresh) {
-    rank_dual_seed(D, st, out, sc, au, slot_order, n_match, sm);
-  } else {
-    rebase(S, au, sm);
-  }
-  __syncthreads();
-  bool bad = !isfinite(au.jitter);
-  for (int s = tid; s < S; s += NT)
-    bad |= tpu_faas_bid::slot_nonfinite(au.inv[s], au.valid_f[s], au.price[s]);
-  bad = __syncthreads_or(bad);
-  if (tid == 0) au.nonfinite[0] = bad ? 1 : 0;
   return n_match;
 }
 
+// ---- the auction: the opening over compacted lists (block 0) -------------
+// After the grid listed the free slots (au.free_id, index order) and the
+// admitted tasks (au.adm, index order), block 0 sorted the free slots by
+// -speed (values: their list positions, in sc.sv[slot_buf]), block 1 sorted
+// the admitted tasks by -size on a refresh tick (sc.tv[au.word
+// [kAuTaskBuf]]), the grid re-based the carried prices on any other tick,
+// and a grid barrier.
+// Both lists are in index order, so the stable sorts give the full-length
+// sorts' first n_slots and n_match positions. Here: the kept slots -- the
+// n_match fastest free slots -- listed in ascending slot order (au.kept,
+// with au.kpos the kept position of each free-list entry, -1 none), each
+// position with its inverse speed, price (the rank-dual seed on a refresh
+// tick, else the re-based carried price), no owner and no bid; the
+// non-finite flag over the kept slots; the first round's bidders.
+__device__ void auction_open_listed(const Dims& D, const State& st,
+                                    const Scratch& sc, const Auction& au,
+                                    int n_slots, int n_match, int slot_buf,
+                                    bool refresh, Smem& sm) {
+  const int tid = threadIdx.x, K = D.K;
+  const int32_t* by_speed = sc.sv[slot_buf];
+  if (n_match < n_slots) {
+    for (int p = tid; p < n_slots; p += NT) au.kpos[p] = 0;
+    __syncthreads();
+    for (int i = tid; i < n_match; i += NT) au.kpos[by_speed[i]] = 1;
+    __syncthreads();
+    int base = 0;
+    for (int c = 0; c < n_slots; c += NT) {
+      const int p = c + tid;
+      const bool kept = p < n_slots && au.kpos[p] != 0;
+      int total;
+      const int at = base + block_exclusive_scan(kept ? 1 : 0, &total, sm);
+      if (p < n_slots) au.kpos[p] = kept ? at : -1;
+      if (kept) au.kept[at] = au.free_id[p];
+      base += total;
+    }
+  } else {
+    for (int p = tid; p < n_slots; p += NT) {
+      au.kpos[p] = p;
+      au.kept[p] = au.free_id[p];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n_match; i += NT) {
+    const int s = au.kept[i];
+    au.inv[i] = __fdiv_rn(1.0f, clamp_min(st.speed[s / K], 1e-6f));
+    au.owner[i] = -1;
+    au.slot_bid[i] = kNoBid;
+    if (!refresh) au.kprice[i] = au.price[s];
+    au.list[0][i] = au.adm[i];
+  }
+  if (refresh) {
+    // the seed over the sorted lists
+    const int32_t* by_size = sc.tv[au.word[kAuTaskBuf]];
+    auto size_sorted = [&](int j) {
+      return clamp_min(st.sizes[by_size[j]], 0.0f);
+    };
+    auto inv_sorted = [&](int j) {
+      const int w = au.free_id[by_speed[j]] / K;
+      return __fdiv_rn(1.0f, clamp_min(st.speed[w], 1e-6f));
+    };
+    // the sorted keys are spent: their buffer holds the prices
+    float* p_sorted = reinterpret_cast<float*>(sc.sk[slot_buf]);
+    seed_prices(p_sorted, n_match, n_match, size_sorted, inv_sorted);
+    for (int j = tid; j < n_match; j += NT)
+      au.kprice[au.kpos[by_speed[j]]] = p_sorted[j];
+  }
+  __syncthreads();
+  bool bad = !isfinite(au.jitter);
+  for (int i = tid; i < n_match; i += NT)
+    bad |= tpu_faas_bid::slot_nonfinite(au.inv[i], 1.0f, au.kprice[i]);
+  bad = __syncthreads_or(bad);
+  if (tid == 0) {
+    au.nonfinite[0] = bad ? 1 : 0;
+    au.cnt[0] = n_match;
+    au.cnt[1] = 0;
+  }
+}
+
 // ---- the auction: one bidding round's bids (whole grid) -------------------
+// A round bids on the kept positions [0, n_kept): position i is the kept
+// slot au.kept[i] (ascending), its price au.kprice[i] and inverse speed
+// au.inv[i]; au.owner and au.slot_bid are by position too.
+
 // One bidder's bid (auction.py's round): the increment v1 - v2 + eps (1 + eps
 // when a single slot is valid), the bid price over the slot's price, and the
 // 64-bit atomicMin on the slot's key. A row with no valid slot (v1 = -inf)
 // does not bid.
-__device__ __forceinline__ void issue_bid(const Auction& au, int row, float v1,
-                                          int best, float v2) {
+__device__ __forceinline__ void issue_bid(const Auction& au, int row,
+                                          float v1, int best, float v2) {
   if (!isfinite(v1)) return;
   const float incr =
       __fadd_rn(isfinite(v2) ? __fsub_rn(v1, v2) : 1.0f, au.eps);
-  const float bp = __fadd_rn(au.price[best], incr);
+  const float bp = __fadd_rn(au.kprice[best], incr);
   au.bid[row] = bp;
   const unsigned long long key =
       (static_cast<unsigned long long>(float_key(-bp)) << 32) |
@@ -2031,21 +2223,21 @@ __device__ __forceinline__ void issue_bid(const Auction& au, int row, float v1,
   atomicMin(au.slot_bid + best, key);
 }
 
-// The round's work split, the same in every block (it depends on n_bid and
-// the grid alone): groups of kRows bidders, and chunks of `len` slots (a
-// multiple of 32, at least kMinChunk) so that groups x chunks fills the
-// grid's warps when bidders are few.
+// The round's work split, the same in every block (it depends on n_bid,
+// the positions and the grid alone): groups of kRows bidders, and chunks
+// of `len` positions (a multiple of 32, at least kMinChunk) so that groups
+// x chunks fills the grid's warps when bidders are few.
 struct BidPlan {
   int groups, chunks, len;
 };
 
-__device__ __forceinline__ BidPlan bid_plan(int n_bid, int S) {
+__device__ __forceinline__ BidPlan bid_plan(int n_bid, int n) {
   const int warps = min(static_cast<int>(gridDim.x) * NWARP, kMaxItems);
   const int groups = (n_bid + kRows - 1) / kRows;
-  const int most = max((S + kMinChunk - 1) / kMinChunk, 1);
+  const int most = max((n + kMinChunk - 1) / kMinChunk, 1);
   const int chunks = min(max(warps / groups, 1), most);
-  const int len = max((((S + chunks - 1) / chunks) + 31) & ~31, 32);
-  return BidPlan{groups, (S + len - 1) / len, len};
+  const int len = max((((n + chunks - 1) / chunks) + 31) & ~31, 32);
+  return BidPlan{groups, (n + len - 1) / len, len};
 }
 
 // Every bidder's top-2 bid over the whole grid. Warp w of block b takes the
@@ -2057,11 +2249,12 @@ __device__ __forceinline__ BidPlan bid_plan(int n_bid, int S) {
 // draws the last ticket merges the group's partials (through L2, never a
 // stale L1 line: they merge exactly in any order, bid_top2.cuh), bids, and
 // resets the counter for the next round, which the round's barriers order.
+// A cell's hash index is row * S + the kept slot's id, S = W * K.
 __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
-                          const int32_t* bidders, int n_bid) {
+                          int n_kept, const int32_t* bidders, int n_bid) {
   const int lane = threadIdx.x & 31;
   const int S = D.W * D.K;
-  const BidPlan pl = bid_plan(n_bid, S);
+  const BidPlan pl = bid_plan(n_bid, n_kept);
   const int n_items = pl.groups * pl.chunks;
   const int n_gwarp = gridDim.x * NWARP;
   // read after the round's barriers (they order the opening's and the
@@ -2082,11 +2275,11 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
     }
     float v1[kRows], v2[kRows];
     int best[kRows];
-    const int s_lo = c * pl.len;
-    const int s_hi = min(s_lo + pl.len, S);
-    tpu_faas_bid::warp_top2<kRows>(neg_size, row_base, au.inv, au.valid_f,
-                                   au.price, au.jitter, s_lo, s_hi, v1, best,
-                                   v2);
+    const int lo = c * pl.len;
+    const int hi = min(lo + pl.len, n_kept);
+    tpu_faas_bid::warp_top2_listed<kRows, false>(
+        neg_size, row_base, au.kept, au.inv, au.kprice, au.jitter, lo, hi, v1,
+        best, v2);
     // a row or slot that can make a cell NaN: sweep again by JAX's NaN
     // rule (warp-uniform: the same rows and flag in every lane). Deciding
     // after the sweep keeps the flag and the sizes off its loads' path.
@@ -2094,9 +2287,9 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) nan_rule |= !isfinite(neg_size[r]);
     if (nan_rule)
-      tpu_faas_bid::warp_top2<kRows, true>(neg_size, row_base, au.inv,
-                                           au.valid_f, au.price, au.jitter,
-                                           s_lo, s_hi, v1, best, v2);
+      tpu_faas_bid::warp_top2_listed<kRows, true>(
+          neg_size, row_base, au.kept, au.inv, au.kprice, au.jitter, lo, hi,
+          v1, best, v2);
     if (pl.chunks > 1) {
       const int base = g * pl.chunks * kRows;
 #pragma unroll
@@ -2146,6 +2339,20 @@ __device__ void bid_round(const Dims& D, const State& st, const Auction& au,
 }
 
 // ---- the auction: close (block 0), auction.py::_rank_spill_close ---------
+// The refresh flag and the aux words, from the close's counts.
+__device__ void close_words(const Auction& au, const Out& out, int n_lt,
+                            int n_spill, int n_match, int n_stranded,
+                            int rounds, int bid_rows) {
+  const bool stale = n_lt > 0 && n_spill * 20 > max(n_match, 1) &&
+                     n_spill > 8;
+  au.refresh[0] = (n_stranded > 0 || stale) ? 1 : 0;
+  out.aux[0] = rounds;
+  out.aux[1] = n_spill;
+  out.aux[2] = bid_rows;
+}
+
+// The full-length close, over every task and slot (a slot is a leftover
+// where it is kept and its position unowned).
 __device__ void auction_close(const Dims& D, const State& st,
                               const Scratch& sc, const Auction& au,
                               const Out& out, int n_match, int rounds,
@@ -2156,7 +2363,8 @@ __device__ void auction_close(const Dims& D, const State& st,
     return sc.admitted[t] != 0 && au.assigned[t] < 0;
   };
   auto leftover_slot = [&](int s) {
-    return au.valid_f[s] > 0.0f && au.owner[s] < 0;
+    const int j = au.kpos[s];
+    return j >= 0 && au.owner[j] < 0;
   };
   int c_t = 0, c_s = 0;
   for (int t = tid; t < T; t += NT) c_t += leftover_task(t) ? 1 : 0;
@@ -2180,25 +2388,77 @@ __device__ void auction_close(const Dims& D, const State& st,
     const int tb = block_radix_sort(sc.tk, sc.tv, T, sm);
     const int sb = block_radix_sort(sc.sk, sc.sv, S, sm);
     for (int i = tid; i < n_spill; i += NT)
-      au.assigned[sc.tv[tb][i]] = sc.sv[sb][i];
+      au.assigned[sc.tv[tb][i]] = au.kpos[sc.sv[sb][i]];
     __syncthreads();
   }
   int c_str = 0;
   for (int t = tid; t < T; t += NT) {
     const int a = au.assigned[t];
     c_str += (sc.admitted[t] && a < 0) ? 1 : 0;
-    sc.assign[t] = a >= 0 ? a / K : -1;
+    sc.assign[t] = a >= 0 ? au.kept[a] / K : -1;
   }
   int n_stranded;
   block_exclusive_scan(c_str, &n_stranded, sm);
-  if (tid == 0) {
-    const bool stale = n_lt > 0 && n_spill * 20 > max(n_match, 1) &&
-                       n_spill > 8;
-    au.refresh[0] = (n_stranded > 0 || stale) ? 1 : 0;
-    out.aux[0] = rounds;
-    out.aux[1] = n_spill;
-    out.aux[2] = bid_rows;
+  if (tid == 0)
+    close_words(au, out, n_lt, n_spill, n_match, n_stranded, rounds,
+                bid_rows);
+  __syncthreads();
+}
+
+// The close over the compacted lists: the leftover tasks (admitted,
+// unassigned) and slots (kept, unowned) listed in index order with their
+// keys and sorted alone, which gives the full-length sorts' first n_spill
+// pairs; the admitted tasks' workers into sc.assign (the grid set every
+// other task's to -1).
+__device__ void auction_close_listed(const Dims& D, const State& st,
+                                     const Scratch& sc, const Auction& au,
+                                     const Out& out, int n_match, int rounds,
+                                     int bid_rows, Smem& sm) {
+  const int tid = threadIdx.x, K = D.K;
+  int n_lt = 0, n_ls = 0;
+  for (int c = 0; c < n_match; c += NT) {
+    const int j = c + tid;
+    const bool in = j < n_match;
+    const int t = in ? au.adm[j] : 0;
+    const bool lt = in && au.assigned[t] < 0;
+    const bool ls = in && au.owner[j] < 0;
+    int total;
+    // both counts packed in one scan (each below 2^16 in a chunk)
+    const int at = block_exclusive_scan((lt ? 1 << 16 : 0) | (ls ? 1 : 0),
+                                        &total, sm);
+    if (lt) {
+      const int q = n_lt + (at >> 16);
+      sc.tk[0][q] = float_key(-st.sizes[t]);
+      sc.tv[0][q] = t;
+    }
+    if (ls) {
+      const int q = n_ls + (at & 0xffff);
+      sc.sk[0][q] = float_key(-st.speed[au.kept[j] / K]);
+      sc.sv[0][q] = j;
+    }
+    n_lt += total >> 16;
+    n_ls += total & 0xffff;
   }
+  const int n_spill = min(n_lt, n_ls);
+  if (n_spill > 0) {
+    __syncthreads();
+    const int tb = block_radix_sort(sc.tk, sc.tv, n_lt, sm);
+    const int sb = block_radix_sort(sc.sk, sc.sv, n_ls, sm);
+    for (int i = tid; i < n_spill; i += NT)
+      au.assigned[sc.tv[tb][i]] = sc.sv[sb][i];
+    __syncthreads();
+  }
+  int c_str = 0;
+  for (int j = tid; j < n_match; j += NT) {
+    const int t = au.adm[j], a = au.assigned[t];
+    c_str += a < 0 ? 1 : 0;
+    sc.assign[t] = a >= 0 ? au.kept[a] / K : -1;
+  }
+  int n_stranded;
+  block_exclusive_scan(c_str, &n_stranded, sm);
+  if (tid == 0)
+    close_words(au, out, n_lt, n_spill, n_match, n_stranded, rounds,
+                bid_rows);
   __syncthreads();
 }
 
@@ -2215,15 +2475,26 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
                      Out out, Scratch sc, Auction au, Tenancy tn, Spec sp) {
   __shared__ Smem sm;
   cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int T = D.T, S = D.W * D.K;
-  const int gthread = blockIdx.x * NT + tid;
-  const int n_gthread = gridDim.x * NT;
-  PROBE(const bool stamp = blockIdx.x == 0 && tid == 0;
+  const int tid = threadIdx.x, lane = tid & 31, b = blockIdx.x;
+  const int G = gridDim.x;
+  const int T = D.T, W = D.W, I = D.I, K = D.K, S = W * K;
+  const int gthread = b * NT + tid;
+  const int n_gthread = G * NT;
+  int32_t* const cnt = au.counts;
+  PROBE(const bool stamp = b == 0 && tid == 0;
         if (stamp) au.stamps[0] = global_ns();)
-  PROBE(unsigned long long* ls = au.stamps + kStampLanes;)
-  int n_match = 0;
-  // the bidder groups' tickets start at 0; the first barrier orders it
+  PROBE(unsigned long long* ls = au.stamps + kStampLanes;
+        unsigned long long* os = au.stamps + kStampOpen;)
+  const bool refresh = au.refresh[0] != 0;  // the close rewrites it
+
+  // -- 1: the packet's scatters; the invalid pending slots counted; the
+  // scratch the later phases accumulate into -------------------------------
+  float now, tte;
+  const PacketLanes pk = packet_lanes(packet, D, tn, sp, &now, &tte);
+  scatter_lanes(pk, D, st, sp, now, gthread, n_gthread);
+  rank_count(count_row(cnt, kCntInvalid), T,
+             [&](int i) { return st.valid[i] == 0; }, sm);
+  // the bidder groups' tickets start at 0
   for (int i = gthread; i < kMaxItems; i += n_gthread) au.ticket[i] = 0;
   if (kLanes && tn.on) {
     for (int g = gthread; g < tn.n; g += n_gthread) {
@@ -2231,30 +2502,142 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
       tn.cnt[g] = 0;
     }
   }
-  if (kLanes && sp.on) fixup_reset(sp, D.W, gthread, n_gthread);
-  if (blockIdx.x == 0) {
-    PROBE(for (int i = 1 + tid; i < kAuStamps; i += NT) au.stamps[i] = 0;
-          __syncthreads();)
-    float now, tte;
-    apply_deltas(packet, D, st, tn, sp, out, sm, &now, &tte);
-    PROBE(__syncthreads(); if (stamp) ls[0] = global_ns();)
-    __syncthreads();
-    liveness(D, st, sp, out, now, tte, sm);
-    PROBE(__syncthreads(); if (stamp) ls[1] = global_ns();)
+  if (kLanes && sp.on) fixup_reset(sp, W, gthread, n_gthread);
+  if (gthread == 0) {
+    au.word[kAuBad] = 0;
+    au.word[kAuMin] = static_cast<int32_t>(__float_as_uint(CUDART_INF_F));
+    out.n_pending[0] = 0;  // the compaction's blocks add into it
   }
+  PROBE(if (b == 0) for (int i = 1 + tid; i < kAuStamps; i += NT)
+          au.stamps[i] = 0;)
+  grid.sync();
+  PROBE(if (stamp) ls[0] = global_ns();)
+
+  // -- 2: arrivals; liveness; the free slots counted ------------------------
+  grid_arrivals(pk, D, st, tn, sp, out, cnt, sm);
+  grid_liveness(D, st, out, now, tte, cnt, au.word + kAuBad, sm);
+  // with the speculation lane the grid lists the stragglers at the close
+  // (fixup_rows): nothing this tick changes what they read after here
+  if (!sp.on)
+    for (int j = gthread; j < D.KG; j += n_gthread) out.straggler[j] = -1;
+  grid.sync();
+  PROBE(if (stamp) ls[1] = global_ns();)
   // the auction sees the eligibility mask alone (FCFS admission)
   if (kLanes && tn.on) {
-    grid.sync();
     grid_tenancy_elig(D, st, tn, sc, sm, grid);
     grid.sync();
   }
   PROBE(if (stamp) au.stamps[1] = global_ns();)
-  if (blockIdx.x == 0) {
-    n_match = auction_open(D, st, out, sc, au, sm);
-    PROBE(__syncthreads(); if (stamp) au.stamps[2] = global_ns();)
+
+  // -- 3: redispatches counted; the free slots listed in index order with
+  // their -speed keys; the placeable tasks counted; every task's worker
+  // -1; the carried prices zeroed on a refresh tick (the seed prices the
+  // kept slots), else their least positive one found --------------------
+  rank_count(count_row(cnt, kCntRedispatch), I,
+             [&](int i) { return dead_slot(st, out, W, i); }, sm);
+  const int n_slots = grid_slot_list(
+      D, st, out, cnt,
+      [&](int p, int s, uint32_t key) {
+        sc.sk[0][p] = key;
+        sc.sv[0][p] = p;
+        au.free_id[p] = s;
+      },
+      sm);
+  rank_count(count_row(cnt, kCntMembers), T,
+             [&](int t) { return st.place_valid[t] != 0; }, sm);
+  int lo_t, hi_t;
+  tile_of(T, &lo_t, &hi_t);
+  for (int t = lo_t + tid; t < hi_t; t += NT) sc.assign[t] = -1;
+  {
+    int lo, hi;
+    tile_of(S, &lo, &hi);
+    if (refresh) {
+      for (int s = lo + tid; s < hi; s += NT) au.price[s] = 0.0f;
+    } else {
+      float m = CUDART_INF_F;
+      for (int s = lo + tid; s < hi; s += NT) {
+        const float p = au.price[s];
+        if (p > 0.0f) m = fminf(m, p);
+      }
+      m = block_min(m, sm);
+      // positive floats order as their bits
+      if (tid == 0 && m < CUDART_INF_F)
+        atomicMin(reinterpret_cast<unsigned*>(au.word + kAuMin),
+                  __float_as_uint(m));
+    }
   }
   grid.sync();
+  PROBE(if (stamp) os[0] = global_ns();)
+
+  // -- 4: the redispatch list; the FCFS admission: the first n_match
+  // placeable tasks listed in index order with their -size keys -----------
+  grid_first_k(count_row(cnt, kCntRedispatch), I, D.KR, out.redispatch,
+               [&](int i) { return dead_slot(st, out, W, i); }, sm);
+  int n_valid;
+  const int off_v = grid_offset(count_row(cnt, kCntMembers), &n_valid, sm);
+  int n_match = min(n_slots, n_valid);
+  {
+    bool bad = false;
+    if (off_v < n_match)
+      tile_emit(lo_t, hi_t, off_v,
+                [&](int t) { return st.place_valid[t] != 0; },
+                [&](int t, int j) {
+                  if (j >= n_match) return;
+                  au.adm[j] = t;
+                  au.assigned[t] = -1;
+                  const float size = st.sizes[t];
+                  sc.tk[0][j] = float_key(-size);
+                  sc.tv[0][j] = t;
+                  // a -size that sorts among the non-admitted ones' +inf
+                  bad |= !(size > neg_inf());
+                },
+                sm);
+    if (__syncthreads_or(bad) && tid == 0) au.word[kAuBad] = 1;
+  }
+  grid.sync();
+  PROBE(if (stamp) os[1] = global_ns();)
+
+  // -- 5: the grid re-bases the carried prices (auction.py::_rebase: shift
+  // by the least positive one, clamped at 0) unless the tick refreshes;
+  // block 0 sorts the free slots and (refresh) block 1 the admitted
+  // tasks, unless a -inf or NaN speed on a free slot or size on an admitted
+  // task sends the tick down the full-length path ----------------------------
+  const bool full = au.word[kAuBad] != 0;
+  if (!refresh) {
+    const float m = __uint_as_float(static_cast<uint32_t>(au.word[kAuMin]));
+    const float shift = isfinite(m) ? m : 0.0f;
+    int lo, hi;
+    tile_of(S, &lo, &hi);
+    for (int s = lo + tid; s < hi; s += NT)
+      au.price[s] = clamp_min(__fsub_rn(au.price[s], shift), 0.0f);
+  }
+  int slot_buf = 0;
+  if (!full && b == 0)
+    slot_buf = block_radix_sort(sc.sk, sc.sv, n_slots, sm);
+  if (!full && refresh && b == (G > 1 ? 1 : 0)) {
+    const int tb = block_radix_sort(sc.tk, sc.tv, n_match, sm);
+    if (tid == 0) au.word[kAuTaskBuf] = tb;
+  }
+  grid.sync();
+  PROBE(if (stamp) os[2] = global_ns();)
+
+  // -- 6: block 0 opens: the kept slots and their prices, or the
+  // full-length opening over every slot and task ----------------------------
+  if (b == 0) {
+    if (full) {
+      n_match = auction_open(D, st, out, sc, au, sm);
+    } else {
+      auction_open_listed(D, st, sc, au, n_slots, n_match, slot_buf, refresh,
+                          sm);
+    }
+  }
+  if (gthread == 0) out.aux[3] = full ? 1 : 0;
+  PROBE(if (b == 0) __syncthreads(); if (stamp) au.stamps[2] = global_ns();)
+  grid.sync();
   PROBE(if (stamp) au.stamps[3] = global_ns();)
+
+  // -- 7: the bidding rounds --------------------------------------------------
+  const int n_kept = full ? load_volatile(au.word + kAuKept) : n_match;
   int rounds = 0, bid_rows = 0;
   for (;;) {
     // every thread reads the same count after the barrier: the loop ends
@@ -2267,23 +2650,23 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
           const bool rstamp = rounds < kStampRounds;
           if (stamp && rstamp) rs[0] = n_bid;)
     if (gthread == 0) au.cnt[p ^ 1] = 0;  // last read before this round
-    bid_round(D, st, au, au.list[p], n_bid);
+    bid_round(D, st, au, n_kept, au.list[p], n_bid);
     PROBE(__syncthreads();
           if (tid == 0 && rstamp) atomicMax(rs + 1, global_ns());)
     grid.sync();
     PROBE(if (stamp && rstamp) rs[2] = global_ns();)
-    // each won slot: evict the previous owner, install the winner
-    for (int s = gthread; s < S; s += n_gthread) {
-      const unsigned long long k = au.slot_bid[s];
+    // each won position: evict the previous owner, install the winner
+    for (int i = gthread; i < n_kept; i += n_gthread) {
+      const unsigned long long k = au.slot_bid[i];
       if (k == kNoBid) continue;
-      au.slot_bid[s] = kNoBid;
+      au.slot_bid[i] = kNoBid;
       const int t = static_cast<int>(static_cast<uint32_t>(k));
-      const int prev = au.owner[s];
+      const int prev = au.owner[i];
       if (prev >= 0) au.assigned[prev] = -1;
-      au.owner[s] = t;
+      au.owner[i] = t;
       const float bp = au.bid[t];
-      au.price[s] = bp;
-      au.assigned[t] = s;
+      au.kprice[i] = bp;
+      au.assigned[t] = i;
       // a bid price past the float range (a huge v1 - v2): the next
       // round's cells may be NaN; the barriers order the flag
       if (!isfinite(bp)) au.nonfinite[0] = 1;
@@ -2294,9 +2677,10 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
     // order does not matter: each bid depends on its row alone)
     int32_t* next = au.list[p ^ 1];
     const unsigned lt_mask = (1u << lane) - 1u;
-    for (int base = blockIdx.x * NT; base < T; base += n_gthread) {
-      const int t = base + tid;
-      const bool want = t < T && sc.admitted[t] && au.assigned[t] < 0;
+    for (int base = b * NT; base < n_match; base += n_gthread) {
+      const int j = base + tid;
+      const int t = j < n_match ? au.adm[j] : 0;
+      const bool want = j < n_match && au.assigned[t] < 0;
       const unsigned m = __ballot_sync(FULL, want);
       int pos = 0;
       if (lane == 0 && m) pos = atomicAdd(au.cnt + (p ^ 1), __popc(m));
@@ -2307,22 +2691,39 @@ fused_auction_kernel(const float* __restrict__ packet, Dims D, State st,
     PROBE(if (stamp && rstamp) rs[4] = global_ns();)
     ++rounds;
   }
-  // with a lane on, every block stays for the lanes' close
-  const bool lanes = kLanes && (sp.on || tn.on);
-  if (blockIdx.x != 0 && !lanes) return;
-  if (blockIdx.x == 0) {
-    auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+
+  // -- 8: the close on block 0 (the rank spill and refresh); the grid
+  // writes the kept slots' prices back meanwhile ---------------------------
+  for (int i = gthread; i < n_kept; i += n_gthread)
+    au.price[au.kept[i]] = au.kprice[i];
+  if (b == 0) {
+    if (full) {
+      auction_close(D, st, sc, au, out, n_match, rounds, bid_rows, sm);
+    } else {
+      auction_close_listed(D, st, sc, au, out, n_match, rounds, bid_rows,
+                           sm);
+    }
     PROBE(if (stamp) au.stamps[kStampClose] = global_ns();)
   }
-  if (lanes) {
+  // -- 9: with a lane on, the lanes' close (the hedge fixup and the deficit
+  // carry) over the grid; then the compaction over the grid ---------------
+  if (kLanes && (sp.on || tn.on)) {
     unsigned long long* lane_stamps = nullptr;
     PROBE(lane_stamps = ls + 2;)
-    lanes_close(D, st, out, tn, sp, sc.assign, packet[0], lane_stamps, sm,
-                grid);
-    if (blockIdx.x != 0) return;
+    lanes_close(D, st, out, tn, sp, sc.assign, now, lane_stamps, sm, grid);
   }
-  compact(D, st, out, sc.assign, sm);
-  PROBE(__syncthreads(); if (stamp) au.stamps[kStampClose + 1] = global_ns();)
+  grid.sync();  // the close's (and the fixup's walk's) assignment
+  compact_counts(D, st, sc.assign, cnt, sm);
+  grid.sync();
+  grid_compact(D, st, out, sc.assign, cnt, sm);
+  PROBE(__syncthreads(); if (stamp) {
+    au.stamps[kStampClose + 1] = global_ns();
+    unsigned long long* cs = au.stamps + kStampCount;
+    cs[0] = n_slots;
+    cs[1] = n_valid;
+    cs[2] = n_match;
+    cs[3] = full;
+  })
 }
 
 // ---- Sinkhorn placement (sinkhorn.py, the tick's branch at state.py) -----
@@ -3483,11 +3884,11 @@ extern "C" long long tpu_faas_fused_tenancy_scratch_words(int n_tenants) {
 }
 
 // Scratch of the auction branch, in int32 words: slot_bid [2S] ++ the rank
-// layout [4S + 6T] ++ inv valid_f owner [S each] ++ assigned bid list0
-// list1 [T each] ++ cnt [2] ++ nonfinite [1] ++ part_v1 part_b part_v2
-// [kMaxItems kRows each]
-// ++ ticket [kMaxItems] ++ (8-byte alignment) ++ the fixup's
-// (fixup_layout) ++ stamps [2 kAuStamps].
+// layout [4S + 6T] ++ inv owner free_id kpos kept kprice [S each]
+// ++ assigned bid list0 list1 adm [T each] ++ counts [kRankCounts
+// kMaxRankBlocks] ++ word [kAuWords] ++ cnt [2] ++ nonfinite [1] ++
+// part_v1 part_b part_v2 [kMaxItems kRows each] ++ ticket [kMaxItems] ++
+// (8-byte alignment) ++ the fixup's (fixup_layout) ++ stamps [2 kAuStamps].
 // With p null it only counts; returns the words.
 long long auction_layout(int32_t* p, long long T, long long W, long long S,
                          Scratch* sc, Auction* au, Fixup* fx) {
@@ -3502,12 +3903,18 @@ long long auction_layout(int32_t* p, long long T, long long W, long long S,
   int32_t* rank = take(4 * S + 6 * T);
   if (p) *sc = sort_scratch(rank, S, T);
   au->inv = takef(S);
-  au->valid_f = takef(S);
   au->owner = take(S);
+  au->free_id = take(S);
+  au->kpos = take(S);
+  au->kept = take(S);
+  au->kprice = takef(S);
   au->assigned = take(T);
   au->bid = takef(T);
   au->list[0] = take(T);
   au->list[1] = take(T);
+  au->adm = take(T);
+  au->counts = take(kRankCounts * kMaxRankBlocks);
+  au->word = take(kAuWords);
   au->cnt = take(2);
   au->nonfinite = take(1);
   au->part_v1 = takef(kMaxItems * kRows);
@@ -3520,11 +3927,12 @@ long long auction_layout(int32_t* p, long long T, long long W, long long S,
   return off;
 }
 
-// The auction branch: one cooperative launch. Returns 0, a CUDA error code,
-// -1 when the device has no cooperative launch, or -2 when no block of the
-// kernel fits on an SM. out_i32 ends with the aux triple (rounds, spilled,
-// bidder rows summed over the rounds). scratch holds
-// tpu_faas_fused_auction_scratch_words() words.
+// The auction branch: one cooperative launch of at most kMaxRankBlocks
+// blocks (its per-block count rows). Returns 0, a CUDA error code, -1 when
+// the device has no cooperative launch, or -2 when no block of the kernel
+// fits on an SM. out_i32 ends with the four aux words (rounds, spilled,
+// bidder rows summed over the rounds, 1 on the full-length path). scratch
+// holds tpu_faas_fused_auction_scratch_words() words.
 extern "C" int tpu_faas_fused_resident_auction(
     const float* packet, float* sizes, uint8_t* valid, int32_t* prio,
     float* last_hb, int32_t* free_cnt, int32_t* inflight, uint8_t* prev_live,
@@ -3551,12 +3959,11 @@ extern "C" int tpu_faas_fused_resident_auction(
   au.warm_rounds = warm_rounds;
 
   void* args[] = {&packet, &d, &st, &o, &sc, &au, &tn, &sp};
-  // a lane's per-block rows hold kMaxRankBlocks blocks
   const bool lanes = use_tenancy || use_spec;
   return cooperative_launch(
       lanes ? reinterpret_cast<const void*>(fused_auction_kernel<true>)
             : reinterpret_cast<const void*>(fused_auction_kernel<false>),
-      args, stream, 0, lanes ? kMaxRankBlocks : 1 << 30);
+      args, stream, 0, kMaxRankBlocks);
 }
 
 extern "C" long long tpu_faas_fused_auction_scratch_words(int T, int W,

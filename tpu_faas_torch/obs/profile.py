@@ -32,10 +32,11 @@ site the scheduler marks runs in a ``record_function`` span of its name
 capture the enqueue's three nest in :data:`TICK_SPAN`) and appends ``(name,
 start, end)``, in ``time.perf_counter`` seconds, to :data:`SPAN_LOG`; its
 counters (:data:`COUNT_AUCTION_ROUNDS`, :data:`COUNT_AUCTION_SPILLED`,
-:data:`COUNT_PLACED`) append ``(name, stamp, value)`` there. With no
-capture running a site costs one read of torch's own flag
-(:func:`tracing`) and records nothing. The log is one per process, as the
-profiler is; the benchmark's per-layer readers read it after the window.
+:data:`COUNT_AUCTION_FULL_LENGTH`, :data:`COUNT_PLACED`) append ``(name,
+stamp, value)`` there. With no capture running a site costs one read of
+torch's own flag (:func:`tracing`) and records nothing. The log is one
+per process, as the profiler is; the benchmark's per-layer readers read
+it after the window.
 """
 
 from __future__ import annotations
@@ -68,11 +69,13 @@ SPAN_PACK = "tpu_faas.tick.pack"
 SPAN_LAUNCH = "tpu_faas.tick.launch"
 SPAN_RESOLVE_WAIT = "tpu_faas.tick.resolve_wait"
 SPAN_RESOLVE_MAP = "tpu_faas.tick.resolve_map"
-#: the resolved tick's counters: an auction tick's bidding rounds and the
-#: tasks its rank spill placed (B1's own counts), and every tick's
-#: placements
+#: the resolved tick's counters: an auction tick's bidding rounds, the
+#: tasks its rank spill placed and (on the card) 1 where it took the
+#: full-length path, 0 where it ran over compacted lists (B1's own counts),
+#: and every tick's placements
 COUNT_AUCTION_ROUNDS = "tpu_faas.tick.auction_rounds"
 COUNT_AUCTION_SPILLED = "tpu_faas.tick.auction_spilled"
+COUNT_AUCTION_FULL_LENGTH = "tpu_faas.tick.auction_full_length"
 COUNT_PLACED = "tpu_faas.tick.placed"
 #: entries the span log keeps, the newest
 SPAN_LOG_CAPACITY = 1 << 18

@@ -19,10 +19,12 @@ The kernel launches on the current stream, does not synchronise and
 allocates nothing: the wrapper allocates scratch once per shape and the
 outputs fresh every tick, so a tick issued before the previous one is read
 back never overwrites that one's outputs. An auction tick's round count,
-spilled count and bidder rows (summed over its rounds) come back as device
-tensors, which the wrapper never reads; ``ResidentScheduler.resolve_next``
-reads the first two while a ``torch.profiler`` capture runs, as counters
-of ``obs/profile.py``'s span log. Sinkhorn placement is a third
+spilled count, bidder rows (summed over its rounds) and whether it took
+the full-length path (a -inf or NaN speed on a free slot or size on an
+admitted task) come back as device tensors, which the wrapper never
+reads; ``ResidentScheduler.resolve_next`` reads all but the bidder rows
+while a ``torch.profiler`` capture runs, as counters of
+``obs/profile.py``'s span log. Sinkhorn placement is a third
 cooperative launch: its iterations alternate row and column logsumexps
 across the grid, and its final potentials also come back as device tensors
 the wrapper never reads. With the tenancy plane on (``use_tenancy``, ``NT``
@@ -113,12 +115,16 @@ SK_COUNT = SK_CLOSE + 6
 SK_LANES = SK_COUNT + 4
 SK_STAMPS = SK_LANES + 4
 #: the auction stamps' layout (kStampRound, kStampRounds, kStampClose,
-#: kStampLanes, kAuStamps): 4 open the launch, 5 follow each stamped
-#: round, 2 close it, then the 4 lanes' clocks
+#: kStampLanes, kStampOpen, kStampCount, kAuStamps): 4 open the launch, 5
+#: follow each stamped round, 2 close it, then the 4 lanes' clocks, the
+#: opening's 3 clocks and its 4 counts (AU_COUNTS)
 AU_ROUND, AU_ROUNDS = 4, 64
 AU_CLOSE = AU_ROUND + 5 * AU_ROUNDS
 AU_LANES = AU_CLOSE + 2
-AU_STAMPS = AU_LANES + 4
+AU_OPEN = AU_LANES + 4
+AU_COUNT = AU_OPEN + 3
+AU_STAMPS = AU_COUNT + 4
+AU_COUNTS = ("n_slots", "n_valid", "n_match", "full_length")
 #: the rank branch's stamps (``csrc/fused_tick.cu``: kRkStamps words at the
 #: end of its scratch): 0 start, then block 0's clock at the end of each of
 #: RANK_PHASES, then the counts RANK_COUNTS
@@ -354,6 +360,7 @@ class FusedTickKernel:
             auction_rounds=out_i32[o + 1 + KG] if aux else None,
             auction_spilled=out_i32[o + 2 + KG] if aux else None,
             auction_bid_rows=out_i32[o + 3 + KG] if aux else None,
+            auction_full_length=out_i32[o + 4 + KG] if aux else None,
             tenant_eligible=elig,
         )
 
@@ -407,7 +414,7 @@ class FusedTickKernel:
         self.load()
         elig, ten = self._tenancy(st, dev, T, use_tenancy, NT)
         spec = self._spec(st, dev, W, use_spec)
-        out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG + 3,
+        out_i32 = torch.empty(2 * KP + KA + KR + 1 + KG + 4,
                               dtype=torch.int32, device=dev)
         out_b8 = torch.empty(2 * W, dtype=torch.bool, device=dev)
         scratch = self._scratch_for(dev, ("auction", T, W, max_slots),
@@ -588,13 +595,19 @@ class FusedTickKernel:
         """The last auction launch's phases at this shape, in ms, from block
         0's clock (a probe build's stamps; reads the card, a sync):
         ``open`` (packet, liveness, tenancy eligibility), ``seed`` (the
-        slot sort and the opening prices), ``start`` (the first grid
+        rest of the opening: the lists, the admission, the sorts, the kept
+        slots and their prices), ``start`` (the opening's last grid
         barrier), per round ``rounds`` of ``(bidders, bids, bid barrier,
         install and its barrier, collection and its barrier)`` — ``bids``
         ends when the last block finished its bids — then ``close`` (spill,
         refresh), ``end`` (fixup, deficit, compaction) and ``lanes``: the
         parts of ``open`` and ``end`` as :meth:`sinkhorn_split` gives
-        them."""
+        them; ``opening``, the parts of ``seed``: ``lists`` (the free
+        slots listed, the placeable tasks counted, the prices' minimum),
+        ``admission``, ``sorts`` (with the prices' re-base; the re-base
+        alone on the full-length path) and ``kept`` (the kept slots and
+        their prices; on the full-length path the whole block-0 opening);
+        and ``counts``, of ``AU_COUNTS``."""
         if not self.probe:
             raise RuntimeError("auction_split needs a probe build: "
                                "FusedTickKernel(probe=True)")
@@ -621,6 +634,12 @@ class FusedTickKernel:
         out["total"] = ms(ns[0], end)
         out["lanes"] = lane_split(ns[0], ns[1], close, end,
                                   ns[AU_LANES : AU_LANES + 4])
+        lists, adm, sorts = ns[AU_OPEN : AU_OPEN + 3]
+        out["opening"] = {"lists": ms(ns[1], lists),
+                          "admission": ms(lists, adm),
+                          "sorts": ms(adm, sorts), "kept": ms(sorts, ns[2])}
+        out["counts"] = dict(zip(AU_COUNTS,
+                                 ns[AU_COUNT : AU_COUNT + len(AU_COUNTS)]))
         return out
 
     def barrier_probe(self, n: int) -> None:

@@ -57,6 +57,7 @@ import torch
 
 from tpu_faas_torch.device import to_host, upload
 from tpu_faas_torch.obs.profile import (
+    COUNT_AUCTION_FULL_LENGTH,
     COUNT_AUCTION_ROUNDS,
     COUNT_AUCTION_SPILLED,
     COUNT_PLACED,
@@ -111,6 +112,11 @@ class ResidentTickOutput(NamedTuple):
     #: bool[T] (tenancy only): the tasks placement saw as valid, the valid
     #: tasks minus those past their tenant's inflight-cap allowance
     tenant_eligible: torch.Tensor | None = None
+    #: i32 scalar (B1's auction on the card only): 1 on a tick that took
+    #: the full-length path (a -inf or NaN speed on a free slot or size on
+    #: an admitted task), 0 on one over compacted lists; read as the
+    #: rounds are. The plain version has no compacted path: None
+    auction_full_length: torch.Tensor | None = None
 
 
 class _ResidentState(NamedTuple):
@@ -934,10 +940,15 @@ class ResidentScheduler(SchedulerArrays):
                 count(COUNT_PLACED, len(res.placed))
                 if out.auction_rounds is not None:
                     # one small readback, B1 long done, under capture alone
-                    rounds, spilled = to_host(torch.stack(  # faas: allow(trace.host-sync) resolve_next under a profiler capture: B1's auction round and spill counts
-                        [out.auction_rounds, out.auction_spilled])).tolist()
-                    count(COUNT_AUCTION_ROUNDS, rounds)
-                    count(COUNT_AUCTION_SPILLED, spilled)
+                    words = [out.auction_rounds, out.auction_spilled]
+                    full = out.auction_full_length
+                    if full is not None:
+                        words.append(full)
+                    got = to_host(torch.stack(words)).tolist()  # faas: allow(trace.host-sync) resolve_next under a profiler capture: B1's auction counts
+                    count(COUNT_AUCTION_ROUNDS, got[0])
+                    count(COUNT_AUCTION_SPILLED, got[1])
+                    if full is not None:
+                        count(COUNT_AUCTION_FULL_LENGTH, got[2])
             span_close(span)
         return res
 
