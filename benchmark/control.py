@@ -17,7 +17,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from collections import Counter
 from types import SimpleNamespace
 
 import numpy as np
@@ -26,10 +25,11 @@ import torch
 from benchmark import spec
 from benchmark.judge import _pairs, judge
 from benchmark.reference import auction as ref_auction
+from benchmark.reference import rank as ref_rank
 from benchmark.reference import sinkhorn as ref_sinkhorn
 from benchmark.reference.state import KR, RefState
 from benchmark.run import NoCard, card, run_cell
-from benchmark.traffic import Traffic
+from benchmark.traffic import ChurnView, Traffic, due_after
 
 
 def to_bf16(x: np.ndarray) -> np.ndarray:
@@ -43,18 +43,25 @@ def control_run(config: dict, tr: Traffic, n_ticks: int, device="cpu"
     """``n_ticks`` ticks of ``tr``'s closed loop with the control as the
     scheduler: the record, the sampled ticks' outputs and the final state,
     in the shapes the program's run leaves them for the judge. Each tick
-    applies its results, heartbeats and arrivals to the reference's state,
-    places by the control (the auction on every tick, carrying its own
-    prices; Sinkhorn's solve and its rounding), and files each placement
-    under the tick its call will finish on, as the harness's loop does."""
+    applies its results, returning workers, heartbeats and arrivals to the
+    reference's state, places by the control (rank matching or the
+    auction on every tick, the auction carrying its own prices;
+    Sinkhorn's solve and its rounding), redispatches and purges under
+    churn, and files each placement under the tick its call will finish
+    on, unless its worker is down by then, as the harness's loop does."""
     ref = RefState(config, tr)
-    auction = config["placement"] == "auction"
-    speed_low = to_bf16(ref.speed)
+    placement = config["placement"]
+    view = None if tr.churn is None else ChurnView(tr.churn)
+    row_worker = [w if wid is not None else -1
+                  for w, wid in enumerate(tr.fleet.ids)]
+    inv_speed = list(tr.inv_speed)
     price, refresh = ref.price, ref.refresh
     ring = tr.arrival_sizes
     buckets: dict[int, list] = {}
-    for tid, due in zip(tr.inflight_ids, tr.inflight_due.tolist()):
-        buckets.setdefault(due, []).append(tid)
+    for tid, row, due in zip(tr.inflight_ids, tr.inflight_rows.tolist(),
+                             tr.inflight_due.tolist()):
+        if view is None or not view.lost(row_worker[row], due):
+            buckets.setdefault(due, []).append(tid)
     size_of = dict(zip(tr.inflight_ids, tr.inflight_sizes.tolist()))
     size_of.update(zip(tr.backlog_ids, tr.backlog_sizes.tolist()))
 
@@ -63,15 +70,32 @@ def control_run(config: dict, tr: Traffic, n_ticks: int, device="cpu"
 
     record, outputs, pos, mine = [], {}, 0, []
     for k in range(n_ticks):
+        now = k * tr.dt
         due = buckets.pop(k, [])
         pos0 = pos % len(ring)
         sizes = [ring[(pos0 + i) % len(ring)] for i in range(len(due))]
         size_of.update(zip(due, sizes))
         ref.results(due)
-        ref.heartbeats(tr.hb_bucket[k % tr.hb_period], k * tr.dt)
+        rows = []
+        if view is None:
+            ref.heartbeats(tr.hb_bucket[k % tr.hb_period], now)
+        else:
+            ch = tr.churn
+            for w in view.step(k):
+                row = ref.rejoin(ch.wid[w], ch.procs[w], ch.speed[w], now)
+                rows.append(row)
+                row_worker[row] = w
+                inv_speed[row] = tr.inv_speed[w]
+            ref.heartbeats(view.beating(k, tr.hb_period), now)
         rejected = ref.arrive(zip(due, sizes))
-        live, purged, redisp = ref.liveness(k * tr.dt)
-        if auction:
+        live, purged, redisp = ref.liveness(now)
+        redisp = redisp[:KR]
+        speed_low = to_bf16(ref.speed)
+        if placement == "rank":
+            rt = ref_rank.rank_tick(to_bf16(ref.size), ref.valid, speed_low,
+                                    ref.free, live, ref.K, ref.kp)
+            mine = _pairs(ref, rt.task_slots, rt.rows)
+        elif placement == "auction":
             ct = ref_auction.auction_tick(
                 to_bf16(ref.size), ref.valid, speed_low, ref.free, live,
                 ref.K, price, refresh, n_free_pending=len(ref.free_slots))
@@ -90,24 +114,28 @@ def control_run(config: dict, tr: Traffic, n_ticks: int, device="cpu"
             slots = torch.nonzero(a >= 0).flatten()
             mine = _pairs(ref, slots, a[slots])
         tick = SimpleNamespace(  # what the judge reads of a resolved tick
-            placed=mine, redispatch_slots=[-1] * min(redisp, KR),
+            placed=mine, redispatch_slots=[-1] * len(redisp),
             purged_rows=purged, rejected=rejected,
             n_pending=ref.n_valid - len(mine))
-        record.append((k, due, pos0, [tick], 1))
+        entry = (k, due, pos0, [tick], 1)
         ref.place(mine, live)
+        if view is not None:
+            entry += (rows, redisp)
+            ref.reap(redisp, purged)
+        record.append(entry)
         for tid, row in mine:
-            buckets.setdefault(tr.due_tick(k, size_of[tid], row),
-                               []).append(tid)
+            d = due_after(k, size_of[tid], inv_speed[row], tr.dt)
+            if view is None or not view.lost(row_worker[row], d):
+                buckets.setdefault(d, []).append(tid)
         pos += len(due)
     return record, outputs, _final(ref, mine, price, refresh)
 
 
 def _final(ref: RefState, last_placed, price, refresh) -> dict:
     """The reference's state as ``loop.snapshot`` reads the program's: the
-    last tick's placements reach the device's in-flight table with the
-    next packet."""
-    rows = Counter(ref.inflight.values())
-    rows.subtract(Counter(row for _, row in last_placed))
+    last resolve's placements, redispatches and purges reach the device
+    with the next packet."""
+    dv = ref.device_view(last_placed)
     return {
         "host": {
             "worker_free": ref.free.copy(),
@@ -115,14 +143,20 @@ def _final(ref: RefState, last_placed, price, refresh) -> dict:
             "slot_task": {s: tid for s, tid in enumerate(ref.slot_id)
                           if tid is not None},
             "inflight": dict(ref.inflight),
+            "worker_active": ref.active.copy(),
+            "worker_ids": dict(ref.row_of),
+            "row_ids": dict(ref.wid_of),
         },
         "device": {
             "valid": ref.valid.copy(),
             "sizes": ref.size.copy(),
-            "free": ref.free.copy(),
+            "free": dv["free"],
+            "active": dv["active"],
+            "speed": ref.speed.copy(),
             "last_hb": ref.last_hb.astype(np.float32),
             "prev_live": ref.prev_live.copy(),
-            "inflight": np.fromiter((+rows).elements(), dtype=np.int64),
+            "inflight": np.fromiter(dv["inflight"].elements(),
+                                    dtype=np.int64),
             "price": price,
             "refresh": refresh,
         },

@@ -6,11 +6,13 @@ Every tick of the record is replayed, warm-up and window alike. The
 reference applies the tick's results, heartbeats and arrivals to its own
 state, then judges what the program reported for the tick:
 
-- ``tick_mismatch`` (auction): ticks whose placements (call id and worker
-  row, in pending-slot order), pending count, purged rows, redispatches or
-  rejected arrivals differ from the reference's. The auction is exact: the
-  reference bids in float32, each operation rounded on its own, in the
-  program's documented order.
+- ``tick_mismatch`` (auction and rank): ticks whose placements (call id
+  and worker row, in pending-slot order), pending count, purged rows,
+  redispatches or rejected arrivals differ from the reference's, or under
+  churn whose redispatched calls or returning workers' rows do. Both
+  placements are exact: the auction bids in float32, each operation
+  rounded on its own, in the program's documented order; rank matching
+  sorts and pairs (``reference/rank.py``).
 - ``infeasible_ticks`` (Sinkhorn, every tick): a placement of a call that
   is not pending, out of slot order or twice, on a row that is not live or
   past its capacity; a count other than min(KP, valid tasks, capacity); a
@@ -24,14 +26,19 @@ state, then judges what the program reported for the tick:
   placements differ from the reference's rounding of the program's own
   potentials, or whose temperature or set of finite potentials differs.
 - ``state_mismatch``: after the window, the program's host mirrors (free
-  counts, heartbeat stamps, the pending map, the calls in flight) and the
-  state its kernel carries (pending sizes and flags, free counts, stamps,
-  liveness, the in-flight table, and the auction's prices and staleness
-  flag) against the reference's; each that differs counts one.
+  counts, heartbeat stamps, the pending map, the calls in flight, which
+  rows are registered and the ids both ways) and the state its kernel
+  carries (pending sizes and flags, free counts, stamps, liveness,
+  registration, speeds, the in-flight table, and the auction's prices and
+  staleness flag) against the reference's; each that differs counts one.
 
-The reference follows the program's placements from tick to tick (for the
-auction they are its own, or the tick already failed): the closed loop's
-later inputs were made from them.
+Redispatched calls are compared by id, never by the program's in-flight
+slot numbers: while at most ``KR`` are due, the program's must be the
+reference's; above that, ``KR`` of them.
+
+The reference follows the program's placements and redispatches from tick
+to tick (where they are not its own the tick already failed): the closed
+loop's later inputs were made from them.
 """
 
 from __future__ import annotations
@@ -43,9 +50,10 @@ import numpy as np
 import torch
 
 from benchmark.reference import auction as ref_auction
+from benchmark.reference import rank as ref_rank
 from benchmark.reference import sinkhorn as ref_sinkhorn
 from benchmark.reference.state import KR, RefState
-from benchmark.traffic import Traffic
+from benchmark.traffic import ChurnView, Traffic
 
 #: each compared number's limit (see PERF.md for the readings each was set
 #: from); a number above its limit makes the run not correct
@@ -89,23 +97,33 @@ def _snapshot_ok(final: dict, ref: RefState, last_placed, auction: bool):
         bad.append("host slot_task")
     if host["inflight"] != ref.inflight:
         bad.append("host in-flight table")
+    if not np.array_equal(host["worker_active"], ref.active):
+        bad.append("host worker_active")
+    if host["worker_ids"] != ref.row_of:
+        bad.append("host worker_ids")
+    if host["row_ids"] != ref.wid_of:
+        bad.append("host row_ids")
+    # the last resolve's placements, redispatches and purges reach the
+    # device with the next packet
+    want = ref.device_view(last_placed)
     v = dev["valid"].astype(bool)
     if not np.array_equal(v, ref.valid):
         bad.append("device valid")
     elif not np.array_equal(dev["sizes"][v], ref.size[ref.valid]):
         bad.append("device sizes")
-    if not np.array_equal(dev["free"].astype(np.int64), ref.free):
+    if not np.array_equal(dev["free"].astype(np.int64), want["free"]):
         bad.append("device free")
+    if not np.array_equal(dev["active"].astype(bool), want["active"]):
+        bad.append("device active")
+    if not np.array_equal(dev["speed"], ref.speed):
+        bad.append("device speed")
     if not np.array_equal(dev["last_hb"],
                           ref.last_hb.astype(np.float32)):
         bad.append("device last_hb")
     if not np.array_equal(dev["prev_live"].astype(bool), ref.prev_live):
         bad.append("device prev_live")
-    # the last tick's placements reach the device with the next packet
     rows = dev["inflight"]
-    want = Counter(ref.inflight.values())
-    want.subtract(Counter(row for _, row in last_placed))
-    if Counter(rows[rows >= 0].tolist()) != +want:
+    if Counter(rows[rows >= 0].tolist()) != want["inflight"]:
         bad.append("device in-flight table")
     if auction:
         if not np.array_equal(dev["price"], ref.price):
@@ -121,31 +139,54 @@ class _Replay:
     def __init__(self, config, tr: Traffic, outputs, device):
         self.ref = RefState(config, tr)
         self.tr, self.outputs, self.device = tr, outputs, device
-        self.auction = config["placement"] == "auction"
-        if not self.auction and not ref_sinkhorn.bucketed(self.ref.T,
-                                                          self.ref.W):
+        placement = config["placement"]
+        if placement not in ("auction", "rank", "sinkhorn"):
+            raise ValueError(f"no reference for {placement!r}")
+        self.auction = placement == "auction"
+        self.exact = placement != "sinkhorn"
+        if not self.exact and not ref_sinkhorn.bucketed(self.ref.T,
+                                                        self.ref.W):
             raise ValueError("the Sinkhorn reference covers the bucketed "
                              "route")
+        self.view = None if tr.churn is None else ChurnView(tr.churn)
         self.bad_ticks = self.replay_bad = self.n_sampled = 0
         self.gap = 0.0
         self.work: dict = {}
         self.last_placed: list = []
 
-    def tick(self, k, due, pos0, resolved) -> list[str]:
+    def tick(self, k, due, pos0, resolved, churn=()) -> list[str]:
         """Apply tick ``k``'s inputs, judge its answers, follow them;
-        returns what was wrong with them."""
+        returns what was wrong with them. ``churn`` is a churn loop's
+        (rows registered, calls redispatched) of the tick."""
         ref, tr = self.ref, self.tr
         ring = tr.arrival_sizes
         sizes = [ring[(pos0 + i) % len(ring)] for i in range(len(due))]
+        now = k * tr.dt
+        bad = []
         ref.results(due)
-        ref.heartbeats(tr.hb_bucket[k % tr.hb_period], k * tr.dt)
+        if self.view is None:
+            ref.heartbeats(tr.hb_bucket[k % tr.hb_period], now)
+        else:
+            ch = tr.churn
+            rows = [ref.rejoin(ch.wid[w], ch.procs[w], ch.speed[w], now)
+                    for w in self.view.step(k)]
+            if rows != list(churn[0]):
+                bad.append("returning workers registered on other rows")
+            ref.heartbeats(self.view.beating(k, tr.hb_period), now)
         rejected = ref.arrive(zip(due, sizes))
-        live, purged, redisp = ref.liveness(k * tr.dt)
+        live, purged, redisp = ref.liveness(now)
         placed = [p for r in resolved for p in r.placed]
-        bad = _tick_faults(ref, live, purged, redisp, rejected, resolved,
-                           placed)
+        bad += _tick_faults(ref, live, purged, redisp, rejected, resolved,
+                            placed)
+        if self.view is not None:
+            got = churn[1]
+            if (len(set(got)) != len(got) or not set(got) <= set(redisp)
+                    or len(got) != min(len(redisp), KR)):
+                bad.append("redispatched calls differ")
         if self.auction:
             bad += self._auction(k, live, placed)
+        elif self.exact:
+            bad += self._rank(k, live, placed)
         elif k in self.outputs:
             self.n_sampled += 1
             gap, r_bad, self.work[k] = _sinkhorn_check(
@@ -157,8 +198,19 @@ class _Replay:
                            "program's potentials")
         self.bad_ticks += bool(bad)
         ref.place(placed, live)
+        if self.view is not None:
+            ref.reap(churn[1], purged)
         self.last_placed = placed
         return bad
+
+    def _rank(self, k, live, placed) -> list[str]:
+        ref = self.ref
+        rt = ref_rank.rank_tick(ref.size, ref.valid, ref.speed, ref.free,
+                                live, ref.K, ref.kp)
+        self.work[k] = (rt.n_slots, rt.n_admitted, len(rt.task_slots))
+        if placed != _pairs(ref, rt.task_slots, rt.rows):
+            return ["placements differ from the reference's"]
+        return []
 
     def _auction(self, k, live, placed) -> list[str]:
         ref = self.ref
@@ -182,9 +234,9 @@ def judge(config: dict, tr: Traffic, record: list, final: dict,
     rp = _Replay(config, tr, outputs, device)
     notes: list = []
     broken = None
-    for n_done, (k, due, pos0, resolved, _) in enumerate(record):
+    for n_done, (k, due, pos0, resolved, _, *churn) in enumerate(record):
         try:
-            bad = rp.tick(k, due, pos0, resolved)
+            bad = rp.tick(k, due, pos0, resolved, churn)
         except (KeyError, IndexError, ValueError) as exc:
             # answers the reference cannot follow (a call placed twice, a
             # result for a call not in flight): this tick and every later
@@ -194,7 +246,7 @@ def judge(config: dict, tr: Traffic, record: list, final: dict,
             break
         if bad and len(notes) < 5:
             notes.append(f"tick {k}: " + "; ".join(bad))
-    if rp.auction:
+    if rp.exact:
         numbers = {"tick_mismatch": rp.bad_ticks}
     else:
         numbers = {"potential_gap": rp.gap if rp.n_sampled else NO_GAP,
@@ -227,7 +279,7 @@ def _tick_faults(ref: RefState, live, purged, redisp, rejected, resolved,
     main = resolved[-1]
     if (main.n_pending != ref.n_valid - len(placed)
             or sorted(main.purged_rows.tolist()) != purged.tolist()
-            or len(main.redispatch_slots) != min(redisp, KR)
+            or len(main.redispatch_slots) != min(len(redisp), KR)
             or sum(r.rejected for r in resolved) != rejected):
         bad.append("pending count, purge, redispatch or rejection")
     cap = ref.capacity(live)

@@ -31,10 +31,9 @@ def tick_work(rounds: int, bid_rows: int, n: int, T: int, W: int, K: int
 
 def read(ctx):
     d = ctx.launches(KERNEL)
-    if d is None or any(k not in ctx.work for k in ctx.ticks):
+    if d is None or any(k not in ctx.work for k in d):
         return None
     c = ctx.config
     T, W, K = c["max_pending"], c["max_workers"], c["max_slots"]
-    least = [least_seconds(*tick_work(*ctx.work[k], T, W, K))
-             for k in ctx.ticks]
-    return share_pct(least, d)
+    least = [least_seconds(*tick_work(*ctx.work[k], T, W, K)) for k in d]
+    return share_pct(least, list(d.values()))

@@ -1,4 +1,4 @@
-"""b1_sinkhorn_ms: device milliseconds of one launch of B1's Sinkhorn
+"""b1_sinkhorn_ms: device milliseconds a tick of B1's Sinkhorn
 branch (``fused_sinkhorn_kernel``), the mean over the traced window."""
 
 KERNEL = "fused_sinkhorn_kernel"
@@ -6,4 +6,4 @@ KERNEL = "fused_sinkhorn_kernel"
 
 def read(ctx):
     d = ctx.launches(KERNEL)
-    return None if d is None else 1e3 * sum(d) / len(d)
+    return None if d is None else 1e3 * sum(d.values()) / len(d)

@@ -37,8 +37,8 @@ def read(ctx):
     c = ctx.config
     T, W, K = c["max_pending"], c["max_workers"], c["max_slots"]
     least, took = [], []
-    for i, k in enumerate(ctx.ticks):
+    for k, seconds in d.items():
         if k in ctx.work:
             least.append(least_seconds(*tick_work(*ctx.work[k], T, W, K)))
-            took.append(d[i])
+            took.append(seconds)
     return share_pct(least, took)

@@ -39,7 +39,7 @@ from benchmark import trace as tracing  # noqa: E402
 from benchmark.context import Context  # noqa: E402
 from benchmark.guard import banned_modules  # noqa: E402
 from benchmark.loop import (  # noqa: E402
-    Loop, VirtualClock, build_scheduler, snapshot)
+    Loop, VirtualClock, build_scheduler, make_loop, snapshot)
 from benchmark.traffic import Traffic  # noqa: E402
 
 EXIT_NO_CARD, EXIT_JAX = 3, 4
@@ -83,7 +83,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     tr = Traffic(config, cell.traffic, seed)
     clock = VirtualClock()
     rs = build_scheduler(config, tr, device, clock)
-    loop = Loop(rs, tr, clock, trace=trace)
+    loop = make_loop(rs, tr, clock, trace=trace)
     sampled = tr.check_ticks if config["placement"] == "sinkhorn" else ()
     t_built = time.perf_counter()
     for _ in range(max(1, round(config["warmup_s"] / tr.dt))):
@@ -111,7 +111,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     window = loop.record[k0:]
     stamps = np.asarray(loop.stamps[k0:])
     final = snapshot(rs)
-    dispatches = max(e[4] for e in window)
+    dispatches = [e[4] for e in window]
     loop.rs = rs = None
     gc.collect()
     if cuda:
@@ -127,7 +127,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         "tick_ms": tick_ms,
         "stamps": stamps,
         "ticks": list(range(k0, loop.k)),
-        "dispatches_max": dispatches,
+        "dispatches": dispatches,
         "memory_peak_bytes": int(peak),
         "verdict": verdict,
         "events": events,
@@ -150,7 +150,7 @@ def end_to_end(cell: spec.Cell, r: dict) -> dict:
 
 def per_layer(cell: spec.Cell, r: dict, capture) -> dict:
     ctx = Context(cell.config, r["stamps"], r["ticks"], r["verdict"].work,
-                  capture)
+                  capture, r["dispatches"])
     out = {}
     for m in cell.per_layer:
         v = spec.metric_reader(m["name"]).read(ctx)
@@ -203,7 +203,7 @@ def main(argv=None) -> int:
         return EXIT_JAX
     info = {"ticks": len(r["ticks"]), "placed": r["placed"],
             "window_s": r["window_s"], "setup": r["setup_split"],
-            "dispatches_max": r["dispatches_max"]}
+            "dispatches_max": max(r["dispatches"])}
     print(f"benchmark: {cell.name} seed {args.seed}: {json.dumps(info)}",
           file=sys.stderr)
     for note in v.notes:

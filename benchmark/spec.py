@@ -5,6 +5,26 @@ A configuration is ``configs/<config>.json``, a traffic mix
 (a metric's name may hold dots: the file is loaded by its path). A later
 cell, mix or metric is new files and a new entry in BENCHMARK.json; no
 file here needs an edit for it.
+
+A configuration states its fleet, tables and clock (``max_workers``,
+``max_pending``, ``max_inflight``, ``max_slots``, ``time_to_expire_s``,
+``heartbeat_period_s``, ``tick_period_s``, ``worker_speed_range``,
+``worker_procs_range``, ``inactive_share``, ``pending_headroom``,
+``warmup_s``) and the scheduler's ``placement``: ``"rank"`` (rank
+matching, the dispatcher's default), ``"auction"`` or ``"sinkhorn"``. It
+may add a ``churn`` block, where workers fail and return:
+
+- ``fail_per_s``: the share of the live workers that fail in each virtual
+  second (each fails in a tick with the probability that gives it);
+- ``down_s``: the virtual seconds a failed worker stays away before it
+  registers again under its own id, with its processes and speed. It has
+  to be above ``time_to_expire_s``, or the dispatcher would never see the
+  failure (a file below it is refused).
+
+With ``churn`` the loop drives the scheduler as the dispatcher does under
+failures (``loop.ChurnLoop``) and the judge holds its liveness, purges,
+redispatches and registrations to the reference; without it a cell runs
+as it always did.
 """
 
 from __future__ import annotations

@@ -28,7 +28,21 @@ SIZES = {
 }
 
 
+#: a configuration that no cell of BENCHMARK.json has yet: the auction
+#: fleet placed by rank matching, with workers failing and returning as in
+#: the repo's BASELINE config 5 (5% of the live ones a second), cut as the
+#: auction cell is; down 15 s against the 10 s expiry
+RANK_CHURN = "fleet-rank-churn.short"
+CHURN = {"fail_per_s": 0.05, "down_s": 15.0}
+
+
 def small_cell(name: str) -> spec.Cell:
+    if name == RANK_CHURN:
+        cell = copy.deepcopy(spec.find_cell(AUCTION))
+        cell.name = name
+        cell.config.update(SIZES[AUCTION], name="fleet-rank-churn",
+                           placement="rank", churn=dict(CHURN))
+        return cell
     cell = spec.find_cell(name)
     cell = copy.deepcopy(cell)
     cell.config.update(SIZES[name])

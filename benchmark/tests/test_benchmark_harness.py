@@ -166,8 +166,8 @@ def test_nothing_the_benchmark_runs_imports_jax():
         from benchmark import spec
         for m in spec.load_benchmark()["per_layer"]:
             spec.metric_reader(m["name"])
-        from small_cells import run_small, AUCTION, SINKHORN
-        for name in (AUCTION, SINKHORN):
+        from small_cells import run_small, AUCTION, SINKHORN, RANK_CHURN
+        for name in (AUCTION, SINKHORN, RANK_CHURN):
             assert run_small(name, seconds=1.0)["verdict"].correct
         from benchmark.guard import banned_modules
         print(json.dumps(banned_modules()))

@@ -14,9 +14,9 @@ import torch
 from benchmark.control import control_run
 from benchmark.judge import LIMITS, judge
 
-from small_cells import AUCTION, SINKHORN, run_small
+from small_cells import AUCTION, RANK_CHURN, SINKHORN, run_small
 
-CELLS = [AUCTION, SINKHORN]
+CELLS = [AUCTION, SINKHORN, RANK_CHURN]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -37,10 +37,10 @@ def test_control_fails(name):
     record, outputs, final = control_run(tr.config, tr, len(r["record"]))
     c = judge(tr.config, tr, record, final, outputs)
     assert not c.correct, c.numbers
-    if name == AUCTION:
-        assert c.numbers["tick_mismatch"] > 0
-    else:
+    if name == SINKHORN:
         assert c.numbers["potential_gap"] > LIMITS["potential_gap"]
+    else:
+        assert c.numbers["tick_mismatch"] > 0
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -22,6 +22,9 @@ from benchmark.loop import SPANS
 
 #: Chrome-trace categories of the operations that run on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+#: categories of the host calls that launch them, joined to them by the
+#: ``correlation`` id both carry in their ``args``
+HOST_CALL_CATEGORIES = ("cuda_runtime", "cuda_driver")
 WARMUP_S, WARMUP_STEP_S = 0.5, 0.01
 
 
@@ -85,6 +88,10 @@ class Capture:
     spans: list[list[tuple[float, float]]]
     #: device operations in the window: (start, end, name)
     ops: list[tuple[float, float, str]] = field(default_factory=list)
+    #: per operation of ``ops``, the host-clock start of the call that
+    #: launched it (its runtime event of the same correlation id), None
+    #: where the capture holds no such call; empty where not read
+    launched: list[float | None] = field(default_factory=list)
 
     @property
     def window_s(self) -> float:
@@ -105,11 +112,6 @@ class Capture:
 
     def busy_s(self) -> float:
         return sum(e - s for s, e in self.busy_intervals())
-
-    def kernel_durations(self, name_part: str) -> list[float]:
-        """Seconds of each launch whose name holds ``name_part``, in
-        launch order."""
-        return [e - s for s, e, n in sorted(self.ops) if name_part in n]
 
     def device_ops(self, top: int = 10) -> list[list]:
         tot: dict[str, float] = {}
@@ -152,9 +154,10 @@ class Capture:
 
 def capture(events: list[dict], n_ticks: int) -> Capture | None:
     """The last ``n_ticks`` ticks' spans and the device operations between
-    the first of them and the last; None without them."""
+    the first of them and the last, each with the host time of the call
+    that launched it; None without them."""
     by_name: dict[str, list[tuple[float, float]]] = {n: [] for n in SPANS}
-    ops = []
+    ops, corr, calls = [], [], {}
     for e in events:
         cat = e.get("cat")
         if cat == "user_annotation" and e.get("name") in by_name:
@@ -163,6 +166,11 @@ def capture(events: list[dict], n_ticks: int) -> Capture | None:
         elif cat in DEVICE_CATEGORIES:
             s = e["ts"] * 1e-6
             ops.append((s, s + e.get("dur", 0) * 1e-6, e.get("name", "")))
+            corr.append((e.get("args") or {}).get("correlation"))
+        elif cat in HOST_CALL_CATEGORIES:
+            c = (e.get("args") or {}).get("correlation")
+            if c is not None:
+                calls[c] = e["ts"] * 1e-6
     for v in by_name.values():
         v.sort()
     counts = {len(v) for v in by_name.values()}
@@ -170,5 +178,7 @@ def capture(events: list[dict], n_ticks: int) -> Capture | None:
         return None
     spans = [list(t) for t in zip(*(by_name[n][-n_ticks:] for n in SPANS))]
     window = (spans[0][0][0], spans[-1][-1][1])
-    ops = [o for o in ops if o[1] > window[0] and o[0] < window[1]]
-    return Capture(window, spans, ops)
+    keep = [i for i, o in enumerate(ops)
+            if o[1] > window[0] and o[0] < window[1]]
+    return Capture(window, spans, [ops[i] for i in keep],
+                   [calls.get(corr[i]) for i in keep])
